@@ -7,10 +7,13 @@ it by the `tests/test_torch_*.py` parity tests.  The TPU kernels become
 CUDA C++ kernels for Hopper (`csrc/`), each beside a plain PyTorch version
 that CPU tensors take.
 
-Ported so far: the main-path slice, the Van der Pol GP-ODE posterior
-sampled by SGLD/pSGLD with a whole adaptive dopri5 solve and its gradient
-per step (`experiments.vanderpol_gp.run_sampler` with engine="fused",
-solver="dopri5", model="gp").  ROADMAP.md lists what is still to port.
+Ported so far: the Van der Pol GP-ODE posterior sampled with a whole
+adaptive dopri5 solve and its gradient per step (engine="fused",
+solver="dopri5", model="gp"), the same posterior and the MLP field with a
+fixed-grid rk4 solve and its gradient (solver="rk4", model="gp" or "nn"),
+under SGLD, pSGLD, cSGLD, MALA and AdamSGLD, all through
+`experiments.vanderpol_gp.run_sampler`.  ROADMAP.md lists what is still
+to port.
 """
 from .ode import odeint, odeint_with_stats  # noqa: F401
 

@@ -4,33 +4,16 @@
 // ops/gp_dopri5.py (_rk_stages, _step_decision, _quartic_coeffs,
 // _midpoint), so the non-recording whole solve (K1) and the recording
 // forward (K2) are one template and produce the same trajectories bit for
-// bit.  The field is a functor; the GP kernel-regression field is its only
-// instance so far:
-//
-//   f(x_n) = sum_m sf^2 exp(-|x_n - z_m|^2 / (2 ell^2)) A_m
-//
-// State layout per chain: NS = 2 * GP_N floats, y[2n + d] (the JAX (N, 2)
-// layout).  Full float32 throughout: built without --use_fast_math and with
-// expf, because reduced-precision right-hand sides shrink adaptive step
-// sizes.
+// bit.  The field is a functor; the GP kernel-regression field of
+// gp_field.cuh is its only instance so far.  Full float32 throughout:
+// built without --use_fast_math and with expf, because reduced-precision
+// right-hand sides shrink adaptive step sizes.
 #pragma once
 
-#include <cuda_runtime.h>
-#include <math.h>
-
-#ifndef GP_N
-#error "GP_N (trajectory points per chain) must be defined at build time"
-#endif
-#ifndef GP_M
-#error "GP_M (inducing points) must be defined at build time"
-#endif
+#include "gp_field.cuh"
 
 namespace bode {
 
-constexpr int kBlock = 64;       // threads per block, one chain per thread
-constexpr int kN = GP_N;
-constexpr int kM = GP_M;
-constexpr int kNS = 2 * GP_N;    // state components per chain
 constexpr int kRec = kNS + 2;    // record row: y0[kNS], t0, dt
 
 // ---- Dormand-Prince 5(4) tableau (ode/tableaus.py DOPRI5) ----
@@ -92,68 +75,6 @@ __device__ __forceinline__ float nmax(float a, float b) {
 __device__ __forceinline__ float nmin(float a, float b) {
   return (a != a || b != b) ? (a + b) : fminf(a, b);
 }
-
-// ---- the GP field functor ----
-// A is staged per block in shared memory as sA[(2m + d) * kBlock + lane],
-// so a warp reads 32 consecutive words; the grid Z is shared by all chains.
-struct GPField {
-  const float* sA;
-  const float* sZ;     // sZ[2m + d]
-  int lane;
-  float sf2;           // sf^2
-  float inv2ell2;      // 1 / (2 ell^2)
-  float invell2;       // 1 / ell^2
-
-  __device__ __forceinline__ float a(int m, int d) const {
-    return sA[(2 * m + d) * kBlock + lane];
-  }
-
-  // f = K(y, Z) A at the N points.
-  __device__ __forceinline__ void rhs(const float* y, float* f) const {
-#pragma unroll
-    for (int n = 0; n < kN; ++n) {
-      const float px = y[2 * n], py = y[2 * n + 1];
-      float fx = 0.f, fy = 0.f;
-#pragma unroll 4
-      for (int m = 0; m < kM; ++m) {
-        const float dx = px - sZ[2 * m];
-        const float dy = py - sZ[2 * m + 1];
-        const float K = sf2 * expf(-(dx * dx + dy * dy) * inv2ell2);
-        fx += K * a(m, 0);
-        fy += K * a(m, 1);
-      }
-      f[2 * n] = fx;
-      f[2 * n + 1] = fy;
-    }
-  }
-
-  // Vector-Jacobian product at y for the cotangent `cot` of f(y):
-  // ybar = (d f / d y)^T cot, and Abar += (d f / d A)^T cot, accumulated
-  // into this chain's column of sAbar.  Z gets no cotangent.
-  __device__ __forceinline__ void rhs_vjp(const float* y, const float* cot,
-                                          float* ybar, float* sAbar) const {
-#pragma unroll
-    for (int n = 0; n < kN; ++n) {
-      const float px = y[2 * n], py = y[2 * n + 1];
-      const float cx = cot[2 * n], cy = cot[2 * n + 1];
-      float ubx = 0.f, uby = 0.f;
-#pragma unroll 4
-      for (int m = 0; m < kM; ++m) {
-        const float dx = px - sZ[2 * m];
-        const float dy = py - sZ[2 * m + 1];
-        const float K = sf2 * expf(-(dx * dx + dy * dy) * inv2ell2);
-        sAbar[(2 * m) * kBlock + lane] += K * cx;
-        sAbar[(2 * m + 1) * kBlock + lane] += K * cy;
-        const float adotc = a(m, 0) * cx + a(m, 1) * cy;
-        const float w = K * adotc * invell2;
-        ubx += w * (-dx);
-        uby += w * (-dy);
-      }
-      ybar[2 * n] = ubx;
-      ybar[2 * n + 1] = uby;
-    }
-  }
-};
 
 // Stage point r (0..5) of the step: y0 + dt * sum_j beta[r][j] k[j].
 __device__ __forceinline__ void stage_point(int r, const float* y0,
@@ -283,21 +204,6 @@ __device__ __forceinline__ float quartic_eval(float y0, float y1, float ym,
                   + 16.0f * ym;
   const float d = dt * f0;
   return (((a * X + b) * X + c) * X + d) * X + y0;
-}
-
-// Stage this block's A rows (C, M, 2) into sA with coalesced loads; chains
-// past C read as zero.  Z is copied once per block.
-__device__ __forceinline__ void stage_weights(const float* __restrict__ A,
-                                              const float* __restrict__ Z,
-                                              int C, float* sA, float* sZ) {
-  const int c0 = blockIdx.x * kBlock;
-  for (int idx = threadIdx.x; idx < kBlock * 2 * kM; idx += kBlock) {
-    const int l = idx / (2 * kM);
-    const int j = idx - l * (2 * kM);
-    sA[j * kBlock + l] =
-        (c0 + l < C) ? A[static_cast<size_t>(c0) * 2 * kM + idx] : 0.f;
-  }
-  for (int idx = threadIdx.x; idx < 2 * kM; idx += kBlock) sZ[idx] = Z[idx];
 }
 
 }  // namespace bode

@@ -1,10 +1,18 @@
-"""GP-ODE experiment driver of the port: the main path.
+"""GP-ODE experiment driver of the port.
 
 Counterpart of `bayesian_ode_tpu/experiments/vanderpol_gp.py` for what the
-main-path slice runs: model="gp", engine="fused", solver="dopri5", methods
-SGLD and pSGLD.  Every chain advances in one batch per sampler step: one
-fused forward (kernel K2) and one fused backward (kernel K3) over all
-chains.  The artifact layout follows the JAX driver:
+port runs so far: engine="fused" with
+
+  - model="gp", solver="dopri5": the whole adaptive solve and its discrete
+    adjoint (kernels K2/K3, with a K1 store_steps probe);
+  - model="gp", solver="rk4": the fixed-grid solve and its reverse sweep
+    (kernels K4/K5);
+  - model="nn", solver="rk4": the MLP field, H = config["hidden"]
+    (default 32), the same engine (kernels K6/K7);
+
+under the methods SGLD, pSGLD, cSGLD, MALA and AdamSGLD.  Every chain
+advances in one batch per sampler step: one fused forward and one fused
+backward over all chains.  The artifact layout follows the JAX driver:
 {output}/{method}/{id}{dir_name}/ with config.json, run.jsonl (summary),
 chain.npz and total_loss_arr.npy.  Every other model, solver, method or
 engine raises NotImplementedError naming the ROADMAP item that ports it.
@@ -20,12 +28,15 @@ import torch
 
 from .. import samplers
 from ..models import kernel_regression as kr
+from ..models import mlp
 from ..ops.gp_dopri5 import gp_dopri5_solve_whole
 from ..ops.gp_dopri5_grad import make_fused_gp_potential_dopri5
+from ..ops.gp_rk4 import make_fused_gp_potential
+from ..ops.mlp_rk4 import make_fused_mlp_potential
 from ..samplers import schedules
 from ..utils.checkpoint import save_pytree
 from ..utils.logging import RunLogger
-from ..utils.pytree import tree_map
+from ..utils.pytree import tree_leaves, tree_map
 
 
 def _out_dir(output: str, config: Dict) -> str:
@@ -42,16 +53,24 @@ def _as64(x) -> torch.Tensor:
 
 
 def build_model(config: Dict, data: Dict):
-    """Inducing grid, static kernel quantities and gradient-matched initial
-    parameters, in float64 on the CPU.  Returns (static, params0).
+    """The model's static quantities and initial parameters, in float64 on
+    the CPU.  Returns (static, params0): for model="gp" the inducing grid's
+    kernel quantities and the gradient-matched {'U', 'logsn'}; for
+    model="nn" (the MLP mean-function baseline) None and the uniform
+    (-0.5, 0.5) layer list of sizes [2, H, H, 2] from a generator seeded
+    with config["seed"].
 
     The generic (odeint-adjoint) potential the JAX driver also builds is
     ROADMAP queue 1 item 11; the fused path never calls it."""
     model = config.get("model", "gp")
+    if model == "nn":
+        H = config.get("hidden", 32)
+        gen = torch.Generator().manual_seed(config.get("seed", 0))
+        return None, mlp.init_mlp(gen, [2, H, H, 2])
     if model != "gp":
         raise NotImplementedError(
-            f"model {model!r}: the port has the GP model only (ROADMAP "
-            "queue 1 item 9 ports 'nn', 'spiral' and 'fhn')")
+            f"model {model!r}: the port has the 'gp' and 'nn' models "
+            "(ROADMAP queue 1 item 9 ports 'spiral' and 'fhn')")
     Y, t = _as64(data["Y"]), _as64(data["t"])
     Z = kr.make_inducing_grid(Y, M=config["M"])
     static = kr.make_static(Z, sf=config["sf"], ell=config["ell"])
@@ -66,6 +85,9 @@ def _poly_sched(config):
         alpha=config.get("lr_alpha", 1.0))
 
 
+METHODS = ("SGLD", "pSGLD", "cSGLD", "MALA", "AdamSGLD")
+
+
 def _check_supported(config: Dict, make_plots: bool) -> None:
     if make_plots:
         raise NotImplementedError(
@@ -77,25 +99,91 @@ def _check_supported(config: Dict, make_plots: bool) -> None:
             "engine only (the generic engine needs the ODE core and adjoint "
             "of ROADMAP queue 1 items 2 and 11)")
     solver = config.get("solver", "rk4")
-    if solver != "dopri5":
+    if solver not in ("dopri5", "rk4"):
         raise NotImplementedError(
             f"solver {solver!r}: the fused engine of the port has dopri5 "
-            "only (ROADMAP queue 1 item 8 ports rk4)")
-    if config["method"] not in ("SGLD", "pSGLD"):
+            "and rk4 (ROADMAP queue 1 item 9 ports tsit5)")
+    model = config.get("model", "gp")
+    if model == "nn" and solver != "rk4":
         raise NotImplementedError(
-            f"method {config['method']!r}: the port has SGLD and pSGLD "
-            "(ROADMAP queue 1 items 8 and 12-14 port the others)")
+            f"model 'nn' with solver {solver!r}: the port's MLP field has "
+            "the rk4 kernels only (ROADMAP queue 1 item 9 ports its dopri5 "
+            "registration)")
+    if model not in ("gp", "nn"):
+        raise NotImplementedError(
+            f"model {model!r}: the port has the 'gp' and 'nn' models "
+            "(ROADMAP queue 1 item 9 ports 'spiral' and 'fhn')")
+    if config["method"] not in METHODS:
+        raise NotImplementedError(
+            f"method {config['method']!r}: the port has {', '.join(METHODS)} "
+            "(ROADMAP queue 1 items 12-14 and 18 port the others)")
     if int(config.get("ckpt_every") or 0) > 0:
         raise NotImplementedError(
             "checkpointed sampling (ckpt_every) is ROADMAP queue 1 item 6")
 
 
+def _make_potential(config: Dict, data: Dict, static, device):
+    """The fused batch potential of the configured model and solver."""
+    f32 = torch.float32
+    x0 = _as64(data["x0"]).to(device=device, dtype=f32)
+    ts = _as64(data["t"]).to(device=device, dtype=f32)
+    Y = _as64(data["Y"]).to(device=device, dtype=f32)
+    if static is None:
+        return make_fused_mlp_potential(x0, ts, Y, reg=config.get("reg", 0.5))
+    if config.get("solver", "rk4") == "rk4":
+        return make_fused_gp_potential(static, x0, ts, Y)
+    return make_fused_gp_potential_dopri5(
+        static, x0, ts, Y, rtol=config.get("rtol", 1e-7),
+        atol=config.get("atol", 1e-9),
+        store_steps=config.get("store_steps", 128))
+
+
+def _make_kernel(config: Dict, pot_batch):
+    """Method dispatch of the JAX driver's fused branch."""
+    method = config["method"]
+    if method == "pSGLD":
+        return samplers.psgld_batched(pot_batch, _poly_sched(config),
+                                      alpha=config["psgld_alpha"],
+                                      lambda_=config["lambda_"])
+    if method == "MALA":
+        return samplers.mala_batched(pot_batch, config["lr"])
+    if method == "AdamSGLD":
+        return samplers.adam_sgld_batched(
+            pot_batch, _poly_sched(config), a=config.get("adam_a", 1.0),
+            lambda_=config["lambda_"])
+    if method == "cSGLD":
+        return samplers.csgld_batched(
+            pot_batch, lr0=config["lr0"],
+            num_cycles=config.get("num_cycles", 4),
+            total_iters=config["burn_in"] + config["num_samples"],
+            beta=config.get("beta", 0.25))
+    return samplers.sgld_batched(pot_batch, _poly_sched(config))
+
+
+def _probe_store_steps(config, static, pos0, data, device) -> None:
+    """One whole dopri5 solve at the start positions shows whether the
+    recorded step mesh can hold the worst chain."""
+    f32 = torch.float32
+    rtol, atol = config.get("rtol", 1e-7), config.get("atol", 1e-9)
+    store_steps = config.get("store_steps", 128)
+    A0 = torch.einsum("mk,ckd->cmd", static.KzzinvL, pos0["U"])
+    _, probe = gp_dopri5_solve_whole(
+        A0, _as64(data["x0"]).to(device=device, dtype=f32),
+        _as64(data["t"]).to(device=device, dtype=f32), static, rtol=rtol,
+        atol=atol)
+    worst = int(probe["n_accepted"].max())
+    if worst > store_steps:
+        raise RuntimeError(f"store_steps={store_steps} is below the "
+                           f"{worst} accepted steps of the worst start "
+                           "position; raise config['store_steps']")
+
+
 def run_sampler(config: Dict, data: Dict, output: str,
                 make_plots: bool = True, device="cpu") -> Dict[str, Any]:
-    """Posterior sampling of the GP-ODE model over a batch of chains on
-    `device`.  The chain count is rounded up to a multiple of 128, as the
-    JAX driver rounds it for its fused kernels.  Returns the summary dict
-    (also logged to run.jsonl)."""
+    """Posterior sampling over a batch of chains on `device`.  The chain
+    count is rounded up to a multiple of 128, as the JAX driver rounds it
+    for its fused kernels.  Returns the summary dict (also logged to
+    run.jsonl)."""
     _check_supported(config, make_plots)
     out_dir = _out_dir(output, config)
     with open(os.path.join(out_dir, "config.json"), "w") as f:
@@ -105,24 +193,14 @@ def run_sampler(config: Dict, data: Dict, output: str,
     n_chains = config.get("num_chains", 64)
     n_chains = ((n_chains + 127) // 128) * 128
     f32 = torch.float32
-    static32 = kr.GPVectorFieldStatic(
-        Z=static.Z.to(device=device, dtype=f32),
-        KzzinvL=static.KzzinvL.to(device=device, dtype=f32),
-        Kzzinv=static.Kzzinv.to(device=device, dtype=f32),
-        sf=static.sf, ell=static.ell)
-    x0 = _as64(data["x0"]).to(device=device, dtype=f32)
-    ts = _as64(data["t"]).to(device=device, dtype=f32)
-    rtol, atol = config.get("rtol", 1e-7), config.get("atol", 1e-9)
-    store_steps = config.get("store_steps", 128)
-    pot_batch = make_fused_gp_potential_dopri5(
-        static32, x0, ts, _as64(data["Y"]).to(device=device, dtype=f32),
-        rtol=rtol, atol=atol, store_steps=store_steps)
-    if config["method"] == "pSGLD":
-        kernel = samplers.psgld_batched(pot_batch, _poly_sched(config),
-                                        alpha=config["psgld_alpha"],
-                                        lambda_=config["lambda_"])
-    else:
-        kernel = samplers.sgld_batched(pot_batch, _poly_sched(config))
+    if static is not None:
+        static = kr.GPVectorFieldStatic(
+            Z=static.Z.to(device=device, dtype=f32),
+            KzzinvL=static.KzzinvL.to(device=device, dtype=f32),
+            Kzzinv=static.Kzzinv.to(device=device, dtype=f32),
+            sf=static.sf, ell=static.ell)
+    kernel = _make_kernel(config,
+                          _make_potential(config, data, static, device))
 
     seed = config.get("seed", 0)
     jitter = config.get("jitter", 0.005)
@@ -132,16 +210,8 @@ def run_sampler(config: Dict, data: Dict, output: str,
         + jitter * torch.randn((n_chains,) + tuple(x.shape), generator=gen0,
                                device=device, dtype=f32),
         params0)
-    # store_steps probe: one whole solve at the start positions shows
-    # whether the recorded step mesh can hold the worst chain
-    A0 = torch.einsum("mk,ckd->cmd", static32.KzzinvL, pos0["U"])
-    _, probe = gp_dopri5_solve_whole(A0, x0, ts, static32, rtol=rtol,
-                                     atol=atol)
-    worst = int(probe["n_accepted"].max())
-    if worst > store_steps:
-        raise RuntimeError(f"store_steps={store_steps} is below the "
-                           f"{worst} accepted steps of the worst start "
-                           "position; raise config['store_steps']")
+    if static is not None and config.get("solver", "rk4") == "dopri5":
+        _probe_store_steps(config, static, pos0, data, device)
     state = kernel.init(pos0)
     total = config["num_samples"] // config["thinning"]
     gen = torch.Generator(device=device).manual_seed(seed + 1)
@@ -152,7 +222,13 @@ def run_sampler(config: Dict, data: Dict, output: str,
     # (samples, C, ...) -> (C, samples, ...), the JAX driver's layout
     positions = tree_map(lambda x: x.transpose(0, 1), positions)
     pots = infos["potential"].transpose(0, 1).cpu().numpy()
-    diag = positions["logsn"]                         # (C, samples, 2)
+    if static is not None:
+        diag = positions["logsn"]                     # (C, samples, 2)
+    else:
+        # nn model: the first two coordinates of the last leaf, as the
+        # JAX driver takes them
+        lead = tree_leaves(positions)[-1]
+        diag = lead.reshape(lead.shape[0], lead.shape[1], -1)[:, :, :2]
     if diag.shape[1] >= 4:
         ess_logsn = [float(samplers.ess(diag[:, :, d]))
                      for d in range(diag.shape[-1])]

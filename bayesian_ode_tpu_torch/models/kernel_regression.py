@@ -159,3 +159,32 @@ def params_from_numpy(params, device="cpu",
     """A parameter dict of numpy arrays as a dict of tensors."""
     return {k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
             for k, v in params.items()}
+
+
+def make_batch_potential(static: GPVectorFieldStatic, Y,
+                         trajectory: Callable) -> Callable:
+    """The posterior potential of `make_potential` over a chain batch, for
+    the fused engines: `trajectory(A)` maps the weights A (C, M, 2) to the
+    trajectories (T, C, N, 2) at the observation times.  Returns
+    potential_batch(params) -> (C,) for params {'U': (C, M, 2),
+    'logsn': (C, 2)}, in float32."""
+    dev = static.Z.device
+    Y = torch.as_tensor(Y).to(device=dev, dtype=torch.float32)
+    D = Y.shape[-1]
+    numel = Y.numel()
+    KzzinvL = static.KzzinvL.to(torch.float32)
+    Kzzinv = static.Kzzinv.to(torch.float32)
+
+    def potential_batch(params):
+        U = params["U"].to(torch.float32)                  # (C, M, 2)
+        logsn = params["logsn"].to(torch.float32)          # (C, 2)
+        A = torch.einsum("mk,ckd->cmd", KzzinvL, U)
+        xode = trajectory(A).permute(1, 2, 0, 3)           # (C, N, T, 2)
+        sn2 = torch.exp(logsn) ** 2
+        resid = (Y[None] - xode) ** 2
+        loss = (resid / (2.0 * sn2[:, None, None, :])).sum(dim=(1, 2, 3))
+        loss = loss + numel * logsn.sum(dim=-1) / D
+        loss = loss + torch.einsum("ckd,km,cmd->c", U, Kzzinv, U) / 2.0
+        return loss
+
+    return potential_batch

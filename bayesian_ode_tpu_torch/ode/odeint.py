@@ -1,17 +1,20 @@
-"""Public `odeint` for the port: dopri5, forward, increasing times.
+"""Public `odeint` for the port: dopri5 and the fixed-grid methods,
+forward, increasing times.
 
 Counterpart of `bayesian_ode_tpu/ode/odeint.py` reduced to what the
-main-path slice needs (integrating the true dynamics in
-`models/data.py`).  The other methods, the adjoint and decreasing times
-are ROADMAP queue 1 item 2.
+ported slices need: dopri5 (integrating the true dynamics in
+`models/data.py`) and the fixed-grid "euler", "midpoint" and "rk4" (the
+generic path the fused rk4 kernels are held to), the latter with the
+options `step_size` and `compensated`.  The other methods, the adjoint
+and decreasing times are ROADMAP queue 1 item 2.
 
     ys = odeint(func, y0, t, rtol=1e-7, atol=1e-9, method="dopri5")
 
 `func(t, y)` sees one system, y shaped like y0; ys stacks the solution on a
 new leading time axis.  With `batched=True` the leading axis of y0 holds
-independent systems, each with its own step size, and `func(t (B,), y)`
-sees the whole batch.  Time runs in float64 whatever the state dtype, as
-the JAX package keeps it under x64.
+independent systems, each with its own step size under dopri5, and
+`func(t (B,), y)` sees the whole batch.  Time runs in float64 whatever the
+state dtype, as the JAX package keeps it under x64.
 """
 from __future__ import annotations
 
@@ -20,6 +23,9 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from .adaptive import AdaptiveConfig, integrate_adaptive
+from .fixed_grid import STEP_FUNCS, integrate_fixed_grid
+
+_FIXED_OPTIONS = ("step_size", "compensated")
 
 
 def odeint_with_stats(func: Callable, y0: torch.Tensor, t, rtol: float = 1e-7,
@@ -27,14 +33,16 @@ def odeint_with_stats(func: Callable, y0: torch.Tensor, t, rtol: float = 1e-7,
                       options: Optional[Dict[str, Any]] = None,
                       batched: bool = False):
     method = method or "dopri5"
-    if method != "dopri5":
+    options = dict(options or {})
+    if method != "dopri5" and method not in STEP_FUNCS:
         raise NotImplementedError(
-            f"method {method!r}: the port has only dopri5 so far "
-            "(ROADMAP queue 1 item 2 ports the other solvers)")
-    if options:
+            f"method {method!r}: the port has dopri5, euler, midpoint and "
+            "rk4 so far (ROADMAP queue 1 item 2 ports the other solvers)")
+    allowed = _FIXED_OPTIONS if method in STEP_FUNCS else ()
+    if set(options) - set(allowed):
         raise NotImplementedError(
-            f"options {sorted(options)} are not ported (ROADMAP queue 1 "
-            "item 2)")
+            f"options {sorted(set(options) - set(allowed))} are not ported "
+            f"for {method} (ROADMAP queue 1 item 2)")
     ts = torch.as_tensor(t, dtype=torch.float64, device=y0.device)
     if ts.dim() != 1:
         raise ValueError(f"t must be 1-D, got shape {tuple(ts.shape)}")
@@ -53,6 +61,12 @@ def odeint_with_stats(func: Callable, y0: torch.Tensor, t, rtol: float = 1e-7,
         stats = {"nfe": zeros, "n_accepted": zeros, "n_rejected": zeros,
                  "reached_final_time": torch.ones(B, dtype=torch.bool,
                                                   device=y0.device)}
+    elif method in STEP_FUNCS:
+        B = y0.shape[0]
+        ys, st = integrate_fixed_grid(
+            lambda tt, yy: func(tt.expand(B), yy), y0, ts, method, **options)
+        stats = {k: torch.full((B,), v, device=y0.device)
+                 for k, v in st.items()}
     else:
         cfg = AdaptiveConfig(rtol=rtol, atol=atol)
         ys, stats = integrate_adaptive(func, y0, ts, cfg)

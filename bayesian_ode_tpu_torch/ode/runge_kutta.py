@@ -36,3 +36,17 @@ def runge_kutta_step(func: Callable, y0, f0, t0, dt,
         k.append(func(t0 + alpha_i * dt, yi))
     y1_error = weighted_stage_sum(dt, tableau.c_error, k)
     return yi, k[-1], y1_error, k
+
+
+def rk4_alt_step(func: Callable, t, dt, y, k1=None):
+    """Increment of one 3/8-rule RK4 step (the reference's fixed-grid
+    RK4), in the operation order of the JAX package's `rk4_alt_step`.
+    `t` and `dt` are in the time dtype; dt is cast to the state dtype for
+    the stage arithmetic."""
+    dtc = dt.to(y.dtype)
+    if k1 is None:
+        k1 = func(t, y)
+    k2 = func(t + dt / 3, y + dtc * k1 / 3)
+    k3 = func(t + dt * 2 / 3, y + dtc * (-k1 / 3 + k2))
+    k4 = func(t + dt, y + dtc * (k1 - k2 + k3))
+    return (k1 + 3 * k2 + 3 * k3 + k4) * (dtc / 8)

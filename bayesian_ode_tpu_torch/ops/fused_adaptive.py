@@ -4,9 +4,10 @@ engine: the kernel wrappers and their plain PyTorch versions.
 Counterpart of `bayesian_ode_tpu/ops/fused_adaptive.py`.  The TPU kernels
 `make_fwd_rec_kernel` (K2) and `make_bwd_kernel` (K3) become the CUDA
 kernels of `csrc/gp_dopri5_fwd.cu` (one template: K1 when RECORD=false,
-K2 when true) and `csrc/gp_dopri5_bwd.cu` (K3).  The device code is
-generic over a field functor (`csrc/dopri5_common.cuh`), with the GP field
-as its only instance so far; the other fields are ROADMAP queue 1 item 9.
+K2 when true) and `csrc/gp_dopri5_bwd.cu` (K3).  The device code
+(`csrc/dopri5_common.cuh`) is generic over a field functor, with the GP
+field of `csrc/gp_field.cuh` as its only instance so far; the other
+fields are ROADMAP queue 1 item 9.
 
 Records hold each chain's own accepted steps, laid out
 (store_steps, 2N + 2, C): the step's start state (2N floats), t0 and dt.
@@ -141,7 +142,7 @@ def _launch_fwd(A, Z, x0b, f0, dt0, ts, sf, ell, rtol, atol, safety,
                 dt0=(dt0, (C,), f32), ts=(ts, (T,), f32))
     if not 0 < max_steps < 2**31:
         raise ValueError(f"max_steps must fit int32, got {max_steps}")
-    lib = _build.load_library(N, M)
+    lib = _build.load_library("gp_dopri5", (N, M))
     dev = A.device
     ys = torch.empty((T, C, N, 2), dtype=torch.float32, device=dev)
     nfe = torch.empty(C, dtype=torch.int32, device=dev)
@@ -280,7 +281,7 @@ def _launch_bwd(A, Z, ts, rec, nacc, g, sf, ell):
                 ts=(ts, (T,), f32),
                 rec=(rec, (rec.shape[0], 2 * N + 2, C), f32),
                 nacc=(nacc, (C,), torch.int32), g=(g, (T, C, N, 2), f32))
-    lib = _build.load_library(N, M)
+    lib = _build.load_library("gp_dopri5", (N, M))
     dev = A.device
     Abar = torch.empty_like(A)
     lbar = torch.empty((C, N, 2), dtype=torch.float32, device=dev)

@@ -18,7 +18,10 @@ from __future__ import annotations
 
 import torch
 
-from ..models.kernel_regression import full_f32_matmul
+from ..models.kernel_regression import (
+    full_f32_matmul,
+    make_batch_potential,
+)
 from . import fused_adaptive as fa
 from .gp_dopri5 import _check_controller, _pack_initial
 
@@ -101,27 +104,10 @@ def make_fused_gp_potential_dopri5(static, x0, ts, Y, rtol=1e-7, atol=1e-9,
     {'U': (C, M, 2), 'logsn': (C, 2)}; matches
     `models.kernel_regression.make_potential` with a dopri5 solve.
     """
-    dev = static.Z.device
-    Y = torch.as_tensor(Y).to(device=dev, dtype=torch.float32)
-    D = Y.shape[-1]
-    numel = Y.numel()
-    KzzinvL = static.KzzinvL.to(torch.float32)
-    Kzzinv = static.Kzzinv.to(torch.float32)
-
-    def potential_batch(params):
-        U = params["U"].to(torch.float32)                  # (C, M, 2)
-        logsn = params["logsn"].to(torch.float32)          # (C, 2)
-        A = torch.einsum("mk,ckd->cmd", KzzinvL, U)
-        traj = gp_dopri5_trajectory(A, x0, ts, static, rtol=rtol, atol=atol,
+    def trajectory(A):
+        return gp_dopri5_trajectory(A, x0, ts, static, rtol=rtol, atol=atol,
                                     max_steps=max_steps,
                                     store_steps=store_steps,
                                     controller=controller)
-        xode = traj.permute(1, 2, 0, 3)                    # (C, N, T, 2)
-        sn2 = torch.exp(logsn) ** 2
-        resid = (Y[None] - xode) ** 2
-        loss = (resid / (2.0 * sn2[:, None, None, :])).sum(dim=(1, 2, 3))
-        loss = loss + numel * logsn.sum(dim=-1) / D
-        loss = loss + torch.einsum("ckd,km,cmd->c", U, Kzzinv, U) / 2.0
-        return loss
 
-    return potential_batch
+    return make_batch_potential(static, Y, trajectory)

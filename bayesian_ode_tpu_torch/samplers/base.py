@@ -1,7 +1,7 @@
 """Sampler kernel protocol and chain runner.
 
 Counterpart of `bayesian_ode_tpu/samplers/base.py`.  A sampler is a
-transition kernel over a position (a dict of tensors):
+transition kernel over a position (a tree of tensors, `utils/pytree.py`):
 
     kernel.init(position)               -> state
     kernel.step(generator, state)       -> (state, info)
@@ -17,7 +17,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from ..utils.pytree import tree_map
+from ..utils.pytree import tree_leaves, tree_map, tree_unflatten
 
 
 class TransitionKernel(NamedTuple):
@@ -26,11 +26,14 @@ class TransitionKernel(NamedTuple):
 
 
 def _stack(items):
-    """Stack a list of infos/positions (tensors, floats, bools or dicts of
-    them) along a new leading axis."""
+    """Stack a list of infos/positions (tensors, floats, bools or dicts
+    and lists of them) along a new leading axis."""
     first = items[0]
     if isinstance(first, dict):
         return {k: _stack([it[k] for it in items]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack([it[i] for it in items])
+                           for i in range(len(first)))
     if torch.is_tensor(first):
         return torch.stack(items)
     return torch.tensor(items)
@@ -71,12 +74,8 @@ def batch_value_and_grad(potential_batch: Callable):
             leaves = tree_map(lambda x: x.detach().requires_grad_(True),
                               position)
             pots = potential_batch(leaves)
-            keys = sorted(leaves) if isinstance(leaves, dict) else None
-            inputs = ([leaves[k] for k in keys] if keys is not None
-                      else [leaves])
-            grads = torch.autograd.grad(pots.sum(), inputs)
-        grads = (dict(zip(keys, grads)) if keys is not None else grads[0])
-        return pots.detach(), grads
+            grads = torch.autograd.grad(pots.sum(), tree_leaves(leaves))
+        return pots.detach(), tree_unflatten(position, grads)
 
     return vag
 

@@ -1,4 +1,4 @@
-"""Chain diagnostics: ESS and split R-hat.
+"""Chain diagnostics: ESS, split R-hat and acceptance rate.
 
 Counterpart of `bayesian_ode_tpu/samplers/diagnostics.py` (same
 definitions: FFT autocovariance, Stan's multi-chain rho with Geyer's
@@ -52,3 +52,9 @@ def split_rhat(chains: torch.Tensor) -> torch.Tensor:
     W = chain_vars.mean()
     var_plus = (sn - 1.0) / sn * W + B / sn
     return torch.sqrt(var_plus / W)
+
+
+def acceptance_rate(infos) -> torch.Tensor:
+    """Mean acceptance over the last axis of the stacked `accepted`
+    flags of an info dict."""
+    return infos["accepted"].to(torch.float32).mean(dim=-1)

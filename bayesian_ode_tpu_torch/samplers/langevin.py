@@ -1,13 +1,16 @@
-"""Batched Langevin samplers of the main path: SGLD and pSGLD.
+"""Batched Langevin samplers: SGLD, pSGLD, cSGLD, Adam-SGLD and MALA.
 
-Counterpart of `bayesian_ode_tpu/samplers/langevin.py::sgld_batched` and
-`psgld_batched` (the other Langevin kernels are ROADMAP queue 1 items 8
-and 14).  Each takes the batch-potential contract: `potential_batch(params)`
-maps a dict of tensors with a leading chain axis C to (C,) potentials in
-one fused forward and backward pass.  The state carries the potential and
-gradient at the current position, so a step costs exactly one pass, and
-`info["potential"]` is the pre-step value.  Positions are updated out of
-place: each step's position is kept by `sample_chain`.
+Counterpart of the `*_batched` kernels of
+`bayesian_ode_tpu/samplers/langevin.py` and its `psgld_preconditioner`
+(the per-chain kernels are ROADMAP queue 1 item 14).  Each takes the
+batch-potential contract: `potential_batch(params)` maps a tree of
+tensors with a leading chain axis C to (C,) potentials in one fused
+forward and backward pass.  The state carries the potential and gradient
+at the current position, so a step costs exactly one pass, and
+`info["potential"]` is the pre-step value (MALA: the post-step value).
+Positions are updated out of place: each step's position is kept by
+`sample_chain`.  Noise is drawn from the generator leaf by leaf; MALA then
+draws one uniform per chain.
 """
 from __future__ import annotations
 
@@ -15,13 +18,17 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from ..utils.pytree import tree_map, tree_random_normal
+from ..utils.pytree import (
+    tree_map,
+    tree_random_normal,
+    tree_sum_squares_per_chain,
+)
 from . import schedules
 from .base import TransitionKernel, batch_value_and_grad, langevin_noise_scale
 
 
 class BatchLangevinState(NamedTuple):
-    position: Any           # dict of tensors with a leading chain axis C
+    position: Any           # tree of tensors with a leading chain axis C
     potential: torch.Tensor  # (C,)
     grad: Any
     step: int
@@ -32,6 +39,15 @@ class BatchPreconditionedState(NamedTuple):
     potential: torch.Tensor
     grad: Any
     v: Any                  # EMA of squared gradients
+    step: int
+
+
+class AdamSGLDState(NamedTuple):
+    position: Any
+    potential: torch.Tensor
+    grad: Any
+    m: Any
+    v: Any
     step: int
 
 
@@ -57,6 +73,114 @@ def sgld_batched(potential_batch: Callable, step_size) -> TransitionKernel:
         return BatchLangevinState(new_pos, u, g, state.step + 1), info
 
     return TransitionKernel(init, step)
+
+
+def _where_per_chain(accept, a, b):
+    """Leafwise where with a (C,) predicate broadcast over trailing axes."""
+    return tree_map(
+        lambda x, y: torch.where(
+            accept.reshape(accept.shape + (1,) * (x.dim() - 1)), x, y), a, b)
+
+
+def mala_batched(potential_batch: Callable, step_size,
+                 precond=None) -> TransitionKernel:
+    """MALA over a whole chain batch per step: the SGLD proposal with a
+    per-chain Metropolis-Hastings correction (asymmetric-proposal ratio,
+    reference langevin.py:69-91), at the cost of one fused forward and
+    backward pass per step.  Each chain accepts on its own uniform.
+
+    `precond`: an optional FIXED diagonal metric G (a tree matching the
+    position, leaves broadcastable), e.g. `psgld_preconditioner` of a
+    pSGLD warm-up: proposal p - lr G g - sqrt(2 lr G) xi and the
+    G-weighted ratio |.|^2 / (4 lr G)."""
+    sched = schedules.resolve(step_size)
+    vag = batch_value_and_grad(potential_batch)
+
+    def init(position):
+        u, g = vag(position)
+        return BatchLangevinState(position, u, g, 0)
+
+    def step(generator, state):
+        lr = sched(state.step)
+        G = precond if precond is not None else tree_map(
+            torch.ones_like, state.position)
+        noise = tree_random_normal(generator, state.position)
+        scale = langevin_noise_scale(lr)
+        proposal = tree_map(
+            lambda p, g, G_, n: p - lr * G_ * g - scale * torch.sqrt(G_) * n,
+            state.position, state.grad, G, noise)
+        u_new, g_new = vag(proposal)
+
+        def weighted_sq(tree):
+            return tree_sum_squares_per_chain(tree_map(
+                lambda x, G_: x / torch.sqrt(G_.expand(x.shape)), tree, G))
+
+        log_alpha = state.potential - u_new                       # (C,)
+        rev = tree_map(lambda po, pn, G_, gn: po - pn + lr * G_ * gn,
+                       state.position, proposal, G, g_new)
+        log_alpha = log_alpha + -1.0 / (4 * lr) * weighted_sq(rev)
+        fwd = tree_map(lambda pn, po, G_, go: pn - po + lr * G_ * go,
+                       proposal, state.position, G, state.grad)
+        log_alpha = log_alpha - -1.0 / (4 * lr) * weighted_sq(fwd)
+        uniform = torch.rand(log_alpha.shape, generator=generator,
+                             dtype=log_alpha.dtype, device=log_alpha.device)
+        accept = torch.isfinite(log_alpha) & (torch.log(uniform) < log_alpha)
+        new_state = BatchLangevinState(
+            position=_where_per_chain(accept, proposal, state.position),
+            potential=torch.where(accept, u_new, state.potential),
+            grad=_where_per_chain(accept, g_new, state.grad),
+            step=state.step + 1)
+        info = {"potential": new_state.potential, "accepted": accept,
+                "step_size": lr}
+        return new_state, info
+
+    return TransitionKernel(init, step)
+
+
+def csgld_batched(potential_batch: Callable, lr0: float, num_cycles: int,
+                  total_iters: int, beta: float = 0.25,
+                  add_noise: bool = True) -> TransitionKernel:
+    """Cyclical SGLD over a whole chain batch per step (reference
+    langevin.py:1600-1724): cosine step size over `num_cycles` cycles,
+    pure gradient steps in the exploration phase (r <= beta), Langevin
+    noise in the sampling phase.  info["sampling_phase"] marks
+    posterior-sample steps.  `add_noise=False` exists for deterministic
+    equivalence tests only."""
+    vag = batch_value_and_grad(potential_batch)
+    lr_fn = schedules.cyclical_cosine(lr0, num_cycles, total_iters)
+
+    def init(position):
+        u, g = vag(position)
+        return BatchLangevinState(position, u, g, 0)
+
+    def step(generator, state):
+        lr = lr_fn(state.step)
+        r = schedules.cycle_position(state.step, num_cycles, total_iters)
+        in_sampling = r > beta
+        noise = tree_random_normal(generator, state.position)
+        scale = (langevin_noise_scale(lr) if in_sampling and add_noise
+                 else 0.0)
+        new_pos = tree_map(lambda p, g, n: p - lr * g - scale * n,
+                           state.position, state.grad, noise)
+        u, g = vag(new_pos)
+        info = {"potential": state.potential, "accepted": True,
+                "step_size": lr, "sampling_phase": in_sampling}
+        return BatchLangevinState(new_pos, u, g, state.step + 1), info
+
+    return TransitionKernel(init, step)
+
+
+def psgld_preconditioner(state, lambda_: float = 1e-5,
+                         chain_average: bool = True):
+    """Fixed diagonal metric G = 1 / (lambda + sqrt(V)) from a pSGLD
+    warm-up state, to pass as `precond` to `mala_batched` (a fixed metric
+    keeps the chains exactly reversible).  `chain_average` averages G over
+    the leading chain axis so every chain shares one metric."""
+    G = tree_map(lambda v: 1.0 / (lambda_ + torch.sqrt(v)), state.v)
+    if chain_average:
+        G = tree_map(lambda g: g.mean(dim=0, keepdim=True).expand(g.shape),
+                     G)
+    return G
 
 
 def psgld_batched(potential_batch: Callable, step_size, alpha: float = 0.99,
@@ -94,5 +218,50 @@ def psgld_batched(potential_batch: Callable, step_size, alpha: float = 0.99,
                 "step_size": lr}
         return (BatchPreconditionedState(new_pos, u, g, v, state.step + 1),
                 info)
+
+    return TransitionKernel(init, step)
+
+
+def adam_sgld_batched(potential_batch: Callable, step_size,
+                      beta1: float = 0.9, beta2: float = 0.999,
+                      a: float = 1.0, lambda_: float = 1e-8
+                      ) -> TransitionKernel:
+    """Adam-preconditioned SGLD over a whole chain batch per step:
+
+        m <- beta1 m + (1 - beta1) g;  V <- beta2 V + (1 - beta2) g^2
+        G = 1 / (lambda + sqrt(V_hat))
+        theta <- theta - lr G (g + a m_hat) - sqrt(2 lr G) xi
+
+    The bias corrections 1 - beta^t are taken in float32, as the JAX
+    package takes them."""
+    sched = schedules.resolve(step_size)
+    vag = batch_value_and_grad(potential_batch)
+
+    def init(position):
+        u, g = vag(position)
+        z = tree_map(torch.zeros_like, g)
+        return AdamSGLDState(position, u, g, z, z, 0)
+
+    def step(generator, state):
+        lr = sched(state.step)
+        t = state.step + 1
+        m = tree_map(lambda m_, g_: beta1 * m_ + (1 - beta1) * g_,
+                     state.m, state.grad)
+        v = tree_map(lambda v_, g_: beta2 * v_ + (1 - beta2) * g_ ** 2,
+                     state.v, state.grad)
+        tf = torch.tensor(float(t), dtype=torch.float32)
+        bc1 = float(1.0 - torch.tensor(beta1, dtype=torch.float32) ** tf)
+        bc2 = float(1.0 - torch.tensor(beta2, dtype=torch.float32) ** tf)
+        noise = tree_random_normal(generator, state.position)
+        scale = langevin_noise_scale(lr)
+        new_pos = tree_map(
+            lambda p, g_, m_, v_, n: p
+            - lr * (g_ + a * m_ / bc1) / (lambda_ + torch.sqrt(v_ / bc2))
+            - scale * torch.sqrt(1.0 / (lambda_ + torch.sqrt(v_ / bc2))) * n,
+            state.position, state.grad, m, v, noise)
+        u, g = vag(new_pos)
+        info = {"potential": state.potential, "accepted": True,
+                "step_size": lr}
+        return AdamSGLDState(new_pos, u, g, m, v, t), info
 
     return TransitionKernel(init, step)

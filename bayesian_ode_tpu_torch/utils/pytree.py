@@ -1,34 +1,77 @@
-"""Helpers over parameter dicts of tensors.
+"""Helpers over parameter trees of tensors.
 
 Counterpart of the part of `bayesian_ode_tpu/utils/pytree.py` the
-samplers need.  A "tree" here is a dict of tensors (the port's parameter
-containers) or a single tensor; dict leaves are visited in sorted key
-order, as `jax.tree` orders dict keys.
+samplers need.  A "tree" here is a tensor, or a dict, list or tuple of
+trees: the GP model's {"U", "logsn"} dict, the MLP's layer list
+[{"w", "b"}, ...].  Leaves are visited as `jax.tree` visits them: lists
+and tuples in order, dict keys sorted.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Union
+from typing import Any, Callable, List
 
 import torch
 
-Tree = Union[torch.Tensor, Dict[str, torch.Tensor]]
+Tree = Any
+
+
+def _children(tree):
+    if isinstance(tree, dict):
+        return [tree[k] for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return list(tree)
+    return None
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     if isinstance(tree, dict):
-        return {k: fn(tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, x, *(r[i] for r in rest))
+                          for i, x in enumerate(tree))
     return fn(tree, *rest)
 
 
-def tree_leaves(tree: Tree):
-    if isinstance(tree, dict):
-        return [tree[k] for k in sorted(tree)]
-    return [tree]
+def tree_leaves(tree: Tree) -> List[torch.Tensor]:
+    kids = _children(tree)
+    if kids is None:
+        return [tree]
+    return [leaf for kid in kids for leaf in tree_leaves(kid)]
+
+
+def tree_unflatten(like: Tree, leaves) -> Tree:
+    """A tree shaped like `like` holding `leaves` in `tree_leaves` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def treedef_str(tree: Tree) -> str:
+    """The structure of `tree` as `str(jax.tree.structure(tree))` prints it,
+    e.g. "PyTreeDef([{'b': *, 'w': *}])"."""
+    def rec(t):
+        if isinstance(t, dict):
+            return "{" + ", ".join(f"{k!r}: {rec(t[k])}"
+                                   for k in sorted(t)) + "}"
+        if isinstance(t, list):
+            return "[" + ", ".join(rec(x) for x in t) + "]"
+        if isinstance(t, tuple):
+            inner = ", ".join(rec(x) for x in t)
+            return "(" + inner + ("," if len(t) == 1 else "") + ")"
+        return "*"
+    return f"PyTreeDef({rec(tree)})"
 
 
 def tree_random_normal(generator: torch.Generator, tree: Tree) -> Tree:
     """A tree of iid standard normals shaped like `tree`, drawn from
-    `generator` leaf by leaf in sorted key order."""
+    `generator` leaf by leaf in `tree_leaves` order."""
     return tree_map(
         lambda x: torch.randn(x.shape, generator=generator, dtype=x.dtype,
                               device=x.device), tree)
+
+
+def tree_sum_squares_per_chain(tree: Tree) -> torch.Tensor:
+    """Per-chain sum of squares: each leaf reduced over all axes but the
+    leading chain axis, then summed across leaves.  Returns (C,)."""
+    return sum(x.reshape(x.shape[0], -1).pow(2).sum(dim=1)
+               for x in tree_leaves(tree))

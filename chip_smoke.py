@@ -3,15 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `bayesian_ode_tpu_torch/csrc/`, holds
-each against its plain PyTorch version at the main path's full shape (Van
-der Pol GP-ODE posterior: 5 trajectories, T=60 output times to t=6, a 6x6
-inducing grid, 10,112 chains, dopri5 at rtol=1e-7 / atol=1e-9,
-store_steps=128), then drives the main path through its public entry
-point, `experiments.vanderpol_gp.run_sampler` (engine="fused",
-solver="dopri5", model="gp"), for SGLD and pSGLD, and checks from the
-launch counters that those runs went through the kernels.  Last, it times
-steady-state SGLD and pSGLD steps through the same fused potential.
+Builds the port's CUDA kernels from `bayesian_ode_tpu_torch/csrc/` (one
+nvcc per source, all started together) and holds each against its plain
+PyTorch version at the main paths' full shape (Van der Pol: 5
+trajectories, T=60 output times to t=6, 10,112 chains):
+
+  - the GP-ODE posterior on a 6x6 inducing grid with dopri5 at
+    rtol=1e-7 / atol=1e-9, store_steps=128 (K1, K2, K3);
+  - the same posterior with fixed-grid rk4 on the output times (K4, K5);
+  - the MLP field 2-32-32-2 with rk4 (K6, K7).
+
+It then drives each path through its public entry point,
+`experiments.vanderpol_gp.run_sampler` (engine="fused"): dopri5 GP under
+SGLD and pSGLD, rk4 GP under SGLD, cSGLD and MALA, rk4 NN under pSGLD.
+The launch counters are set to 0 just before each path's runs and read
+just after, and must show the path's kernels on every potential-gradient
+evaluation.  Last, it times steady-state sampler steps of each path.
 
 Exits non-zero on any failed phase, and when no CUDA device is available.
 The line before the last is a JSON object with each kernel's launches,
@@ -30,6 +37,9 @@ import time
 N_CHAINS = 10112
 RTOL, ATOL = 1e-7, 1e-9
 STORE_STEPS = 128
+HIDDEN = 32
+LIBRARIES = [("gp_dopri5", (5, 36)), ("gp_rk4", (5, 36)),
+             ("mlp_rk4", (5, HIDDEN))]
 
 
 def check(cond, msg):
@@ -56,6 +66,10 @@ def cuda_ms(fn, reps, warmup=0):
     return start.elapsed_time(end) / reps
 
 
+def max_rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -67,9 +81,10 @@ def main() -> int:
     from bayesian_ode_tpu_torch import samplers
     from bayesian_ode_tpu_torch.experiments import run_sampler
     from bayesian_ode_tpu_torch.models import kernel_regression as kr
-    from bayesian_ode_tpu_torch.models import make_dataset
+    from bayesian_ode_tpu_torch.models import make_dataset, mlp
     from bayesian_ode_tpu_torch.ops import _build
     from bayesian_ode_tpu_torch.ops import fused_adaptive as fa
+    from bayesian_ode_tpu_torch.ops import gp_rk4, mlp_rk4
     from bayesian_ode_tpu_torch.ops.gp_dopri5 import (
         _pack_initial,
         gp_dopri5_solve_whole,
@@ -91,13 +106,15 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
     kr.full_f32_matmul()
 
-    # ---- build ----
+    # ---- build: one nvcc per source, all started together ----
     t0 = time.perf_counter()
-    _build.load_library(5, 36)
+    _build.build(LIBRARIES)
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
-    for line in _build.build_log(5, 36).splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  ptxas: {line.strip()}")
+    for lib in LIBRARIES:
+        _build.load_library(*lib)
+        for line in _build.build_log(*lib).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas {lib[0]}: {line.strip()}")
 
     # ---- inputs at the main path's shape ----
     data = make_dataset(seed=2, ode="vdp", N=5, T=60, t_max=6.0,
@@ -242,7 +259,7 @@ def main() -> int:
             check(bool(np.isfinite(pots).all()), f"{method}: finite "
                   "potentials")
         counts = dict(_build.launch_counts)
-    for name, k in kernels.items():
+    for name in kernels:
         check(counts[name] > 0, f"{name} launched by the main path")
 
     # ---- phase 5: steady-state sampler steps (no set-up, probe or I/O) ----
@@ -271,6 +288,177 @@ def main() -> int:
               f"{method}: finite potentials in the steady run")
         print(f"{method} steady: {ms:.3f} ms/step over {steps} steps = "
               f"{N_CHAINS / ms * 1e3:.0f} chain-steps/s")
+
+    # ---- phase 6: K4 (rk4 forward) and K5 (rk4 reverse sweep) ----
+    dts = torch.diff(ts).contiguous()
+    x0c = x0.contiguous()
+    ys4 = gp_rk4.gp_rk4_fwd(A, Z, x0c, dts, s32.sf, s32.ell)
+    ys4p = gp_rk4.gp_rk4_fwd_plain(A, Z, x0c, dts, s32.sf, s32.ell)
+    g4 = torch.randn(ys4.shape, generator=gen_g, device=dev, dtype=f32)
+    Abar4, lbar4 = gp_rk4.gp_rk4_bwd(A, Z, ys4, g4, dts, s32.sf, s32.ell)
+    Abar4p, lbar4p = gp_rk4.gp_rk4_bwd_plain(A, Z, ys4p, g4, dts, s32.sf,
+                                             s32.ell)
+    A_req = A.clone().requires_grad_(True)
+    x0_req = x0c.clone().requires_grad_(True)
+    Abar4ag, x0bar4ag = torch.autograd.grad(
+        (gp_rk4.gp_rk4_fwd_plain(A_req, Z, x0_req, dts, s32.sf, s32.ell)
+         * g4).sum(), [A_req, x0_req])
+    torch.cuda.synchronize()
+    scale4 = float(ys4p.abs().max())
+    err4 = float((ys4 - ys4p).abs().max())
+    rel5 = {"Abar vs plain": max_rel(Abar4, Abar4p),
+            "x0bar vs plain": max_rel(lbar4, lbar4p),
+            "Abar vs autograd": max_rel(Abar4, Abar4ag),
+            "x0bar vs autograd": max_rel(lbar4.sum(dim=0), x0bar4ag)}
+    print(f"K4: max|ys - plain| = {err4:.3e} (max|y| {scale4:.4f})")
+    print("K5: max-rel " + ", ".join(f"{k} {v:.3e}" for k, v in rel5.items()))
+    check(bool(torch.isfinite(ys4).all()), "K4 trajectories finite")
+    check(err4 <= 1e-5 * scale4, "K4 within 1e-5 max|y| of plain")
+    for k, v in rel5.items():
+        check(v <= 1e-5, f"K5 {k} within 1e-5 max-rel")
+    ms4 = cuda_ms(lambda: gp_rk4._launch_fwd(A, Z, x0c, dts, s32.sf,
+                                             s32.ell), 20, warmup=10)
+    ms4p = cuda_ms(lambda: gp_rk4.gp_rk4_fwd_plain(A, Z, x0c, dts, s32.sf,
+                                                   s32.ell), 1)
+    ms5 = cuda_ms(lambda: gp_rk4._launch_bwd(A, Z, ys4, g4, dts, s32.sf,
+                                             s32.ell), 20, warmup=10)
+    ms5p = cuda_ms(lambda: gp_rk4.gp_rk4_bwd_plain(A, Z, ys4p, g4, dts,
+                                                   s32.sf, s32.ell), 1)
+    print(f"K4: {ms4:.3f} ms, plain {ms4p:.1f} ms; K5: {ms5:.3f} ms, plain "
+          f"{ms5p:.1f} ms")
+    kernels["gp_rk4_fwd"] = dict(
+        source="bayesian_ode_tpu_torch/csrc/gp_rk4.cu",
+        replaces="bayesian_ode_tpu/ops/gp_rk4.py:81",
+        max_abs_err=err4, ms=ms4, plain_ms=ms4p)
+    kernels["gp_rk4_bwd"] = dict(
+        source="bayesian_ode_tpu_torch/csrc/gp_rk4.cu",
+        replaces="bayesian_ode_tpu/ops/gp_rk4.py:114",
+        max_abs_err=float((Abar4 - Abar4p).abs().max()), ms=ms5,
+        plain_ms=ms5p)
+    del ys4p, Abar4p, Abar4ag, g4
+
+    # ---- phase 7: K6 and K7, the MLP field at H=32 ----
+    # the driver's start positions: uniform(-0.5, 0.5) weights, zero
+    # biases, jittered per chain
+    gen_w = torch.Generator().manual_seed(0)
+    params0 = mlp.init_mlp(gen_w, [2, HIDDEN, HIDDEN, 2], dtype=f32)
+    w = tuple(
+        (x.to(dev)[None] + 0.005 * torch.randn(
+            (N_CHAINS,) + tuple(x.shape), generator=gen, device=dev)
+         ).contiguous() for layer in params0 for x in (layer["w"],
+                                                       layer["b"]))
+    ys6 = mlp_rk4.mlp_rk4_fwd(w, x0c, dts)
+    ys6p = mlp_rk4.mlp_rk4_fwd_plain(w, x0c, dts)
+    g6 = torch.randn(ys6.shape, generator=gen_g, device=dev, dtype=f32)
+    wbar7, lbar7 = mlp_rk4.mlp_rk4_bwd(w, ys6, g6, dts)
+    wbar7p, lbar7p = mlp_rk4.mlp_rk4_bwd_plain(w, ys6p, g6, dts)
+    w_req = [x.clone().requires_grad_(True) for x in w]
+    grads = torch.autograd.grad(
+        (mlp_rk4.mlp_rk4_fwd_plain(w_req, x0_req, dts) * g6).sum(),
+        w_req + [x0_req])
+    torch.cuda.synchronize()
+    scale6 = float(ys6p.abs().max())
+    err6 = float((ys6 - ys6p).abs().max())
+    leaves = ("w1", "b1", "w2", "b2", "w3", "b3")
+    rel7 = {f"{n} vs plain": max_rel(k, p)
+            for n, k, p in zip(leaves, wbar7, wbar7p)}
+    rel7["x0bar vs plain"] = max_rel(lbar7, lbar7p)
+    rel7.update({f"{n} vs autograd": max_rel(k, a)
+                 for n, k, a in zip(leaves, wbar7, grads)})
+    rel7["x0bar vs autograd"] = max_rel(lbar7.sum(dim=0), grads[-1])
+    print(f"K6: max|ys - plain| = {err6:.3e} (max|y| {scale6:.4f})")
+    print("K7: max-rel " + ", ".join(f"{k} {v:.3e}" for k, v in rel7.items()))
+    check(bool(torch.isfinite(ys6).all()), "K6 trajectories finite")
+    check(err6 <= 1e-5 * scale6, "K6 within 1e-5 max|y| of plain")
+    for k, v in rel7.items():
+        check(v <= 1e-5, f"K7 {k} within 1e-5 max-rel")
+    ms6 = cuda_ms(lambda: mlp_rk4._launch_fwd(w, x0c, dts), 20, warmup=10)
+    ms6p = cuda_ms(lambda: mlp_rk4.mlp_rk4_fwd_plain(w, x0c, dts), 1)
+    ms7 = cuda_ms(lambda: mlp_rk4._launch_bwd(w, ys6, g6, dts), 20,
+                  warmup=10)
+    ms7p = cuda_ms(lambda: mlp_rk4.mlp_rk4_bwd_plain(w, ys6p, g6, dts), 1)
+    print(f"K6: {ms6:.3f} ms, plain {ms6p:.1f} ms; K7: {ms7:.3f} ms, plain "
+          f"{ms7p:.1f} ms")
+    kernels["mlp_rk4_fwd"] = dict(
+        source="bayesian_ode_tpu_torch/csrc/mlp_rk4.cu",
+        replaces="bayesian_ode_tpu/ops/mlp_rk4.py:116",
+        max_abs_err=err6, ms=ms6, plain_ms=ms6p)
+    kernels["mlp_rk4_bwd"] = dict(
+        source="bayesian_ode_tpu_torch/csrc/mlp_rk4.cu",
+        replaces="bayesian_ode_tpu/ops/mlp_rk4.py:145",
+        max_abs_err=max(float((k - p).abs().max())
+                        for k, p in zip(wbar7, wbar7p)),
+        ms=ms7, plain_ms=ms7p)
+    del ys6p, wbar7p, grads, g6, w_req
+
+    # ---- phase 8: the rk4 paths through the experiment driver ----
+    rk4_runs = [("gp", "SGLD", 2, 8, ("gp_rk4_fwd", "gp_rk4_bwd")),
+                ("gp", "cSGLD", 2, 8, ("gp_rk4_fwd", "gp_rk4_bwd")),
+                ("gp", "MALA", 2, 8, ("gp_rk4_fwd", "gp_rk4_bwd")),
+                ("nn", "pSGLD", 2, 8, ("mlp_rk4_fwd", "mlp_rk4_bwd"))]
+    with tempfile.TemporaryDirectory() as out:
+        _build.reset_launch_counts()
+        for model, method, burn_in, samples, path in rk4_runs:
+            before = dict(_build.launch_counts)
+            c = dict(cfg, model=model, method=method, solver="rk4",
+                     burn_in=burn_in, num_samples=samples, lr=1e-4,
+                     lr0=1e-4 if model == "nn" else 1e-5, hidden=HIDDEN,
+                     id=f"{model}_rk4")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = run_sampler(c, data, out, make_plots=False,
+                                  device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps = burn_in + samples
+            delta = {k: v - before[k]
+                     for k, v in _build.launch_counts.items()}
+            print(f"{model} rk4 {method}: {steps} steps x "
+                  f"{summary['num_chains']} chains in {wall:.3f} s (set-up "
+                  f"included); launches {delta}")
+            print(f"{model} rk4 {method}: summary {json.dumps(summary)}")
+            for name in delta:
+                want = steps + 1 if name in path else 0
+                check(delta[name] == want,
+                      f"{model} rk4 {method}: {name} launched {want} times "
+                      "(once per step plus init)")
+            pots = np.load(os.path.join(out, method, f"{model}_rk4",
+                                        "total_loss_arr.npy"))
+            check(pots.shape == (N_CHAINS, samples),
+                  f"{model} rk4 {method} pots shape")
+            check(bool(np.isfinite(pots).all()),
+                  f"{model} rk4 {method}: finite potentials")
+        for name in ("gp_rk4_fwd", "gp_rk4_bwd", "mlp_rk4_fwd",
+                     "mlp_rk4_bwd"):
+            counts[name] = _build.launch_counts[name]
+            check(counts[name] > 0, f"{name} launched by its path")
+
+    # ---- phase 9: steady-state rk4 sampler steps ----
+    Ydev = data["Y"].to(dev, f32)
+    pot_gp = gp_rk4.make_fused_gp_potential(s32, x0, ts, Ydev)
+    pot_nn = mlp_rk4.make_fused_mlp_potential(x0, ts, Ydev, reg=0.5)
+    nn_pos = [{"w": w[2 * i], "b": w[2 * i + 1]} for i in range(3)]
+    for label, kern, p0 in (
+            ("GP rk4 SGLD", samplers.sgld_batched(pot_gp, sched), pos),
+            ("NN rk4 pSGLD", samplers.psgld_batched(
+                pot_nn, schedules.polynomial_decay(lr0=1e-4, gamma=0.55,
+                                                   t0=100),
+                alpha=0.99, lambda_=1e-8), nn_pos)):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        state = kern.init(p0)
+        for _ in range(2):
+            state, _ = kern.step(gen, state)
+        steps = 10
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = kern.step(gen, state)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        check(bool(torch.isfinite(state.potential).all()),
+              f"{label}: finite potentials in the steady run")
+        print(f"{label} steady: {ms:.3f} ms/step over {steps} steps = "
+              f"{N_CHAINS / ms * 1e3:.0f} chain-steps/s ({smi})")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],

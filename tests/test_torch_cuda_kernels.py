@@ -12,9 +12,12 @@ machine need not have; this file imports torch and the port only).
 Small shapes and the cases `chip_smoke.py` does not reach at full size:
 a chain count that is not a multiple of the 64-thread block, the PI
 controller, budget exhaustion and record overflow.  Gates as the smoke's:
-trajectories within 1e-4 * max|y| of the plain version (two float32 solves
-whose step meshes differ by rounding in the floor-bound regime), mean NFE
-within 1%, gradients within 1e-3 max-rel (the JAX package's float32 gate).
+dopri5 trajectories within 1e-4 * max|y| of the plain version (two float32
+solves whose step meshes differ by rounding in the floor-bound regime),
+mean NFE within 1%, gradients within 1e-3 max-rel (the JAX package's
+float32 gate).  The fixed-grid rk4 kernels (K4-K7) take the same steps as
+their plain versions, so they are held closer: trajectories within
+1e-5 * max|y| and cotangents within 1e-5 max-rel.
 """
 import pytest
 import torch
@@ -23,6 +26,7 @@ from bayesian_ode_tpu_torch.models import kernel_regression as kr
 from bayesian_ode_tpu_torch.models import make_dataset
 from bayesian_ode_tpu_torch.ops import _build
 from bayesian_ode_tpu_torch.ops import fused_adaptive as fa
+from bayesian_ode_tpu_torch.ops import gp_rk4, mlp_rk4
 from bayesian_ode_tpu_torch.ops.gp_dopri5 import (
     _pack_initial,
     gp_dopri5_solve_whole,
@@ -180,3 +184,79 @@ def test_fused_potential_on_the_card_matches_the_cpu(gp):
     torch.testing.assert_close(v_k, v_p, rtol=1e-4, atol=0)
     assert float((gU_k - gU_p).abs().max() / gU_p.abs().max()) <= 1e-3
     assert float((gl_k - gl_p).abs().max() / gl_p.abs().max()) <= 1e-3
+
+
+C_RK4, H_RK4 = 256, 20
+
+
+def _max_rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def test_gp_rk4_kernels_match_plain(gp):
+    s = gp["static"]
+    gen = torch.Generator(device=gp["dev"]).manual_seed(2)
+    U = gp["U"][:1] + 3e-3 * torch.randn((C_RK4, 36, 2), generator=gen,
+                                         device=gp["dev"])
+    A = torch.einsum("mk,ckd->cmd", s.KzzinvL, U).contiguous()
+    Z, x0 = s.Z.contiguous(), gp["x0"].contiguous()
+    dts = torch.diff(gp["ts"]).contiguous()
+    before = dict(_build.launch_counts)
+    ys_k = gp_rk4.gp_rk4_fwd(A, Z, x0, dts, s.sf, s.ell)
+    ys_p = gp_rk4.gp_rk4_fwd_plain(A, Z, x0, dts, s.sf, s.ell)
+    g = torch.randn(ys_k.shape, generator=gen, device=gp["dev"])
+    Abar_k, lbar_k = gp_rk4.gp_rk4_bwd(A, Z, ys_k, g, dts, s.sf, s.ell)
+    Abar_p, lbar_p = gp_rk4.gp_rk4_bwd_plain(A, Z, ys_p, g, dts, s.sf, s.ell)
+    Ar = A.clone().requires_grad_(True)
+    (Abar_ag,) = torch.autograd.grad(
+        (gp_rk4.gp_rk4_fwd_plain(Ar, Z, x0, dts, s.sf, s.ell) * g).sum(),
+        [Ar])
+    torch.cuda.synchronize()
+    assert _build.launch_counts["gp_rk4_fwd"] == before["gp_rk4_fwd"] + 1
+    assert _build.launch_counts["gp_rk4_bwd"] == before["gp_rk4_bwd"] + 1
+    assert ys_k.shape == (12, C_RK4, 5, 2)
+    assert float((ys_k - ys_p).abs().max()) <= 1e-5 * float(
+        ys_p.abs().max())
+    assert _max_rel(Abar_k, Abar_p) <= 1e-5
+    assert _max_rel(lbar_k, lbar_p) <= 1e-5
+    assert _max_rel(Abar_k, Abar_ag) <= 1e-5
+
+
+def test_mlp_rk4_kernels_match_plain(gp):
+    dev = gp["dev"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sizes = [2, H_RK4, H_RK4, 2]
+    w = []
+    for a, b in zip(sizes[:-1], sizes[1:]):
+        w += [torch.rand((C_RK4, a, b), generator=gen, device=dev) - 0.5,
+              0.1 * torch.randn((C_RK4, b), generator=gen, device=dev)]
+    w = tuple(w)
+    x0, dts = gp["x0"].contiguous(), torch.diff(gp["ts"]).contiguous()
+    before = dict(_build.launch_counts)
+    ys_k = mlp_rk4.mlp_rk4_fwd(w, x0, dts)
+    ys_p = mlp_rk4.mlp_rk4_fwd_plain(w, x0, dts)
+    g = torch.randn(ys_k.shape, generator=gen, device=dev)
+    wbar_k, lbar_k = mlp_rk4.mlp_rk4_bwd(w, ys_k, g, dts)
+    wbar_p, lbar_p = mlp_rk4.mlp_rk4_bwd_plain(w, ys_p, g, dts)
+    wr = [x.clone().requires_grad_(True) for x in w]
+    wbar_ag = torch.autograd.grad(
+        (mlp_rk4.mlp_rk4_fwd_plain(wr, x0, dts) * g).sum(), wr)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["mlp_rk4_fwd"] == before["mlp_rk4_fwd"] + 1
+    assert _build.launch_counts["mlp_rk4_bwd"] == before["mlp_rk4_bwd"] + 1
+    assert float((ys_k - ys_p).abs().max()) <= 1e-5 * float(
+        ys_p.abs().max())
+    for k, p, ag in zip(wbar_k, wbar_p, wbar_ag):
+        assert _max_rel(k, p) <= 1e-5
+        assert _max_rel(k, ag) <= 1e-5
+    assert _max_rel(lbar_k, lbar_p) <= 1e-5
+
+
+def test_mlp_rk4_wider_than_a_warp_raises(gp):
+    dev = gp["dev"]
+    H = 33
+    w = (torch.zeros(8, 2, H, device=dev), torch.zeros(8, H, device=dev),
+         torch.zeros(8, H, H, device=dev), torch.zeros(8, H, device=dev),
+         torch.zeros(8, H, 2, device=dev), torch.zeros(8, 2, device=dev))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mlp_rk4.mlp_rk4_fwd(w, gp["x0"], torch.diff(gp["ts"]))

@@ -162,3 +162,159 @@ def test_ess_and_rhat_match_jax(m, n, phi):
 def test_langevin_noise_scale():
     assert tsamplers.langevin_noise_scale(0.02) == pytest.approx(
         float(jlangevin_noise_scale(0.02)), rel=1e-15)
+
+
+class _InjectedNoise:
+    """Replays the port's draws into the JAX kernels: a torch generator of
+    the same seed makes, step by step, the normals of `tree_random_normal`
+    (and, for MALA, the per-chain uniforms), which stand in for JAX's
+    `tree_random_normal` and `jax.random.uniform`."""
+
+    def __init__(self, monkeypatch, seed, position, uniforms=False):
+        from bayesian_ode_tpu.samplers import langevin as jlangevin
+
+        self.gen = torch.Generator().manual_seed(seed)
+        self.position = position
+        self.uniforms = uniforms
+        self.u = None
+        monkeypatch.setattr(jlangevin, "tree_random_normal",
+                            lambda key, tree: self._normals())
+        if uniforms:
+            monkeypatch.setattr(jax.random, "uniform",
+                                lambda key, shape=(), *a, **k: self.u)
+
+    def _normals(self):
+        noise = tree_random_normal(self.gen, self.position)
+        if self.uniforms:
+            C = next(iter(self.position.values())).shape[0]
+            self.u = jnp.asarray(torch.rand(C, generator=self.gen,
+                                            dtype=torch.float64).numpy())
+        return {k: jnp.asarray(v.numpy()) for k, v in noise.items()}
+
+
+def _run_both(jk, tk, pos, steps, seed=3):
+    js = jk.init(jax.tree.map(jnp.asarray, pos))
+    ts = tk.init({k: torch.tensor(v) for k, v in pos.items()})
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(steps):
+        js, jinfo = jk.step(jax.random.PRNGKey(0), js)
+        ts, tinfo = tk.step(gen, ts)
+        out.append((js, jinfo, ts, tinfo))
+    return out
+
+
+def _assert_states_match(js, ts, keys, rtol=1e-12):
+    for k in keys:
+        np.testing.assert_allclose(ts.position[k].numpy(),
+                                   np.asarray(js.position[k]), rtol=rtol,
+                                   atol=rtol)
+    np.testing.assert_allclose(ts.potential.numpy(), np.asarray(js.potential),
+                               rtol=rtol)
+
+
+def _problem(seed, C=6, d=4):
+    rng = np.random.RandomState(seed)
+    M = rng.randn(d, d)
+    P = M @ M.T + d * np.eye(d)
+    pos = {"x": rng.randn(C, d), "y": rng.randn(C)}
+    return _quadratic(P, rng.randn(d)), pos
+
+
+@pytest.mark.parametrize("precond", [False, True])
+def test_mala_batched_matches_jax_with_injected_noise(monkeypatch, precond):
+    pot, pos = _problem(4, C=16)
+    G = ({"x": np.full((1, 4), 0.7), "y": np.full((1,), 1.3)} if precond
+         else None)
+    lr = 0.08
+    _InjectedNoise(monkeypatch, 3, {k: torch.tensor(v)
+                                    for k, v in pos.items()}, uniforms=True)
+    jk = jsamplers.mala_batched(lambda p: pot(p, jnp), lr,
+                                precond=None if G is None else
+                                jax.tree.map(jnp.asarray, G))
+    tk = tsamplers.mala_batched(lambda p: pot(p, torch), lr,
+                                precond=None if G is None else
+                                {k: torch.tensor(v) for k, v in G.items()})
+    accepted = []
+    for js, jinfo, ts, tinfo in _run_both(jk, tk, pos, steps=4):
+        _assert_states_match(js, ts, pos)
+        np.testing.assert_array_equal(tinfo["accepted"].numpy(),
+                                      np.asarray(jinfo["accepted"]))
+        accepted.append(tinfo["accepted"])
+    acc = torch.stack(accepted)
+    assert 0 < int(acc.sum()) < acc.numel()     # both branches exercised
+    np.testing.assert_allclose(
+        tsamplers.acceptance_rate({"accepted": acc.T}).numpy(),
+        np.asarray(jsamplers.acceptance_rate(
+            {"accepted": jnp.asarray(acc.T.numpy())})), rtol=1e-7)
+
+
+# The JAX package's cyclical schedule is float32 (its step counter is an
+# int32 array, so r and lr round to float32); the port's is float64.  The
+# step sizes agree to float32 rounding (measured 9.8e-7 relative in the
+# positions after one step), hence 1e-5 here rather than 1e-12.
+@pytest.mark.parametrize("add_noise", [False, True])
+def test_csgld_batched_matches_jax(monkeypatch, add_noise):
+    pot, pos = _problem(5)
+    _InjectedNoise(monkeypatch, 3, {k: torch.tensor(v)
+                                    for k, v in pos.items()})
+    kw = dict(lr0=0.05, num_cycles=2, total_iters=8, beta=0.25,
+              add_noise=add_noise)
+    jk = jsamplers.csgld_batched(lambda p: pot(p, jnp), **kw)
+    tk = tsamplers.csgld_batched(lambda p: pot(p, torch), **kw)
+    phases = []
+    for js, jinfo, ts, tinfo in _run_both(jk, tk, pos, steps=8):
+        _assert_states_match(js, ts, pos, rtol=1e-5)
+        assert tinfo["sampling_phase"] == bool(jinfo["sampling_phase"])
+        assert tinfo["step_size"] == pytest.approx(float(jinfo["step_size"]),
+                                                   rel=1e-6)
+        phases.append(tinfo["sampling_phase"])
+    assert any(phases) and not all(phases)
+
+
+def test_adam_sgld_batched_matches_jax_with_injected_noise(monkeypatch):
+    pot, pos = _problem(6)
+    _InjectedNoise(monkeypatch, 3, {k: torch.tensor(v)
+                                    for k, v in pos.items()})
+    sched = (0.02, 0.55, 10.0, 1.0)
+    jk = jsamplers.adam_sgld_batched(lambda p: pot(p, jnp),
+                                     jsched.polynomial_decay(*sched),
+                                     a=1.0, lambda_=1e-8)
+    tk = tsamplers.adam_sgld_batched(lambda p: pot(p, torch),
+                                     tsched.polynomial_decay(*sched),
+                                     a=1.0, lambda_=1e-8)
+    for js, _, ts, _ in _run_both(jk, tk, pos, steps=3):
+        _assert_states_match(js, ts, pos)
+        for k in pos:
+            np.testing.assert_allclose(ts.m[k].numpy(), np.asarray(js.m[k]),
+                                       rtol=1e-12, atol=1e-14)
+            np.testing.assert_allclose(ts.v[k].numpy(), np.asarray(js.v[k]),
+                                       rtol=1e-12, atol=1e-14)
+    assert ts.step == 3
+
+
+def test_psgld_preconditioner_and_cyclical_schedule_match_jax():
+    """The cyclical schedule to float32 rounding, as above."""
+    pot, pos = _problem(7)
+    jk = jsamplers.psgld_batched(lambda p: pot(p, jnp), 0.01, alpha=0.9,
+                                 add_noise=False)
+    tk = tsamplers.psgld_batched(lambda p: pot(p, torch), 0.01, alpha=0.9,
+                                 add_noise=False)
+    js, _, ts, _ = _run_both(jk, tk, pos, steps=2)[-1]
+    for avg in (True, False):
+        jG = jsamplers.psgld_preconditioner(js, lambda_=1e-3,
+                                            chain_average=avg)
+        tG = tsamplers.psgld_preconditioner(ts, lambda_=1e-3,
+                                            chain_average=avg)
+        for k in pos:
+            assert tuple(tG[k].shape) == jG[k].shape
+            np.testing.assert_allclose(tG[k].numpy(), np.asarray(jG[k]),
+                                       rtol=1e-12)
+    for t in (0, 1, 5, 12, 13):
+        want = float(jsched.cyclical_cosine(0.1, 3, 20)(
+            jnp.asarray(t, jnp.int32)))
+        assert tsched.cyclical_cosine(0.1, 3, 20)(t) == pytest.approx(
+            want, rel=1e-6)
+        assert tsched.cycle_position(t, 3, 20) == pytest.approx(
+            float(jsched.cycle_position(jnp.asarray(t, jnp.int32), 3, 20)),
+            rel=1e-6)

@@ -1,7 +1,8 @@
-"""The port's main-path slice as a whole, against the JAX package: the fused
-GP potential of the experiment driver, the dopri5 `odeint` behind the
-dataset, the experiment driver end to end, its CLI, and what importing the
-port pulls in.
+"""The port's slices as a whole, against the JAX package: the fused GP
+potential of the experiment driver, the dopri5 `odeint` behind the
+dataset, the experiment driver end to end on the dopri5 and rk4 paths of
+the GP model and the rk4 path of the MLP model, its CLI, what importing
+the port pulls in, and which devices reach the kernels.
 
 Gates.  Potential values to 1e-4 relative and gradients to 1e-3 max-rel:
 the JAX package's gates for its own fused potential against the generic
@@ -28,10 +29,12 @@ from bayesian_ode_tpu.ode.odeint import odeint_with_stats as jodeint_stats
 from bayesian_ode_tpu.ops.gp_dopri5_grad import (
     make_fused_gp_potential_dopri5 as jmake_potential,
 )
+from bayesian_ode_tpu.utils.checkpoint import save_pytree as jsave_pytree
 from bayesian_ode_tpu_torch import odeint_with_stats as todeint_stats
 from bayesian_ode_tpu_torch.experiments import run_sampler
 from bayesian_ode_tpu_torch.models.dynamics import DYNAMICS as TDYNAMICS
 from bayesian_ode_tpu_torch.ops import fused_adaptive as fa
+from bayesian_ode_tpu_torch.ops import gp_rk4, mlp_rk4
 from bayesian_ode_tpu_torch.ops.gp_dopri5_grad import (
     make_fused_gp_potential_dopri5,
 )
@@ -105,22 +108,24 @@ def test_odeint_batched_systems_match_one_by_one():
         assert int(st["nfe"][b]) == int(sb["nfe"])
 
 
-def _jax_summary_keys(tmp_path):
+@pytest.fixture(scope="module")
+def jax_summary_keys(tmp_path_factory):
     """The summary keys of the JAX experiment driver, from a cheap run (the
     generic engine with Euler steps: the keys do not depend on either)."""
     data = jmake_dataset(jax.random.PRNGKey(2), "vdp", N=5, T=12, t_max=2.5,
                          noise=0.05, x0_scale=1.5)
     cfg = dict(SGLD_CONFIG, engine="generic", solver="euler", num_chains=2)
-    return set(jrun(cfg, data, str(tmp_path / "jax"), make_plots=False))
+    return set(jrun(cfg, data, str(tmp_path_factory.mktemp("jax")),
+                    make_plots=False))
 
 
-def test_run_sampler_end_to_end(problem, tmp_path):
+def test_run_sampler_end_to_end(problem, tmp_path, jax_summary_keys):
     p = problem
     data = {"x0": p["x0"], "t": p["t"], "Y": p["Y"], "noise": 0.05}
     cfg = dict(SGLD_CONFIG, burn_in=1, num_samples=2)
     summary = run_sampler(cfg, data, str(tmp_path / "port"),
                           make_plots=False)
-    assert set(summary) == _jax_summary_keys(tmp_path)
+    assert set(summary) == jax_summary_keys
     assert summary["num_chains"] == 128          # rounded up to 128
     assert summary["kept_samples"] == 2
     for key in ("min_potential", "median_potential", "acceptance"):
@@ -144,8 +149,9 @@ def test_run_sampler_psgld_and_unported_options(problem, tmp_path):
     cfg = dict(SGLD_CONFIG, method="pSGLD", burn_in=0, num_samples=1)
     summary = run_sampler(cfg, data, str(tmp_path), make_plots=False)
     assert np.isfinite(summary["min_potential"])
-    for bad in ({"engine": "generic"}, {"solver": "rk4"},
-                {"method": "MALA"}, {"model": "nn"}):
+    for bad in ({"engine": "generic"}, {"solver": "tsit5"},
+                {"method": "aSGHMC"}, {"model": "spiral"},
+                {"model": "nn", "solver": "dopri5"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_sampler(dict(cfg, **bad), data, str(tmp_path),
                         make_plots=False)
@@ -204,3 +210,76 @@ def test_kernel_wrappers_take_the_plain_path_only_on_the_cpu(problem):
         fa.bwd(A, Z, ts, torch.empty((128, 12, 8), device="meta"),
                torch.empty((8,), dtype=torch.int32, device="meta"),
                torch.empty((12, 8, 5, 2), device="meta"), 1.0, 0.75)
+
+
+@pytest.mark.parametrize("method", ["SGLD", "cSGLD", "MALA"])
+def test_run_sampler_gp_rk4(problem, tmp_path, method, jax_summary_keys):
+    """The GP model on the fused rk4 engine (the JAX driver's default
+    solver), for the rk4 path's methods."""
+    p = problem
+    data = {"x0": p["x0"], "t": p["t"], "Y": p["Y"], "noise": 0.05}
+    cfg = dict(SGLD_CONFIG, method=method, solver="rk4", burn_in=0,
+               num_samples=2, lr=1e-4, num_cycles=2)
+    summary = run_sampler(cfg, data, str(tmp_path), make_plots=False)
+    assert set(summary) == jax_summary_keys
+    assert summary["num_chains"] == 128 and summary["kept_samples"] == 2
+    for key in ("min_potential", "median_potential", "acceptance"):
+        assert np.isfinite(summary[key]), key
+    assert 0.0 <= summary["acceptance"] <= 1.0
+    pots = np.load(tmp_path / method / "1" / "total_loss_arr.npy")
+    assert pots.shape == (128, 2) and np.isfinite(pots).all()
+
+
+def test_run_sampler_nn_rk4_psgld(problem, tmp_path, jax_summary_keys):
+    """The MLP field under pSGLD on the fused rk4 engine (BASELINE config
+    3), with the chain.npz layout of the JAX package's save_pytree."""
+    p = problem
+    data = {"x0": p["x0"], "t": p["t"], "Y": p["Y"], "noise": 0.05}
+    cfg = dict(SGLD_CONFIG, method="pSGLD", solver="rk4", model="nn",
+               hidden=8, lr0=1e-4, burn_in=1, num_samples=4)
+    summary = run_sampler(cfg, data, str(tmp_path / "port"),
+                          make_plots=False)
+    assert set(summary) == jax_summary_keys
+    assert summary["num_chains"] == 128 and summary["kept_samples"] == 4
+    assert np.isfinite(summary["min_potential"])
+    assert np.isfinite(summary["ess_logsn"]).all()
+    out = tmp_path / "port" / "pSGLD" / "1"
+    assert np.isfinite(np.load(out / "total_loss_arr.npy")).all()
+    chain = dict(np.load(out / "chain.npz"))
+    # what the JAX package's save_pytree writes for the same positions
+    like = [{"w": np.zeros((128, 4, a, b), np.float32),
+             "b": np.zeros((128, 4, b), np.float32)}
+            for a, b in ((2, 8), (8, 8), (8, 2))]
+    jsave_pytree(str(tmp_path / "jax.npz"), like)
+    want = dict(np.load(tmp_path / "jax.npz"))
+    assert str(chain["__treedef__"]) == str(want["__treedef__"])
+    leaves = sorted(k for k in want if k.startswith("leaf_"))
+    assert sorted(k for k in chain if k.startswith("leaf_")) == leaves
+    for k in leaves:
+        assert chain[k].shape == want[k].shape, k
+        assert np.isfinite(chain[k]).all(), k
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("call", [
+    lambda: gp_rk4.gp_rk4_fwd(_meta(8, 36, 2), _meta(36, 2), _meta(5, 2),
+                              _meta(11), 1.0, 0.75),
+    lambda: gp_rk4.gp_rk4_bwd(_meta(8, 36, 2), _meta(36, 2),
+                              _meta(12, 8, 5, 2), _meta(12, 8, 5, 2),
+                              _meta(11), 1.0, 0.75),
+    lambda: mlp_rk4.mlp_rk4_fwd(
+        (_meta(8, 2, 4), _meta(8, 4), _meta(8, 4, 4), _meta(8, 4),
+         _meta(8, 4, 2), _meta(8, 2)), _meta(5, 2), _meta(11)),
+    lambda: mlp_rk4.mlp_rk4_bwd(
+        (_meta(8, 2, 4), _meta(8, 4), _meta(8, 4, 4), _meta(8, 4),
+         _meta(8, 4, 2), _meta(8, 2)), _meta(12, 8, 5, 2),
+        _meta(12, 8, 5, 2), _meta(11)),
+], ids=["K4", "K5", "K6", "K7"])
+def test_rk4_kernel_wrappers_take_the_plain_path_only_on_the_cpu(call):
+    """A tensor on any device but the CPU reaches a kernel or an error,
+    never the plain version (the meta device stands in for one here)."""
+    with pytest.raises(ValueError, match="unsupported device"):
+        call()
