@@ -1,0 +1,351 @@
+// The fused adaptive kernels, as templates over a field and a tableau.
+//
+// Replaces the two kernel bodies of bayesian_ode_tpu/ops/fused_adaptive.py
+// that the public engine ops/fused_field.py instantiates over every field:
+//   dopri5_fwd_kernel<F, TB, true>:  make_fwd_rec_kernel (K2), the whole
+//       adaptive solve, recording each chain's accepted steps for the
+//       adjoint;
+//   dopri5_fwd_kernel<F, TB, false>: the same solve with no records, which
+//       for the GP field replaces ops/gp_dopri5.py::_make_whole_kernel (K1).
+//       One template is what keeps K1 and K2 trajectories bit-equal;
+//   dopri5_bwd_kernel<F, TB>:        make_bwd_kernel (K3), the frozen-mesh
+//       discrete adjoint over the records.
+// TB is Dopri5 or Tsit5 (dopri5_common.cuh).
+//
+// A field F (gp_field.cuh, mlp_field.cuh, spiral_field.cuh, fhn_field.cuh)
+// provides
+//   kNS, kThreads, kChains        state floats per chain, threads and
+//                                 chains per block;
+//   kStageShared                  keep the backward's per-step arrays in
+//                                 shared memory, one copy per chain (for
+//                                 warp-per-chain fields, whose lanes all
+//                                 hold the same state);
+//   Args, Grads                   weights (and scalars) by value, and the
+//                                 weight-cotangent outputs;
+//   Smem, AccSmem, Acc            the block's shared memory for the
+//                                 weights and for the cotangents, and a
+//                                 thread's cotangent accumulator;
+//   chain(), leader()             this thread's chain, and whether it
+//                                 writes the chain's outputs (once per
+//                                 chain);
+//   load(args, smem, C, c)        called by every thread of the block
+//                                 (it may __syncthreads);
+//   acc_init(accsmem), acc_store(acc, grads, c)   likewise for acc_init;
+//   rhs(y, f), rhs_vjp(y, cot, ybar, acc).
+//
+// What bounds the kernels on an H100: the serial per-chain chain of field
+// evaluations, not bytes.  Chains are independent with data-dependent step
+// counts, so a chain runs its own while loop (a warp only waits for its
+// slowest chain; a warp-per-chain field's lanes take every decision
+// together, since warp sums leave the same bits on every lane).  Device
+// memory sees only the dense output (T x 2N floats per chain), one record
+// row per accepted step, and the weights, read once per chain.
+//
+// Records: the TPU recorded every lockstep iteration of a 128-lane tile,
+// because a per-lane scatter is not a TPU vector op.  Here each chain
+// records only its own accepted steps: y0 (2N floats), t0 and dt, laid out
+// (store_steps, 2N + 2, C) so that neighbouring chains' stores coalesce.
+// Rejected steps pass the adjoint through unchanged, so this is the same
+// frozen-mesh adjoint.  A chain that accepts more than store_steps steps
+// stops recording; the wrapper sees n_accepted > store_steps and raises.
+#pragma once
+
+#include "dopri5_common.cuh"
+
+namespace bode {
+
+// Step controller and record budget of one launch.
+struct SolveArgs {
+  float rtol, atol, safety, ifactor, dfactor;
+  int max_steps, pi, store_steps;
+};
+
+struct FwdOut {
+  float* ys;       // (T, C, 2N)
+  int* nfe;        // (C,)
+  int* nacc;
+  int* nrej;
+  float* t1;
+  float* rec;      // (store_steps, 2N + 2, C), or null
+};
+
+template <class F, class TB, bool RECORD>
+__global__ void __launch_bounds__(F::kThreads)
+dopri5_fwd_kernel(typename F::Args w, const float* __restrict__ x0,
+                  const float* __restrict__ f0, const float* __restrict__ dt0,
+                  const float* __restrict__ ts, int C, int T, SolveArgs s,
+                  FwdOut o) {
+  constexpr int NS = F::kNS;
+  constexpr int kRec = NS + 2;      // record row: y0[NS], t0, dt
+  __shared__ typename F::Smem sm;
+  const int c = F::chain();
+  const F fld = F::load(w, sm, C, c);
+  if (c >= C) return;    // a warp-per-chain field's warp leaves whole
+  const bool lead = F::leader();
+
+  float y[NS], k[7][NS], y1[NS], ym[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    y[i] = x0[i];
+    k[0][i] = f0[static_cast<size_t>(c) * NS + i];
+    if (lead) o.ys[static_cast<size_t>(c) * NS + i] = y[i];   // row 0 is x0
+  }
+  const float tf = ts[T - 1];
+  float t1 = ts[0];
+  float dt = dt0[c];
+  float ep = 1.0f;
+  int nfe = 2, nacc = 0, nrej = 0, idx = 1;
+
+  while (t1 < tf && nacc + nrej < s.max_steps) {
+    rk_stages<NS, TB>(fld, y, k, dt, y1);
+    const Decision d = step_decision<NS, TB>(
+        k, y, y1, dt, s.rtol, s.atol, s.safety, s.ifactor, s.dfactor,
+        s.pi != 0, ep);
+    nfe += 6;
+    if (d.accept) {
+      if (RECORD && lead && nacc < s.store_steps) {
+        float* row = o.rec + static_cast<size_t>(nacc) * kRec * C + c;
+#pragma unroll
+        for (int i = 0; i < NS; ++i) row[static_cast<size_t>(i) * C] = y[i];
+        row[static_cast<size_t>(NS) * C] = t1;
+        row[static_cast<size_t>(NS + 1) * C] = dt;
+      }
+      // in-loop dense output: every output time this step crossed
+      const float tn = t1 + dt;
+      if (idx < T && ts[idx] <= tn) {
+        midpoint<NS, TB>(y, k, dt, ym);
+        for (; idx < T && ts[idx] <= tn; ++idx) {
+          if (!lead) continue;
+          float* out = o.ys + (static_cast<size_t>(idx) * C + c) * NS;
+          if (!(ts[idx] > t1)) {
+            // a repeated output time is never emitted; it reads 0, as the
+            // zero-initialised output of the TPU kernel
+#pragma unroll
+            for (int i = 0; i < NS; ++i) out[i] = 0.f;
+            continue;
+          }
+          const float X = (ts[idx] - t1) / dt;
+#pragma unroll
+          for (int i = 0; i < NS; ++i)
+            out[i] = quartic_eval(y[i], y1[i], ym[i], k[0][i], k[6][i], dt, X);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        y[i] = y1[i];
+        k[0][i] = k[6][i];
+      }
+      t1 = tn;
+      ++nacc;
+    } else {
+      ++nrej;
+    }
+    dt = d.dt_next;
+    if (s.pi) ep = d.err_next;
+  }
+  if (!lead) return;
+  // output times never crossed (only on budget exhaustion) hold the
+  // chain's final state
+  for (; idx < T; ++idx) {
+    float* out = o.ys + (static_cast<size_t>(idx) * C + c) * NS;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) out[i] = y[i];
+  }
+  o.nfe[c] = nfe;
+  o.nacc[c] = nacc;
+  o.nrej[c] = nrej;
+  o.t1[c] = t1;
+}
+
+// The backward's per-step arrays: registers for a chain-per-thread field,
+// one shared copy per chain for a warp-per-chain field (every lane writes
+// the same values, so no lane reads another's unfinished write).
+template <int NS>
+struct StageBuf {
+  float y0[NS];
+  float k[7][NS];        // stage derivatives
+  float u[6][NS];        // stage points
+  float kb[7][NS];       // their cotangents
+  float y0b[NS], y1b[NS], f0b[NS], f1b[NS], cot[NS], ub[NS];
+};
+
+// Chain c's reverse sweep over its records: on return l is the x0
+// cotangent of its trajectory rows 1..T-1; the weight cotangents are in acc.
+template <class F, class TB>
+__device__ __forceinline__ void bwd_sweep(
+    const F& fld, typename F::Acc& acc, StageBuf<F::kNS>& b,
+    const float* __restrict__ ts, const float* __restrict__ rec, int n,
+    const float* __restrict__ g, int C, int T, int c, float* l) {
+  constexpr int NS = F::kNS;
+  constexpr int kRec = NS + 2;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) l[i] = 0.f;
+  int p = T - 1;
+
+  for (int s = n - 1; s >= 0; --s) {
+    const float* row = rec + static_cast<size_t>(s) * kRec * C + c;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) b.y0[i] = row[static_cast<size_t>(i) * C];
+    const float t0 = row[static_cast<size_t>(NS) * C];
+    const float dt = row[static_cast<size_t>(NS + 1) * C];
+    const float dts = dt > 0.f ? dt : 1.0f;
+
+    // 1. recompute the stages, keeping the stage points u[0..5]
+    fld.rhs(b.y0, b.k[0]);
+#pragma unroll
+    for (int r = 0; r < 6; ++r) {
+      stage_point<NS, TB>(r, b.y0, b.k, dts, b.u[r]);
+      fld.rhs(b.u[r], b.k[r + 1]);
+    }
+
+    // 2. cotangents of the emitted output times -> quartic coefficients
+    float ca[NS], cb[NS], cc[NS], cd[NS], ce[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) ca[i] = cb[i] = cc[i] = cd[i] = ce[i] = 0.f;
+    const float tn = t0 + dt;
+    while (p >= 1 && ts[p] > tn) --p;      // never reached: no cotangent
+    for (; p >= 1 && ts[p] > t0; --p) {
+      const float X1 = (ts[p] - t0) / dts;
+      const float X2 = X1 * X1;
+      const float X3 = X2 * X1;
+      const float X4 = X2 * X2;
+      const float* gp = g + (static_cast<size_t>(p) * C + c) * NS;
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const float wg = gp[i];
+        ca[i] += wg * X4;
+        cb[i] += wg * X3;
+        cc[i] += wg * X2;
+        cd[i] += wg * X1;
+        ce[i] += wg;
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const float a = ca[i], bq = cb[i], cq = cc[i], d = cd[i], e = ce[i];
+      b.y0b[i] = -8.0f * a + 18.0f * bq - 11.0f * cq + e;
+      b.y1b[i] = -8.0f * a + 14.0f * bq - 5.0f * cq;
+      const float ymb = 16.0f * a - 32.0f * bq + 16.0f * cq;
+      b.f0b[i] = dts * (-2.0f * a + 5.0f * bq - 4.0f * cq + d);
+      b.f1b[i] = dts * (2.0f * a - 3.0f * bq + cq);
+      // 3. y_mid = y0 + dt * (c_mid . k)
+#pragma unroll
+      for (int j = 0; j < 7; ++j) {
+        const float cm = static_cast<float>(TB::c_mid(j));
+        b.kb[j][i] = cm != 0.f ? (dts * cm) * ymb : 0.f;
+      }
+      b.y0b[i] += ymb;
+    }
+
+    // 4. transposed stage recurrence
+    // k7 = f(y1): its cotangent is the carried-in f1 share + the c_mid share
+#pragma unroll
+    for (int i = 0; i < NS; ++i) b.cot[i] = b.kb[6][i] + b.f1b[i];
+    fld.rhs_vjp(b.u[5], b.cot, b.ub, acc);
+    // y1 = y0 + dt * (beta[5] . k)
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const float y1t = l[i] + b.y1b[i] + b.ub[i];
+      b.y0b[i] += y1t;
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        const float bb = static_cast<float>(TB::beta(5, j));
+        if (bb != 0.f) b.kb[j][i] += (dts * bb) * y1t;
+      }
+    }
+    // stages 6..2: k[r + 1] = f(u[r]), u[r] = y0 + dt * (beta[r] . k)
+#pragma unroll
+    for (int r = 4; r >= 0; --r) {
+      fld.rhs_vjp(b.u[r], b.kb[r + 1], b.ub, acc);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        b.y0b[i] += b.ub[i];
+#pragma unroll
+        for (int j = 0; j <= 4; ++j) {
+          if (j > r) break;
+          const float bb = static_cast<float>(TB::beta(r, j));
+          if (bb != 0.f) b.kb[j][i] += (dts * bb) * b.ub[i];
+        }
+      }
+    }
+    // k1 = f(y0): the FSAL slope is recomputed, so f0's share lands here
+#pragma unroll
+    for (int i = 0; i < NS; ++i) b.cot[i] = b.kb[0][i] + b.f0b[i];
+    fld.rhs_vjp(b.y0, b.cot, b.ub, acc);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) l[i] = b.y0b[i] + b.ub[i];
+  }
+}
+
+template <class F, class TB>
+__global__ void __launch_bounds__(F::kThreads)
+dopri5_bwd_kernel(typename F::Args w, typename F::Grads gw,
+                  const float* __restrict__ ts, const float* __restrict__ rec,
+                  const int* __restrict__ nrec, const float* __restrict__ g,
+                  int C, int T, float* __restrict__ lbar) {
+  constexpr int NS = F::kNS;
+  __shared__ typename F::Smem sm;
+  __shared__ typename F::AccSmem asm_;
+  const int c = F::chain();
+  const F fld = F::load(w, sm, C, c);
+  typename F::Acc acc = F::acc_init(asm_);
+  if (c >= C) return;
+
+  float l[NS];
+  if constexpr (F::kStageShared) {
+    __shared__ StageBuf<NS> sbuf[F::kChains];
+    bwd_sweep<F, TB>(fld, acc, sbuf[c - blockIdx.x * F::kChains], ts, rec,
+                     nrec[c], g, C, T, c, l);
+  } else {
+    StageBuf<NS> rbuf;
+    bwd_sweep<F, TB>(fld, acc, rbuf, ts, rec, nrec[c], g, C, T, c, l);
+  }
+  if (F::leader()) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) lbar[static_cast<size_t>(c) * NS + i] = l[i];
+  }
+  F::acc_store(acc, gw, c);
+}
+
+// Host launchers: tableau 0 is DOPRI5, 1 is TSIT5.  Return
+// cudaGetLastError().
+template <class F>
+int launch_fwd(int record, int tableau, const typename F::Args& w,
+               const float* x0, const float* f0, const float* dt0,
+               const float* ts, int C, int T, const SolveArgs& s,
+               const FwdOut& o, cudaStream_t stream) {
+  const dim3 grid((C + F::kChains - 1) / F::kChains);
+  const dim3 block(F::kThreads);
+  if (tableau == 0 && record)
+    dopri5_fwd_kernel<F, Dopri5, true><<<grid, block, 0, stream>>>(
+        w, x0, f0, dt0, ts, C, T, s, o);
+  else if (tableau == 0)
+    dopri5_fwd_kernel<F, Dopri5, false><<<grid, block, 0, stream>>>(
+        w, x0, f0, dt0, ts, C, T, s, o);
+  else if (record)
+    dopri5_fwd_kernel<F, Tsit5, true><<<grid, block, 0, stream>>>(
+        w, x0, f0, dt0, ts, C, T, s, o);
+  else
+    dopri5_fwd_kernel<F, Tsit5, false><<<grid, block, 0, stream>>>(
+        w, x0, f0, dt0, ts, C, T, s, o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class F>
+int launch_bwd(int tableau, const typename F::Args& w,
+               const typename F::Grads& gw, const float* ts,
+               const float* rec, const int* nrec, const float* g, int C,
+               int T, float* lbar, cudaStream_t stream) {
+  const dim3 grid((C + F::kChains - 1) / F::kChains);
+  const dim3 block(F::kThreads);
+  if (tableau == 0)
+    dopri5_bwd_kernel<F, Dopri5><<<grid, block, 0, stream>>>(
+        w, gw, ts, rec, nrec, g, C, T, lbar);
+  else
+    dopri5_bwd_kernel<F, Tsit5><<<grid, block, 0, stream>>>(
+        w, gw, ts, rec, nrec, g, C, T, lbar);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bode

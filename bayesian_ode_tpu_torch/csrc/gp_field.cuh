@@ -1,5 +1,6 @@
-// The GP kernel-regression field as a functor, shared by the fused dopri5
-// kernels (dopri5_common.cuh) and the fused rk4 kernels (gp_rk4.cu):
+// The GP kernel-regression field as a functor, shared by the fused adaptive
+// kernels (GPDopri5 below, dopri5_kernels.cuh) and the fused rk4 kernels
+// (gp_rk4.cu):
 //
 //   f(x_n) = sum_m sf^2 exp(-|x_n - z_m|^2 / (2 ell^2)) A_m
 //
@@ -100,5 +101,61 @@ __device__ __forceinline__ void stage_weights(const float* __restrict__ A,
   }
   for (int idx = threadIdx.x; idx < 2 * kM; idx += kBlock) sZ[idx] = Z[idx];
 }
+
+// The GP field as the fused adaptive kernels take it (dopri5_kernels.cuh):
+// weights A (C, M, 2) per chain and the grid Z (M, 2) shared by all
+// chains; only A gets a cotangent.  One chain per thread; A and Z staged in
+// shared memory, Abar accumulated per chain in shared memory and written
+// once, with no atomics.
+struct GPDopri5 {
+  static constexpr int kNS = 2 * GP_N;
+  static constexpr int kThreads = kBlock;
+  static constexpr int kChains = kBlock;
+  static constexpr bool kStageShared = false;
+  struct Args {
+    const float* A;
+    const float* Z;
+    float sf2, inv2ell2, invell2;
+  };
+  struct Grads {
+    float* A;
+  };
+  struct Smem {
+    float sA[2 * kM * kBlock];
+    float sZ[2 * kM];
+  };
+  struct AccSmem {
+    float sAbar[2 * kM * kBlock];
+  };
+  using Acc = float*;               // the block's sAbar
+
+  GPField f;
+
+  static __device__ int chain() { return blockIdx.x * kBlock + threadIdx.x; }
+  static __device__ bool leader() { return true; }
+
+  static __device__ GPDopri5 load(const Args& a, Smem& sm, int C, int) {
+    stage_weights(a.A, a.Z, C, sm.sA, sm.sZ);
+    __syncthreads();
+    return GPDopri5{GPField{sm.sA, sm.sZ, static_cast<int>(threadIdx.x),
+                            a.sf2, a.inv2ell2, a.invell2}};
+  }
+  static __device__ Acc acc_init(AccSmem& s) {
+    for (int idx = threadIdx.x; idx < 2 * kM * kBlock; idx += kBlock)
+      s.sAbar[idx] = 0.f;
+    __syncthreads();
+    return s.sAbar;
+  }
+  static __device__ void acc_store(const Acc& acc, const Grads& g, int c) {
+    for (int j = 0; j < 2 * kM; ++j)
+      g.A[static_cast<size_t>(c) * 2 * kM + j] = acc[j * kBlock + threadIdx.x];
+  }
+
+  __device__ void rhs(const float* y, float* out) const { f.rhs(y, out); }
+  __device__ void rhs_vjp(const float* y, const float* cot, float* ybar,
+                          Acc& acc) const {
+    f.rhs_vjp(y, cot, ybar, acc);
+  }
+};
 
 }  // namespace bode

@@ -1,0 +1,47 @@
+// Whole adaptive solve of the MLP field 2 -> H -> H -> 2, one warp per
+// chain: the forward kernels of dopri5_kernels.cuh over MLPDopri5
+// (mlp_field.cuh).
+//
+// Replaces bayesian_ode_tpu/ops/fused_adaptive.py::make_fwd_rec_kernel (K2)
+// as bayesian_ode_tpu/ops/mlp_dopri5.py registers the MLP field on the
+// public engine (record = 1), and the same solve without records (the
+// engine's stats path, record = 0).
+//
+// What bounds it on an H100: FP32 FMAs and shuffles.  A field evaluation
+// at one point is H FMAs and H shuffles per lane for the H x H layer, 2H
+// expf over the warp and two 5-step butterfly sums; a step is 6 x N such
+// points.  The weights are read once per chain into registers (40 per lane
+// at H=32); the while loop is warp-uniform, so the lanes never diverge on
+// a step decision, and lane 0 alone writes the dense output and records.
+#include "dopri5_kernels.cuh"
+#include "mlp_field.cuh"
+
+extern "C" {
+
+// Dimensions this library was built for.
+int mlp_dopri5_dims(int* n_points, int* hidden) {
+  *n_points = bode::kMN;
+  *hidden = bode::kH;
+  return 0;
+}
+
+// The layer list w1 (C, 2, H), b1 (C, H), w2 (C, H, H), b2 (C, H),
+// w3 (C, H, 2), b3 (C, 2); the rest as gp_dopri5_fwd.  Returns
+// cudaGetLastError().
+int mlp_dopri5_fwd(int record, int tableau, const float* w1, const float* b1,
+                   const float* w2, const float* b2, const float* w3,
+                   const float* b3, const float* x0, const float* f0,
+                   const float* dt0, const float* ts, int C, int T,
+                   float rtol, float atol, float safety, float ifactor,
+                   float dfactor, int max_steps, int pi, int store_steps,
+                   float* ys, int* nfe, int* nacc, int* nrej, float* t1,
+                   float* rec, cudaStream_t stream) {
+  const bode::MLPDopri5::Args w{w1, b1, w2, b2, w3, b3};
+  const bode::SolveArgs s{rtol, atol, safety, ifactor, dfactor, max_steps,
+                          pi, record ? store_steps : 0};
+  const bode::FwdOut o{ys, nfe, nacc, nrej, t1, record ? rec : nullptr};
+  return bode::launch_fwd<bode::MLPDopri5>(record, tableau, w, x0, f0, dt0,
+                                           ts, C, T, s, o, stream);
+}
+
+}  // extern "C"

@@ -1,5 +1,6 @@
 // The MLP field 2 -> H -> H -> 2 with ELU activations, as a functor for
-// the rk4 templates of rk4_common.cuh:
+// the rk4 templates of rk4_common.cuh and (MLPDopri5 below) the fused
+// adaptive kernels of dopri5_kernels.cuh:
 //
 //   f(x) = W3^T elu(W2^T elu(W1^T x + b1) + b2) + b3
 //
@@ -27,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "warp.cuh"
+
 #ifndef MLP_N
 #error "MLP_N (trajectory points per chain) must be defined at build time"
 #endif
@@ -42,7 +45,6 @@ constexpr int kMN = MLP_N;
 constexpr int kMNS = 2 * MLP_N;            // state components per chain
 constexpr int kH = MLP_H;
 constexpr int kRed = 33;                   // padded row of the VJP scratch
-constexpr unsigned kFull = 0xffffffffu;
 static_assert(kH >= 1 && kH <= 32, "one hidden unit per lane: H <= 32");
 
 __device__ __forceinline__ float elu(float a) {
@@ -50,15 +52,6 @@ __device__ __forceinline__ float elu(float a) {
 }
 __device__ __forceinline__ float elu_deriv(float a) {
   return a > 0.f ? 1.0f : expf(a);
-}
-
-// Sum over the warp, the same value on every lane (xor butterfly: each
-// pairwise sum is formed once per pair, in both lanes, so the lanes agree
-// bit for bit).
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
 }
 
 // This lane's share of one chain's weights (or of their cotangents).
@@ -184,6 +177,63 @@ struct MLPField {
       ybar[2 * n] = warp_sum(w.w1x * a1b);
       ybar[2 * n + 1] = warp_sum(w.w1y * a1b);
     }
+  }
+};
+
+// The MLP field as the fused adaptive kernels take it (dopri5_kernels.cuh):
+// one warp per chain, the weights in the layer-list layout of mlp_load.
+// Every lane carries the chain's state and takes the same step decisions
+// (warp_sum leaves the same bits on every lane); lane 0 writes the chain's
+// outputs.  The backward keeps its per-step arrays (13 x 2N stage floats
+// and their cotangents) once per warp in shared memory, since a lane
+// already holds 40 weights and 40 weight cotangents in registers.
+struct MLPDopri5 {
+  static constexpr int kNS = kMNS;
+  static constexpr int kThreads = kMLPBlock;
+  static constexpr int kChains = kWarpsPerBlock;
+  static constexpr bool kStageShared = true;
+  struct Args {
+    const float *w1, *b1, *w2, *b2, *w3, *b3;
+  };
+  struct Grads {
+    float *w1, *b1, *w2, *b2, *w3, *b3;
+  };
+  struct Smem {
+    float red[kWarpsPerBlock][32 * kRed];   // the VJP's per-warp scratch
+  };
+  struct AccSmem {};
+  using Acc = MLPUnit;
+
+  MLPField f;
+
+  static __device__ int chain() {
+    return blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  }
+  static __device__ bool leader() { return (threadIdx.x & 31) == 0; }
+
+  static __device__ MLPDopri5 load(const Args& a, Smem& sm, int C, int c) {
+    MLPDopri5 m;
+    m.f.lane = threadIdx.x & 31;
+    m.f.red = sm.red[threadIdx.x >> 5];
+    if (c < C)
+      mlp_load(m.f.w, c, m.f.lane, a.w1, a.b1, a.w2, a.b2, a.w3, a.b3);
+    else
+      mlp_zero(m.f.w);
+    return m;
+  }
+  static __device__ Acc acc_init(AccSmem&) {
+    MLPUnit u;
+    mlp_zero(u);
+    return u;
+  }
+  static __device__ void acc_store(const Acc& acc, const Grads& g, int c) {
+    mlp_store(acc, c, threadIdx.x & 31, g.w1, g.b1, g.w2, g.b2, g.w3, g.b3);
+  }
+
+  __device__ void rhs(const float* y, float* out) const { f.rhs(y, out); }
+  __device__ void rhs_vjp(const float* y, const float* cot, float* ybar,
+                          Acc& acc) const {
+    f.rhs_vjp(y, cot, ybar, acc);
   }
 };
 

@@ -5,8 +5,8 @@
 
 A JSON config selected by integer id, as the JAX package's CLI; the
 config's "data" block {ode, N, T, t_max, noise, x0_scale, seed} regenerates
-the dataset with the port's own generator.  The device defaults to the
-first CUDA card when there is one.
+the dataset with the port's own generator.  The run goes to the first CUDA
+card; with no card it stops with an error unless `--device cpu` is given.
 """
 from __future__ import annotations
 
@@ -24,11 +24,14 @@ def main(argv=None):
     ap.add_argument("--json-dir", required=True)
     ap.add_argument("--id", required=True, type=int)
     ap.add_argument("--no-plots", action="store_true")
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda if available, else "
-                         "cpu)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default: cuda; the CPU runs the "
+                         "kernels' plain versions only when asked)")
     args = ap.parse_args(argv)
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        ap.error("no CUDA device: the port runs on the card; pass "
+                 "--device cpu to run the plain versions on the CPU")
 
     blob = load_config(args.json_dir, args.id)
     dspec = blob.get("data", {})

@@ -7,12 +7,18 @@ port runs so far: engine="fused" with
     adjoint (kernels K2/K3, with a K1 store_steps probe);
   - model="gp", solver="rk4": the fixed-grid solve and its reverse sweep
     (kernels K4/K5);
-  - model="nn", solver="rk4": the MLP field, H = config["hidden"]
-    (default 32), the same engine (kernels K6/K7);
+  - model="nn" (the MLP field, H = config["hidden"], default 32) with
+    solver="rk4" (kernels K6/K7) or "dopri5" (the MLP instance of K2/K3,
+    store_steps 256 by default);
+  - model="spiral" (the y^3-net field, H = config["hidden"], default 50)
+    and model="fhn" (FitzHugh-Nagumo theta inference), solver="dopri5"
+    only, as in the JAX driver (their K2/K3 instances, store_steps 128 by
+    default);
 
 under the methods SGLD, pSGLD, cSGLD, MALA and AdamSGLD.  Every chain
 advances in one batch per sampler step: one fused forward and one fused
-backward over all chains.  The artifact layout follows the JAX driver:
+backward over all chains.  The entry points run on the card unless the
+caller passes device="cpu".  The artifact layout follows the JAX driver:
 {output}/{method}/{id}{dir_name}/ with config.json, run.jsonl (summary),
 chain.npz and total_loss_arr.npy.  Every other model, solver, method or
 engine raises NotImplementedError naming the ROADMAP item that ports it.
@@ -27,12 +33,15 @@ import numpy as np
 import torch
 
 from .. import samplers
+from ..models import fhn_inference, mlp, spiral
 from ..models import kernel_regression as kr
-from ..models import mlp
+from ..ops.fhn_dopri5 import make_fused_fhn_potential_dopri5
 from ..ops.gp_dopri5 import gp_dopri5_solve_whole
 from ..ops.gp_dopri5_grad import make_fused_gp_potential_dopri5
 from ..ops.gp_rk4 import make_fused_gp_potential
+from ..ops.mlp_dopri5 import make_fused_mlp_potential_dopri5
 from ..ops.mlp_rk4 import make_fused_mlp_potential
+from ..ops.spiral_dopri5 import make_fused_spiral_potential_dopri5
 from ..samplers import schedules
 from ..utils.checkpoint import save_pytree
 from ..utils.logging import RunLogger
@@ -57,20 +66,25 @@ def build_model(config: Dict, data: Dict):
     the CPU.  Returns (static, params0): for model="gp" the inducing grid's
     kernel quantities and the gradient-matched {'U', 'logsn'}; for
     model="nn" (the MLP mean-function baseline) None and the uniform
-    (-0.5, 0.5) layer list of sizes [2, H, H, 2] from a generator seeded
-    with config["seed"].
+    (-0.5, 0.5) layer list of sizes [2, H, H, 2]; for model="spiral" None
+    and the N(0, 0.1) y^3-net weights of H hidden units; for model="fhn"
+    None and theta at the classic truth.  Random draws come from a
+    generator seeded with config["seed"].
 
     The generic (odeint-adjoint) potential the JAX driver also builds is
     ROADMAP queue 1 item 11; the fused path never calls it."""
     model = config.get("model", "gp")
+    gen = torch.Generator().manual_seed(config.get("seed", 0))
     if model == "nn":
         H = config.get("hidden", 32)
-        gen = torch.Generator().manual_seed(config.get("seed", 0))
         return None, mlp.init_mlp(gen, [2, H, H, 2])
+    if model == "spiral":
+        return None, spiral.init_params(gen, hidden=config.get("hidden", 50))
+    if model == "fhn":
+        return None, fhn_inference.init_theta()
     if model != "gp":
-        raise NotImplementedError(
-            f"model {model!r}: the port has the 'gp' and 'nn' models "
-            "(ROADMAP queue 1 item 9 ports 'spiral' and 'fhn')")
+        raise ValueError(f"unknown model {model!r}; expected 'gp', 'nn', "
+                         "'spiral' or 'fhn'")
     Y, t = _as64(data["Y"]), _as64(data["t"])
     Z = kr.make_inducing_grid(Y, M=config["M"])
     static = kr.make_static(Z, sf=config["sf"], ell=config["ell"])
@@ -86,6 +100,10 @@ def _poly_sched(config):
 
 
 METHODS = ("SGLD", "pSGLD", "cSGLD", "MALA", "AdamSGLD")
+MODELS = ("gp", "nn", "spiral", "fhn")
+# the fused engine's record budget per model at dopri5: the JAX driver's
+# defaults (its MLP steps grow as chains move toward data-fitting fields)
+STORE_STEPS = {"gp": 128, "nn": 256, "spiral": 128, "fhn": 128}
 
 
 def _check_supported(config: Dict, make_plots: bool) -> None:
@@ -101,18 +119,18 @@ def _check_supported(config: Dict, make_plots: bool) -> None:
     solver = config.get("solver", "rk4")
     if solver not in ("dopri5", "rk4"):
         raise NotImplementedError(
-            f"solver {solver!r}: the fused engine of the port has dopri5 "
-            "and rk4 (ROADMAP queue 1 item 9 ports tsit5)")
+            f"solver {solver!r}: the fused engine takes dopri5 and rk4, as "
+            "the JAX driver's; other solvers run on the generic engine "
+            "(ROADMAP queue 1 items 2 and 11)")
     model = config.get("model", "gp")
-    if model == "nn" and solver != "rk4":
+    if model not in MODELS:
+        raise ValueError(f"unknown model {model!r}; expected 'gp', 'nn', "
+                         "'spiral' or 'fhn'")
+    if model in ("spiral", "fhn") and solver != "dopri5":
         raise NotImplementedError(
-            f"model 'nn' with solver {solver!r}: the port's MLP field has "
-            "the rk4 kernels only (ROADMAP queue 1 item 9 ports its dopri5 "
-            "registration)")
-    if model not in ("gp", "nn"):
-        raise NotImplementedError(
-            f"model {model!r}: the port has the 'gp' and 'nn' models "
-            "(ROADMAP queue 1 item 9 ports 'spiral' and 'fhn')")
+            f"engine='fused' model={model!r} supports solver='dopri5' "
+            f"only (got {solver!r}), as in the JAX driver: the field has no "
+            "fixed-grid kernel")
     if config["method"] not in METHODS:
         raise NotImplementedError(
             f"method {config['method']!r}: the port has {', '.join(METHODS)} "
@@ -128,14 +146,22 @@ def _make_potential(config: Dict, data: Dict, static, device):
     x0 = _as64(data["x0"]).to(device=device, dtype=f32)
     ts = _as64(data["t"]).to(device=device, dtype=f32)
     Y = _as64(data["Y"]).to(device=device, dtype=f32)
-    if static is None:
-        return make_fused_mlp_potential(x0, ts, Y, reg=config.get("reg", 0.5))
+    model = config.get("model", "gp")
+    reg = config.get("reg", 0.5)
     if config.get("solver", "rk4") == "rk4":
+        if model == "nn":
+            return make_fused_mlp_potential(x0, ts, Y, reg=reg)
         return make_fused_gp_potential(static, x0, ts, Y)
-    return make_fused_gp_potential_dopri5(
-        static, x0, ts, Y, rtol=config.get("rtol", 1e-7),
-        atol=config.get("atol", 1e-9),
-        store_steps=config.get("store_steps", 128))
+    tol = {"rtol": config.get("rtol", 1e-7), "atol": config.get("atol", 1e-9),
+           "store_steps": config.get("store_steps", STORE_STEPS[model])}
+    if model == "nn":
+        return make_fused_mlp_potential_dopri5(x0, ts, Y, reg=reg, **tol)
+    if model == "spiral":
+        return make_fused_spiral_potential_dopri5(x0, ts, Y, reg=reg, **tol)
+    if model == "fhn":
+        return make_fused_fhn_potential_dopri5(
+            x0, ts, Y, noise=float(config.get("noise", data["noise"])), **tol)
+    return make_fused_gp_potential_dopri5(static, x0, ts, Y, **tol)
 
 
 def _make_kernel(config: Dict, pot_batch):
@@ -179,11 +205,11 @@ def _probe_store_steps(config, static, pos0, data, device) -> None:
 
 
 def run_sampler(config: Dict, data: Dict, output: str,
-                make_plots: bool = True, device="cpu") -> Dict[str, Any]:
-    """Posterior sampling over a batch of chains on `device`.  The chain
-    count is rounded up to a multiple of 128, as the JAX driver rounds it
-    for its fused kernels.  Returns the summary dict (also logged to
-    run.jsonl)."""
+                make_plots: bool = True, device="cuda") -> Dict[str, Any]:
+    """Posterior sampling over a batch of chains on `device` (the card
+    unless the caller asks for the CPU).  The chain count is rounded up to
+    a multiple of 128, as the JAX driver rounds it for its fused kernels.
+    Returns the summary dict (also logged to run.jsonl)."""
     _check_supported(config, make_plots)
     out_dir = _out_dir(output, config)
     with open(os.path.join(out_dir, "config.json"), "w") as f:
@@ -222,11 +248,11 @@ def run_sampler(config: Dict, data: Dict, output: str,
     # (samples, C, ...) -> (C, samples, ...), the JAX driver's layout
     positions = tree_map(lambda x: x.transpose(0, 1), positions)
     pots = infos["potential"].transpose(0, 1).cpu().numpy()
-    if static is not None:
+    if isinstance(positions, dict) and "logsn" in positions:
         diag = positions["logsn"]                     # (C, samples, 2)
     else:
-        # nn model: the first two coordinates of the last leaf, as the
-        # JAX driver takes them
+        # nn, spiral and fhn models: the first two coordinates of the last
+        # leaf (keys sorted), as the JAX driver takes them
         lead = tree_leaves(positions)[-1]
         diag = lead.reshape(lead.shape[0], lead.shape[1], -1)[:, :, :2]
     if diag.shape[1] >= 4:
@@ -252,7 +278,7 @@ def run_sampler(config: Dict, data: Dict, output: str,
 
 
 def worker(config: Dict, data: Dict, output: str, make_plots: bool = True,
-           device="cpu") -> Dict[str, Any]:
+           device="cuda") -> Dict[str, Any]:
     """Route by inf_type; the port runs the sampler only so far."""
     inf_type = config.get("inf_type", "sampler")
     if inf_type != "sampler":

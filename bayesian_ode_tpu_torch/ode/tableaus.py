@@ -1,9 +1,11 @@
-"""Butcher tableau of the Dormand-Prince 5(4) pair.
+"""Butcher tableaus of the Dormand-Prince and Tsitouras 5(4) pairs.
 
-Counterpart of `bayesian_ode_tpu/ode/tableaus.py` (only DOPRI5 so far; the
-other pairs are ROADMAP queue 1 item 2).  Coefficients are plain Python
-floats: multiplying a float32 tensor by one keeps float32, and float64 runs
-read full-precision constants.
+Counterpart of `bayesian_ode_tpu/ode/tableaus.py` (DOPRI5 and TSIT5, the
+two pairs of the fused adaptive engine; the other pairs are ROADMAP queue 1
+item 2).  Coefficients are plain Python floats, copied as the JAX package
+states them: multiplying a float32 tensor by one keeps float32, and
+float64 runs read full-precision constants.  `csrc/dopri5_common.cuh`
+holds the same two tableaus for the kernels.
 """
 from __future__ import annotations
 
@@ -57,6 +59,65 @@ DOPRI5 = ButcherTableau(
         187940372067 / 1594534317056 / 2,
         -1776094331 / 19743644256 / 2,
         11237099 / 235043384 / 2,
+    ],
+    order=5,
+)
+
+# Tsitouras 5(4).  The c_error row is the JAX package's corrected one
+# (b_i - bhat_i of the embedded 4th-order pair, summing to 0; the reference
+# implementation subtracts the difference coefficients as if they were
+# bhat_i), and c_mid its derived midpoint weights for the 4th-order quartic
+# dense output of the fused engine.
+TSIT5 = ButcherTableau(
+    alpha=[0.161, 0.327, 0.9, 0.9800255409045097, 1.0, 1.0],
+    beta=[
+        [0.161],
+        [-0.008480655492357, 0.3354806554923570],
+        [2.897153057105494, -6.359448489975075, 4.362295432869581],
+        [5.32586482843925895, -11.74888356406283, 7.495539342889836,
+         -0.09249506636175525],
+        [
+            5.86145544294642038,
+            -12.92096931784711,
+            8.159367898576159,
+            -0.071584973281401006,
+            -0.02826905039406838,
+        ],
+        [
+            0.09646076681806523,
+            0.01,
+            0.4798896504144996,
+            1.379008574103742,
+            -3.290069515436081,
+            2.324710524099774,
+        ],
+    ],
+    c_sol=[
+        0.09646076681806523,
+        0.01,
+        0.4798896504144996,
+        1.379008574103742,
+        -3.290069515436081,
+        2.324710524099774,
+        0.0,
+    ],
+    c_error=[
+        0.00178001105222577714,
+        0.0008164344596567469,
+        -0.007880878010261995,
+        0.1447110071732629,
+        -0.5823571654525552,
+        0.4580821059291869,
+        -1 / 66,
+    ],
+    c_mid=[
+        0.11142574892073395,
+        0.013197067390738587,
+        0.37783998967297555,
+        -0.018471772229541692,
+        0.0031427990704557002,
+        0.01577833690800391,
+        -0.0029121697333658932,
     ],
     order=5,
 )

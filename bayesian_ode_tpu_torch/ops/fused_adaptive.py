@@ -1,13 +1,14 @@
-"""Recording whole-solve forward and replay backward of the fused dopri5
+"""Recording whole-solve forward and replay backward of the fused adaptive
 engine: the kernel wrappers and their plain PyTorch versions.
 
 Counterpart of `bayesian_ode_tpu/ops/fused_adaptive.py`.  The TPU kernels
 `make_fwd_rec_kernel` (K2) and `make_bwd_kernel` (K3) become the CUDA
-kernels of `csrc/gp_dopri5_fwd.cu` (one template: K1 when RECORD=false,
-K2 when true) and `csrc/gp_dopri5_bwd.cu` (K3).  The device code
-(`csrc/dopri5_common.cuh`) is generic over a field functor, with the GP
-field of `csrc/gp_field.cuh` as its only instance so far; the other
-fields are ROADMAP queue 1 item 9.
+templates of `csrc/dopri5_kernels.cuh` over a field functor and a tableau
+(DOPRI5 or TSIT5).  Each field registered with the engine
+(`ops/fused_field.py::FusedField`: GP, MLP, spiral, FitzHugh-Nagumo) has
+its own library, which holds the recording forward (K2), the same forward
+without records (for the GP field, K1) and the replay backward (K3) for
+both tableaus.
 
 Records hold each chain's own accepted steps, laid out
 (store_steps, 2N + 2, C): the step's start state (2N floats), t0 and dt.
@@ -16,24 +17,37 @@ cotangent through unchanged.  A chain that accepts more than
 `store_steps` steps makes the wrapper raise instead of returning a wrong
 gradient.
 
-The wrappers take the plain versions only for CPU tensors; CUDA tensors
+The plain versions take the field's batched torch `rhs` and `rhs_vjp`
+(over (C, N, 2) states) and a tableau, and repeat the kernels' step
+arithmetic.  The wrappers take them only for CPU tensors; CUDA tensors
 launch the kernels or raise.
 """
 from __future__ import annotations
 
 import torch
 
-from ..ode.tableaus import DOPRI5
+from ..ode.tableaus import DOPRI5, TSIT5
 from . import _build
 from .gp_dopri5 import (
     _bc,
-    _make_rhs,
-    _make_rhs_vjp,
     _midpoint,
     _quartic_coeffs,
     _rk_stages,
     _step_decision,
 )
+
+TABLEAUS = {"dopri5": DOPRI5, "tsit5": TSIT5}
+
+
+def _check_tableau(tableau) -> None:
+    """The engine takes a 7-stage FSAL pair with quartic dense output
+    (DOPRI5, TSIT5): 6 beta rows, k7 = f(y1), c_mid present."""
+    if len(tableau.beta) != 6 or tableau.c_mid is None:
+        raise ValueError("fused kernels support 7-stage FSAL tableaus "
+                         "with c_mid dense output (dopri5, tsit5)")
+    if any(abs(a - b) > 1e-12 for a, b in zip(tableau.c_sol[:6],
+                                              tableau.beta[5])):
+        raise ValueError("tableau is not FSAL (c_sol != last beta row)")
 
 
 def _check_records(nacc, store_steps) -> None:
@@ -45,20 +59,26 @@ def _check_records(nacc, store_steps) -> None:
             "wrong; raise store_steps")
 
 
+def _per_chain(mask, x):
+    """The (C,) mask broadcast against a per-chain tensor x (C, ...)."""
+    return mask.reshape(mask.shape + (1,) * (x.dim() - 1))
+
+
 # ---------------------------------------------------------------------------
-# forward: K1 (record=False) / K2 (record=True)
+# forward: K2 (record=True), and the same solve without records
 # ---------------------------------------------------------------------------
 
-def fwd_plain(A, Z, x0b, f0, dt0, ts, sf, ell, rtol, atol, safety, ifactor,
-              dfactor, max_steps, controller, store_steps=None):
+def fwd_plain(rhs, x0b, f0, dt0, ts, rtol, atol, safety, ifactor, dfactor,
+              max_steps, controller, store_steps=None, tableau=DOPRI5):
     """Plain version of the whole-solve forward, on any device.
 
-    The chains advance in masked lockstep; each chain's arithmetic is the
-    kernel's.  Step sizes are detached, so autograd through this function
-    gives the same frozen-step-mesh gradient as the replay backward.
-    Returns (ys (T, C, N, 2), nfe, n_accepted, n_rejected (C,) int32,
-    t1 (C,), rec (store_steps, 2N + 2, C) or None)."""
-    rhs = _make_rhs(A, Z, sf, ell)
+    `rhs` maps (C, N, 2) states to their slopes.  The chains advance in
+    masked lockstep; each chain's arithmetic is the kernel's.  Step sizes
+    are detached, so autograd through this function gives the same
+    frozen-step-mesh gradient as the replay backward.  Returns
+    (ys (T, C, N, 2), nfe, n_accepted, n_rejected (C,) int32, t1 (C,),
+    rec (store_steps, 2N + 2, C) or None)."""
+    _check_tableau(tableau)
     C, N = x0b.shape[0], x0b.shape[1]
     T = ts.shape[0]
     dev = x0b.device
@@ -80,10 +100,10 @@ def fwd_plain(A, Z, x0b, f0, dt0, ts, sf, ell, rtol, atol, safety, ifactor,
         active = (t1 < tf) & (nacc + nrej < max_steps)
         if not bool(active.any()):
             break
-        k, y1 = _rk_stages(rhs, y, f, dt)
+        k, y1 = _rk_stages(rhs, y, f, dt, tableau)
         accept, _, dt_next, ep_next = _step_decision(
             k, y, y1, dt, rtol, atol, safety, ifactor, dfactor,
-            err_prev=ep if pi else None)
+            err_prev=ep if pi else None, tableau=tableau)
         take = active & accept
         if rec is not None:
             cs = (take & (nacc < store_steps)).nonzero().squeeze(1)
@@ -94,7 +114,7 @@ def fwd_plain(A, Z, x0b, f0, dt0, ts, sf, ell, rtol, atol, safety, ifactor,
         tn = t1 + dt
         emit = (ts[:, None] > t1) & (ts[:, None] <= tn) & take    # (T, C)
         if bool(emit.any()):
-            ym = _midpoint(y, k, dt)
+            ym = _midpoint(y, k, dt, tableau)
             a, b, c, d, e = _quartic_coeffs(y, y1, ym, f, k[6], _bc(dt))
             X = ((ts[:, None] - t1) / dt)[..., None, None]   # (T, C, 1, 1)
             val = (((a * X + b) * X + c) * X + d) * X + e
@@ -130,79 +150,93 @@ def _check_args(device, **named):
                 f"{t.device}")
 
 
-def _launch_fwd(A, Z, x0b, f0, dt0, ts, sf, ell, rtol, atol, safety,
-                ifactor, dfactor, max_steps, controller, record, store_steps):
-    C, M = A.shape[0], A.shape[1]
-    N, T = x0b.shape[1], ts.shape[0]
+def _check_weights(field, w):
+    f32 = torch.float32
+    _check_args(w[0].device, **{f"{field.name} weight {i}": (x, s, f32)
+                                for i, (x, s) in enumerate(
+                                    zip(w, field.shapes(w)))})
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch_fwd(field, w, x0b, f0, dt0, ts, rtol, atol, safety, ifactor,
+                dfactor, max_steps, controller, record, store_steps, method):
+    C, N, T = x0b.shape[0], x0b.shape[1], ts.shape[0]
     x0 = x0b[0].contiguous()
     f0, dt0 = f0.contiguous(), dt0.contiguous()
     f32 = torch.float32
-    _check_args(A.device, A=(A, (C, M, 2), f32), Z=(Z, (M, 2), f32),
-                x0=(x0, (N, 2), f32), f0=(f0, (C, N, 2), f32),
+    dev = w[0].device
+    _check_weights(field, w)
+    _check_args(dev, x0=(x0, (N, 2), f32), f0=(f0, (C, N, 2), f32),
                 dt0=(dt0, (C,), f32), ts=(ts, (T,), f32))
     if not 0 < max_steps < 2**31:
         raise ValueError(f"max_steps must fit int32, got {max_steps}")
-    lib = _build.load_library("gp_dopri5", (N, M))
-    dev = A.device
-    ys = torch.empty((T, C, N, 2), dtype=torch.float32, device=dev)
+    lib = _build.load_library(*field.library(w, N))
+    ys = torch.empty((T, C, N, 2), dtype=f32, device=dev)
     nfe = torch.empty(C, dtype=torch.int32, device=dev)
     nacc = torch.empty(C, dtype=torch.int32, device=dev)
     nrej = torch.empty(C, dtype=torch.int32, device=dev)
-    t1 = torch.empty(C, dtype=torch.float32, device=dev)
-    rec = (torch.empty((store_steps, 2 * N + 2, C), dtype=torch.float32,
-                       device=dev) if record else None)
+    t1 = torch.empty(C, dtype=f32, device=dev)
+    rec = (torch.empty((store_steps, 2 * N + 2, C), dtype=f32, device=dev)
+           if record else None)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.gp_dopri5_fwd(
-            int(record), A.data_ptr(), x0.data_ptr(), f0.data_ptr(),
-            dt0.data_ptr(), Z.data_ptr(), ts.data_ptr(), C, T, sf * sf,
-            0.5 / (ell * ell), rtol, atol, safety, ifactor, dfactor,
-            int(max_steps), int(controller == "pi"),
-            int(store_steps if record else 0), ys.data_ptr(),
-            nfe.data_ptr(), nacc.data_ptr(), nrej.data_ptr(), t1.data_ptr(),
-            rec.data_ptr() if record else None, stream)
-    _build.check(status, "gp_dopri5_fwd")
-    _build.launch_counts["gp_dopri5_fwd_record" if record
-                         else "gp_dopri5_solve_whole"] += 1
+        status = getattr(lib, f"{field.name}_dopri5_fwd")(
+            int(record), _build.TABLEAUS.index(method),
+            *(x.data_ptr() for x in w), *field.scalars, x0.data_ptr(),
+            f0.data_ptr(), dt0.data_ptr(), ts.data_ptr(), C, T, rtol, atol,
+            safety, ifactor, dfactor, int(max_steps),
+            int(controller == "pi"), int(store_steps if record else 0),
+            ys.data_ptr(), nfe.data_ptr(), nacc.data_ptr(), nrej.data_ptr(),
+            t1.data_ptr(), rec.data_ptr() if record else None, _stream(dev))
+    _build.check(status, f"{field.name}_dopri5_fwd")
+    kind = "fwd_record" if record else "solve_whole"
+    _build.launch_counts[f"{field.name}_{method}_{kind}"] += 1
     return ys, nfe, nacc, nrej, t1, rec
 
 
-def fwd(A, Z, x0b, f0, dt0, ts, sf, ell, rtol, atol, safety, ifactor,
-        dfactor, max_steps, controller, record, store_steps=128):
-    """Whole-solve forward: K2 when `record` (records for `bwd`), else K1.
-    Same arguments and results as `fwd_plain`."""
-    if A.is_cuda:
-        out = _launch_fwd(A, Z, x0b, f0, dt0, ts, sf, ell, rtol, atol,
-                          safety, ifactor, dfactor, max_steps, controller,
-                          record, store_steps)
+def fwd(field, w, x0b, f0, dt0, ts, rtol, atol, safety, ifactor, dfactor,
+        max_steps, controller, record, store_steps=128, method="dopri5"):
+    """Whole-solve forward of `field` with weights `w`: the recording
+    kernel (K2) when `record` (records for `bwd`), else the same solve
+    without records (K1 for the GP field).  Same results as `fwd_plain`.
+    """
+    if w[0].is_cuda:
+        out = _launch_fwd(field, w, x0b, f0, dt0, ts, rtol, atol, safety,
+                          ifactor, dfactor, max_steps, controller, record,
+                          store_steps, method)
         if record:
             _check_records(out[2], store_steps)
         return out
-    if A.device.type != "cpu":
-        raise ValueError(f"unsupported device {A.device}")
-    return fwd_plain(A, Z, x0b, f0, dt0, ts, sf, ell, rtol, atol, safety,
+    if w[0].device.type != "cpu":
+        raise ValueError(f"unsupported device {w[0].device}")
+    return fwd_plain(field.make_rhs(w), x0b, f0, dt0, ts, rtol, atol, safety,
                      ifactor, dfactor, max_steps, controller,
-                     store_steps if record else None)
+                     store_steps if record else None, TABLEAUS[method])
 
 
 # ---------------------------------------------------------------------------
 # backward: K3
 # ---------------------------------------------------------------------------
 
-def bwd_plain(A, Z, ts, rec, nacc, g, sf, ell):
+def bwd_plain(rhs, rhs_vjp, w, ts, rec, nacc, g, tableau=DOPRI5):
     """Plain version of the replay backward, on any device: each chain
     sweeps its own records in reverse (masked lockstep over chains).
-    g (T, C, N, 2) is the cotangent of the trajectory; row 0 (x0) is not
-    handled here.  Returns (Abar (C, M, 2), lbar (C, N, 2))."""
-    rhs = _make_rhs(A, Z, sf, ell)
-    vjp = _make_rhs_vjp(A, Z, sf, ell)
-    beta, c_mid = DOPRI5.beta, DOPRI5.c_mid
+
+    `rhs_vjp(y, cot)` returns (ybar, a tuple of cotangents of the weights
+    `w`, the per-chain blocks that get one).  g (T, C, N, 2) is the
+    cotangent of the trajectory; row 0 (x0) is not handled here.  Returns
+    (the weight cotangents, a tuple like w; lbar (C, N, 2))."""
+    _check_tableau(tableau)
+    beta, c_mid = tableau.beta, tableau.c_mid
     R, C = rec.shape[1], rec.shape[2]
     NS = R - 2
     N = NS // 2
-    lbar = torch.zeros((C, N, 2), dtype=torch.float32, device=A.device)
-    Abar = torch.zeros_like(A)
-    chains = torch.arange(C, device=A.device)
+    dev = rec.device
+    lbar = torch.zeros((C, N, 2), dtype=torch.float32, device=dev)
+    wbar = tuple(torch.zeros_like(x) for x in w)
+    chains = torch.arange(C, device=dev)
     n_iter = int(nacc.max()) if C else 0
     for j in range(n_iter):
         s = nacc.long() - 1 - j
@@ -245,8 +279,13 @@ def bwd_plain(A, Z, ts, rec, nacc, g, sf, ell):
               for cm in c_mid]
         y0b = y0b + ymb
 
+        def vjp(u, cot, acc):
+            ub, dw = rhs_vjp(u, cot)
+            return ub, dw if acc is None else tuple(
+                x + y for x, y in zip(acc, dw))
+
         # k7 = f(y1): carried-in f1 share + c_mid share
-        ub, Abar_i = vjp(us[5], kb[6] + f1b)
+        ub, wbar_i = vjp(us[5], kb[6] + f1b, None)
         y1t = lbar + y1b + ub
         # y1 = y0 + dt * (beta[5] . k)
         y0b = y0b + y1t
@@ -255,53 +294,52 @@ def bwd_plain(A, Z, ts, rec, nacc, g, sf, ell):
                 kb[jj] = kb[jj] + dtc * bb * y1t
         # stages 6..2: k[r+1] = f(u[r]), u[r] = y0 + dt * (beta[r] . k)
         for r in range(4, -1, -1):
-            ub, Ab = vjp(us[r], kb[r + 1])
-            Abar_i = Abar_i + Ab
+            ub, wbar_i = vjp(us[r], kb[r + 1], wbar_i)
             y0b = y0b + ub
             for jj, bb in enumerate(beta[r]):
                 if bb != 0:
                     kb[jj] = kb[jj] + dtc * bb * ub
         # k1 = f(y0): the FSAL slope is recomputed, f0's share lands here
-        ub, Ab = vjp(y0, kb[0] + f0b)
-        Abar_i = Abar_i + Ab
+        ub, wbar_i = vjp(y0, kb[0] + f0b, wbar_i)
         y0b = y0b + ub
 
-        sel = _bc(act)
-        lbar = torch.where(sel, y0b, lbar)
-        Abar = Abar + torch.where(sel, Abar_i, torch.zeros_like(Abar_i))
-    return Abar, lbar
+        lbar = torch.where(_bc(act), y0b, lbar)
+        wbar = tuple(
+            x + torch.where(_per_chain(act, xi), xi, torch.zeros_like(xi))
+            for x, xi in zip(wbar, wbar_i))
+    return wbar, lbar
 
 
-def _launch_bwd(A, Z, ts, rec, nacc, g, sf, ell):
-    C, M = A.shape[0], A.shape[1]
-    T, N = g.shape[0], g.shape[2]
+def _launch_bwd(field, w, ts, rec, nacc, g, method):
+    C, T, N = w[0].shape[0], g.shape[0], g.shape[2]
     g = g.to(torch.float32).contiguous()
     f32 = torch.float32
-    _check_args(A.device, A=(A, (C, M, 2), f32), Z=(Z, (M, 2), f32),
-                ts=(ts, (T,), f32),
+    dev = w[0].device
+    _check_weights(field, w)
+    _check_args(dev, ts=(ts, (T,), f32),
                 rec=(rec, (rec.shape[0], 2 * N + 2, C), f32),
                 nacc=(nacc, (C,), torch.int32), g=(g, (T, C, N, 2), f32))
-    lib = _build.load_library("gp_dopri5", (N, M))
-    dev = A.device
-    Abar = torch.empty_like(A)
-    lbar = torch.empty((C, N, 2), dtype=torch.float32, device=dev)
+    lib = _build.load_library(*field.library(w, N))
+    wbar = tuple(torch.empty_like(x) for x in w[:field.n_wbar])
+    lbar = torch.empty((C, N, 2), dtype=f32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.gp_dopri5_bwd(
-            A.data_ptr(), Z.data_ptr(), ts.data_ptr(), rec.data_ptr(),
-            nacc.data_ptr(), g.data_ptr(), C, T, sf * sf,
-            0.5 / (ell * ell), 1.0 / (ell * ell), Abar.data_ptr(),
-            lbar.data_ptr(), stream)
-    _build.check(status, "gp_dopri5_bwd")
-    _build.launch_counts["gp_dopri5_bwd"] += 1
-    return Abar, lbar
+        status = getattr(lib, f"{field.name}_dopri5_bwd")(
+            _build.TABLEAUS.index(method), *(x.data_ptr() for x in w),
+            *field.scalars, *(x.data_ptr() for x in wbar), ts.data_ptr(),
+            rec.data_ptr(), nacc.data_ptr(), g.data_ptr(), C, T,
+            lbar.data_ptr(), _stream(dev))
+    _build.check(status, f"{field.name}_dopri5_bwd")
+    _build.launch_counts[f"{field.name}_{method}_bwd"] += 1
+    return wbar, lbar
 
 
-def bwd(A, Z, ts, rec, nacc, g, sf, ell):
-    """Replay backward (K3): (Abar (C, M, 2), lbar (C, N, 2)) from the
-    records of `fwd(record=True)` and the trajectory cotangent g."""
-    if A.is_cuda:
-        return _launch_bwd(A, Z, ts, rec, nacc, g, sf, ell)
-    if A.device.type != "cpu":
-        raise ValueError(f"unsupported device {A.device}")
-    return bwd_plain(A, Z, ts, rec, nacc, g, sf, ell)
+def bwd(field, w, ts, rec, nacc, g, method="dopri5"):
+    """Replay backward (K3) of `field`: (the cotangents of its first
+    `n_wbar` weight blocks, lbar (C, N, 2)) from the records of
+    `fwd(record=True)` and the trajectory cotangent g."""
+    if w[0].is_cuda:
+        return _launch_bwd(field, w, ts, rec, nacc, g, method)
+    if w[0].device.type != "cpu":
+        raise ValueError(f"unsupported device {w[0].device}")
+    return bwd_plain(field.make_rhs(w), field.make_rhs_vjp(w),
+                     w[:field.n_wbar], ts, rec, nacc, g, TABLEAUS[method])

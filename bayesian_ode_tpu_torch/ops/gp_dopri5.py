@@ -2,15 +2,16 @@
 
 Counterpart of `bayesian_ode_tpu/ops/gp_dopri5.py`.  The step arithmetic
 (`_make_rhs`, `_rk_stages`, `_step_decision`, `_quartic_coeffs`,
-`_midpoint`) lives here once as torch functions for the plain versions,
-and once as CUDA device functions in `csrc/dopri5_common.cuh` for the
-kernels, in the same operation order.
+`_midpoint`, each over a tableau) and the Hairer start step live here once
+as torch functions for the plain versions of every field, and once as
+CUDA device functions in `csrc/dopri5_common.cuh` for the kernels, in the
+same operation order.
 
-`gp_dopri5_solve_whole` launches kernel K1 (`csrc/gp_dopri5_fwd.cu` with
-RECORD=false, replacing the TPU kernel `_make_whole_kernel`) for CUDA
-tensors, and runs its plain version for CPU tensors.  Per-state tensors
-are (C, N, 2) and per-chain scalars (C,), all float32 inside the solve;
-time is float32 too.
+`gp_dopri5_solve_whole` is the GP registration of the public engine
+(`ops/gp_field.py`) solved without records: kernel K1 (replacing the TPU
+kernel `_make_whole_kernel`) for CUDA tensors, its plain version for CPU
+tensors.  Per-state tensors are (C, N, 2) and per-chain scalars (C,), all
+float32 inside the solve; time is float32 too.
 
 Not ported yet: the per-step solver `gp_dopri5_solve` (K9, ROADMAP).
 """
@@ -18,7 +19,6 @@ from __future__ import annotations
 
 import torch
 
-from ..models.kernel_regression import full_f32_matmul, rbf
 from ..ode.interp import interp_fit
 from ..ode.tableaus import DOPRI5
 
@@ -158,19 +158,15 @@ def _hairer_initial_step(rhs_ref, pts0, rtol, atol):
 
 
 def _pack_initial(A, x0, Z, sf, ell, rtol, atol):
-    """Host part of the solve set-up: the (C, N, 2) start states and the
-    Hairer initial slope and step.  The initial slope uses `rbf`'s matmul
-    form, as the JAX package does (the kernels use the direct form).
-    Returns (x0b, f0, dt0)."""
-    C = A.shape[0]
-    x0b = x0.to(torch.float32).expand(C, *x0.shape[-2:])
+    """Host part of the GP solve set-up: the (C, N, 2) start states and
+    the Hairer initial slope and step.  The initial slope uses `rbf`'s
+    matmul form, as the JAX package does (the kernels use the direct
+    form).  Returns (x0b, f0, dt0)."""
+    from .fused_field import _start
+    from .gp_field import gp_field
 
-    def rhs_ref(p):
-        K = rbf(p, Z, sf, ell)                          # (C, N, M)
-        return torch.matmul(K, A)
-
-    f0, dt0 = _hairer_initial_step(rhs_ref, x0b, rtol, atol)
-    return x0b, f0, dt0
+    return _start(gp_field(float(sf), float(ell)), (A, Z),
+                  x0.to(torch.float32), rtol, atol)
 
 
 def _check_controller(controller):
@@ -178,32 +174,6 @@ def _check_controller(controller):
         raise ValueError(
             f"unknown step controller {controller!r}; expected 'i' "
             "(reference parity) or 'pi' (Gustafsson)")
-
-
-def _solve_whole(A, x0, ts, static, rtol, atol, safety, ifactor, dfactor,
-                 max_steps, controller, plain):
-    from . import fused_adaptive as fa
-
-    _check_controller(controller)
-    if A.is_cuda:
-        full_f32_matmul()
-    A = A.to(torch.float32).contiguous()
-    Z = static.Z.to(device=A.device, dtype=torch.float32).contiguous()
-    ts = torch.as_tensor(ts, device=A.device).to(torch.float32).contiguous()
-    x0 = x0.to(device=A.device, dtype=torch.float32)
-    with torch.no_grad():
-        x0b, f0, dt0 = _pack_initial(A, x0, Z, static.sf, static.ell, rtol,
-                                     atol)
-        args = (A, Z, x0b, f0, dt0, ts, static.sf, static.ell, rtol, atol,
-                safety, ifactor, dfactor, max_steps, controller)
-        if plain:
-            out = fa.fwd_plain(*args)
-        else:
-            out = fa.fwd(*args, record=False)
-    ys, nfe, nacc, nrej, t1 = out[:5]
-    stats = {"nfe": nfe, "n_accepted": nacc, "n_rejected": nrej,
-             "reached_final_time": bool((t1 >= ts[-1]).all())}
-    return ys, stats
 
 
 def gp_dopri5_solve_whole(A, x0, ts, static, rtol=1e-7, atol=1e-9,
@@ -215,15 +185,20 @@ def gp_dopri5_solve_whole(A, x0, ts, static, rtol=1e-7, atol=1e-9,
     A (C, M, 2) per-chain weights (Kzz^{-1} L U), x0 (N, 2) shared, ts (T,)
     increasing, static a `GPVectorFieldStatic` (Z, sf, ell are read).
     Returns (ys (T, C, N, 2), stats) with per-chain int32 nfe /
-    n_accepted / n_rejected and the bool reached_final_time.  The budget
-    `max_steps` is per chain; output times a chain never reached hold its
-    final state.  controller "i" is the reference's memoryless controller,
-    "pi" the Gustafsson PI controller.
+    n_accepted / n_rejected / n_iterations and the bool
+    reached_final_time.  The budget `max_steps` is per chain; output times
+    a chain never reached hold its final state.  controller "i" is the
+    reference's memoryless controller, "pi" the Gustafsson PI controller.
 
     CUDA tensors launch kernel K1; CPU tensors take the plain version.
     """
-    return _solve_whole(A, x0, ts, static, rtol, atol, safety, ifactor,
-                        dfactor, max_steps, controller, plain=False)
+    from .fused_field import fused_dopri5_stats
+    from .gp_field import gp_field, gp_weights
+
+    return fused_dopri5_stats(
+        gp_field(float(static.sf), float(static.ell)), gp_weights(A, static),
+        x0, ts, rtol=rtol, atol=atol, safety=safety, ifactor=ifactor,
+        dfactor=dfactor, max_steps=max_steps, controller=controller)
 
 
 def gp_dopri5_solve_whole_plain(A, x0, ts, static, rtol=1e-7, atol=1e-9,
@@ -231,5 +206,10 @@ def gp_dopri5_solve_whole_plain(A, x0, ts, static, rtol=1e-7, atol=1e-9,
                                 max_steps=100_000, controller="i"):
     """The plain PyTorch version of `gp_dopri5_solve_whole`, on any
     device: the chains advance in masked lockstep."""
-    return _solve_whole(A, x0, ts, static, rtol, atol, safety, ifactor,
-                        dfactor, max_steps, controller, plain=True)
+    from .fused_field import fused_dopri5_stats_plain
+    from .gp_field import gp_field, gp_weights
+
+    return fused_dopri5_stats_plain(
+        gp_field(float(static.sf), float(static.ell)), gp_weights(A, static),
+        x0, ts, rtol=rtol, atol=atol, safety=safety, ifactor=ifactor,
+        dfactor=dfactor, max_steps=max_steps, controller=controller)

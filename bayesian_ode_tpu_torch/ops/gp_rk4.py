@@ -28,7 +28,7 @@ import torch
 
 from ..models.kernel_regression import full_f32_matmul, make_batch_potential
 from . import _build
-from .fused_adaptive import _check_args
+from .fused_adaptive import _check_args, _stream
 from .gp_dopri5 import _make_rhs, _make_rhs_vjp
 
 # ---------------------------------------------------------------------------
@@ -122,10 +122,6 @@ def gp_rk4_bwd_plain(A, Z, ys, g, dts, sf, ell):
     (Abar,), lbar = _rk4_bwd_plain(_make_rhs(A, Z, sf, ell), rhs_vjp, ys, g,
                                    dts, (torch.zeros_like(A),))
     return Abar, lbar
-
-
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _launch_fwd(A, Z, x0, dts, sf, ell):

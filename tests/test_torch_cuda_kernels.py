@@ -10,8 +10,10 @@ machine with an H100 and nvcc they run with
 machine need not have; this file imports torch and the port only).
 
 Small shapes and the cases `chip_smoke.py` does not reach at full size:
-a chain count that is not a multiple of the 64-thread block, the PI
-controller, budget exhaustion and record overflow.  Gates as the smoke's:
+a chain count that is not a multiple of the 64-thread block (or of the 4
+warps of a warp-per-chain field's block), the PI controller, budget
+exhaustion, record overflow, a spiral of 50 hidden units (two per lane)
+and one of 20.  Gates as the smoke's:
 dopri5 trajectories within 1e-4 * max|y| of the plain version (two float32
 solves whose step meshes differ by rounding in the floor-bound regime),
 mean NFE within 1%, gradients within 1e-3 max-rel (the JAX package's
@@ -26,7 +28,9 @@ from bayesian_ode_tpu_torch.models import kernel_regression as kr
 from bayesian_ode_tpu_torch.models import make_dataset
 from bayesian_ode_tpu_torch.ops import _build
 from bayesian_ode_tpu_torch.ops import fused_adaptive as fa
+from bayesian_ode_tpu_torch.ops import fused_field as ff
 from bayesian_ode_tpu_torch.ops import gp_rk4, mlp_rk4
+from bayesian_ode_tpu_torch.ops.fhn_dopri5 import fhn_field
 from bayesian_ode_tpu_torch.ops.gp_dopri5 import (
     _pack_initial,
     gp_dopri5_solve_whole,
@@ -37,6 +41,9 @@ from bayesian_ode_tpu_torch.ops.gp_dopri5_grad import (
     gp_dopri5_trajectory_plain,
     make_fused_gp_potential_dopri5,
 )
+from bayesian_ode_tpu_torch.ops.gp_field import gp_field
+from bayesian_ode_tpu_torch.ops.mlp_dopri5 import mlp_field
+from bayesian_ode_tpu_torch.ops.spiral_dopri5 import spiral_field
 
 pytestmark = pytest.mark.cuda
 
@@ -131,16 +138,20 @@ def test_replay_backward_matches_plain_and_autograd(gp):
     Z = s.Z.contiguous()
     x0b, f0, dt0 = _pack_initial(gp["A"], gp["x0"], Z, s.sf, s.ell, 1e-7,
                                  1e-9)
-    args = (gp["A"], Z, x0b, f0, dt0, gp["ts"], s.sf, s.ell, 1e-7, 1e-9,
-            0.9, 10.0, 0.2, 100_000, "i")
-    _, _, nacc, _, _, rec = fa.fwd(*args, record=True, store_steps=128)
-    _, _, nacc_p, _, _, rec_p = fa.fwd_plain(*args, store_steps=128)
+    field, w = gp_field(s.sf, s.ell), (gp["A"], Z)
+    args = (x0b, f0, dt0, gp["ts"], 1e-7, 1e-9, 0.9, 10.0, 0.2, 100_000,
+            "i")
+    _, _, nacc, _, _, rec = fa.fwd(field, w, *args, record=True,
+                                   store_steps=128)
+    _, _, nacc_p, _, _, rec_p = fa.fwd_plain(field.make_rhs(w), *args,
+                                             store_steps=128)
     g = torch.randn((12, C, 5, 2),
                     generator=torch.Generator(device=gp["dev"]).manual_seed(5),
                     device=gp["dev"])
-    Abar_k, lbar_k = fa.bwd(gp["A"], Z, gp["ts"], rec, nacc, g, s.sf, s.ell)
-    Abar_p, lbar_p = fa.bwd_plain(gp["A"], Z, gp["ts"], rec_p, nacc_p, g,
-                                  s.sf, s.ell)
+    (Abar_k,), lbar_k = fa.bwd(field, w, gp["ts"], rec, nacc, g)
+    (Abar_p,), lbar_p = fa.bwd_plain(field.make_rhs(w),
+                                     field.make_rhs_vjp(w), w[:1], gp["ts"],
+                                     rec_p, nacc_p, g)
     A = gp["A"].clone().requires_grad_(True)
     ys = gp_dopri5_trajectory_plain(A, gp["x0"], gp["ts"], s)
     (Abar_ag,) = torch.autograd.grad((ys * g).sum(), [A])
@@ -260,3 +271,92 @@ def test_mlp_rk4_wider_than_a_warp_raises(gp):
          torch.zeros(8, H, 2, device=dev), torch.zeros(8, 2, device=dev))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mlp_rk4.mlp_rk4_fwd(w, gp["x0"], torch.diff(gp["ts"]))
+
+
+def _adaptive_case(gp, case):
+    """(field, weights, method) of one field/tableau instance at C chains:
+    the driver's start weights, jittered per chain."""
+    dev = gp["dev"]
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    if case == "gp_tsit5":
+        s = gp["static"]
+        return gp_field(s.sf, s.ell), (gp["A"], s.Z.contiguous()), "tsit5"
+    if case == "mlp":
+        H = H_RK4
+        w = (torch.rand((C, 2, H), generator=gen, device=dev) - 0.5,
+             0.1 * randn(C, H),
+             torch.rand((C, H, H), generator=gen, device=dev) - 0.5,
+             0.1 * randn(C, H),
+             torch.rand((C, H, 2), generator=gen, device=dev) - 0.5,
+             0.1 * randn(C, 2))
+        return mlp_field(H), w, "dopri5"
+    if case.startswith("spiral"):
+        H = int(case.split("_")[1])
+        w = (0.1 * randn(1, 2, H) + 0.005 * randn(C, 2, H),
+             0.005 * randn(C, H),
+             0.1 * randn(1, H, 2) + 0.005 * randn(C, H, 2),
+             0.005 * randn(C, 2))
+        return spiral_field(), w, "dopri5"
+    w = tuple(v + 0.05 * randn(C) for v in (0.2, 0.2, 3.0))
+    return fhn_field(), w, "dopri5"
+
+
+@pytest.mark.parametrize("case", ["gp_tsit5", "mlp", "spiral_50",
+                                  "spiral_20", "fhn"])
+def test_adaptive_field_kernels_match_plain(gp, case):
+    """K2 and K3 of each new field/tableau instance against their plain
+    versions; the forward without records is bit-equal to the recording
+    one.  The two forwards' step meshes differ by rounding, and at
+    rtol=1e-5 the frozen-mesh gradients of two meshes differ by up to
+    1.4e-3 max-rel (MLP, measured on the card), so K3 is held on the same
+    mesh: against the plain replay of its own records, and the plain
+    replay of the plain forward's records against autograd through that
+    forward (measured 3e-7 to 1.2e-6 apart on the CPU), each within 1e-4.
+    """
+    field, w, method = _adaptive_case(gp, case)
+    w = tuple(x.contiguous() for x in w)
+    rtol, atol = 1e-5, 1e-7
+    x0, ts = gp["x0"], gp["ts"]
+    x0b, f0, dt0 = ff._start(field, w, x0, rtol, atol)
+    args = (x0b, f0, dt0, ts, rtol, atol, 0.9, 10.0, 0.2, 100_000, "i")
+    tableau = fa.TABLEAUS[method]
+    before = dict(_build.launch_counts)
+    ys_k, nfe_k, nacc_k, _, _, rec_k = fa.fwd(field, w, *args, record=True,
+                                              store_steps=128, method=method)
+    ys_w, nfe_w, _, _, _, _ = fa.fwd(field, w, *args, record=False,
+                                     method=method)
+    ys_p, nfe_p, nacc_p, _, _, rec_p = fa.fwd_plain(
+        field.make_rhs(w), *args, store_steps=128, tableau=tableau)
+    g = torch.randn(ys_k.shape, generator=torch.Generator(
+        device=gp["dev"]).manual_seed(5), device=gp["dev"])
+    wbar_k, lbar_k = fa.bwd(field, w, ts, rec_k, nacc_k, g, method=method)
+    n = field.n_wbar
+    rhs, vjp = field.make_rhs(w), field.make_rhs_vjp(w)
+    wbar_kp, lbar_kp = fa.bwd_plain(rhs, vjp, w[:n], ts, rec_k, nacc_k, g,
+                                    tableau)
+    wbar_p, _ = fa.bwd_plain(rhs, vjp, w[:n], ts, rec_p, nacc_p, g, tableau)
+    wr = [x.clone().requires_grad_(True) for x in w[:n]]
+    ys_ag = ff.fused_dopri5_trajectory_plain(field, tuple(wr) + w[n:], x0,
+                                             ts, rtol=rtol, atol=atol,
+                                             method=method)
+    wbar_ag = torch.autograd.grad((ys_ag * g).sum(), wr)
+    torch.cuda.synchronize()
+    prefix = f"{field.name}_{method}_"
+    for kind in ("fwd_record", "solve_whole", "bwd"):
+        assert _build.launch_counts[prefix + kind] == \
+            before[prefix + kind] + 1, kind
+    assert torch.equal(ys_w, ys_k) and torch.equal(nfe_w, nfe_k)
+    assert bool(torch.isfinite(ys_k).all())
+    scale = float(ys_p.abs().max())
+    assert float((ys_k - ys_p).abs().max()) <= 1e-4 * scale
+    mk, mp = float(nfe_k.float().mean()), float(nfe_p.float().mean())
+    assert abs(mk - mp) <= 0.01 * mp, (mk, mp)
+    for k, kp, p, a in zip(wbar_k, wbar_kp, wbar_p, wbar_ag):
+        assert bool(torch.isfinite(k).all())
+        assert _max_rel(k, kp) <= 1e-4
+        assert _max_rel(p, a) <= 1e-4
+    assert _max_rel(lbar_k, lbar_kp) <= 1e-4

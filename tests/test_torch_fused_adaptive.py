@@ -21,6 +21,7 @@ from bayesian_ode_tpu_torch.ops.gp_dopri5_grad import (
     gp_dopri5_trajectory,
     gp_dopri5_trajectory_plain,
 )
+from bayesian_ode_tpu_torch.ops.gp_field import gp_field
 from torch_parity import gp_problem, max_rel, to_np
 
 
@@ -37,12 +38,14 @@ def _inputs(p):
             torch.tensor(p["t"]), p["tstatic"])
 
 
-def _forward_args(p):
+def _forward_args(p, max_steps=100_000):
+    """(field, weights, x0b, f0, dt0, ts, rtol, atol, safety, ifactor,
+    dfactor, max_steps, controller) of the GP field."""
     A, x0, ts, st = _inputs(p)
     Z = st.Z.float()
     x0b, f0, dt0 = tg._pack_initial(A, x0, Z, st.sf, st.ell, 1e-7, 1e-9)
-    return (A, Z, x0b, f0, dt0, ts, st.sf, st.ell, 1e-7, 1e-9, 0.9, 10.0,
-            0.2, 100_000, "i")
+    return (gp_field(st.sf, st.ell), (A, Z), x0b, f0, dt0, ts, 1e-7, 1e-9,
+            0.9, 10.0, 0.2, max_steps, "i")
 
 
 def test_recording_forward_equals_whole_solve(problem):
@@ -125,12 +128,11 @@ def test_backward_passes_unreached_times_no_cotangent(problem):
     """Cotangents on output times no step emitted (budget exhaustion: rows
     holding the final state) do not enter the adjoint, as in the JAX
     kernel."""
-    args = list(_forward_args(problem))
-    args[13] = 5                                       # max_steps
+    args = _forward_args(problem, max_steps=5)
     ys, _, nacc, _, t1, rec = fa.fwd(*args, record=True, store_steps=8)
-    ts = args[5]
+    field, w, ts = args[0], args[1], args[5]
     held = ts[:, None] > t1[None, :]                   # (T, C)
     assert held.any()
     g = held[..., None, None].float().expand_as(ys).contiguous()
-    Abar, lbar = fa.bwd(args[0], args[1], ts, rec, nacc, g, args[6], args[7])
+    (Abar,), lbar = fa.bwd(field, w, ts, rec, nacc, g)
     assert not Abar.any() and not lbar.any()

@@ -38,6 +38,7 @@ from bayesian_ode_tpu_torch.ops import gp_rk4, mlp_rk4
 from bayesian_ode_tpu_torch.ops.gp_dopri5_grad import (
     make_fused_gp_potential_dopri5,
 )
+from bayesian_ode_tpu_torch.ops.gp_field import gp_field
 from torch_parity import gp_problem, max_rel, to_np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -124,7 +125,7 @@ def test_run_sampler_end_to_end(problem, tmp_path, jax_summary_keys):
     data = {"x0": p["x0"], "t": p["t"], "Y": p["Y"], "noise": 0.05}
     cfg = dict(SGLD_CONFIG, burn_in=1, num_samples=2)
     summary = run_sampler(cfg, data, str(tmp_path / "port"),
-                          make_plots=False)
+                          make_plots=False, device="cpu")
     assert set(summary) == jax_summary_keys
     assert summary["num_chains"] == 128          # rounded up to 128
     assert summary["kept_samples"] == 2
@@ -147,16 +148,26 @@ def test_run_sampler_psgld_and_unported_options(problem, tmp_path):
     p = problem
     data = {"x0": p["x0"], "t": p["t"], "Y": p["Y"], "noise": 0.05}
     cfg = dict(SGLD_CONFIG, method="pSGLD", burn_in=0, num_samples=1)
-    summary = run_sampler(cfg, data, str(tmp_path), make_plots=False)
+    summary = run_sampler(cfg, data, str(tmp_path), make_plots=False,
+                          device="cpu")
     assert np.isfinite(summary["min_potential"])
     for bad in ({"engine": "generic"}, {"solver": "tsit5"},
-                {"method": "aSGHMC"}, {"model": "spiral"},
-                {"model": "nn", "solver": "dopri5"}):
+                {"method": "aSGHMC"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_sampler(dict(cfg, **bad), data, str(tmp_path),
-                        make_plots=False)
+                        make_plots=False, device="cpu")
+    with pytest.raises(ValueError, match="unknown model"):
+        run_sampler(dict(cfg, model="lv"), data, str(tmp_path),
+                    make_plots=False, device="cpu")
+    # the spiral and FHN fields have no fixed-grid kernel, in the JAX
+    # driver neither
+    for model in ("spiral", "fhn"):
+        with pytest.raises(NotImplementedError, match="dopri5"):
+            run_sampler(dict(cfg, model=model, solver="rk4"), data,
+                        str(tmp_path), make_plots=False, device="cpu")
     with pytest.raises(NotImplementedError, match="plots"):
-        run_sampler(cfg, data, str(tmp_path), make_plots=True)
+        run_sampler(cfg, data, str(tmp_path), make_plots=True,
+                    device="cpu")
 
 
 def test_cli_runs_the_experiment_driver(tmp_path):
@@ -173,6 +184,26 @@ def test_cli_runs_the_experiment_driver(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "'event': 'summary'" in proc.stdout
     assert (tmp_path / "out" / "SGLD" / "1" / "chain.npz").exists()
+
+
+def test_cli_without_a_card_stops_unless_asked_for_the_cpu(tmp_path,
+                                                          monkeypatch,
+                                                          capsys):
+    """The CLI runs on the card by default and never falls back to the CPU
+    on its own: with no card and no --device it stops with an error."""
+    from bayesian_ode_tpu_torch.experiments import run
+
+    blob = {"output": str(tmp_path / "out"),
+            "data": {"ode": "vdp", "N": 5, "T": 12, "t_max": 2.5,
+                     "noise": 0.05, "x0_scale": 1.5, "seed": 0},
+            "configs": [dict(SGLD_CONFIG, num_samples=1, burn_in=0)]}
+    (tmp_path / "1.json").write_text(json.dumps(blob))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        run.main(["--json-dir", str(tmp_path), "--id", "1", "--no-plots"])
+    assert exc.value.code != 0
+    assert "--device cpu" in capsys.readouterr().err
+    assert not (tmp_path / "out").exists()
 
 
 def test_importing_the_port_needs_no_jax_triton_or_nvcc(tmp_path):
@@ -198,18 +229,19 @@ def test_importing_the_port_needs_no_jax_triton_or_nvcc(tmp_path):
 def test_kernel_wrappers_take_the_plain_path_only_on_the_cpu(problem):
     """A tensor on any device but the CPU reaches a kernel or an error,
     never the plain version (the meta device stands in for one here)."""
-    A = torch.empty((8, 36, 2), device="meta")
-    Z = torch.empty((36, 2), device="meta")
+    field = gp_field(1.0, 0.75)
+    w = (torch.empty((8, 36, 2), device="meta"),
+         torch.empty((36, 2), device="meta"))
     ts = torch.empty((12,), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        fa.fwd(A, Z, torch.empty((8, 5, 2), device="meta"),
+        fa.fwd(field, w, torch.empty((8, 5, 2), device="meta"),
                torch.empty((8, 5, 2), device="meta"),
-               torch.empty((8,), device="meta"), ts, 1.0, 0.75, 1e-7, 1e-9,
-               0.9, 10.0, 0.2, 100, "i", record=True)
+               torch.empty((8,), device="meta"), ts, 1e-7, 1e-9, 0.9, 10.0,
+               0.2, 100, "i", record=True)
     with pytest.raises(ValueError, match="unsupported device"):
-        fa.bwd(A, Z, ts, torch.empty((128, 12, 8), device="meta"),
+        fa.bwd(field, w, ts, torch.empty((128, 12, 8), device="meta"),
                torch.empty((8,), dtype=torch.int32, device="meta"),
-               torch.empty((12, 8, 5, 2), device="meta"), 1.0, 0.75)
+               torch.empty((12, 8, 5, 2), device="meta"))
 
 
 @pytest.mark.parametrize("method", ["SGLD", "cSGLD", "MALA"])
@@ -220,7 +252,8 @@ def test_run_sampler_gp_rk4(problem, tmp_path, method, jax_summary_keys):
     data = {"x0": p["x0"], "t": p["t"], "Y": p["Y"], "noise": 0.05}
     cfg = dict(SGLD_CONFIG, method=method, solver="rk4", burn_in=0,
                num_samples=2, lr=1e-4, num_cycles=2)
-    summary = run_sampler(cfg, data, str(tmp_path), make_plots=False)
+    summary = run_sampler(cfg, data, str(tmp_path), make_plots=False,
+                          device="cpu")
     assert set(summary) == jax_summary_keys
     assert summary["num_chains"] == 128 and summary["kept_samples"] == 2
     for key in ("min_potential", "median_potential", "acceptance"):
@@ -238,7 +271,7 @@ def test_run_sampler_nn_rk4_psgld(problem, tmp_path, jax_summary_keys):
     cfg = dict(SGLD_CONFIG, method="pSGLD", solver="rk4", model="nn",
                hidden=8, lr0=1e-4, burn_in=1, num_samples=4)
     summary = run_sampler(cfg, data, str(tmp_path / "port"),
-                          make_plots=False)
+                          make_plots=False, device="cpu")
     assert set(summary) == jax_summary_keys
     assert summary["num_chains"] == 128 and summary["kept_samples"] == 4
     assert np.isfinite(summary["min_potential"])

@@ -58,3 +58,99 @@ def gp_problem(C=8, T=12, t_max=2.5, seed=0, jitter=3e-3):
         "U": U, "A": A, "logsn": logsn.astype(np.float32),
         "jstatic64": static, "jstatic32": jstatic32, "tstatic": tstatic,
     }
+
+
+# ---- the fused engine's other fields, at the port's small test shape:
+# N=3 trajectory points, T=8 output times, C=128 chains (the JAX engine
+# pads the chain axis to a 128-lane tile in any case), H=6 hidden units
+
+FIELD_X0 = np.asarray([[2.0, 0.0], [1.0, 0.5], [-0.8, 0.9]], np.float32)
+FIELD_T = np.linspace(0.0, 2.0, 8).astype(np.float32)
+
+
+def mlp_params(C=128, H=6, seed=0, jitter=0.05):
+    """A layer list [2, H, H, 2] of numpy arrays with a leading chain axis:
+    the driver's start, uniform(-0.5, 0.5) weights and zero biases, with
+    N(0, jitter^2) per chain (the JAX package's fused-MLP tests jitter
+    by 0.05)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for a, b in ((2, H), (H, H), (H, 2)):
+        w = rng.rand(a, b) - 0.5
+        out.append({"w": (w + jitter * rng.randn(C, a, b)).astype(np.float32),
+                    "b": (jitter * rng.randn(C, b)).astype(np.float32)})
+    return out
+
+
+def spiral_params(C=128, H=6, seed=0, jitter=0.1):
+    """The spiral dict with a leading chain axis: the driver's start,
+    N(0, 0.1) weights and zero biases, with N(0, jitter^2) per chain (as
+    the JAX package's spiral tests jitter)."""
+    rng = np.random.RandomState(seed)
+    shapes = {"w1": (2, H), "b1": (H,), "w2": (H, 2), "b2": (2,)}
+    return {k: ((0.1 * rng.randn(*s) if k[0] == "w" else np.zeros(s))
+                + jitter * rng.randn(C, *s)).astype(np.float32)
+            for k, s in shapes.items()}
+
+
+def fhn_theta(C=128, seed=0):
+    """theta {'a', 'b', 'c'} (C,) around the classic truth (0.2, 0.2, 3)."""
+    rng = np.random.RandomState(seed)
+    return {k: (v + 0.1 * rng.randn(C)).astype(np.float32)
+            for k, v in (("a", 0.2), ("b", 0.2), ("c", 3.0))}
+
+
+def field_outputs(C=128, T=8, N=3, seed=5):
+    """Trajectory cotangent weights W (T, C, N, 2) and observations
+    Y (N, T, 2), float32."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(T, C, N, 2).astype(np.float32),
+            rng.randn(N, T, 2).astype(np.float32))
+
+
+def check_solve(ys_t, st_t, ys_j, st_j, traj_tol=1e-4):
+    """A port solve against the JAX engine's on the same inputs.
+
+    Trajectories within traj_tol * max|y|.  Step counts, per chain: two
+    float32 solves take the same steps except where an error ratio lands
+    within its rounding of 1.  These solves are short (4-30 attempts a
+    chain), so such flips move the counts visibly: an ulp-level change of
+    the port's own MLP field (its hidden product accumulated in float64)
+    moved 20 of 128 chains by one step and the mean NFE from 25.906 to
+    25.344, the JAX engine's mean to the digit; the GP field's rejections
+    while its start step shrinks differ by one on about 40% of chains
+    (mean 0.10 a chain).  So no chain's accepted or rejected count
+    differs by more than 3, and their means by more than 0.25 a chain;
+    nfe is 2 + 6 per attempted step."""
+    ys_t, ys_j = to_np(ys_t), np.asarray(ys_j)
+    assert ys_t.shape == ys_j.shape and ys_t.dtype == np.float32
+    assert np.max(np.abs(ys_t - ys_j)) <= traj_tol * np.max(np.abs(ys_j))
+    got = {k: to_np(st_t[k]).astype(np.int64)
+           for k in ("nfe", "n_accepted", "n_rejected")}
+    want = {k: np.asarray(st_j[k]).astype(np.int64) for k in got}
+    for k in ("n_accepted", "n_rejected"):
+        assert np.max(np.abs(got[k] - want[k])) <= 3, k
+        assert abs(np.mean(got[k]) - np.mean(want[k])) <= 0.25, k
+    np.testing.assert_array_equal(
+        got["nfe"], 2 + 6 * (got["n_accepted"] + got["n_rejected"]))
+    np.testing.assert_array_equal(
+        want["nfe"], 2 + 6 * (want["n_accepted"] + want["n_rejected"]))
+
+
+def tree_max_rel(got, want):
+    """max-rel of a parameter tree taken as one vector: the largest
+    |got - want| over all leaves over the largest |want|, the
+    normalisation of the JAX package's fused-field gradient tests
+    (tests/test_fused_field.py, test_pallas_ops.py).  Leaves pair up in
+    jax.tree.leaves order (sorted keys, lists in order)."""
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for k in sorted(t) for x in leaves(t[k])]
+        if isinstance(t, (list, tuple)):
+            return [x for v in t for x in leaves(v)]
+        return [to_np(t)]
+
+    pairs = list(zip(leaves(got), leaves(want)))
+    assert len(pairs) == len(leaves(want))
+    return (max(float(np.max(np.abs(a - b))) for a, b in pairs)
+            / max(float(np.max(np.abs(b))) for _, b in pairs))
