@@ -9,7 +9,8 @@
 //   Field    a functor with rhs(const float* y, float* f) const.
 // The kernels of dopri5_kernels.cuh are its only users, so the
 // non-recording whole solve (K1) and the recording forward (K2) produce
-// the same trajectories bit for bit.  Full float32 throughout: built
+// the same trajectories bit for bit, and the per-step solver (K9) takes
+// the same steps.  Full float32 throughout: built
 // without --use_fast_math and with expf/tanhf, because reduced-precision
 // right-hand sides shrink adaptive step sizes.
 //
@@ -267,19 +268,27 @@ __device__ __forceinline__ void midpoint(const float* y0,
   }
 }
 
-// Dense-output quartic of one component evaluated at X (Horner form),
-// coefficients as ode/interp.interp_fit.
+// Dense-output quartic fit of one component (ode/interp.interp_fit),
+// highest-order coefficient first: cf = (a, b, c, d, e).
+__device__ __forceinline__ void quartic_coeffs(float y0, float y1, float ym,
+                                               float f0, float f1, float dt,
+                                               float* cf) {
+  cf[0] = -2.0f * dt * f0 + 2.0f * dt * f1 - 8.0f * y0 - 8.0f * y1
+          + 16.0f * ym;
+  cf[1] = 5.0f * dt * f0 - 3.0f * dt * f1 + 18.0f * y0 + 14.0f * y1
+          - 32.0f * ym;
+  cf[2] = -4.0f * dt * f0 + dt * f1 - 11.0f * y0 - 5.0f * y1 + 16.0f * ym;
+  cf[3] = dt * f0;
+  cf[4] = y0;
+}
+
+// The quartic of one component evaluated at X (Horner form).
 __device__ __forceinline__ float quartic_eval(float y0, float y1, float ym,
                                               float f0, float f1, float dt,
                                               float X) {
-  const float a = -2.0f * dt * f0 + 2.0f * dt * f1 - 8.0f * y0 - 8.0f * y1
-                  + 16.0f * ym;
-  const float b = 5.0f * dt * f0 - 3.0f * dt * f1 + 18.0f * y0 + 14.0f * y1
-                  - 32.0f * ym;
-  const float c = -4.0f * dt * f0 + dt * f1 - 11.0f * y0 - 5.0f * y1
-                  + 16.0f * ym;
-  const float d = dt * f0;
-  return (((a * X + b) * X + c) * X + d) * X + y0;
+  float cf[5];
+  quartic_coeffs(y0, y1, ym, f0, f1, dt, cf);
+  return (((cf[0] * X + cf[1]) * X + cf[2]) * X + cf[3]) * X + cf[4];
 }
 
 }  // namespace bode

@@ -9,7 +9,10 @@
 //       for the GP field replaces ops/gp_dopri5.py::_make_whole_kernel (K1).
 //       One template is what keeps K1 and K2 trajectories bit-equal;
 //   dopri5_bwd_kernel<F, TB>:        make_bwd_kernel (K3), the frozen-mesh
-//       discrete adjoint over the records.
+//       discrete adjoint over the records;
+//   dopri5_step_kernel<F, TB>:       for the GP field, ops/gp_dopri5.py::
+//       _make_kernel (K9), masked steps of the per-step solver, whose host
+//       loop launches it until every chain passes the next output time.
 // TB is Dopri5 or Tsit5 (dopri5_common.cuh).
 //
 // A field F (gp_field.cuh, mlp_field.cuh, spiral_field.cuh, fhn_field.cuh)
@@ -155,6 +158,101 @@ dopri5_fwd_kernel(typename F::Args w, const float* __restrict__ x0,
   o.nacc[c] = nacc;
   o.nrej[c] = nrej;
   o.t1[c] = t1;
+}
+
+// The per-step solver's state (K9), kept in device memory between
+// launches: each launch reads a chain's row, takes its steps and writes
+// the row back.
+struct StepState {
+  float* y;        // (C, NS) state at t1
+  float* f;        // (C, NS) FSAL slope at t1
+  float* t0;       // (C,) start of the last accepted step
+  float* t1;       // (C,) its end
+  float* dt;       // (C,) proposed next step
+  float* coef;     // (5, C, NS) quartic of the last accepted step, a..e
+  int* nfe;        // (C,)
+  int* nacc;
+  int* nrej;
+  // flags[0]: the least, over chains, first output index m with
+  //           ts[m] > t1 (T if none): interval k needs another launch
+  //           while flags[0] <= k;
+  // flags[1]: the most steps (accepted + rejected) any chain has taken.
+  int* flags;
+};
+
+// Up to `steps` masked steps of every chain still short of ts[k]:
+// replaces ops/gp_dopri5.py::_make_kernel (K9) for any field.  A chain is
+// active while t1 < ts[k]; an active chain takes the step of the whole
+// solve (the same rk_stages, step_decision with the "i" controller and
+// midpoint as K1), so the two take the same steps.  On acceptance the
+// step's quartic coefficients are kept for the dense output, which the
+// host evaluates between intervals.  The step budget is the host's: it
+// is collective, read from flags[1] between launches.
+template <class F, class TB>
+__global__ void __launch_bounds__(F::kThreads)
+dopri5_step_kernel(typename F::Args w, const float* __restrict__ ts, int k,
+                   int T, int C, int steps, SolveArgs s, StepState st) {
+  constexpr int NS = F::kNS;
+  __shared__ typename F::Smem sm;
+  const int c = F::chain();
+  const F fld = F::load(w, sm, C, c);
+  if (c >= C) return;
+  const bool lead = F::leader();
+
+  float y[NS], kk[7][NS], y1[NS], ym[NS];
+  const size_t row = static_cast<size_t>(c) * NS;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    y[i] = st.y[row + i];
+    kk[0][i] = st.f[row + i];
+  }
+  float t0 = st.t0[c], t1 = st.t1[c], dt = st.dt[c];
+  int nfe = st.nfe[c], nacc = st.nacc[c], nrej = st.nrej[c];
+  const float next_t = ts[k];
+  for (int it = 0; it < steps && t1 < next_t; ++it) {
+    rk_stages<NS, TB>(fld, y, kk, dt, y1);
+    const Decision d = step_decision<NS, TB>(
+        kk, y, y1, dt, s.rtol, s.atol, s.safety, s.ifactor, s.dfactor, false,
+        1.0f);
+    nfe += 6;
+    if (d.accept) {
+      midpoint<NS, TB>(y, kk, dt, ym);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        float cf[5];
+        quartic_coeffs(y[i], y1[i], ym[i], kk[0][i], kk[6][i], dt, cf);
+        if (lead) {
+#pragma unroll
+          for (int j = 0; j < 5; ++j)
+            st.coef[(static_cast<size_t>(j) * C + c) * NS + i] = cf[j];
+        }
+        y[i] = y1[i];
+        kk[0][i] = kk[6][i];
+      }
+      t0 = t1;
+      t1 = t1 + dt;
+      ++nacc;
+    } else {
+      ++nrej;
+    }
+    dt = d.dt_next;
+  }
+  if (!lead) return;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    st.y[row + i] = y[i];
+    st.f[row + i] = kk[0][i];
+  }
+  st.t0[c] = t0;
+  st.t1[c] = t1;
+  st.dt[c] = dt;
+  st.nfe[c] = nfe;
+  st.nacc[c] = nacc;
+  st.nrej[c] = nrej;
+  int m = k;
+  while (m < T && !(ts[m] > t1)) ++m;
+  atomicMin(&st.flags[0], m);
+  atomicMax(&st.flags[1], nacc + nrej);
 }
 
 // The backward's per-step arrays: registers for a chain-per-thread field,
@@ -345,6 +443,23 @@ int launch_bwd(int tableau, const typename F::Args& w,
   else
     dopri5_bwd_kernel<F, Tsit5><<<grid, block, 0, stream>>>(
         w, gw, ts, rec, nrec, g, C, T, lbar);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of the per-step solver at DOPRI5 (the JAX per-step kernel's
+// only tableau), after resetting the flags (flags[0] to a large int,
+// flags[1] to 0).
+template <class F>
+int launch_step(const typename F::Args& w, const float* ts, int k, int T,
+                int C, int steps, const SolveArgs& s, const StepState& st,
+                cudaStream_t stream) {
+  cudaError_t e = cudaMemsetAsync(st.flags, 0x7f, sizeof(int), stream);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(st.flags + 1, 0, sizeof(int), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((C + F::kChains - 1) / F::kChains);
+  dopri5_step_kernel<F, Dopri5><<<grid, F::kThreads, 0, stream>>>(
+      w, ts, k, T, C, steps, s, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -131,10 +131,15 @@ def _check_supported(config: Dict, make_plots: bool) -> None:
             f"engine='fused' model={model!r} supports solver='dopri5' "
             f"only (got {solver!r}), as in the JAX driver: the field has no "
             "fixed-grid kernel")
+    if config["method"] == "SVGD":
+        raise NotImplementedError(
+            "method 'SVGD': the JAX driver runs SVGD over the generic "
+            "odeint-adjoint potential, which waits for ROADMAP queue 1 item "
+            "11; the sampler itself is samplers.svgd / svgd_batched")
     if config["method"] not in METHODS:
         raise NotImplementedError(
             f"method {config['method']!r}: the port has {', '.join(METHODS)} "
-            "(ROADMAP queue 1 items 12-14 and 18 port the others)")
+            "(ROADMAP queue 1 items 13, 14 and 18 port the others)")
     if int(config.get("ckpt_every") or 0) > 0:
         raise NotImplementedError(
             "checkpointed sampling (ckpt_every) is ROADMAP queue 1 item 6")

@@ -11,6 +11,8 @@ kernel family and shape, the shape baked in at compile time:
     "fhn_dopri5"     K2/K3 over the FitzHugh-Nagumo field, keyed by (N,)
     "gp_rk4"         K4-K5, keyed by (N, M)
     "mlp_rk4"        K6-K7, keyed by (N, H)
+    "gp_dopri5_step" K9, the per-step GP solver, keyed by (N, M)
+    "svgd_phi"       K8, the SVGD direction, with no shape baked in
 
 Each adaptive library holds both tableaus (DOPRI5 and TSIT5) and both
 forwards (recording or not); its entry points take them as arguments.
@@ -89,18 +91,28 @@ FAMILIES: Dict[str, Family] = {
         ("MLP_N", "MLP_H"), "mlp_rk4_dims",
         {"mlp_rk4_fwd": [_P] * 8 + [_I, _I] + [_P, _P],
          "mlp_rk4_bwd": [_P] * 9 + [_I, _I] + [_P] * 8}),
+    "gp_dopri5_step": Family(
+        ("gp_dopri5_step.cu",),
+        ("dopri5_common.cuh", "dopri5_kernels.cuh", "gp_field.cuh"),
+        ("GP_N", "GP_M"), "gp_dopri5_step_dims",
+        {"gp_dopri5_step": [_P] * 2 + [_F] * 3 + [_P] + [_I] * 4 + [_F] * 5
+                           + [_P] * 10 + [_P]}),
+    "svgd_phi": Family(
+        ("svgd_phi.cu",), (), (), "svgd_phi_dims",
+        {"svgd_phi": [_P] * 3 + [_I, _I] + [_P, _P]}),
 }
 
 ADAPTIVE_FIELDS = ("gp", "mlp", "spiral", "fhn")
 TABLEAUS = ("dopri5", "tsit5")      # the entry points' tableau 0 and 1
 
 # K1 is gp_dopri5_solve_whole, K2 "*_fwd_record", K3 "*_bwd"; K4/K5:
-# gp_rk4_fwd/bwd; K6/K7: mlp_rk4_fwd/bwd.
+# gp_rk4_fwd/bwd; K6/K7: mlp_rk4_fwd/bwd; K8 svgd_phi; K9 gp_dopri5_step.
 launch_counts: Dict[str, int] = {
     **{f"{field}_{method}_{kind}": 0 for field in ADAPTIVE_FIELDS
        for method in TABLEAUS
        for kind in ("solve_whole", "fwd_record", "bwd")},
-    "gp_rk4_fwd": 0, "gp_rk4_bwd": 0, "mlp_rk4_fwd": 0, "mlp_rk4_bwd": 0}
+    "gp_rk4_fwd": 0, "gp_rk4_bwd": 0, "mlp_rk4_fwd": 0, "mlp_rk4_bwd": 0,
+    "svgd_phi": 0, "gp_dopri5_step": 0}
 
 # loaded libraries by (family, shape); the sources do not change under a
 # running process, so they are hashed once per library, not at every launch

@@ -1,4 +1,4 @@
-"""Samplers of the PyTorch port: the batched Langevin family."""
+"""Samplers of the PyTorch port: the batched Langevin family and SVGD."""
 from . import schedules  # noqa: F401
 from .base import (  # noqa: F401
     TransitionKernel,
@@ -10,6 +10,7 @@ from .diagnostics import (  # noqa: F401
     acceptance_rate,
     autocovariance,
     ess,
+    kernel_stein_discrepancy,
     split_rhat,
 )
 from .langevin import (  # noqa: F401
@@ -23,11 +24,21 @@ from .langevin import (  # noqa: F401
     psgld_preconditioner,
     sgld_batched,
 )
+from .stein import (  # noqa: F401
+    SVGDState,
+    pairwise_sq_dists,
+    rbf_bandwidth,
+    rbf_kernel,
+    svgd,
+    svgd_batched,
+    svgd_direction,
+)
 
 __all__ = [
     "AdamSGLDState",
     "BatchLangevinState",
     "BatchPreconditionedState",
+    "SVGDState",
     "TransitionKernel",
     "acceptance_rate",
     "adam_sgld_batched",
@@ -35,12 +46,19 @@ __all__ = [
     "batch_value_and_grad",
     "csgld_batched",
     "ess",
+    "kernel_stein_discrepancy",
     "langevin_noise_scale",
     "mala_batched",
+    "pairwise_sq_dists",
     "psgld_batched",
     "psgld_preconditioner",
+    "rbf_bandwidth",
+    "rbf_kernel",
     "sample_chain",
     "schedules",
     "sgld_batched",
     "split_rhat",
+    "svgd",
+    "svgd_batched",
+    "svgd_direction",
 ]

@@ -1,10 +1,11 @@
 """Helpers over parameter trees of tensors.
 
 Counterpart of the part of `bayesian_ode_tpu/utils/pytree.py` the
-samplers need.  A "tree" here is a tensor, or a dict, list or tuple of
-trees: the GP model's {"U", "logsn"} dict, the MLP's layer list
-[{"w", "b"}, ...].  Leaves are visited as `jax.tree` visits them: lists
-and tuples in order, dict keys sorted.
+samplers need, with `ravel_pytree` (jax.flatten_util's, which that module
+re-exports) for the particle ensembles of SVGD.  A "tree" here is a
+tensor, or a dict, list or tuple of trees: the GP model's {"U", "logsn"}
+dict, the MLP's layer list [{"w", "b"}, ...].  Leaves are visited as
+`jax.tree` visits them: lists and tuples in order, dict keys sorted.
 """
 from __future__ import annotations
 
@@ -44,6 +45,27 @@ def tree_unflatten(like: Tree, leaves) -> Tree:
     """A tree shaped like `like` holding `leaves` in `tree_leaves` order."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), like)
+
+
+def ravel_pytree(tree: Tree):
+    """(flat, unravel): the leaves of `tree` flattened row-major and
+    concatenated in `tree_leaves` order (dict keys sorted), as
+    `jax.flatten_util.ravel_pytree` flattens them, and the inverse.
+
+    `unravel(v)` takes a vector (P,) or a batch (..., P) and returns a tree
+    of leaves shaped (..., *leaf.shape), where the JAX package vmaps its
+    unravel over the batch."""
+    leaves = tree_leaves(tree)
+    shapes = [tuple(x.shape) for x in leaves]
+    sizes = [x.numel() for x in leaves]
+    flat = torch.cat([x.reshape(-1) for x in leaves])
+
+    def unravel(v):
+        parts = torch.split(v, sizes, dim=-1)
+        return tree_unflatten(tree, [p.reshape(v.shape[:-1] + s)
+                                     for p, s in zip(parts, shapes)])
+
+    return flat, unravel
 
 
 def treedef_str(tree: Tree) -> str:

@@ -16,19 +16,28 @@ t=6, 10,112 chains):
   - the fused adaptive engine's other instances of K2/K3: the MLP field
     (H=32, store_steps=256), the spiral y^3-net (H=50, store_steps=128),
     the FitzHugh-Nagumo theta-field on FitzHugh-Nagumo data
-    (store_steps=128), and the GP field at TSIT5.
+    (store_steps=128), and the GP field at TSIT5;
+  - the SVGD direction (K8) at 4,096 particles of the GP posterior (74
+    parameters each), before and after the SVGD run below, and at 16,384
+    N(0, 1) particles, each against its plain version and float64;
+  - the per-step GP dopri5 solver (K9) against the whole solve K1 (the
+    same steps on every chain) and against its plain version.
 
 It then drives each path through its public entry points,
 `experiments.vanderpol_gp.run_sampler` (engine="fused"): dopri5 GP under
 SGLD and pSGLD, rk4 GP under SGLD, cSGLD and MALA, rk4 NN under pSGLD,
 dopri5 NN and spiral under pSGLD and dopri5 FitzHugh-Nagumo under SGLD;
 and the GP field at TSIT5 through `ops.gp_field.gp_field_trajectory` under
-SGLD.  The launch counters are set to 0 just before each path's runs and
+SGLD; SVGD (`samplers.svgd_batched` over `ops.gp_rk4.make_fused_gp_potential`,
+AdaGrad at lr=1e-2, 50 steps) at 4,096 particles, where phi goes through
+K8, and at 1,024, where it does not; and one `ops.gp_dopri5.gp_dopri5_solve`
+(K9).  The launch counters are set to 0 just before each path's runs and
 read just after, and must show the path's own kernels on every
-potential-gradient evaluation and no other kernel.  Last, it times
-steady-state sampler steps of each path, and profiles 5 steady steps of
-each adaptive path of the fused engine with torch.profiler (device time by
-kernel, the other kernels, the card's idle share of the window).
+potential-gradient evaluation (or step, or launch) and no other kernel.
+Last, it times steady-state sampler steps of each path, and profiles 5
+steady steps of each adaptive path of the fused engine and of SVGD at
+4,096 particles with torch.profiler (device time by kernel, the median's
+sort, the other kernels, the card's idle share of the window).
 
 Exits non-zero on any failed phase, and when no CUDA device is available.
 The line before the last is a JSON object with each kernel's launches,
@@ -49,9 +58,12 @@ RTOL, ATOL = 1e-7, 1e-9
 STORE_STEPS = 128
 HIDDEN = 32
 SPIRAL_HIDDEN = 50
+SVGD_PARTICLES = (4096, 1024)     # K8 on "auto" at the first, not the second
+SVGD_STEPS = 50
 LIBRARIES = [("gp_dopri5", (5, 36)), ("gp_rk4", (5, 36)),
              ("mlp_rk4", (5, HIDDEN)), ("mlp_dopri5", (5, HIDDEN)),
-             ("spiral_dopri5", (5, SPIRAL_HIDDEN)), ("fhn_dopri5", (5,))]
+             ("spiral_dopri5", (5, SPIRAL_HIDDEN)), ("fhn_dopri5", (5,)),
+             ("gp_dopri5_step", (5, 36)), ("svgd_phi", ())]
 
 # The least time the card could take for a kernel's work: the larger of
 # its bytes over the memory rate and its operations over the peak rate for
@@ -114,6 +126,14 @@ def rk4_bounds(name, width, C, N, T, w_bytes, wbar_bytes):
     bwd = bound(w_bytes + wbar_bytes + 2 * traj + C * NS * 4,
                 steps * N * (3 * f + 4 * fv), steps * N * (3 * s + 4 * sv))
     return fwd, bwd
+
+
+def svgd_phi_bound(n, d):
+    """Bound of K8 for n particles of width d: per pair the distance
+    product (d FMAs), the two weighted sums (2d FMAs), the distance, the
+    exponent's argument and the row sum (4 flops) and one expf; bytes the
+    particles and scores read once and phi written once."""
+    return bound(3 * n * d * 4 + 4, n * n * (6 * d + 4), n * n)
 
 
 def nbytes(tensors):
@@ -185,22 +205,27 @@ def profile_steps(label, kern, p0, dev, steps=5):
             state, _ = kern.step(gen, state)
         torch.cuda.synchronize()
         window = (time.perf_counter() - t0) * 1e3
-    ours, other, n_other = {}, 0.0, 0
+    ours, other, n_other, sort, n_sort = {}, 0.0, 0, 0.0, 0
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:   # kernels, copies and sets
             continue
         dt = ev.device_time_total / 1e3 / steps                  # ms/step
-        if "dopri5_" in ev.key or "_rk4_" in ev.key:
+        if any(k in ev.key for k in ("dopri5_", "_rk4_", "svgd_phi")):
             name = ev.key.replace("bode::", "").split("(")[0]
             ours[name.replace("void ", "")] = dt
+        elif "sort" in ev.key.lower():          # the bandwidth's median
+            sort += dt
+            n_sort += ev.count // steps
         else:
             other += dt
             n_other += ev.count // steps
-    busy = sum(ours.values()) + other
+    busy = sum(ours.values()) + other + sort
     per_step = window / steps
     print(f"profile {label}: {per_step:.3f} ms/step in the window; "
           + "; ".join(f"{k} {v:.3f} ms ({v / per_step:.1%})"
                       for k, v in ours.items())
+          + (f"; {n_sort} sort launches {sort:.3f} ms "
+             f"({sort / per_step:.1%})" if n_sort else "")
           + f"; {n_other} other launches {other:.3f} ms "
           f"({other / per_step:.1%}); card idle "
           f"{max(per_step - busy, 0.0):.3f} ms "
@@ -217,7 +242,8 @@ def ptxas_summary(family, shape, log):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             mangled = m.group(1)
-            parts = re.findall(r"(dopri5_fwd|dopri5_bwd|gp_rk4_fwd|gp_rk4_bwd"
+            parts = re.findall(r"(dopri5_fwd|dopri5_bwd|dopri5_step"
+                               r"|svgd_phi|gp_rk4_fwd|gp_rk4_bwd"
                                r"|mlp_rk4_fwd|mlp_rk4_bwd|GPDopri5|MLPDopri5"
                                r"|SpiralDopri5|FHNDopri5|Dopri5|Tsit5|Lb[01])",
                                mangled)
@@ -886,8 +912,195 @@ def main() -> int:
     for label, kern, p0, *_ in steady:
         profile_steps(label, kern, p0, dev)
 
-    # no single PyTorch call computes an adaptive solve or an rk4 sweep,
-    # so no kernel has a library yardstick
+    # ---- phase 13: SVGD on the GP posterior (BASELINE config 4) ----
+    # bench.py:211-233 and 782-868: the fused rk4 potential (K4/K5 give the
+    # scores), particles at the gradient-matched start jittered by 0.005 on
+    # U and logsn, AdaGrad at lr=1e-2, 50 steps; phi through K8 on "auto"
+    # at 4,096 particles and through the matmul form at 1,024
+    from bayesian_ode_tpu_torch.ops import svgd_phi as k8
+    from bayesian_ode_tpu_torch.samplers import stein
+    from bayesian_ode_tpu_torch.utils.pytree import ravel_pytree
+
+    p0 = kr.init_params(data["Y"], data["t"], static, noise=0.05)
+
+    def svgd_start(n):
+        g = torch.Generator(device=dev).manual_seed(n)
+        return {"U": p0["U"].to(dev, f32)[None] + 0.005 * torch.randn(
+                    (n, 36, 2), generator=g, device=dev),
+                "logsn": p0["logsn"].to(dev, f32)[None] + 0.005 * torch.randn(
+                    (n, 2), generator=g, device=dev)}
+
+    unravel = ravel_pytree({k: v[0] for k, v in svgd_start(1).items()})[1]
+
+    def scores(flat):
+        x = flat.detach().requires_grad_(True)
+        (grad,) = torch.autograd.grad(pot_gp(unravel(x)).sum(), [x])
+        return -grad
+
+    def ksd(flat):
+        """IMQ KSD of a strided subsample of at most 512 particles
+        (bench.py:850-868)."""
+        x = flat[::max(1, flat.shape[0] // 512)][:512]
+        return float(samplers.kernel_stein_discrepancy(x, scores))
+
+    def phi_errors(X, S, label):
+        """K8 and the plain float32 version against float64 (max-rel): the
+        ensemble is clustered, so the norm expansion cancels in float32
+        and the kernel is held within 2x the plain version's error (floor
+        1e-5), the JAX gate for float32 paths."""
+        gamma = stein.rbf_bandwidth(X, None, 256)
+        phik = k8.svgd_phi(X, S, gamma)
+        phip = k8.svgd_phi_reference(X, S, gamma)
+        truth = k8.svgd_phi_reference(X.double(), S.double(), gamma.double())
+        torch.cuda.synchronize()
+        scale = float(truth.abs().max())
+        ek = float((phik.double() - truth).abs().max()) / scale
+        ep = float((phip.double() - truth).abs().max()) / scale
+        print(f"K8 {label}: max-rel to float64 {ek:.3e}, plain float32 "
+              f"{ep:.3e}; max|kernel - plain| "
+              f"{float((phik - phip).abs().max()):.3e} (max|phi| "
+              f"{scale:.4e}, gamma {float(gamma):.6g})")
+        check(bool(torch.isfinite(phik).all()), f"K8 {label} finite")
+        check(ek <= 2.0 * max(ep, 1e-5),
+              f"K8 {label} within 2x the plain float32 error")
+        return phik, phip, gamma
+
+    svgd_runs = {}
+    for n in SVGD_PARTICLES:
+        kern = samplers.svgd_batched(pot_gp, step_size=1e-2, adagrad=True)
+        start = svgd_start(n)
+        state = kern.init(start)
+        P = state.particles.shape[1]
+        if n >= 4096:
+            X0, S0 = state.particles, scores(state.particles)
+            phik, phip, gamma0 = phi_errors(X0, S0, f"n={n} d={P} start")
+            k8_err = float((phik - phip).abs().max())
+        ksd0 = ksd(state.particles)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        pots = []
+        for _ in range(SVGD_STEPS):
+            state, info = kern.step(None, state)
+            pots.append(info["potential"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        delta = dict(_build.launch_counts)
+        with torch.no_grad():
+            pot_end = float(pot_gp(unravel(state.particles)).mean())
+        ksd1 = ksd(state.particles)
+        print(f"SVGD n={n}: {SVGD_STEPS} steps in {wall:.3f} s; launches "
+              f"{ {k: v for k, v in delta.items() if v} }; mean potential "
+              f"{float(pots[0]):.4f} -> {pot_end:.4f}; KSD {ksd0:.6g} -> "
+              f"{ksd1:.6g}")
+        path = ("gp_rk4_fwd", "gp_rk4_bwd") + (("svgd_phi",) if n >= 4096
+                                               else ())
+        for name in delta:
+            want = SVGD_STEPS if name in path else 0
+            check(delta[name] == want,
+                  f"SVGD n={n}: {name} launched {want} times")
+        check(all(bool(torch.isfinite(v)) for v in pots)
+              and bool(torch.isfinite(state.particles).all())
+              and np.isfinite([pot_end, ksd0, ksd1]).all(),
+              f"SVGD n={n}: finite values")
+        check(pot_end < float(pots[0]), f"SVGD n={n}: mean potential fell")
+        if n >= 4096:
+            counts["svgd_phi"] = delta["svgd_phi"]
+            phi_errors(state.particles, scores(state.particles),
+                       f"n={n} d={P} after {SVGD_STEPS} steps")
+        svgd_runs[n] = (kern, start)
+
+    ms8 = cuda_ms(lambda: k8._launch(X0, S0, gamma0), 20, warmup=10)
+    ms8p = cuda_ms(lambda: k8.svgd_phi_reference(X0, S0, gamma0), 20,
+                   warmup=3)
+    b8, by8 = svgd_phi_bound(X0.shape[0], X0.shape[1])
+    print(f"K8: {ms8:.3f} ms at n={X0.shape[0]} d={X0.shape[1]}, plain "
+          f"(matmul form, cuBLAS, TF32 off) {ms8p:.3f} ms, bound {b8:.4f} ms "
+          f"({by8}) ({smi})")
+    kernels["svgd_phi"] = dict(
+        source="bayesian_ode_tpu_torch/csrc/svgd_phi.cu",
+        replaces="bayesian_ode_tpu/ops/pallas_rbf.py:25",
+        max_abs_err=k8_err, ms=ms8, plain_ms=ms8p, bound_ms=b8, bound_by=by8)
+    for n, (kern, start) in svgd_runs.items():
+        ms, state = steady_ms(kern, start, dev)
+        check(bool(torch.isfinite(state.particles).all()),
+              f"SVGD n={n}: finite particles in the steady run")
+        print(f"SVGD n={n} steady: {ms:.3f} ms/step over 10 steps = "
+              f"{n / ms * 1e3:.0f} particle-steps/s ({smi})")
+    profile_steps(f"SVGD n={SVGD_PARTICLES[0]}",
+                  *svgd_runs[SVGD_PARTICLES[0]], dev)
+    del X0, S0, svgd_runs
+
+    # ---- phase 14: K8 where the plain K is 1 GiB, on N(0, 1) inputs ----
+    gen8 = torch.Generator(device=dev).manual_seed(8)
+    X = torch.randn((16384, 74), generator=gen8, device=dev)
+    S = torch.randn((16384, 74), generator=gen8, device=dev)
+    phik, phip, gamma = phi_errors(X, S, "n=16384 d=74 N(0,1)")
+    close = torch.allclose(phik, phip, rtol=2e-5, atol=2e-6)
+    ms16 = cuda_ms(lambda: k8._launch(X, S, gamma), 5, warmup=2)
+    ms16p = cuda_ms(lambda: k8.svgd_phi_reference(X, S, gamma), 5, warmup=1)
+    print(f"K8 n=16384: within rtol 2e-5 / atol 2e-6 of plain: {close}; "
+          f"{ms16:.3f} ms, plain {ms16p:.3f} ms")
+    check(close, "K8 at n=16384 within rtol 2e-5 / atol 2e-6 of plain")
+    del X, S, phik, phip
+
+    # ---- phase 15: K9, the per-step solver, against K1 and plain ----
+    from bayesian_ode_tpu_torch.ops.gp_dopri5 import (
+        gp_dopri5_solve,
+        gp_dopri5_solve_plain,
+    )
+
+    _build.reset_launch_counts()
+    ys9, st9 = gp_dopri5_solve(A, x0, ts, s32, rtol=RTOL, atol=ATOL)
+    torch.cuda.synchronize()
+    delta = {k: v for k, v in _build.launch_counts.items() if v}
+    launches9 = delta.get("gp_dopri5_step", 0)
+    check(set(delta) == {"gp_dopri5_step"},
+          f"K9's solve launched K9 and nothing else: {delta}")
+    ys9p, st9p = gp_dopri5_solve_plain(A, x0, ts, s32, rtol=RTOL, atol=ATOL)
+    torch.cuda.synchronize()
+    same = all(torch.equal(st9[k], st_k[k])
+               for k in ("nfe", "n_accepted", "n_rejected"))
+    err9_1 = float((ys9 - ys_k).abs().max())
+    err9 = float((ys9 - ys9p).abs().max())
+    scale9 = float(ys9p.abs().max())
+    nfe9 = float(st9["nfe"].float().mean())
+    nfe9p = float(st9p["nfe"].float().mean())
+    most = int((st9["n_accepted"] + st9["n_rejected"]).max())
+    print(f"K9: {launches9} launches a solve (the most steps of any chain: "
+          f"{most}); counters equal K1's on every "
+          f"chain: {same}; max|ys - K1| = {err9_1:.3e}; max|ys - plain| = "
+          f"{err9:.3e} (max|y| {scale9:.4f}), mean NFE {nfe9:.3f} vs plain "
+          f"{nfe9p:.3f}")
+    check(same, "K9 nfe, n_accepted and n_rejected equal K1's per chain")
+    check(err9_1 <= 5e-6, "K9 trajectories within 5e-6 of K1's")
+    check(err9 <= 1e-4 * scale9, "K9 within 1e-4 max|y| of plain")
+    check(abs(nfe9 - nfe9p) <= 0.01 * nfe9p, "K9 mean NFE within 1%")
+    check(st9["reached_final_time"], "K9 reaches t_final")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        gp_dopri5_solve(A, x0, ts, s32, rtol=RTOL, atol=ATOL)
+    torch.cuda.synchronize()
+    ms9 = (time.perf_counter() - t0) / 5 * 1e3
+    t0 = time.perf_counter()
+    gp_dopri5_solve_plain(A, x0, ts, s32, rtol=RTOL, atol=ATOL)
+    torch.cuda.synchronize()
+    ms9p = (time.perf_counter() - t0) * 1e3
+    print(f"K9: {ms9:.3f} ms a solve of {N_CHAINS} chains (host loop and "
+          f"its reads included; {N_CHAINS / ms9 * 1e3:.0f} solves/s), "
+          f"{ms9 / launches9:.4f} ms a launch, plain {ms9p:.1f} ms ({smi})")
+    counts["gp_dopri5_step"] = launches9
+    # the same solve as K1, so the same bound (from these step counts)
+    kernels["gp_dopri5_step"] = dict(
+        source="bayesian_ode_tpu_torch/csrc/gp_dopri5_step.cu",
+        replaces="bayesian_ode_tpu/ops/gp_dopri5.py:172",
+        max_abs_err=err9, ms=ms9, plain_ms=ms9p, bound_ms=b1, bound_by=by1)
+    del ys9, ys9p
+
+    # no single PyTorch call computes an adaptive solve, an rk4 sweep or
+    # the SVGD direction, so no kernel has a library yardstick (K8's plain
+    # version, the matmul form on cuBLAS, is the one to beat)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": counts[name],

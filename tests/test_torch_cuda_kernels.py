@@ -13,13 +13,18 @@ Small shapes and the cases `chip_smoke.py` does not reach at full size:
 a chain count that is not a multiple of the 64-thread block (or of the 4
 warps of a warp-per-chain field's block), the PI controller, budget
 exhaustion, record overflow, a spiral of 50 hidden units (two per lane)
-and one of 20.  Gates as the smoke's:
+and one of 20, the SVGD direction (K8) at particle counts and widths that
+are not multiples of its tiles, and the per-step solver (K9) against the
+whole solve.  Gates as the smoke's:
 dopri5 trajectories within 1e-4 * max|y| of the plain version (two float32
 solves whose step meshes differ by rounding in the floor-bound regime),
 mean NFE within 1%, gradients within 1e-3 max-rel (the JAX package's
 float32 gate).  The fixed-grid rk4 kernels (K4-K7) take the same steps as
 their plain versions, so they are held closer: trajectories within
-1e-5 * max|y| and cotangents within 1e-5 max-rel.
+1e-5 * max|y| and cotangents within 1e-5 max-rel.  K8 on N(0, 1) inputs
+within the JAX kernel test's rtol 2e-5 / atol 2e-6 of its plain version;
+K9 with K1's per-chain step counts and within 5e-6 of its trajectories
+(the JAX package's gate between its two kernels).
 """
 import pytest
 import torch
@@ -33,6 +38,7 @@ from bayesian_ode_tpu_torch.ops import gp_rk4, mlp_rk4
 from bayesian_ode_tpu_torch.ops.fhn_dopri5 import fhn_field
 from bayesian_ode_tpu_torch.ops.gp_dopri5 import (
     _pack_initial,
+    gp_dopri5_solve,
     gp_dopri5_solve_whole,
     gp_dopri5_solve_whole_plain,
 )
@@ -44,6 +50,7 @@ from bayesian_ode_tpu_torch.ops.gp_dopri5_grad import (
 from bayesian_ode_tpu_torch.ops.gp_field import gp_field
 from bayesian_ode_tpu_torch.ops.mlp_dopri5 import mlp_field
 from bayesian_ode_tpu_torch.ops.spiral_dopri5 import spiral_field
+from bayesian_ode_tpu_torch.ops.svgd_phi import svgd_phi, svgd_phi_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -360,3 +367,46 @@ def test_adaptive_field_kernels_match_plain(gp, case):
         assert _max_rel(k, kp) <= 1e-4
         assert _max_rel(p, a) <= 1e-4
     assert _max_rel(lbar_k, lbar_kp) <= 1e-4
+
+
+@pytest.mark.parametrize("n,d", [(300, 5), (1000, 3), (130, 200),
+                                 (4097, 74)])
+def test_svgd_phi_kernel_matches_plain(gp, n, d):
+    """Ragged particle counts against the 32-row and 64-column tiles, a
+    width past the 128-feature chunk (two chunks) and one that is not a
+    multiple of the 16-feature step."""
+    dev = gp["dev"]
+    gen = torch.Generator(device=dev).manual_seed(n + d)
+    X = torch.randn((n, d), generator=gen, device=dev)
+    S = torch.randn((n, d), generator=gen, device=dev)
+    gamma = torch.tensor(0.7 / d, device=dev)
+    before = _build.launch_counts["svgd_phi"]
+    got = svgd_phi(X, S, gamma)
+    want = svgd_phi_reference(X, S, gamma)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["svgd_phi"] == before + 1
+    assert got.shape == (n, d) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+
+
+def test_per_step_solver_takes_the_whole_solves_steps(gp):
+    s = gp["static"]
+    gen = torch.Generator(device=gp["dev"]).manual_seed(4)
+    U = gp["U"][:1] + 3e-3 * torch.randn((256, 36, 2), generator=gen,
+                                         device=gp["dev"])
+    A = torch.einsum("mk,ckd->cmd", s.KzzinvL, U).contiguous()
+    ys1, st1 = gp_dopri5_solve_whole(A, gp["x0"], gp["ts"], s)
+    _build.reset_launch_counts()
+    ys9, st9 = gp_dopri5_solve(A, gp["x0"], gp["ts"], s)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in _build.launch_counts.items() if v}
+    assert set(launched) == {"gp_dopri5_step"}, launched
+    assert st9["reached_final_time"]
+    for k in ("nfe", "n_accepted", "n_rejected"):
+        assert torch.equal(st9[k], st1[k]), k
+    assert float((ys9 - ys1).abs().max()) <= 5e-6
+    ys3, st3 = gp_dopri5_solve(A, gp["x0"], gp["ts"], s, steps_per_call=3)
+    assert torch.equal(ys3, ys9) and torch.equal(st3["nfe"], st9["nfe"])
+    _, stb = gp_dopri5_solve(A, gp["x0"], gp["ts"], s, max_steps=12)
+    taken = stb["n_accepted"] + stb["n_rejected"]
+    assert not stb["reached_final_time"] and int(taken.max()) == 12

@@ -152,7 +152,7 @@ def test_run_sampler_psgld_and_unported_options(problem, tmp_path):
                           device="cpu")
     assert np.isfinite(summary["min_potential"])
     for bad in ({"engine": "generic"}, {"solver": "tsit5"},
-                {"method": "aSGHMC"}):
+                {"method": "aSGHMC"}, {"method": "SVGD"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_sampler(dict(cfg, **bad), data, str(tmp_path),
                         make_plots=False, device="cpu")
