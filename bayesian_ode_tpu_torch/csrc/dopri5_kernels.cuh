@@ -34,7 +34,9 @@
 //   load(args, smem, C, c)        called by every thread of the block
 //                                 (it may __syncthreads);
 //   acc_init(accsmem), acc_store(acc, grads, c)   likewise for acc_init;
-//   rhs(y, f), rhs_vjp(y, cot, ybar, acc).
+//   rhs(y, f), rhs_vjp(y, cot, ybar, acc);
+// and the backward takes the optional stage slots of field_stages.cuh:
+// slot 0 is a step's start y0, slot r + 1 its stage point u[r].
 //
 // What bounds the kernels on an H100: the serial per-chain chain of field
 // evaluations, not bytes.  Chains are independent with data-dependent step
@@ -54,6 +56,7 @@
 #pragma once
 
 #include "dopri5_common.cuh"
+#include "field_stages.cuh"
 
 namespace bode {
 
@@ -255,9 +258,12 @@ dopri5_step_kernel(typename F::Args w, const float* __restrict__ ts, int k,
   atomicMax(&st.flags[1], nacc + nrej);
 }
 
-// The backward's per-step arrays: registers for a chain-per-thread field,
-// one shared copy per chain for a warp-per-chain field (every lane writes
-// the same values, so no lane reads another's unfinished write).
+// The backward's per-step arrays, NS of the chain's components (all of
+// them, or the one a lane carries where the field distributes the state):
+// registers for a chain-per-thread field or a distributed one, one shared
+// copy per chain for a warp-per-chain field that carries the whole state
+// on every lane (every lane writes the same values, so no lane reads
+// another's unfinished write).
 template <int NS>
 struct StageBuf {
   float y0[NS];
@@ -271,11 +277,11 @@ struct StageBuf {
 // cotangent of its trajectory rows 1..T-1; the weight cotangents are in acc.
 template <class F, class TB>
 __device__ __forceinline__ void bwd_sweep(
-    const F& fld, typename F::Acc& acc, StageBuf<F::kNS>& b,
+    const F& fld, typename F::Acc& acc, StageBuf<own_components<F>()>& b,
     const float* __restrict__ ts, const float* __restrict__ rec, int n,
     const float* __restrict__ g, int C, int T, int c, float* l) {
-  constexpr int NS = F::kNS;
-  constexpr int kRec = NS + 2;
+  constexpr int NS = own_components<F>();   // components carried here
+  constexpr int kRec = F::kNS + 2;
 #pragma unroll
   for (int i = 0; i < NS; ++i) l[i] = 0.f;
   int p = T - 1;
@@ -283,17 +289,23 @@ __device__ __forceinline__ void bwd_sweep(
   for (int s = n - 1; s >= 0; --s) {
     const float* row = rec + static_cast<size_t>(s) * kRec * C + c;
 #pragma unroll
-    for (int i = 0; i < NS; ++i) b.y0[i] = row[static_cast<size_t>(i) * C];
-    const float t0 = row[static_cast<size_t>(NS) * C];
-    const float dt = row[static_cast<size_t>(NS + 1) * C];
+    for (int i = 0; i < NS; ++i)
+      b.y0[i] = row[static_cast<size_t>(own_component<F>(i)) * C];
+    const float t0 = row[static_cast<size_t>(F::kNS) * C];
+    const float dt = row[static_cast<size_t>(F::kNS + 1) * C];
     const float dts = dt > 0.f ? dt : 1.0f;
 
-    // 1. recompute the stages, keeping the stage points u[0..5]
-    fld.rhs(b.y0, b.k[0]);
+    // 1. recompute the stages, keeping the stage points u[0..5] (and, for
+    //    a field with stage slots, their activations; k[6] = f(u[5]) is
+    //    never needed)
+    stage_rhs(fld, 0, b.y0, b.k[0]);
 #pragma unroll
     for (int r = 0; r < 6; ++r) {
       stage_point<NS, TB>(r, b.y0, b.k, dts, b.u[r]);
-      fld.rhs(b.u[r], b.k[r + 1]);
+      if (r < 5)
+        stage_rhs(fld, r + 1, b.u[r], b.k[r + 1]);
+      else
+        stage_hidden(fld, r + 1, b.u[r]);
     }
 
     // 2. cotangents of the emitted output times -> quartic coefficients
@@ -307,10 +319,10 @@ __device__ __forceinline__ void bwd_sweep(
       const float X2 = X1 * X1;
       const float X3 = X2 * X1;
       const float X4 = X2 * X2;
-      const float* gp = g + (static_cast<size_t>(p) * C + c) * NS;
+      const float* gp = g + (static_cast<size_t>(p) * C + c) * F::kNS;
 #pragma unroll
       for (int i = 0; i < NS; ++i) {
-        const float wg = gp[i];
+        const float wg = gp[own_component<F>(i)];
         ca[i] += wg * X4;
         cb[i] += wg * X3;
         cc[i] += wg * X2;
@@ -340,7 +352,7 @@ __device__ __forceinline__ void bwd_sweep(
     // k7 = f(y1): its cotangent is the carried-in f1 share + the c_mid share
 #pragma unroll
     for (int i = 0; i < NS; ++i) b.cot[i] = b.kb[6][i] + b.f1b[i];
-    fld.rhs_vjp(b.u[5], b.cot, b.ub, acc);
+    stage_vjp(fld, 6, b.u[5], b.cot, b.ub, acc);
     // y1 = y0 + dt * (beta[5] . k)
 #pragma unroll
     for (int i = 0; i < NS; ++i) {
@@ -355,7 +367,7 @@ __device__ __forceinline__ void bwd_sweep(
     // stages 6..2: k[r + 1] = f(u[r]), u[r] = y0 + dt * (beta[r] . k)
 #pragma unroll
     for (int r = 4; r >= 0; --r) {
-      fld.rhs_vjp(b.u[r], b.kb[r + 1], b.ub, acc);
+      stage_vjp(fld, r + 1, b.u[r], b.kb[r + 1], b.ub, acc);
 #pragma unroll
       for (int i = 0; i < NS; ++i) {
         b.y0b[i] += b.ub[i];
@@ -370,7 +382,7 @@ __device__ __forceinline__ void bwd_sweep(
     // k1 = f(y0): the FSAL slope is recomputed, so f0's share lands here
 #pragma unroll
     for (int i = 0; i < NS; ++i) b.cot[i] = b.kb[0][i] + b.f0b[i];
-    fld.rhs_vjp(b.y0, b.cot, b.ub, acc);
+    stage_vjp(fld, 0, b.y0, b.cot, b.ub, acc);
 #pragma unroll
     for (int i = 0; i < NS; ++i) l[i] = b.y0b[i] + b.ub[i];
   }
@@ -382,7 +394,7 @@ dopri5_bwd_kernel(typename F::Args w, typename F::Grads gw,
                   const float* __restrict__ ts, const float* __restrict__ rec,
                   const int* __restrict__ nrec, const float* __restrict__ g,
                   int C, int T, float* __restrict__ lbar) {
-  constexpr int NS = F::kNS;
+  constexpr int NS = own_components<F>();
   __shared__ typename F::Smem sm;
   __shared__ typename F::AccSmem asm_;
   const int c = F::chain();
@@ -399,9 +411,10 @@ dopri5_bwd_kernel(typename F::Args w, typename F::Grads gw,
     StageBuf<NS> rbuf;
     bwd_sweep<F, TB>(fld, acc, rbuf, ts, rec, nrec[c], g, C, T, c, l);
   }
-  if (F::leader()) {
+  if (owner<F>()) {
 #pragma unroll
-    for (int i = 0; i < NS; ++i) lbar[static_cast<size_t>(c) * NS + i] = l[i];
+    for (int i = 0; i < NS; ++i)
+      lbar[static_cast<size_t>(c) * F::kNS + own_component<F>(i)] = l[i];
   }
   F::acc_store(acc, gw, c);
 }

@@ -1,0 +1,80 @@
+// The stage-slot part of the field contract of the reverse sweeps
+// (rk4_common.cuh: rk4_step_vjp; dopri5_kernels.cuh: bwd_sweep).
+//
+// A reverse sweep first evaluates the field at each stage point of a step
+// and then takes the VJP at each of them.  A field that keeps its
+// activations (the MLP field, mlp_field.cuh) declares kStageSlots and
+// provides
+//   stage_rhs(slot, y, f)          f at y, keeping y's activations in `slot`;
+//   stage_hidden(slot, y)          the same without f (the last stage's f is
+//                                  never needed);
+//   stage_vjp(slot, y, cot, ybar, acc)   the VJP at the point kept in `slot`;
+//   kOwn, comp(q), owner()         the state components a thread carries in
+//                                  the sweep's arrays, the index of its q-th
+//                                  one, and whether it writes them out.
+// Every other field (GP, spiral, FitzHugh-Nagumo) keeps nothing: the
+// helpers below call its rhs and rhs_vjp, and a thread carries all kNS
+// components, written by its leader().  Their kernels compute what they
+// computed before the slots existed, operation for operation.
+#pragma once
+
+#include <type_traits>
+
+namespace bode {
+
+template <class F, class = void>
+struct keeps_stages : std::false_type {};
+template <class F>
+struct keeps_stages<F, std::void_t<decltype(F::kStageSlots)>>
+    : std::true_type {};
+
+template <class F>
+__device__ __forceinline__ void stage_rhs(const F& f, int slot,
+                                          const float* y, float* out) {
+  if constexpr (keeps_stages<F>::value)
+    f.stage_rhs(slot, y, out);
+  else
+    f.rhs(y, out);
+}
+
+template <class F>
+__device__ __forceinline__ void stage_hidden(const F& f, int slot,
+                                             const float* y) {
+  if constexpr (keeps_stages<F>::value) f.stage_hidden(slot, y);
+}
+
+template <class F, class Acc>
+__device__ __forceinline__ void stage_vjp(const F& f, int slot,
+                                          const float* y, const float* cot,
+                                          float* ybar, Acc&& acc) {
+  if constexpr (keeps_stages<F>::value)
+    f.stage_vjp(slot, y, cot, ybar, acc);
+  else
+    f.rhs_vjp(y, cot, ybar, acc);
+}
+
+template <class F>
+__host__ __device__ constexpr int own_components() {
+  if constexpr (keeps_stages<F>::value)
+    return F::kOwn;
+  else
+    return F::kNS;
+}
+
+template <class F>
+__device__ __forceinline__ int own_component(int q) {
+  if constexpr (keeps_stages<F>::value)
+    return F::comp(q);
+  else
+    return q;
+}
+
+template <class F>
+__device__ __forceinline__ bool owner() {
+  if constexpr (keeps_stages<F>::value)
+    return F::owner();
+  else
+    return F::leader();
+}
+
+}  // namespace bode

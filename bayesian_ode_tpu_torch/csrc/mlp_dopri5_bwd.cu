@@ -6,13 +6,18 @@
 // bayesian_ode_tpu/ops/mlp_dopri5.py registers the MLP field, with the
 // layer VJPs of ops/mlp_rk4.py::_mlp_factory.
 //
-// What bounds it on an H100: FP32 FMAs, shuffles and registers.  A step is
-// 7 field evaluations and 7 VJPs at N points; a VJP adds the transposed
-// H x H product through the per-warp shared scratch.  A lane holds 40
-// weights and 40 weight cotangents in registers at H=32, so the step's 13
-// stage vectors and their cotangents (the 2N-float arrays of StageBuf)
-// live once per warp in shared memory instead, the same bits on every
-// lane.  Weight cotangents are written once per chain, with no atomics.
+// What bounds it on an H100: the MIO pipe (shuffles and shared-memory
+// instructions), then the FP32 FMAs of the H x H products, over each
+// chain's serial replay.  An accepted step evaluates the field at its 7
+// stage points once, keeping each point's activations in a stage slot of
+// the warp's shared buffer (field_stages.cuh), and takes the 7 VJPs from
+// them with no second hidden layer (7 hidden passes a step, not 14).  The
+// step's stage arrays are distributed over the warp, component i on lane
+// i, in registers (StageBuf of 1 float a lane); W2 sits in shared memory,
+// so a lane's 8 weights and 40 weight cotangents and its stage arrays fit
+// 128 registers.  The warp's buffer is 13,952 B at N=5, H=32; two chains a
+// block, 8 blocks (16 warps) an SM.  Weight cotangents
+// are written once per chain, with no atomics.
 #include "dopri5_kernels.cuh"
 #include "mlp_field.cuh"
 

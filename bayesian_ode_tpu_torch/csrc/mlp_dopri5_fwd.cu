@@ -7,12 +7,13 @@
 // public engine (record = 1), and the same solve without records (the
 // engine's stats path, record = 0).
 //
-// What bounds it on an H100: FP32 FMAs and shuffles.  A field evaluation
-// at one point is H FMAs and H shuffles per lane for the H x H layer, 2H
-// expf over the warp and two 5-step butterfly sums; a step is 6 x N such
-// points.  The weights are read once per chain into registers (40 per lane
-// at H=32); the while loop is warp-uniform, so the lanes never diverge on
-// a step decision, and lane 0 alone writes the dense output and records.
+// What bounds it on an H100: the MIO pipe and the FP32 FMAs.  A field
+// evaluation at N points is a hidden pass through the warp's shared copy
+// of h1 and W2 (mlp_field.cuh), 2NH expf over the warp and one 16-wide
+// reduce-scatter of the outputs, broadcast back by 2N shuffles; a step is
+// 6 such evaluations.  The while loop is warp-uniform (every lane holds
+// the same f, so the same step decisions), and lane 0 alone writes the
+// dense output and records.
 #include "dopri5_kernels.cuh"
 #include "mlp_field.cuh"
 

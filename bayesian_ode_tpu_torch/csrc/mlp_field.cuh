@@ -5,24 +5,47 @@
 //   f(x) = W3^T elu(W2^T elu(W1^T x + b1) + b2) + b3
 //
 // One warp per chain: lane j holds hidden unit j of both hidden layers,
-// that is w1[:, j], b1[j], column j of W2 (the 32 weights feeding unit j
-// of the second layer), b2[j] and w3[j, :]; b3 is held by every lane.  At
-// H=32 a chain has 1,218 weights, 1,024 of them in W2: spread over the
-// warp they fit in registers, where one thread per chain would re-read W2
-// from L2 at every field evaluation.  h1 reaches the other lanes by
-// __shfl_sync and f is a butterfly sum, which leaves the same f on every
-// lane, so every lane carries the chain's state and the rk4 templates see
-// per-thread state exactly as for the GP field.  Lanes j >= H hold zero
-// weights and contribute nothing.
+// that is w1[:, j], b1[j], b2[j] and w3[j, :] in registers (b3 on every
+// lane), and the cotangents of those and of column j of W2 in the
+// backward.  W2 itself (1,024 of a chain's 1,218 weights at H=32) is kept
+// once per warp in shared memory, rows padded to a conflict-free stride:
+// lane j reads column j for the forward product and row j for the VJP's
+// transposed product.  In registers it would cost 32 a lane, and the
+// reverse sweeps would not fit 128 registers, 16 warps an SM.  Lanes
+// j >= H hold zero weights and contribute nothing.
 //
-// The VJP needs h1bar_i = sum_j W2[i][j] a2bar_j, a sum across the lanes
-// that hold row i: the products go through a per-warp 32 x 33 scratch in
-// shared memory (padded: conflict-free by rows and by columns) and lane i
-// sums its row in order j = 0..H-1, as the TPU kernel does.  Weight
-// cotangents accumulate per lane in registers and are written once.
+// What bounds the field on an H100 is the MIO pipe (shuffles and shared
+// memory instructions, about one warp instruction a clock per SM) ahead of
+// the FP32 FMAs, so the design spends as few of those as it can at the N
+// points of an evaluation:
+//   - h1 reaches the other lanes through a per-warp copy in shared memory:
+//     lane j writes h1_j of the N points, and each lane forms
+//     a2_j = sum_i W2[i][j] h1_i from 16-byte broadcast reads, in the order
+//     i = 0..H-1, each W2 load serving all N points.  The VJP's outer
+//     product g.W2[i][j] += h1_i a2bar_j reads the same copy.  (At H=32 and
+//     N=5 a hidden pass is 40 broadcast and 32 column loads, where
+//     shuffles took 160.)
+//   - The VJP's transposed product h1bar_i = sum_j W2[i][j] a2bar_j: lane i
+//     sums its row of W2 against a2bar broadcast from shared memory, in the
+//     order j = 0..H-1 (in place of 32 stores and 32 loads a point through
+//     a transposing scratch).
+//   - The 2N output sums (f, or ybar in the VJP) are one 16-wide
+//     reduce-scatter (warp_sum16: 16 shuffles in place of 10 butterflies
+//     of 5), which leaves component i on lane i.
+//   - The reverse sweeps keep each stage point's activations (h1 of all
+//     units and a2) from the pass that recomputes the stages, in a stage
+//     slot (field_stages.cuh), so a VJP computes no second hidden layer.
+//     a1 is recomputed from the kept point (2 FMAs).
+// The reverse sweeps carry the chain's state distributed over the warp:
+// lane i < 2N holds component i of every per-step array (stage points and
+// cotangents), gathered through shared memory for an evaluation; lanes
+// >= 2N mirror component 2N-1 and write nothing.  The forwards (K6 and
+// MLP K2) keep the state on every lane, as the step decisions of K2 need
+// the same bits on every lane: there rhs broadcasts the reduced f back by
+// shuffles.
 //
 // ELU is expf(a) - 1 with derivative a > 0 ? 1 : expf(a), as the TPU
-// kernel computes it.
+// kernel computes it.  Full float32 FMAs on the CUDA cores throughout.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,13 +62,18 @@
 
 namespace bode {
 
-constexpr int kWarpsPerBlock = 4;          // chains per block
+constexpr int kWarpsPerBlock = 4;          // chains per block of K6/K7
 constexpr int kMLPBlock = 32 * kWarpsPerBlock;
 constexpr int kMN = MLP_N;
 constexpr int kMNS = 2 * MLP_N;            // state components per chain
 constexpr int kH = MLP_H;
-constexpr int kRed = 33;                   // padded row of the VJP scratch
+constexpr int kH4 = (kH + 3) / 4 * 4;      // H in whole float4s
+// a W2 row's stride: an odd number of float4s, so that 8 lanes reading
+// their rows by float4 hit 8 different groups of 4 banks
+constexpr int kRow = (kH4 / 4) % 2 ? kH4 : kH4 + 4;
+constexpr int kVec = (kMNS + 3) / 4 * 4;
 static_assert(kH >= 1 && kH <= 32, "one hidden unit per lane: H <= 32");
+static_assert(kMNS <= 16, "the 2N output sums are one warp_sum16: N <= 8");
 
 __device__ __forceinline__ float elu(float a) {
   return a > 0.f ? a : expf(a) - 1.0f;
@@ -111,44 +139,139 @@ __device__ __forceinline__ void mlp_store(
   }
 }
 
+// A warp's shared memory: W2, kSlots kept points with their activations,
+// and the VJP's gathered cotangent.
+template <int kSlots>
+struct __align__(16) MLPBuf {
+  float h1[kSlots][kMN][32];   // h1 of unit j at [j], at each kept point
+  float a2[kSlots][kMN][32];   // a2, read back by its own lane; the VJP
+                               // overwrites it with a2bar for the others
+  float w2r[kH][kRow];         // W2, by rows
+  float pts[kSlots][kVec];     // the kept points, gathered from their lanes
+  float cot[kVec];             // the VJP's cotangent, gathered likewise
+};
+
+template <int kSlots>
 struct MLPField {
+  static constexpr int kStageSlots = kSlots;
   MLPUnit w;
-  float* red;          // this warp's 32 x kRed scratch (VJP only)
+  MLPBuf<kSlots>* b;   // this warp's buffer
   int lane;
 
-  // First layer and second-layer pre-activation of unit `lane` at (x, y).
-  __device__ __forceinline__ void hidden(float x, float y, float& a1,
-                                         float& h1, float& a2) const {
-    a1 = w.w1x * x + w.w1y * y + w.b1;
-    h1 = elu(a1);
-    float s = 0.f;
+  // Keep W2 in the warp's buffer, once per chain: the products read it
+  // from there (by columns in layer2, by rows in the VJP), so w.w2c is
+  // dead afterwards and its 32 registers are free.
+  __device__ __forceinline__ void keep_w2() const {
+    if (lane < kH) {
 #pragma unroll
-    for (int i = 0; i < kH; ++i) s += w.w2c[i] * __shfl_sync(kFull, h1, i);
-    a2 = s + w.b2;
-  }
-
-  // f at the N points; every lane returns the same f.
-  __device__ __forceinline__ void rhs(const float* y, float* f) const {
-#pragma unroll
-    for (int n = 0; n < kMN; ++n) {
-      float a1, h1, a2;
-      hidden(y[2 * n], y[2 * n + 1], a1, h1, a2);
-      const float h2 = elu(a2);
-      f[2 * n] = warp_sum(w.w3x * h2) + w.b3x;
-      f[2 * n + 1] = warp_sum(w.w3y * h2) + w.b3y;
+      for (int i = 0; i < kH; ++i) b->w2r[i][lane] = w.w2c[i];
     }
+    __syncwarp();
   }
 
-  // ybar = (df/dy)^T cot at the N points (the same on every lane), and
-  // the weight cotangents of this lane's unit accumulated into g.
-  __device__ __forceinline__ void rhs_vjp(const float* y, const float* cot,
-                                          float* ybar, MLPUnit& g) const {
+  __device__ __forceinline__ float pre1(float x, float y) const {
+    return w.w1x * x + w.w1y * y + w.b1;
+  }
+
+  // a2 of this lane's unit at the N points from h1 (all units, in shared
+  // memory), summed in the order i = 0..H-1; W2's column `lane` is read
+  // from the kept rows (one conflict-free load per i for all N points).
+  __device__ __forceinline__ void layer2(const float (*h1)[32],
+                                         float* a2) const {
+    float s[kMN];
+#pragma unroll
+    for (int n = 0; n < kMN; ++n) s[n] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kH; i += 4) {
+      float c[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        c[k] = (i + k < kH && lane < kH) ? b->w2r[i + k][lane] : 0.f;
+#pragma unroll
+      for (int n = 0; n < kMN; ++n) {
+        const float4 v = *reinterpret_cast<const float4*>(&h1[n][i]);
+        s[n] += c[0] * v.x;
+        if (i + 1 < kH) s[n] += c[1] * v.y;
+        if (i + 2 < kH) s[n] += c[2] * v.z;
+        if (i + 3 < kH) s[n] += c[3] * v.w;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kMN; ++n) a2[n] = s[n] + w.b2;
+  }
+
+  // Both hidden layers at the N points pt[2n], pt[2n + 1]: h1 into h1s
+  // (every lane's unit), a2 of this lane's unit returned.
+  __device__ __forceinline__ void hidden(const float* pt, float (*h1s)[32],
+                                         float* a2) const {
+#pragma unroll
+    for (int n = 0; n < kMN; ++n)
+      h1s[n][lane] = elu(pre1(pt[2 * n], pt[2 * n + 1]));
+    __syncwarp();
+    layer2(h1s, a2);
+  }
+
+  // f from the N points' a2: lane i (i < 2N) returns f_i.
+  __device__ __forceinline__ float out_sums(const float* a2) const {
+    float v[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = 0.f;
 #pragma unroll
     for (int n = 0; n < kMN; ++n) {
-      const float x = y[2 * n], yy = y[2 * n + 1];
-      const float cx = cot[2 * n], cy = cot[2 * n + 1];
-      float a1, h1, a2;
-      hidden(x, yy, a1, h1, a2);
+      const float h2 = elu(a2[n]);
+      v[2 * n] = w.w3x * h2;
+      v[2 * n + 1] = w.w3y * h2;
+    }
+    return warp_sum16(v, lane) + ((lane & 1) ? w.b3y : w.b3x);
+  }
+
+  // The forwards' evaluation: y and f (2N floats) the same on every lane.
+  __device__ __forceinline__ void rhs(const float* y, float* f) const {
+    float a2[kMN];
+    hidden(y, b->h1[0], a2);
+    __syncwarp();     // h1 read on every lane before the next write
+    const float fi = out_sums(a2);
+#pragma unroll
+    for (int i = 0; i < kMNS; ++i) f[i] = __shfl_sync(kFull, fi, i);
+  }
+
+  // The reverse sweeps' evaluations (field_stages.cuh).  y, f, cot and ybar
+  // are this lane's component: y[0] is component `lane` of the point.
+  __device__ __forceinline__ void keep_point(int slot, const float* y,
+                                             float* a2) const {
+    float* pt = b->pts[slot];
+    if (lane < kMNS) pt[lane] = y[0];
+    __syncwarp();
+    hidden(pt, b->h1[slot], a2);
+#pragma unroll
+    for (int n = 0; n < kMN; ++n) b->a2[slot][n][lane] = a2[n];
+  }
+
+  __device__ __forceinline__ void stage_hidden(int slot,
+                                               const float* y) const {
+    float a2[kMN];
+    keep_point(slot, y, a2);
+  }
+
+  __device__ __forceinline__ void stage_rhs(int slot, const float* y,
+                                            float* f) const {
+    float a2[kMN];
+    keep_point(slot, y, a2);
+    f[0] = out_sums(a2);
+  }
+
+  // ybar = (df/dy)^T cot at the point kept in `slot`, and the weight
+  // cotangents of this lane's unit accumulated into g.
+  __device__ __forceinline__ void stage_vjp(int slot, const float*,
+                                            const float* cot, float* ybar,
+                                            MLPUnit& g) const {
+    if (lane < kMNS) b->cot[lane] = cot[0];
+    __syncwarp();
+    const float* pt = b->pts[slot];
+#pragma unroll
+    for (int n = 0; n < kMN; ++n) {
+      const float cx = b->cot[2 * n], cy = b->cot[2 * n + 1];
+      const float a2 = b->a2[slot][n][lane];
       const float h2 = elu(a2);
       g.b3x += cx;
       g.b3y += cy;
@@ -157,41 +280,76 @@ struct MLPField {
       const float h2b = w.w3x * cx + w.w3y * cy;
       const float a2b = h2b * elu_deriv(a2);
       g.b2 += a2b;
+      b->a2[slot][n][lane] = a2b;     // this lane has read its a2
+    }
+    __syncwarp();
+    // g.W2[i][lane] += h1_i a2bar, point after point (a loop, not
+    // unrolled: the 40 cotangents stay in registers, and unrolled the
+    // compiler would hoist every point's h1 loads past the register cap)
+#pragma unroll 1
+    for (int n = 0; n < kMN; ++n) {
+      const float a = b->a2[slot][n][lane];
 #pragma unroll
-      for (int i = 0; i < kH; ++i) {
-        const float h1i = __shfl_sync(kFull, h1, i);
-        g.w2c[i] += h1i * a2b;
-        red[i * kRed + lane] = w.w2c[i] * a2b;
+      for (int i = 0; i < kH; i += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(&b->h1[slot][n][i]);
+        g.w2c[i] += v.x * a;
+        if (i + 1 < kH) g.w2c[i + 1] += v.y * a;
+        if (i + 2 < kH) g.w2c[i + 2] += v.z * a;
+        if (i + 3 < kH) g.w2c[i + 3] += v.w * a;
       }
-      __syncwarp();
-      float h1b = 0.f;
-      if (lane < kH) {
+    }
+    // h1bar_i = sum_j W2[i][j] a2bar_j on lane i, j = 0..H-1
+    float hb[kMN];
 #pragma unroll
-        for (int j = 0; j < kH; ++j) h1b += red[lane * kRed + j];
+    for (int n = 0; n < kMN; ++n) hb[n] = 0.f;
+    if (lane < kH) {
+#pragma unroll
+      for (int j = 0; j < kH; j += 4) {
+        const float4 r = *reinterpret_cast<const float4*>(&b->w2r[lane][j]);
+#pragma unroll
+        for (int n = 0; n < kMN; ++n) {
+          const float4 a =
+              *reinterpret_cast<const float4*>(&b->a2[slot][n][j]);
+          hb[n] += r.x * a.x;
+          if (j + 1 < kH) hb[n] += r.y * a.y;
+          if (j + 2 < kH) hb[n] += r.z * a.z;
+          if (j + 3 < kH) hb[n] += r.w * a.w;
+        }
       }
-      __syncwarp();
-      const float a1b = h1b * elu_deriv(a1);
+    }
+    float v[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = 0.f;
+#pragma unroll
+    for (int n = 0; n < kMN; ++n) {
+      const float x = pt[2 * n], yy = pt[2 * n + 1];
+      const float a1b = hb[n] * elu_deriv(pre1(x, yy));
       g.b1 += a1b;
       g.w1x += x * a1b;
       g.w1y += yy * a1b;
-      ybar[2 * n] = warp_sum(w.w1x * a1b);
-      ybar[2 * n + 1] = warp_sum(w.w1y * a1b);
+      v[2 * n] = w.w1x * a1b;
+      v[2 * n + 1] = w.w1y * a1b;
     }
+    ybar[0] = warp_sum16(v, lane);
+    __syncwarp();     // cot and a2bar read before the next VJP writes them
   }
 };
 
 // The MLP field as the fused adaptive kernels take it (dopri5_kernels.cuh):
 // one warp per chain, the weights in the layer-list layout of mlp_load.
-// Every lane carries the chain's state and takes the same step decisions
-// (warp_sum leaves the same bits on every lane); lane 0 writes the chain's
-// outputs.  The backward keeps its per-step arrays (13 x 2N stage floats
-// and their cotangents) once per warp in shared memory, since a lane
-// already holds 40 weights and 40 weight cotangents in registers.
+// The forward (K2) carries the state on every lane, which takes the same
+// step decisions (the broadcast f has the same bits everywhere); lane 0
+// writes the chain's outputs.  The backward (K3) keeps the 7 stage points
+// of a step in slots 0 (y0) to 6 (u[5]) and carries one state component a
+// lane.  Two chains a block: a warp's buffer is 13,952 B at N=5, H=32, so
+// four would pass the 48 KB of static shared memory a block may have.
 struct MLPDopri5 {
   static constexpr int kNS = kMNS;
-  static constexpr int kThreads = kMLPBlock;
-  static constexpr int kChains = kWarpsPerBlock;
-  static constexpr bool kStageShared = true;
+  static constexpr int kChains = 2;
+  static constexpr int kThreads = 32 * kChains;
+  static constexpr bool kStageShared = false;
+  static constexpr int kStageSlots = 7;
+  static constexpr int kOwn = 1;
   struct Args {
     const float *w1, *b1, *w2, *b2, *w3, *b3;
   };
@@ -199,26 +357,32 @@ struct MLPDopri5 {
     float *w1, *b1, *w2, *b2, *w3, *b3;
   };
   struct Smem {
-    float red[kWarpsPerBlock][32 * kRed];   // the VJP's per-warp scratch
+    MLPBuf<kStageSlots> warp[kChains];
   };
   struct AccSmem {};
   using Acc = MLPUnit;
 
-  MLPField f;
+  MLPField<kStageSlots> f;
 
   static __device__ int chain() {
-    return blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+    return blockIdx.x * kChains + (threadIdx.x >> 5);
   }
   static __device__ bool leader() { return (threadIdx.x & 31) == 0; }
+  static __device__ int comp(int) {
+    const int lane = threadIdx.x & 31;
+    return lane < kMNS ? lane : kMNS - 1;
+  }
+  static __device__ bool owner() { return (threadIdx.x & 31) < kMNS; }
 
   static __device__ MLPDopri5 load(const Args& a, Smem& sm, int C, int c) {
     MLPDopri5 m;
     m.f.lane = threadIdx.x & 31;
-    m.f.red = sm.red[threadIdx.x >> 5];
+    m.f.b = &sm.warp[threadIdx.x >> 5];
     if (c < C)
       mlp_load(m.f.w, c, m.f.lane, a.w1, a.b1, a.w2, a.b2, a.w3, a.b3);
     else
       mlp_zero(m.f.w);
+    m.f.keep_w2();
     return m;
   }
   static __device__ Acc acc_init(AccSmem&) {
@@ -231,9 +395,15 @@ struct MLPDopri5 {
   }
 
   __device__ void rhs(const float* y, float* out) const { f.rhs(y, out); }
-  __device__ void rhs_vjp(const float* y, const float* cot, float* ybar,
-                          Acc& acc) const {
-    f.rhs_vjp(y, cot, ybar, acc);
+  __device__ void stage_rhs(int slot, const float* y, float* out) const {
+    f.stage_rhs(slot, y, out);
+  }
+  __device__ void stage_hidden(int slot, const float* y) const {
+    f.stage_hidden(slot, y);
+  }
+  __device__ void stage_vjp(int slot, const float* y, const float* cot,
+                            float* ybar, Acc& acc) const {
+    f.stage_vjp(slot, y, cot, ybar, acc);
   }
 };
 

@@ -9,15 +9,24 @@
 //                the 9 weight cotangents (here in the layer-list layout)
 //                and the per-chain x0 cotangent.
 // The TPU kernels compute the layer products in their own body; so do
-// these, with no library matmul.
+// these, with no library matmul, in full FP32 on the CUDA cores.
 //
-// What bounds it on an H100: latency of the serial per-chain chain of
-// field evaluations.  A field evaluation at one point is 32 FMAs and 32
-// shuffles per lane for the H x H layer, plus two 5-step butterfly sums;
-// the VJP adds the transposed product through shared memory.  The weights
-// are read once per chain into registers (40 per lane at H=32); each
-// chain's trajectory row is written by lanes 0..2N-1.  10,112 chains are
+// What bounds them on an H100: the MIO pipe (shuffles and shared-memory
+// instructions) and then the FP32 FMAs of the H x H products, over a
+// serial chain of field evaluations per chain; bytes are small (the
+// weights once per chain, a trajectory row per step).  10,112 chains are
 // 10,112 warps in blocks of 4.
+//
+// K7's design (mlp_field.cuh has the field's): a step recomputes its three
+// stage evaluations and the hidden layer at u4, keeping each stage point's
+// activations in a slot of the warp's shared buffer, so the four VJPs
+// compute no hidden layer: 4 hidden passes a step, not 7.  The per-step
+// arrays (stage points, stage cotangents) are distributed over the warp,
+// component i on lane i, so a lane carries 1 float of each instead of 2N;
+// with W2 in shared memory, a lane's 8 weights and 40 weight cotangents
+// fit in 128 registers, 16 warps an SM (__launch_bounds__ holds it there;
+// the rk4 loop kept on every lane took 255 registers, 8 warps).  A warp's
+// buffer is 9,968 B at N=5, H=32.
 #include "mlp_field.cuh"
 #include "rk4_common.cuh"
 
@@ -30,13 +39,15 @@ mlp_rk4_fwd_kernel(const float* __restrict__ w1, const float* __restrict__ b1,
                    const float* __restrict__ x0,
                    const float* __restrict__ dts, int C, int T,
                    float* __restrict__ ys) {
+  __shared__ MLPBuf<1> buf[kWarpsPerBlock];
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (c >= C) return;                    // whole warps leave together
-  MLPField fld;
-  fld.red = nullptr;
+  MLPField<1> fld;
+  fld.b = &buf[threadIdx.x >> 5];
   fld.lane = lane;
   mlp_load(fld.w, c, lane, w1, b1, w2, b2, w3, b3);
+  fld.keep_w2();
 
   float y[kMNS], y1[kMNS];
 #pragma unroll
@@ -55,7 +66,7 @@ mlp_rk4_fwd_kernel(const float* __restrict__ w1, const float* __restrict__ b1,
   }
 }
 
-__global__ void __launch_bounds__(kMLPBlock)
+__global__ void __launch_bounds__(kMLPBlock, 4)
 mlp_rk4_bwd_kernel(const float* __restrict__ w1, const float* __restrict__ b1,
                    const float* __restrict__ w2, const float* __restrict__ b2,
                    const float* __restrict__ w3, const float* __restrict__ b3,
@@ -65,37 +76,31 @@ mlp_rk4_bwd_kernel(const float* __restrict__ w1, const float* __restrict__ b1,
                    float* __restrict__ gb1, float* __restrict__ gw2,
                    float* __restrict__ gb2, float* __restrict__ gw3,
                    float* __restrict__ gb3, float* __restrict__ lbar) {
-  __shared__ float red[kWarpsPerBlock][32 * kRed];
+  __shared__ MLPBuf<4> buf[kWarpsPerBlock];   // slots: p, u2, u3, u4
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int c = blockIdx.x * kWarpsPerBlock + warp;
   if (c >= C) return;
-  MLPField fld;
-  fld.red = red[warp];
+  MLPField<4> fld;
+  fld.b = &buf[warp];
   fld.lane = lane;
   mlp_load(fld.w, c, lane, w1, b1, w2, b2, w3, b3);
+  fld.keep_w2();
   MLPUnit acc;
   mlp_zero(acc);
 
-  float l[kMNS], p[kMNS];
-#pragma unroll
-  for (int i = 0; i < kMNS; ++i) l[i] = 0.f;
+  // this lane's state component (lanes past 2N mirror the last one)
+  const int i = lane < kMNS ? lane : kMNS - 1;
+  float l[1] = {0.f}, p[1];
   for (int t = T - 2; t >= 0; --t) {
-    const float* gt = g + (static_cast<size_t>(t + 1) * C + c) * kMNS;
-    const float* pt = ys + (static_cast<size_t>(t) * C + c) * kMNS;
-#pragma unroll
-    for (int i = 0; i < kMNS; ++i) {
-      l[i] = l[i] + gt[i];
-      p[i] = pt[i];
-    }
-    rk4_step_vjp<kMNS>(fld, p, dts[t], l, acc);
+    l[0] = l[0] + g[(static_cast<size_t>(t + 1) * C + c) * kMNS + i];
+    p[0] = ys[(static_cast<size_t>(t) * C + c) * kMNS + i];
+    rk4_step_vjp<1>(fld, p, dts[t], l, acc);
   }
   // x0's own observation term
-  float mine = 0.f;
-#pragma unroll
-  for (int i = 0; i < kMNS; ++i)
-    if (lane == i) mine = l[i] + g[static_cast<size_t>(c) * kMNS + i];
-  if (lane < kMNS) lbar[static_cast<size_t>(c) * kMNS + lane] = mine;
+  if (lane < kMNS)
+    lbar[static_cast<size_t>(c) * kMNS + lane] =
+        l[0] + g[static_cast<size_t>(c) * kMNS + lane];
   mlp_store(acc, c, lane, gw1, gb1, gw2, gb2, gw3, gb3);
 }
 

@@ -4,7 +4,11 @@
 //   rhs(const float* y, float* f) const
 //   rhs_vjp(const float* y, const float* cot, float* ybar, Acc acc) const
 // (ybar = (df/dy)^T cot; the weight cotangent is accumulated into `acc`,
-// whatever the field keeps it in).  NS is the state size of one chain.
+// whatever the field keeps it in), and the stage slots of field_stages.cuh
+// in the transpose: slot 0 is the step's start p, slots 1-3 its stage
+// points u2, u3, u4.  NS is the number of a chain's state components a
+// thread carries: all 2N of them, or, in the MLP field's transpose, the
+// one component i that lane i carries.
 // The GP field (gp_field.cuh, gp_rk4.cu: K4/K5) and the MLP field
 // (mlp_field.cuh, mlp_rk4.cu: K6/K7) are its instances.
 //
@@ -18,23 +22,26 @@
 
 #include <cuda_runtime.h>
 
+#include "field_stages.cuh"
+
 namespace bode {
 
-// The three inner stage points of the step from p; k1..k3 are returned
-// too, for the forward's update.
-template <int NS, class Field>
-__device__ __forceinline__ void rk4_stage_points(const Field& fld,
+// The three inner stage points of the step from p, with the field
+// evaluated as eval(slot, y, f); k1..k3 are returned too, for the
+// forward's update.
+template <int NS, class Eval>
+__device__ __forceinline__ void rk4_stage_points(Eval&& eval,
                                                  const float* p, float dt,
                                                  float* k1, float* k2,
                                                  float* k3, float* u2,
                                                  float* u3, float* u4) {
-  fld.rhs(p, k1);
+  eval(0, p, k1);
 #pragma unroll
   for (int i = 0; i < NS; ++i) u2[i] = p[i] + dt / 3.0f * k1[i];
-  fld.rhs(u2, k2);
+  eval(1, u2, k2);
 #pragma unroll
   for (int i = 0; i < NS; ++i) u3[i] = p[i] + dt * (-k1[i] / 3.0f + k2[i]);
-  fld.rhs(u3, k3);
+  eval(2, u3, k3);
 #pragma unroll
   for (int i = 0; i < NS; ++i) u4[i] = p[i] + dt * (k1[i] - k2[i] + k3[i]);
 }
@@ -44,7 +51,9 @@ template <int NS, class Field>
 __device__ __forceinline__ void rk4_step(const Field& fld, const float* p,
                                          float dt, float* out) {
   float k1[NS], k2[NS], k3[NS], u2[NS], u3[NS], u4[NS], k4[NS];
-  rk4_stage_points<NS>(fld, p, dt, k1, k2, k3, u2, u3, u4);
+  rk4_stage_points<NS>(
+      [&](int, const float* y, float* f) { fld.rhs(y, f); }, p, dt, k1, k2,
+      k3, u2, u3, u4);
   fld.rhs(u4, k4);
 #pragma unroll
   for (int i = 0; i < NS; ++i)
@@ -61,8 +70,13 @@ __device__ __forceinline__ void rk4_step_vjp(const Field& fld,
   float u2[NS], u3[NS], u4[NS];
   {
     float k1[NS], k2[NS], k3[NS];
-    rk4_stage_points<NS>(fld, p, dt, k1, k2, k3, u2, u3, u4);
+    rk4_stage_points<NS>(
+        [&](int slot, const float* y, float* f) {
+          stage_rhs(fld, slot, y, f);
+        },
+        p, dt, k1, k2, k3, u2, u3, u4);
   }
+  stage_hidden(fld, 3, u4);
   // reverse of: next = p + dt/8 (k1 + 3 k2 + 3 k3 + k4)
   float pb[NS], kb1[NS], kb2[NS], kb3[NS], kb4[NS], ub[NS];
 #pragma unroll
@@ -74,7 +88,7 @@ __device__ __forceinline__ void rk4_step_vjp(const Field& fld,
     kb4[i] = dt / 8.0f * l[i];
   }
   // k4 = f(u4), u4 = p + dt (k1 - k2 + k3)
-  fld.rhs_vjp(u4, kb4, ub, acc);
+  stage_vjp(fld, 3, u4, kb4, ub, acc);
 #pragma unroll
   for (int i = 0; i < NS; ++i) {
     pb[i] += ub[i];
@@ -83,7 +97,7 @@ __device__ __forceinline__ void rk4_step_vjp(const Field& fld,
     kb3[i] += dt * ub[i];
   }
   // k3 = f(u3), u3 = p + dt (-k1/3 + k2)
-  fld.rhs_vjp(u3, kb3, ub, acc);
+  stage_vjp(fld, 2, u3, kb3, ub, acc);
 #pragma unroll
   for (int i = 0; i < NS; ++i) {
     pb[i] += ub[i];
@@ -91,14 +105,14 @@ __device__ __forceinline__ void rk4_step_vjp(const Field& fld,
     kb2[i] += dt * ub[i];
   }
   // k2 = f(u2), u2 = p + dt/3 k1
-  fld.rhs_vjp(u2, kb2, ub, acc);
+  stage_vjp(fld, 1, u2, kb2, ub, acc);
 #pragma unroll
   for (int i = 0; i < NS; ++i) {
     pb[i] += ub[i];
     kb1[i] += dt / 3.0f * ub[i];
   }
   // k1 = f(p)
-  fld.rhs_vjp(p, kb1, ub, acc);
+  stage_vjp(fld, 0, p, kb1, ub, acc);
 #pragma unroll
   for (int i = 0; i < NS; ++i) l[i] = pb[i] + ub[i];
 }

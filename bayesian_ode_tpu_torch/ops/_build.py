@@ -65,7 +65,8 @@ def _adaptive(field: str, headers: Tuple[str, ...], defines: Tuple[str, ...],
     field_args = [_P] * n_w + [_F] * n_s
     return Family(
         (f"{field}_dopri5_fwd.cu", f"{field}_dopri5_bwd.cu"),
-        ("dopri5_common.cuh", "dopri5_kernels.cuh") + headers, defines,
+        ("dopri5_common.cuh", "dopri5_kernels.cuh", "field_stages.cuh")
+        + headers, defines,
         f"{field}_dopri5_dims",
         {f"{field}_dopri5_fwd": [_I, _I] + field_args + [_P] * 4 + [_I] * 2
                                 + [_F] * 5 + [_I] * 3 + [_P] * 6 + [_P],
@@ -82,18 +83,21 @@ FAMILIES: Dict[str, Family] = {
                                ("SPIRAL_N", "SPIRAL_H"), 4, 0, 4),
     "fhn_dopri5": _adaptive("fhn", ("fhn_field.cuh",), ("FHN_N",), 3, 0, 3),
     "gp_rk4": Family(
-        ("gp_rk4.cu",), ("rk4_common.cuh", "gp_field.cuh"), ("GP_N", "GP_M"),
-        "gp_rk4_dims",
+        ("gp_rk4.cu",),
+        ("rk4_common.cuh", "field_stages.cuh", "gp_field.cuh"),
+        ("GP_N", "GP_M"), "gp_rk4_dims",
         {"gp_rk4_fwd": [_P] * 4 + [_I, _I] + [_F] * 2 + [_P, _P],
          "gp_rk4_bwd": [_P] * 5 + [_I, _I] + [_F] * 3 + [_P] * 3}),
     "mlp_rk4": Family(
-        ("mlp_rk4.cu",), ("rk4_common.cuh", "mlp_field.cuh", "warp.cuh"),
+        ("mlp_rk4.cu",),
+        ("rk4_common.cuh", "field_stages.cuh", "mlp_field.cuh", "warp.cuh"),
         ("MLP_N", "MLP_H"), "mlp_rk4_dims",
         {"mlp_rk4_fwd": [_P] * 8 + [_I, _I] + [_P, _P],
          "mlp_rk4_bwd": [_P] * 9 + [_I, _I] + [_P] * 8}),
     "gp_dopri5_step": Family(
         ("gp_dopri5_step.cu",),
-        ("dopri5_common.cuh", "dopri5_kernels.cuh", "gp_field.cuh"),
+        ("dopri5_common.cuh", "dopri5_kernels.cuh", "field_stages.cuh",
+         "gp_field.cuh"),
         ("GP_N", "GP_M"), "gp_dopri5_step_dims",
         {"gp_dopri5_step": [_P] * 2 + [_F] * 3 + [_P] + [_I] * 4 + [_F] * 5
                            + [_P] * 10 + [_P]}),

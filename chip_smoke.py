@@ -5,7 +5,8 @@
 
 Builds the port's CUDA kernels from `bayesian_ode_tpu_torch/csrc/` (one
 nvcc per source, all started together), prints each kernel's registers and
-spills, and holds each kernel against its plain PyTorch version at the
+spills (and the warps an SM holds of the MLP field's backward kernels, K7
+and MLP K3), and holds each kernel against its plain PyTorch version at the
 main paths' full shape (Van der Pol: 5 trajectories, T=60 output times to
 t=6, 10,112 chains):
 
@@ -35,9 +36,10 @@ K8, and at 1,024, where it does not; and one `ops.gp_dopri5.gp_dopri5_solve`
 read just after, and must show the path's own kernels on every
 potential-gradient evaluation (or step, or launch) and no other kernel.
 Last, it times steady-state sampler steps of each path, and profiles 5
-steady steps of each adaptive path of the fused engine and of SVGD at
-4,096 particles with torch.profiler (device time by kernel, the median's
-sort, the other kernels, the card's idle share of the window).
+steady steps of the GP and NN rk4 paths, of each adaptive path of the
+fused engine and of SVGD at 4,096 particles with torch.profiler (device
+time by kernel, the median's sort, the other kernels, the card's idle
+share of the window).
 
 Exits non-zero on any failed phase, and when no CUDA device is available.
 The line before the last is a JSON object with each kernel's launches,
@@ -60,6 +62,9 @@ HIDDEN = 32
 SPIRAL_HIDDEN = 50
 SVGD_PARTICLES = (4096, 1024)     # K8 on "auto" at the first, not the second
 SVGD_STEPS = 50
+# threads a block of the MLP field's backward kernels (csrc/mlp_field.cuh)
+MLP_BWD_THREADS = {"mlp_rk4_bwd": 128, "dopri5_bwd MLPDopri5 Dopri5": 64,
+                   "dopri5_bwd MLPDopri5 Tsit5": 64}
 LIBRARIES = [("gp_dopri5", (5, 36)), ("gp_rk4", (5, 36)),
              ("mlp_rk4", (5, HIDDEN)), ("mlp_dopri5", (5, HIDDEN)),
              ("spiral_dopri5", (5, SPIRAL_HIDDEN)), ("fhn_dopri5", (5,)),
@@ -77,16 +82,34 @@ STEP_FLOP = 2 * 35
 
 
 def field_cost(name, width):
-    """(FP32 flops, expf/tanhf calls) of one field evaluation and of one
-    VJP at one point, an FMA counted as 2 flops, from csrc/*_field.cuh."""
+    """((FP32 flops, expf/tanhf calls) of one field evaluation, (flops,
+    calls) of one VJP's own part) at one point, an FMA counted as 2 flops,
+    from csrc/*_field.cuh.  The VJP's own part is what it adds to the
+    forward whose activations it is given (the M kernel values of the GP
+    field, h1/a2 and their ELU derivatives of the MLP, the spiral's tanh
+    units, the FitzHugh-Nagumo s and q), so it calls no expf/tanhf: a
+    reverse sweep costs the stage forwards once plus the VJPs' own parts,
+    the least a kernel that keeps its activations must do."""
     if name == "gp":                               # M inducing points
-        return (11 * width, width), (20 * width, width)
+        # per m: the distance (5), the exponent's argument and sf^2 (2),
+        # the two weighted sums (4); VJP: Abar (4), a . cot (3), the
+        # weight (2), ybar (4)
+        return (11 * width, width), (13 * width, 0)
     if name == "mlp":                              # H hidden units
         H = width
-        return (2 * H * H + 10 * H, 2 * H), (6 * H * H + 22 * H, 4 * H)
+        # per unit: a1 (4), two ELUs (2), a2 (2H + 1), the output sums (4);
+        # b3 (2).  VJP: the outer product and the transposed product
+        # (4H^2), W3bar and h2bar (8H), a2bar, b2bar, a1bar, b1bar (4H),
+        # W1bar and ybar (8H); b3bar (2)
+        return (2 * H * H + 11 * H + 2, 2 * H), (4 * H * H + 20 * H + 2, 0)
     if name == "spiral":
-        return (8 * width + 4, width), (23 * width + 10, width)
-    return (11, 0), (27, 0)                        # FitzHugh-Nagumo
+        # x^3, y^3 (4); per unit: the pre-activation (4), the output sums
+        # (4).  VJP: per unit W2bar (4), hbar (3), tanh' (3), b1bar (1),
+        # W1bar (4), the sums (4); b2bar and the 3 y^2 factors (8)
+        return (8 * width + 4, width), (19 * width + 8, 0)
+    # FitzHugh-Nagumo: s (5), q (3), f (3); VJP: the theta cotangents (11)
+    # and ybar (11)
+    return (11, 0), (22, 0)
 
 
 def bound(nbytes, flops, sfu):
@@ -101,7 +124,10 @@ def bound(nbytes, flops, sfu):
 def adaptive_bounds(name, width, C, N, T, w_bytes, wbar_bytes, attempts,
                     accepted, record=True):
     """Bounds of the forward (K1/K2) and the replay backward (K3) from this
-    run's attempted and accepted step counts (summed over the chains)."""
+    run's attempted and accepted step counts (summed over the chains).  An
+    accepted step's replay evaluates the field at its 7 stage points once
+    (the last one's f is not needed, its activations are) and takes the 7
+    VJPs' own parts."""
     NS = 2 * N
     (f, s), (fv, sv) = field_cost(name, width)
     traj = T * C * NS * 4
@@ -116,7 +142,9 @@ def adaptive_bounds(name, width, C, N, T, w_bytes, wbar_bytes, attempts,
 
 
 def rk4_bounds(name, width, C, N, T, w_bytes, wbar_bytes):
-    """Bounds of the rk4 forward (K4/K6) and reverse sweep (K5/K7)."""
+    """Bounds of the rk4 forward (K4/K6) and reverse sweep (K5/K7).  A
+    reverse step evaluates the field at its 4 stage points once (k4's value
+    is not needed, u4's activations are) and takes the 4 VJPs' own parts."""
     NS = 2 * N
     (f, s), (fv, sv) = field_cost(name, width)
     steps = C * (T - 1)
@@ -124,7 +152,7 @@ def rk4_bounds(name, width, C, N, T, w_bytes, wbar_bytes):
     fwd = bound(w_bytes + traj, steps * (4 * N * f + 10 * NS),
                 steps * 4 * N * s)
     bwd = bound(w_bytes + wbar_bytes + 2 * traj + C * NS * 4,
-                steps * N * (3 * f + 4 * fv), steps * N * (3 * s + 4 * sv))
+                steps * N * 4 * (f + fv), steps * N * 4 * (s + sv))
     return fwd, bwd
 
 
@@ -233,11 +261,12 @@ def profile_steps(label, kern, p0, dev, steps=5):
 
 
 def ptxas_summary(family, shape, log):
-    """One line per kernel: its template instance, registers, spill bytes
-    and shared memory, from nvcc's -Xptxas -v output."""
+    """Each kernel's (template instance, registers, spill stores, spill
+    loads, static shared bytes) from nvcc's -Xptxas -v output, printed one
+    line per kernel."""
     import re
 
-    name = None
+    name, out = None, []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
@@ -252,13 +281,29 @@ def ptxas_summary(family, shape, log):
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
-            spills = f"{m.group(1)}/{m.group(2)} B spill stores/loads"
+            spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers(.*?)(?:, (\d+) bytes smem)?$",
                       line)
         if m and name:
+            out.append((name, int(m.group(1)), *spills, int(m.group(3) or 0)))
             print(f"  ptxas {family}{shape} {name}: {m.group(1)} registers, "
-                  f"{spills}, {m.group(3) or 0} B smem")
+                  f"{spills[0]}/{spills[1]} B spill stores/loads, "
+                  f"{m.group(3) or 0} B smem")
             name = None
+    return out
+
+
+def warps_per_sm(regs, smem, threads):
+    """Resident warps an SM of an H100 holds for a kernel of `regs`
+    registers a thread, `smem` bytes of static shared memory a block and
+    `threads` a block: 65,536 registers allocated per warp in units of 256,
+    233,472 B of shared memory with 1 KB reserved a block, at most 64
+    warps and 32 blocks (the CUDA occupancy rules for sm_90)."""
+    warps = threads // 32
+    per_warp = -(-regs * 32 // 256) * 256
+    blocks = min(65536 // per_warp // warps, 233472 // (smem + 1024),
+                 64 // warps, 32)
+    return blocks * warps
 
 
 def main() -> int:
@@ -304,7 +349,13 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     for lib in LIBRARIES:
         _build.load_library(*lib)
-        ptxas_summary(*lib, _build.build_log(*lib))
+        for name, regs, st, ld, smem in ptxas_summary(
+                *lib, _build.build_log(*lib)):
+            if lib[0] in ("mlp_rk4", "mlp_dopri5") and name in MLP_BWD_THREADS:
+                threads = MLP_BWD_THREADS[name]
+                print(f"    {name}: {warps_per_sm(regs, smem, threads)} warps "
+                      f"per SM ({threads} threads a block, {regs} registers, "
+                      f"{smem} B shared memory, spills {st}/{ld} B)")
 
     # ---- inputs at the main path's shape ----
     data = make_dataset(seed=2, ode="vdp", N=5, T=60, t_max=6.0,
@@ -658,6 +709,7 @@ def main() -> int:
               f"{label}: finite potentials in the steady run")
         print(f"{label} steady: {ms:.3f} ms/step over 10 steps = "
               f"{N_CHAINS / ms * 1e3:.0f} chain-steps/s ({smi})")
+        profile_steps(label, kern, p0, dev)
 
     # ---- phase 10: the other instances of K2/K3 at full width ----
     from bayesian_ode_tpu_torch.models import spiral as spiral_model

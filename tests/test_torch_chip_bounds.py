@@ -1,0 +1,107 @@
+"""The bounds `chip_smoke.py` reports beside each kernel's time, counted by
+hand at the main paths' shapes (10,112 chains, N=5 trajectories, T=60
+output times; GP M=36, MLP H=32, spiral H=50), and its occupancy count.
+
+A reverse sweep's least work is each stage point's field evaluation once
+plus each VJP's own part (what the VJP adds to a forward whose activations
+it is given): an rk4 step has 4 stage points and 4 VJPs, an accepted
+adaptive step 7 and 7.  The hand counts below are read off
+`csrc/*_field.cuh`, an FMA as 2 flops.  No card needed: `chip_smoke` is
+imported without running `main`.
+"""
+import sys
+from pathlib import Path
+
+import pytest
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke  # noqa: E402
+
+C, N, T = 10112, 5, 60
+STEPS = C * (T - 1)
+
+# (field, width): ((forward flops, expf/tanhf), (VJP own flops, calls))
+HAND = {
+    # per m: distance 5, exponent and sf^2 2, the two sums 4; VJP per m:
+    # Abar 4, a . cot 3, weight 2, ybar 4
+    ("gp", 36): ((36 * 11, 36), (36 * 13, 0)),
+    # 32 units x (a1 4 + ELUs 2 + a2 65 + out 4) + b3 2; VJP: 2 x 32^2 x 2
+    # products + 32 x 20 + 2
+    ("mlp", 32): ((32 * 75 + 2, 64), (4096 + 640 + 2, 0)),
+    # cubes 4 + 50 units x 8; VJP 50 x 19 + 8
+    ("spiral", 50): ((404, 50), (958, 0)),
+    ("fhn", None): ((11, 0), (22, 0)),
+}
+
+
+@pytest.mark.parametrize("field,width", list(HAND))
+def test_field_cost_is_the_hand_count(field, width):
+    assert chip_smoke.field_cost(field, width) == HAND[(field, width)]
+
+
+@pytest.fixture
+def counts(monkeypatch):
+    """bound() returning its (bytes, flops, special-function calls)."""
+    monkeypatch.setattr(chip_smoke, "bound", lambda b, f, s: (b, f, s))
+
+
+@pytest.mark.parametrize("field,width", [("gp", 36), ("mlp", 32)])
+def test_rk4_reverse_sweep_counts_each_stage_forward_once(counts, field,
+                                                          width):
+    (f, s), (fv, sv) = HAND[(field, width)]
+    w_bytes = 1000
+    _, (nbytes, flops, sfu) = chip_smoke.rk4_bounds(field, width, C, N, T,
+                                                    w_bytes, w_bytes)
+    assert flops == STEPS * N * (4 * f + 4 * fv)
+    assert sfu == STEPS * N * 4 * s
+    # below a count that evaluates each VJP's own forward again (7
+    # forwards a step where 4 are needed)
+    assert flops < STEPS * N * (7 * f + 4 * fv)
+    assert nbytes == 2 * w_bytes + 2 * T * C * 2 * N * 4 + C * 2 * N * 4
+
+
+@pytest.mark.parametrize("field,width", list(HAND))
+def test_replay_backward_counts_each_stage_forward_once(counts, field,
+                                                        width):
+    (f, s), (fv, sv) = HAND[(field, width)]
+    attempts, accepted = 41 * C, 37 * C
+    _, (_, flops, sfu) = chip_smoke.adaptive_bounds(
+        field, width, C, N, T, 1000, 1000, attempts, accepted)
+    NS = 2 * N
+    assert flops == accepted * (7 * N * (f + fv) + 2 * 70 * NS)
+    assert sfu == accepted * 7 * N * s
+    assert flops < accepted * (7 * N * (2 * f + fv) + 2 * 70 * NS)
+
+
+def test_the_mlp_reverse_sweep_bound_at_the_main_shape():
+    """K7's bound at the driver's shape: 10,112 x 59 x 5 x 4 x 7,140 flops
+    at 67 TFLOP/s, operation-bound."""
+    w = C * (2 * 32 + 32 + 32 * 32 + 32 + 32 * 2 + 2) * 4
+    _, (ms, by) = chip_smoke.rk4_bounds("mlp", 32, C, N, T, w, w)
+    assert by == "operations"
+    assert ms == pytest.approx(STEPS * N * 4 * 7140 / 67e12 * 1e3)
+
+
+@pytest.mark.parametrize("regs,smem,threads,warps", [
+    (255, 16896, 128, 8),      # 2 blocks by registers
+    (168, 21216, 128, 12),     # 3 blocks by registers
+    (128, 39872, 128, 16),     # K7: 4 blocks by registers
+    (128, 29184, 64, 14),      # 7 blocks by shared memory
+    (128, 27904, 64, 16),      # MLP K3: 8 blocks by registers
+    (32, 0, 256, 64),          # the 64-warp limit
+])
+def test_warps_per_sm(regs, smem, threads, warps):
+    assert chip_smoke.warps_per_sm(regs, smem, threads) == warps
+
+
+def test_ptxas_summary_reads_registers_spills_and_shared_memory():
+    log = (
+        "ptxas info    : Compiling entry function "
+        "'_ZN4bode18mlp_rk4_bwd_kernelEPKfS1_' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN4bode18mlp_rk4_bwd\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, used 0 barriers, 42432 bytes "
+        "smem\n")
+    assert chip_smoke.ptxas_summary("mlp_rk4", (5, 32), log) == [
+        ("mlp_rk4_bwd", 128, 8, 4, 42432)]

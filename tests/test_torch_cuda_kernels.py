@@ -10,8 +10,11 @@ machine with an H100 and nvcc they run with
 machine need not have; this file imports torch and the port only).
 
 Small shapes and the cases `chip_smoke.py` does not reach at full size:
-a chain count that is not a multiple of the 64-thread block (or of the 4
-warps of a warp-per-chain field's block), the PI controller, budget
+a chain count that is not a multiple of the 64-thread block (or of the
+warps of a warp-per-chain field's block), the MLP field at H=20 (lanes past
+H hold zeros) and at the driver's H=32 (K7, and K3 under both tableaus
+against the plain replay of its records),
+the PI controller, budget
 exhaustion, record overflow, a spiral of 50 hidden units (two per lane)
 and one of 20, the SVGD direction (K8) at particle counts and widths that
 are not multiples of its tiles, and the per-step solver (K9) against the
@@ -31,6 +34,7 @@ import torch
 
 from bayesian_ode_tpu_torch.models import kernel_regression as kr
 from bayesian_ode_tpu_torch.models import make_dataset
+from bayesian_ode_tpu_torch.models.mlp import init_mlp
 from bayesian_ode_tpu_torch.ops import _build
 from bayesian_ode_tpu_torch.ops import fused_adaptive as fa
 from bayesian_ode_tpu_torch.ops import fused_field as ff
@@ -240,14 +244,19 @@ def test_gp_rk4_kernels_match_plain(gp):
     assert _max_rel(Abar_k, Abar_ag) <= 1e-5
 
 
-def test_mlp_rk4_kernels_match_plain(gp):
+@pytest.mark.parametrize("chains,hidden", [(C_RK4, H_RK4), (257, H_RK4),
+                                           (C_RK4, 32)])
+def test_mlp_rk4_kernels_match_plain(gp, chains, hidden):
+    """K6/K7 at H=20 (lanes past H hold zeros), at a chain count that
+    leaves the last block of 4 warps one chain, and at the driver's width
+    H=32."""
     dev = gp["dev"]
     gen = torch.Generator(device=dev).manual_seed(3)
-    sizes = [2, H_RK4, H_RK4, 2]
+    sizes = [2, hidden, hidden, 2]
     w = []
     for a, b in zip(sizes[:-1], sizes[1:]):
-        w += [torch.rand((C_RK4, a, b), generator=gen, device=dev) - 0.5,
-              0.1 * torch.randn((C_RK4, b), generator=gen, device=dev)]
+        w += [torch.rand((chains, a, b), generator=gen, device=dev) - 0.5,
+              0.1 * torch.randn((chains, b), generator=gen, device=dev)]
     w = tuple(w)
     x0, dts = gp["x0"].contiguous(), torch.diff(gp["ts"]).contiguous()
     before = dict(_build.launch_counts)
@@ -367,6 +376,41 @@ def test_adaptive_field_kernels_match_plain(gp, case):
         assert _max_rel(k, kp) <= 1e-4
         assert _max_rel(p, a) <= 1e-4
     assert _max_rel(lbar_k, lbar_kp) <= 1e-4
+
+
+@pytest.mark.parametrize("method", ["dopri5", "tsit5"])
+def test_mlp_replay_backward_at_the_driver_width(gp, method):
+    """MLP K3 at H=32 (every lane a hidden unit) from the driver's start
+    weights, jittered per chain, under each tableau: held against the plain
+    replay of the kernel's own records, which fixes the step mesh (K2's
+    short solves here differ from the plain forward's by a rejected step on
+    some chains; chip_smoke.py holds K2 at the full shape)."""
+    dev = gp["dev"]
+    gen = torch.Generator(device=dev).manual_seed(12)
+    params = init_mlp(torch.Generator().manual_seed(0), [2, 32, 32, 2],
+                      dtype=torch.float32)
+    w = tuple((x.to(dev)[None] + 0.005 * torch.randn(
+        (C, *x.shape), generator=gen, device=dev)).contiguous()
+              for layer in params for x in (layer["w"], layer["b"]))
+    field, ts = mlp_field(32), gp["ts"]
+    x0b, f0, dt0 = ff._start(field, w, gp["x0"], 1e-5, 1e-7)
+    before = dict(_build.launch_counts)
+    ys, _, nacc, _, _, rec = fa.fwd(field, w, x0b, f0, dt0, ts, 1e-5, 1e-7,
+                                    0.9, 10.0, 0.2, 100_000, "i",
+                                    record=True, store_steps=128,
+                                    method=method)
+    g = torch.randn(ys.shape, generator=gen, device=dev)
+    wbar_k, lbar_k = fa.bwd(field, w, ts, rec, nacc, g, method=method)
+    wbar_p, lbar_p = fa.bwd_plain(field.make_rhs(w), field.make_rhs_vjp(w),
+                                  w, ts, rec, nacc, g, fa.TABLEAUS[method])
+    torch.cuda.synchronize()
+    assert _build.launch_counts[f"mlp_{method}_bwd"] == \
+        before[f"mlp_{method}_bwd"] + 1
+    assert bool(torch.isfinite(ys).all())
+    for k, p in zip(wbar_k, wbar_p):
+        assert bool(torch.isfinite(k).all())
+        assert _max_rel(k, p) <= 1e-4
+    assert _max_rel(lbar_k, lbar_p) <= 1e-4
 
 
 @pytest.mark.parametrize("n,d", [(300, 5), (1000, 3), (130, 200),
