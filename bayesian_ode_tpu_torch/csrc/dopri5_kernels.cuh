@@ -9,7 +9,8 @@
 //       for the GP field replaces ops/gp_dopri5.py::_make_whole_kernel (K1).
 //       One template is what keeps K1 and K2 trajectories bit-equal;
 //   dopri5_bwd_kernel<F, TB>:        make_bwd_kernel (K3), the frozen-mesh
-//       discrete adjoint over the records;
+//       discrete adjoint over the records (dopri5_bwd_kernel_bounded for a
+//       field that names its blocks an SM);
 //   dopri5_step_kernel<F, TB>:       for the GP field, ops/gp_dopri5.py::
 //       _make_kernel (K9), masked steps of the per-step solver, whose host
 //       loop launches it until every chain passes the next output time.
@@ -35,8 +36,18 @@
 //                                 (it may __syncthreads);
 //   acc_init(accsmem), acc_store(acc, grads, c)   likewise for acc_init;
 //   rhs(y, f), rhs_vjp(y, cot, ybar, acc);
-// and the backward takes the optional stage slots of field_stages.cuh:
-// slot 0 is a step's start y0, slot r + 1 its stage point u[r].
+// and the backward takes the optional stage slots and state spreading of
+// field_stages.cuh (slot 0 is a step's start y0, slot r + 1 its stage
+// point u[r]), and two optional members:
+//   kMinBlocks                    blocks an SM must hold (the second
+//                                 argument of __launch_bounds__; absent,
+//                                 ptxas picks the registers);
+//   kWarpStore                    acc_store is a warp collective (it sums
+//                                 the lanes' cotangents by shuffles): every
+//                                 lane of the warp reaches it, a lane with
+//                                 no chain (c >= C) with c = -1, after a
+//                                 sweep of no records.  Without it such a
+//                                 thread leaves at once.
 //
 // What bounds the kernels on an H100: the serial per-chain chain of field
 // evaluations, not bytes.  Chains are independent with data-dependent step
@@ -388,35 +399,74 @@ __device__ __forceinline__ void bwd_sweep(
   }
 }
 
+template <class F, class = void>
+struct has_min_blocks : std::false_type {};
+template <class F>
+struct has_min_blocks<F, std::void_t<decltype(F::kMinBlocks)>>
+    : std::true_type {};
+
+template <class F, class = void>
+struct warp_store : std::false_type {};
+template <class F>
+struct warp_store<F, std::void_t<decltype(F::kWarpStore)>>
+    : std::true_type {};
+
+// One block of the replay backward (K3).
 template <class F, class TB>
-__global__ void __launch_bounds__(F::kThreads)
-dopri5_bwd_kernel(typename F::Args w, typename F::Grads gw,
-                  const float* __restrict__ ts, const float* __restrict__ rec,
-                  const int* __restrict__ nrec, const float* __restrict__ g,
-                  int C, int T, float* __restrict__ lbar) {
+__device__ __forceinline__ void bwd_block(
+    const typename F::Args& w, const typename F::Grads& gw,
+    const float* __restrict__ ts, const float* __restrict__ rec,
+    const int* __restrict__ nrec, const float* __restrict__ g, int C, int T,
+    float* __restrict__ lbar) {
   constexpr int NS = own_components<F>();
   __shared__ typename F::Smem sm;
   __shared__ typename F::AccSmem asm_;
   const int c = F::chain();
   const F fld = F::load(w, sm, C, c);
   typename F::Acc acc = F::acc_init(asm_);
-  if (c >= C) return;
+  const bool live = c < C;
+  if (!warp_store<F>::value && !live) return;
+  const int n = live ? nrec[c] : 0;
 
   float l[NS];
   if constexpr (F::kStageShared) {
     __shared__ StageBuf<NS> sbuf[F::kChains];
     bwd_sweep<F, TB>(fld, acc, sbuf[c - blockIdx.x * F::kChains], ts, rec,
-                     nrec[c], g, C, T, c, l);
+                     n, g, C, T, c, l);
   } else {
     StageBuf<NS> rbuf;
-    bwd_sweep<F, TB>(fld, acc, rbuf, ts, rec, nrec[c], g, C, T, c, l);
+    bwd_sweep<F, TB>(fld, acc, rbuf, ts, rec, n, g, C, T, c, l);
   }
-  if (owner<F>()) {
+  if (live && owner<F>()) {
 #pragma unroll
     for (int i = 0; i < NS; ++i)
       lbar[static_cast<size_t>(c) * F::kNS + own_component<F>(i)] = l[i];
   }
-  F::acc_store(acc, gw, c);
+  F::acc_store(acc, gw, live ? c : -1);
+}
+
+// The replay backward kernel, and its instance for a field that declares
+// kMinBlocks.  Two kernels, because naming a minimum of 1 block an SM is
+// not the same as naming none: ptxas then gives the MLP field's K3 146
+// registers where it picks 128 by itself, and 12% more time on an H100.
+template <class F, class TB>
+__global__ void __launch_bounds__(F::kThreads)
+dopri5_bwd_kernel(typename F::Args w, typename F::Grads gw,
+                  const float* __restrict__ ts, const float* __restrict__ rec,
+                  const int* __restrict__ nrec, const float* __restrict__ g,
+                  int C, int T, float* __restrict__ lbar) {
+  bwd_block<F, TB>(w, gw, ts, rec, nrec, g, C, T, lbar);
+}
+
+template <class F, class TB>
+__global__ void __launch_bounds__(F::kThreads, F::kMinBlocks)
+dopri5_bwd_kernel_bounded(typename F::Args w, typename F::Grads gw,
+                          const float* __restrict__ ts,
+                          const float* __restrict__ rec,
+                          const int* __restrict__ nrec,
+                          const float* __restrict__ g, int C, int T,
+                          float* __restrict__ lbar) {
+  bwd_block<F, TB>(w, gw, ts, rec, nrec, g, C, T, lbar);
 }
 
 // Host launchers: tableau 0 is DOPRI5, 1 is TSIT5.  Return
@@ -450,12 +500,20 @@ int launch_bwd(int tableau, const typename F::Args& w,
                int T, float* lbar, cudaStream_t stream) {
   const dim3 grid((C + F::kChains - 1) / F::kChains);
   const dim3 block(F::kThreads);
-  if (tableau == 0)
+  if constexpr (has_min_blocks<F>::value) {
+    if (tableau == 0)
+      dopri5_bwd_kernel_bounded<F, Dopri5><<<grid, block, 0, stream>>>(
+          w, gw, ts, rec, nrec, g, C, T, lbar);
+    else
+      dopri5_bwd_kernel_bounded<F, Tsit5><<<grid, block, 0, stream>>>(
+          w, gw, ts, rec, nrec, g, C, T, lbar);
+  } else if (tableau == 0) {
     dopri5_bwd_kernel<F, Dopri5><<<grid, block, 0, stream>>>(
         w, gw, ts, rec, nrec, g, C, T, lbar);
-  else
+  } else {
     dopri5_bwd_kernel<F, Tsit5><<<grid, block, 0, stream>>>(
         w, gw, ts, rec, nrec, g, C, T, lbar);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

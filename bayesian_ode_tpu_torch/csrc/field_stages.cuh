@@ -1,5 +1,6 @@
 // The stage-slot part of the field contract of the reverse sweeps
-// (rk4_common.cuh: rk4_step_vjp; dopri5_kernels.cuh: bwd_sweep).
+// (rk4_common.cuh: rk4_step_vjp; dopri5_kernels.cuh: bwd_sweep), and how a
+// field spreads a chain's state over threads.
 //
 // A reverse sweep first evaluates the field at each stage point of a step
 // and then takes the VJP at each of them.  A field that keeps its
@@ -8,13 +9,19 @@
 //   stage_rhs(slot, y, f)          f at y, keeping y's activations in `slot`;
 //   stage_hidden(slot, y)          the same without f (the last stage's f is
 //                                  never needed);
-//   stage_vjp(slot, y, cot, ybar, acc)   the VJP at the point kept in `slot`;
+//   stage_vjp(slot, y, cot, ybar, acc)   the VJP at the point kept in `slot`.
+// Every other field (GP, spiral, FitzHugh-Nagumo) keeps nothing: the
+// helpers below call its rhs and rhs_vjp.
+//
+// Independently, a field that spreads a chain's state over threads (the
+// MLP field's backward: one component a lane; the GP field's per-point
+// backward, GPPoint in gp_field.cuh: one trajectory point a thread)
+// declares
 //   kOwn, comp(q), owner()         the state components a thread carries in
 //                                  the sweep's arrays, the index of its q-th
 //                                  one, and whether it writes them out.
-// Every other field (GP, spiral, FitzHugh-Nagumo) keeps nothing: the
-// helpers below call its rhs and rhs_vjp, and a thread carries all kNS
-// components, written by its leader().  Their kernels compute what they
+// A field without kOwn carries all kNS components on each thread, written
+// by its leader().  The fields that declare neither compute what they
 // computed before the slots existed, operation for operation.
 #pragma once
 
@@ -53,9 +60,14 @@ __device__ __forceinline__ void stage_vjp(const F& f, int slot,
     f.rhs_vjp(y, cot, ybar, acc);
 }
 
+template <class F, class = void>
+struct spreads_state : std::false_type {};
+template <class F>
+struct spreads_state<F, std::void_t<decltype(F::kOwn)>> : std::true_type {};
+
 template <class F>
 __host__ __device__ constexpr int own_components() {
-  if constexpr (keeps_stages<F>::value)
+  if constexpr (spreads_state<F>::value)
     return F::kOwn;
   else
     return F::kNS;
@@ -63,7 +75,7 @@ __host__ __device__ constexpr int own_components() {
 
 template <class F>
 __device__ __forceinline__ int own_component(int q) {
-  if constexpr (keeps_stages<F>::value)
+  if constexpr (spreads_state<F>::value)
     return F::comp(q);
   else
     return q;
@@ -71,7 +83,7 @@ __device__ __forceinline__ int own_component(int q) {
 
 template <class F>
 __device__ __forceinline__ bool owner() {
-  if constexpr (keeps_stages<F>::value)
+  if constexpr (spreads_state<F>::value)
     return F::owner();
   else
     return F::leader();

@@ -1,6 +1,6 @@
 // Frozen-step-mesh discrete adjoint of the whole adaptive solve of the GP
-// field, one chain per thread: the backward kernel of dopri5_kernels.cuh
-// over GPDopri5 (gp_field.cuh).
+// field, one thread per trajectory point: the backward kernel of
+// dopri5_kernels.cuh over GPReplayPoint (gp_field.cuh).
 //
 // Replaces bayesian_ode_tpu/ops/fused_adaptive.py::make_bwd_kernel (K3)
 // over the GP field VJP of bayesian_ode_tpu/ops/gp_dopri5_grad.py::
@@ -11,13 +11,19 @@
 // through the transposed stage recurrence, calling the field VJP at each
 // stage point and accumulating Abar.  Step sizes are constants.
 //
-// What bounds it on an H100: latency.  A step costs 7 field evaluations
-// plus 7 VJPs (each N x M expf) and keeps 6 stage points and 7 stage
-// cotangents live (13 x 2N floats) in registers.  At 10,112 chains the 158
-// blocks of 64 give most SMs one block: each thread's serial chain of expf
-// and FMAs sets the time.  Abar is accumulated per chain in shared memory
-// and written once, with no atomics, so gradients are deterministic.
-// x0bar is returned per chain; the sum over chains is done outside.
+// What bounds it on an H100: the throughput of the field's FP32 and expf work
+// (7 evaluations and 7 VJPs of M kernel values a point and step), with
+// latency to hide.  The replay never mixes the N points' rows (the TPU
+// kernel stacks them in sublanes), so each point's sweep is a thread of
+// its own: at 10,112 chains and N = 5 that is 1,686 warps (12.8 an SM)
+// where one chain per thread gave 316, and each thread's serial chain of
+// expf and FMAs is N times shorter.  A warp waits for the longest record
+// count of its 6 chains.  Each thread keeps its point's Abar, for 8
+// inducing points in registers and for the rest in its own column of
+// shared memory (GPReplayPoint); the N partials of a chain are summed by
+// warp shuffles at the end, with no atomics, so gradients are
+// deterministic.  x0bar is returned per chain;
+// the sum over chains is done outside.
 #include "dopri5_kernels.cuh"
 #include "gp_field.cuh"
 
@@ -31,10 +37,10 @@ int gp_dopri5_bwd(int tableau, const float* A, const float* Z, float sf2,
                   const float* ts, const float* rec, const int* nrec,
                   const float* g, int C, int T, float* lbar,
                   cudaStream_t stream) {
-  const bode::GPDopri5::Args w{A, Z, sf2, inv2ell2, invell2};
-  const bode::GPDopri5::Grads gw{Abar};
-  return bode::launch_bwd<bode::GPDopri5>(tableau, w, gw, ts, rec, nrec, g,
-                                          C, T, lbar, stream);
+  const bode::GPReplayPoint::Args w{A, Z, sf2, inv2ell2, invell2};
+  const bode::GPReplayPoint::Grads gw{Abar};
+  return bode::launch_bwd<bode::GPReplayPoint>(tableau, w, gw, ts, rec, nrec,
+                                               g, C, T, lbar, stream);
 }
 
 }  // extern "C"

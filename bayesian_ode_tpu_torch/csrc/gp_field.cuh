@@ -1,16 +1,27 @@
-// The GP kernel-regression field as a functor, shared by the fused adaptive
-// kernels (GPDopri5 below, dopri5_kernels.cuh) and the fused rk4 kernels
-// (gp_rk4.cu):
+// The GP kernel-regression field as functors:
 //
 //   f(x_n) = sum_m sf^2 exp(-|x_n - z_m|^2 / (2 ell^2)) A_m
 //
-// One chain per thread.  State layout per chain: NS = 2 * GP_N floats,
-// y[2n + d] (the JAX (N, 2) layout).  Full float32 throughout: built
-// without --use_fast_math and with expf.
+// GPField (and its adapter GPDopri5) carries one chain per thread, for the
+// forwards: the whole adaptive solves (K1, K2, K9; dopri5_kernels.cuh) and
+// the rk4 forward (K4, gp_rk4.cu).  State layout per chain: NS = 2 * GP_N
+// floats, y[2n + d] (the JAX (N, 2) layout).
+//
+// GPPoint carries one trajectory point per thread, for the reverse sweeps
+// (K3, dopri5_kernels.cuh over gp_dopri5_bwd.cu; K5, gp_rk4.cu).  Their
+// step mesh is frozen (K3 replays recorded steps, K5 steps on the output
+// grid), and f at point n reads only x_n and the chain's A, so the sweeps
+// of a chain's N points are independent: they share only the A they read
+// and the Abar they add to.  The forward is different: its error norm over
+// all 2N components picks the step, so it keeps a chain on one thread.
+//
+// Full float32 throughout: built without --use_fast_math and with expf.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "warp.cuh"
 
 #ifndef GP_N
 #error "GP_N (trajectory points per chain) must be defined at build time"
@@ -34,7 +45,6 @@ struct GPField {
   int lane;
   float sf2;           // sf^2
   float inv2ell2;      // 1 / (2 ell^2)
-  float invell2;       // 1 / ell^2
 
   __device__ __forceinline__ float a(int m, int d) const {
     return sA[(2 * m + d) * kBlock + lane];
@@ -58,33 +68,6 @@ struct GPField {
       f[2 * n + 1] = fy;
     }
   }
-
-  // Vector-Jacobian product at y for the cotangent `cot` of f(y):
-  // ybar = (d f / d y)^T cot, and Abar += (d f / d A)^T cot, accumulated
-  // into this chain's column of sAbar.  Z gets no cotangent.
-  __device__ __forceinline__ void rhs_vjp(const float* y, const float* cot,
-                                          float* ybar, float* sAbar) const {
-#pragma unroll
-    for (int n = 0; n < kN; ++n) {
-      const float px = y[2 * n], py = y[2 * n + 1];
-      const float cx = cot[2 * n], cy = cot[2 * n + 1];
-      float ubx = 0.f, uby = 0.f;
-#pragma unroll 4
-      for (int m = 0; m < kM; ++m) {
-        const float dx = px - sZ[2 * m];
-        const float dy = py - sZ[2 * m + 1];
-        const float K = sf2 * expf(-(dx * dx + dy * dy) * inv2ell2);
-        sAbar[(2 * m) * kBlock + lane] += K * cx;
-        sAbar[(2 * m + 1) * kBlock + lane] += K * cy;
-        const float adotc = a(m, 0) * cx + a(m, 1) * cy;
-        const float w = K * adotc * invell2;
-        ubx += w * (-dx);
-        uby += w * (-dy);
-      }
-      ybar[2 * n] = ubx;
-      ybar[2 * n + 1] = uby;
-    }
-  }
 };
 
 // Stage this block's A rows (C, M, 2) into sA with coalesced loads; chains
@@ -102,32 +85,22 @@ __device__ __forceinline__ void stage_weights(const float* __restrict__ A,
   for (int idx = threadIdx.x; idx < 2 * kM; idx += kBlock) sZ[idx] = Z[idx];
 }
 
-// The GP field as the fused adaptive kernels take it (dopri5_kernels.cuh):
-// weights A (C, M, 2) per chain and the grid Z (M, 2) shared by all
-// chains; only A gets a cotangent.  One chain per thread; A and Z staged in
-// shared memory, Abar accumulated per chain in shared memory and written
-// once, with no atomics.
+// The GP field as the fused adaptive forwards take it (dopri5_kernels.cuh:
+// K1, K2, K9): weights A (C, M, 2) per chain and the grid Z (M, 2) shared
+// by all chains.  One chain per thread; A and Z staged in shared memory.
 struct GPDopri5 {
   static constexpr int kNS = 2 * GP_N;
   static constexpr int kThreads = kBlock;
   static constexpr int kChains = kBlock;
-  static constexpr bool kStageShared = false;
   struct Args {
     const float* A;
     const float* Z;
     float sf2, inv2ell2, invell2;
   };
-  struct Grads {
-    float* A;
-  };
   struct Smem {
     float sA[2 * kM * kBlock];
     float sZ[2 * kM];
   };
-  struct AccSmem {
-    float sAbar[2 * kM * kBlock];
-  };
-  using Acc = float*;               // the block's sAbar
 
   GPField f;
 
@@ -138,24 +111,216 @@ struct GPDopri5 {
     stage_weights(a.A, a.Z, C, sm.sA, sm.sZ);
     __syncthreads();
     return GPDopri5{GPField{sm.sA, sm.sZ, static_cast<int>(threadIdx.x),
-                            a.sf2, a.inv2ell2, a.invell2}};
-  }
-  static __device__ Acc acc_init(AccSmem& s) {
-    for (int idx = threadIdx.x; idx < 2 * kM * kBlock; idx += kBlock)
-      s.sAbar[idx] = 0.f;
-    __syncthreads();
-    return s.sAbar;
-  }
-  static __device__ void acc_store(const Acc& acc, const Grads& g, int c) {
-    for (int j = 0; j < 2 * kM; ++j)
-      g.A[static_cast<size_t>(c) * 2 * kM + j] = acc[j * kBlock + threadIdx.x];
+                            a.sf2, a.inv2ell2}};
   }
 
   __device__ void rhs(const float* y, float* out) const { f.rhs(y, out); }
-  __device__ void rhs_vjp(const float* y, const float* cot, float* ybar,
-                          Acc& acc) const {
-    f.rhs_vjp(y, cot, ybar, acc);
+};
+
+// One trajectory point per thread: the GP field of the reverse sweeps (K3,
+// as the backward of dopri5_kernels.cuh takes it; K5, gp_rk4.cu).
+//
+// Lanes: N consecutive lanes carry one chain, lane = N * (chain in warp) +
+// n, so a warp holds 32 / N chains (6 at N = 5, lanes 30-31 idle) and a
+// chain never crosses a warp.  A thread carries its point's 2 components
+// (kOwn, comp(q) = 2n + q) and reads and writes only those of the records,
+// g and lbar; neighbouring lanes read neighbouring words, so those loads
+// coalesce.
+//
+// rhs and rhs_vjp are GPField's expressions at one point, in the same
+// ascending order over m, so the stage values, ybar and the x0 cotangent
+// are GPField's bit for bit.  Abar: each thread sums its own point's share,
+// for the first R inducing points in registers (the m loop over them is
+// unrolled, so every index is a constant) and for the rest in its own
+// column of shared memory (a float2 a point, sAbar[(m - R) * kThreads +
+// thread]: a warp's 32 columns are 256 consecutive bytes).  acc_store adds
+// the N partials of a chain by shuffles inside the warp, in ascending n:
+// the sum over points is the only reassociation.  A chain's A sits in
+// shared memory as float2 columns sA[m * kChains + chain in block]: the N
+// lanes of a chain read one word (a broadcast) and the chains of a warp
+// neighbouring words.
+//
+// 128 threads a block (24 chains at N = 5) and at most 128 registers a
+// thread (__launch_bounds__ with kMinBlocks = 4): 10,112 chains are 422
+// blocks, under one wave of 4 blocks on each of 132 SMs (0.80 waves).
+template <int R>
+struct GPPoint {
+  static_assert(kN >= 1 && kN <= 32, "a chain's points must fit one warp");
+  static_assert(R > 0, "R inducing points in registers");
+  static constexpr int kR = R < kM ? R : kM;    // at most all of them
+  static constexpr int kNS = 2 * GP_N;      // a chain's state components
+  static constexpr int kOwn = 2;            // a thread's: its point's x, y
+  static constexpr int kChainsPerWarp = 32 / kN;
+  static constexpr int kThreads = 128;
+  static constexpr int kChains = kThreads / 32 * kChainsPerWarp;
+  static constexpr int kMinBlocks = 4;
+  static constexpr bool kStageShared = false;
+  // acc_store sums over the warp's lanes: every lane of the warp calls it
+  static constexpr bool kWarpStore = true;
+  struct Args {
+    const float* A;
+    const float* Z;
+    float sf2, inv2ell2, invell2;
+  };
+  struct Grads {
+    float* A;
+  };
+  struct Smem {
+    float2 sA[kM * kChains];
+    float2 sZ[kM];
+  };
+  struct AccSmem {
+    float2 sAbar[(kM - kR) * kThreads + (kR == kM)];  // + 1: never empty
+  };
+  struct Acc {
+    float v[2 * kR];   // Abar of this point, v[2m + d], m < kR
+    float2* s;         // and its column, s[(m - kR) * kThreads]
+  };
+  static_assert(sizeof(Smem) + sizeof(AccSmem) <= 48 * 1024,
+                "static shared memory of a block (N >= 2)");
+
+  const float2* sA;      // this chain's column: sA[m * kChains]
+  const float2* sZ;
+  float sf2, inv2ell2, invell2;
+
+  static __device__ int lane() { return threadIdx.x & 31; }
+  static __device__ int point() { return lane() % kN; }
+  // this thread's chain; a lane past the warp's last chain has none
+  // (returns a count past any C)
+  static __device__ int chain() {
+    return lane() < kChainsPerWarp * kN
+               ? blockIdx.x * kChains + (threadIdx.x >> 5) * kChainsPerWarp
+                     + lane() / kN
+               : 0x7fffffff;
+  }
+  static __device__ int comp(int q) { return 2 * point() + q; }
+  static __device__ bool owner() { return true; }
+
+  // Stage the block's A rows (C, M, 2) with coalesced loads (chains past
+  // C read as zero) and Z; called by every thread of the block.
+  static __device__ GPPoint load(const Args& a, Smem& sm, int C, int) {
+    const int c0 = blockIdx.x * kChains;
+    float* sA = reinterpret_cast<float*>(sm.sA);
+    for (int idx = threadIdx.x; idx < kChains * 2 * kM; idx += kThreads) {
+      const int l = idx / (2 * kM);
+      const int j = idx - l * (2 * kM);
+      sA[((j >> 1) * kChains + l) * 2 + (j & 1)] =
+          (c0 + l < C) ? a.A[static_cast<size_t>(c0) * 2 * kM + idx] : 0.f;
+    }
+    float* sZ = reinterpret_cast<float*>(sm.sZ);
+    for (int idx = threadIdx.x; idx < 2 * kM; idx += kThreads)
+      sZ[idx] = a.Z[idx];
+    __syncthreads();
+    const int w = min(lane() / kN, kChainsPerWarp - 1);   // idle lanes: any
+    return GPPoint{sm.sA + (threadIdx.x >> 5) * kChainsPerWarp + w, sm.sZ,
+                   a.sf2, a.inv2ell2, a.invell2};
+  }
+  // Only this thread touches its column, so it needs no barrier.
+  static __device__ Acc acc_init(AccSmem& s) {
+    Acc acc{};
+    acc.s = s.sAbar + threadIdx.x;
+    for (int m = kR; m < kM; ++m)
+      acc.s[(m - kR) * kThreads] = float2{0.f, 0.f};
+    return acc;
+  }
+
+  // Abar of chain c, the sum of its N points' partials in ascending n,
+  // written by the chain's lane n = 0.  A warp collective: every lane of
+  // the warp calls it, one with no chain with c < 0 (it writes nothing).
+  static __device__ void acc_store(const Acc& acc, const Grads& g, int c) {
+    const bool lead = c >= 0 && point() == 0;
+    float* out = g.A + static_cast<size_t>(c < 0 ? 0 : c) * 2 * kM;
+#pragma unroll
+    for (int j = 0; j < 2 * kR; ++j) {
+      float s = acc.v[j];
+#pragma unroll
+      for (int q = 1; q < kN; ++q) s += __shfl_down_sync(kFull, acc.v[j], q);
+      if (lead) out[j] = s;
+    }
+#pragma unroll 2
+    for (int m = kR; m < kM; ++m) {
+      const float2 v = acc.s[(m - kR) * kThreads];
+      float sx = v.x, sy = v.y;
+#pragma unroll
+      for (int q = 1; q < kN; ++q) {
+        sx += __shfl_down_sync(kFull, v.x, q);
+        sy += __shfl_down_sync(kFull, v.y, q);
+      }
+      if (lead) {
+        out[2 * m] = sx;
+        out[2 * m + 1] = sy;
+      }
+    }
+  }
+
+  // f = K(y, Z) A at this thread's point y[0..1].
+  __device__ __forceinline__ void rhs(const float* y, float* f) const {
+    const float px = y[0], py = y[1];
+    float fx = 0.f, fy = 0.f;
+#pragma unroll 4
+    for (int m = 0; m < kM; ++m) {
+      const float2 z = sZ[m];
+      const float dx = px - z.x;
+      const float dy = py - z.y;
+      const float K = sf2 * expf(-(dx * dx + dy * dy) * inv2ell2);
+      const float2 am = sA[m * kChains];
+      fx += K * am.x;
+      fy += K * am.y;
+    }
+    f[0] = fx;
+    f[1] = fy;
+  }
+
+  // One inducing point's term of the VJP: its Abar share goes to (ax, ay),
+  // its ybar share to (ubx, uby).
+  __device__ __forceinline__ void vjp_term(int m, float px, float py,
+                                           float cx, float cy, float& ax,
+                                           float& ay, float& ubx,
+                                           float& uby) const {
+    const float2 z = sZ[m];
+    const float dx = px - z.x;
+    const float dy = py - z.y;
+    const float K = sf2 * expf(-(dx * dx + dy * dy) * inv2ell2);
+    ax += K * cx;
+    ay += K * cy;
+    const float2 am = sA[m * kChains];
+    const float adotc = am.x * cx + am.y * cy;
+    const float w = K * adotc * invell2;
+    ubx += w * (-dx);
+    uby += w * (-dy);
+  }
+
+  // Vector-Jacobian product at this point y for the cotangent `cot` of
+  // f(y): ybar = (d f / d y)^T cot, and Abar += (d f / d A)^T cot, into
+  // this thread's registers and column.  Z gets no cotangent.
+  __device__ __forceinline__ void rhs_vjp(const float* y, const float* cot,
+                                          float* ybar, Acc& acc) const {
+    const float px = y[0], py = y[1];
+    const float cx = cot[0], cy = cot[1];
+    float ubx = 0.f, uby = 0.f;
+#pragma unroll
+    for (int m = 0; m < kR; ++m)
+      vjp_term(m, px, py, cx, cy, acc.v[2 * m], acc.v[2 * m + 1], ubx, uby);
+#pragma unroll 4
+    for (int m = kR; m < kM; ++m) {
+      float2 a = acc.s[(m - kR) * kThreads];
+      vjp_term(m, px, py, cx, cy, a.x, a.y, ubx, uby);
+      acc.s[(m - kR) * kThreads] = a;
+    }
+    ybar[0] = ubx;
+    ybar[1] = uby;
   }
 };
+
+// The inducing points whose Abar a thread keeps in registers: the most
+// that fit 128 registers beside the sweep's stage arrays (13 live a point
+// in K3's replay, 7 in K5's rk4 step) with no spills.  On an H100 at
+// 10,112 chains: K3 at DOPRI5 1.23 ms with R = 8, against 1.33 ms with
+// Abar all in shared memory (85 registers) and 1.28 ms at R = 12, which
+// spills; K5 0.94 ms at R = 12, against 1.02 ms with Abar all in shared
+// memory (63 registers), and spills past it.  A grid of M < R inducing
+// points keeps them all in registers.
+using GPReplayPoint = GPPoint<8>;
+using GPRk4Point = GPPoint<12>;
 
 }  // namespace bode

@@ -1,22 +1,31 @@
 // Fixed-grid rk4 (3/8 rule) trajectories of the GP field and their
-// gradient, one chain per thread.
+// gradient.
 //
 // Replaces two TPU kernels of bayesian_ode_tpu/ops/gp_rk4.py:
 //   gp_rk4_fwd: _make_fwd_kernel (K4), the T-1 steps on the output grid,
 //               storing the whole trajectory (the output, and the residual
-//               of the backward);
+//               of the backward); one chain per thread (GPField);
 //   gp_rk4_bwd: _make_bwd_kernel (K5), the reverse sweep: at step t it
 //               injects the observation cotangent g[t+1], recomputes the
 //               four stages from the stored trajectory point and pulls the
-//               cotangent through the field VJP, accumulating Abar.
+//               cotangent through the field VJP, accumulating Abar; one
+//               trajectory point per thread (GPRk4Point).
 //
-// What bounds it on an H100: latency, as for the dopri5 kernels.  A step
-// costs 4 x N x M = 720 expf (K5: 8 x N x M) at N=5, M=36, and each chain
-// reads and writes only its own state and trajectory rows; A (M x 2 per
-// chain) and the grid Z sit in shared memory.  Blocks of 64 threads give
-// 158 blocks at 10,112 chains, so all 132 SMs get work.  K5 keeps Abar per
-// chain in shared memory and writes it once, with no atomics, so gradients
-// are deterministic; x0bar is returned per chain and summed outside.
+// What bounds it on an H100: the field's FP32 and expf throughput,
+// with latency to hide.  A forward step costs 4 x N x M = 720 expf at N=5,
+// M=36; each chain reads and writes only its own state and trajectory
+// rows; A (M x 2 per chain) and the grid Z sit in shared memory.  K4's
+// blocks of 64 threads give 158 blocks at 10,112 chains, so all 132 SMs
+// get work.  The reverse sweep steps on the fixed grid, so a chain's N
+// points sweep independently (they share only A and Abar): K5 runs one
+// thread per point, N consecutive lanes a chain, 1,686 warps at 10,112
+// chains where one chain per thread gave 316, each thread's serial chain
+// N times shorter, and neighbouring lanes read neighbouring words of ys and
+// g.  Each thread keeps its point's Abar, for 12 inducing points in
+// registers and for the rest in its own column of shared memory; the
+// chain's N partials are summed by warp shuffles at the end, with no
+// atomics, so gradients are deterministic; x0bar is returned per chain and
+// summed outside.
 #include "gp_field.cuh"
 #include "rk4_common.cuh"
 
@@ -34,8 +43,7 @@ gp_rk4_fwd_kernel(const float* __restrict__ A, const float* __restrict__ x0,
 
   const int c = blockIdx.x * kBlock + threadIdx.x;
   if (c >= C) return;
-  const GPField fld{sA, sZ, static_cast<int>(threadIdx.x), sf2, inv2ell2,
-                    0.f};
+  const GPField fld{sA, sZ, static_cast<int>(threadIdx.x), sf2, inv2ell2};
   float y[kNS], y1[kNS];
 #pragma unroll
   for (int i = 0; i < kNS; ++i) {
@@ -53,46 +61,39 @@ gp_rk4_fwd_kernel(const float* __restrict__ A, const float* __restrict__ x0,
   }
 }
 
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(GPRk4Point::kThreads,
+                                  GPRk4Point::kMinBlocks)
 gp_rk4_bwd_kernel(const float* __restrict__ A, const float* __restrict__ Z,
                   const float* __restrict__ dts,
                   const float* __restrict__ ys, const float* __restrict__ g,
                   int C, int T, float sf2, float inv2ell2, float invell2,
                   float* __restrict__ Abar, float* __restrict__ lbar) {
-  __shared__ float sA[2 * kM * kBlock];
-  __shared__ float sAbar[2 * kM * kBlock];
-  __shared__ float sZ[2 * kM];
-  stage_weights(A, Z, C, sA, sZ);
-  for (int idx = threadIdx.x; idx < 2 * kM * kBlock; idx += kBlock)
-    sAbar[idx] = 0.f;
-  __syncthreads();
-
-  const int c = blockIdx.x * kBlock + threadIdx.x;
-  if (c >= C) return;
-  const int lane = threadIdx.x;
-  const GPField fld{sA, sZ, lane, sf2, inv2ell2, invell2};
-  float* acc = sAbar;
-
-  float l[kNS], p[kNS];
+  using P = GPRk4Point;
+  __shared__ P::Smem sm;
+  __shared__ P::AccSmem asm_;
+  const int c = P::chain();
+  const P fld = P::load(P::Args{A, Z, sf2, inv2ell2, invell2}, sm, C, c);
+  P::Acc acc = P::acc_init(asm_);
+  // every lane stays to the warp sum of acc_store; a lane with no chain
+  // sweeps nothing
+  if (c < C) {
+    const size_t q = static_cast<size_t>(c) * kNS + P::comp(0);
+    float l[2] = {0.f, 0.f}, p[2];
+    for (int t = T - 2; t >= 0; --t) {
+      const float* gt = g + static_cast<size_t>(t + 1) * C * kNS + q;
+      const float* pt = ys + static_cast<size_t>(t) * C * kNS + q;
 #pragma unroll
-  for (int i = 0; i < kNS; ++i) l[i] = 0.f;
-  for (int t = T - 2; t >= 0; --t) {
-    const float* gt = g + (static_cast<size_t>(t + 1) * C + c) * kNS;
-    const float* pt = ys + (static_cast<size_t>(t) * C + c) * kNS;
-#pragma unroll
-    for (int i = 0; i < kNS; ++i) {
-      l[i] = l[i] + gt[i];
-      p[i] = pt[i];
+      for (int i = 0; i < 2; ++i) {
+        l[i] = l[i] + gt[i];
+        p[i] = pt[i];
+      }
+      rk4_step_vjp<2>(fld, p, dts[t], l, acc);
     }
-    rk4_step_vjp<kNS>(fld, p, dts[t], l, acc);
-  }
-  // x0's own observation term
+    // x0's own observation term
 #pragma unroll
-  for (int i = 0; i < kNS; ++i)
-    lbar[static_cast<size_t>(c) * kNS + i] =
-        l[i] + g[static_cast<size_t>(c) * kNS + i];
-  for (int j = 0; j < 2 * kM; ++j)
-    Abar[static_cast<size_t>(c) * 2 * kM + j] = sAbar[j * kBlock + lane];
+    for (int i = 0; i < 2; ++i) lbar[q + i] = l[i] + g[q + i];
+  }
+  P::acc_store(acc, P::Grads{Abar}, c < C ? c : -1);
 }
 
 }  // namespace bode
@@ -124,8 +125,9 @@ int gp_rk4_bwd(const float* A, const float* Z, const float* dts,
                const float* ys, const float* g, int C, int T, float sf2,
                float inv2ell2, float invell2, float* Abar, float* lbar,
                cudaStream_t stream) {
-  const dim3 grid((C + bode::kBlock - 1) / bode::kBlock);
-  bode::gp_rk4_bwd_kernel<<<grid, bode::kBlock, 0, stream>>>(
+  using P = bode::GPRk4Point;
+  const dim3 grid((C + P::kChains - 1) / P::kChains);
+  bode::gp_rk4_bwd_kernel<<<grid, P::kThreads, 0, stream>>>(
       A, Z, dts, ys, g, C, T, sf2, inv2ell2, invell2, Abar, lbar);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 // Warp sums shared by the warp-per-chain fields (mlp_field.cuh,
-// spiral_field.cuh).
+// spiral_field.cuh), and the full-warp mask of the GP field's per-point
+// backward (gp_field.cuh).
 #pragma once
 
 #include <cuda_runtime.h>

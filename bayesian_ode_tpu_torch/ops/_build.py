@@ -75,8 +75,8 @@ def _adaptive(field: str, headers: Tuple[str, ...], defines: Tuple[str, ...],
 
 
 FAMILIES: Dict[str, Family] = {
-    "gp_dopri5": _adaptive("gp", ("gp_field.cuh",), ("GP_N", "GP_M"),
-                           2, 3, 1),
+    "gp_dopri5": _adaptive("gp", ("gp_field.cuh", "warp.cuh"),
+                           ("GP_N", "GP_M"), 2, 3, 1),
     "mlp_dopri5": _adaptive("mlp", ("mlp_field.cuh", "warp.cuh"),
                             ("MLP_N", "MLP_H"), 6, 0, 6),
     "spiral_dopri5": _adaptive("spiral", ("spiral_field.cuh", "warp.cuh"),
@@ -84,7 +84,7 @@ FAMILIES: Dict[str, Family] = {
     "fhn_dopri5": _adaptive("fhn", ("fhn_field.cuh",), ("FHN_N",), 3, 0, 3),
     "gp_rk4": Family(
         ("gp_rk4.cu",),
-        ("rk4_common.cuh", "field_stages.cuh", "gp_field.cuh"),
+        ("rk4_common.cuh", "field_stages.cuh", "gp_field.cuh", "warp.cuh"),
         ("GP_N", "GP_M"), "gp_rk4_dims",
         {"gp_rk4_fwd": [_P] * 4 + [_I, _I] + [_F] * 2 + [_P, _P],
          "gp_rk4_bwd": [_P] * 5 + [_I, _I] + [_F] * 3 + [_P] * 3}),
@@ -97,7 +97,7 @@ FAMILIES: Dict[str, Family] = {
     "gp_dopri5_step": Family(
         ("gp_dopri5_step.cu",),
         ("dopri5_common.cuh", "dopri5_kernels.cuh", "field_stages.cuh",
-         "gp_field.cuh"),
+         "gp_field.cuh", "warp.cuh"),
         ("GP_N", "GP_M"), "gp_dopri5_step_dims",
         {"gp_dopri5_step": [_P] * 2 + [_F] * 3 + [_P] + [_I] * 4 + [_F] * 5
                            + [_P] * 10 + [_P]}),

@@ -5,9 +5,10 @@
 
 Builds the port's CUDA kernels from `bayesian_ode_tpu_torch/csrc/` (one
 nvcc per source, all started together), prints each kernel's registers and
-spills (and the warps an SM holds of the MLP field's backward kernels, K7
-and MLP K3), and holds each kernel against its plain PyTorch version at the
-main paths' full shape (Van der Pol: 5 trajectories, T=60 output times to
+spills (and, for the backward kernels redesigned for the card, K7, MLP K3,
+K5 and GP K3, the warps an SM holds and the waves of their grid), and
+holds each kernel against its plain PyTorch version at the main paths'
+full shape (Van der Pol: 5 trajectories, T=60 output times to
 t=6, 10,112 chains):
 
   - the GP-ODE posterior on a 6x6 inducing grid with dopri5 at
@@ -36,8 +37,9 @@ K8, and at 1,024, where it does not; and one `ops.gp_dopri5.gp_dopri5_solve`
 read just after, and must show the path's own kernels on every
 potential-gradient evaluation (or step, or launch) and no other kernel.
 Last, it times steady-state sampler steps of each path, and profiles 5
-steady steps of the GP and NN rk4 paths, of each adaptive path of the
-fused engine and of SVGD at 4,096 particles with torch.profiler (device
+steady steps of the GP dopri5 SGLD path, of the GP and NN rk4 paths, of
+each adaptive path of the fused engine and of SVGD at 4,096 particles with
+torch.profiler (device
 time by kernel, the median's sort, the other kernels, the card's idle
 share of the window).
 
@@ -62,9 +64,16 @@ HIDDEN = 32
 SPIRAL_HIDDEN = 50
 SVGD_PARTICLES = (4096, 1024)     # K8 on "auto" at the first, not the second
 SVGD_STEPS = 50
-# threads a block of the MLP field's backward kernels (csrc/mlp_field.cuh)
-MLP_BWD_THREADS = {"mlp_rk4_bwd": 128, "dopri5_bwd MLPDopri5 Dopri5": 64,
-                   "dopri5_bwd MLPDopri5 Tsit5": 64}
+# (threads, chains) a block of the backward kernels redesigned for the
+# card, by library and ptxas name: the MLP field's (csrc/mlp_field.cuh: K7
+# 4 chains a block, MLP K3 2) and the GP field's one thread a trajectory
+# point (csrc/gp_field.cuh, GPPoint: 128 threads, 6 chains a warp at N=5)
+BWD_BLOCKS = {("mlp_rk4", "mlp_rk4_bwd"): (128, 4),
+              ("mlp_dopri5", "dopri5_bwd MLPDopri5 Dopri5"): (64, 2),
+              ("mlp_dopri5", "dopri5_bwd MLPDopri5 Tsit5"): (64, 2),
+              ("gp_rk4", "gp_rk4_bwd"): (128, 24),
+              ("gp_dopri5", "dopri5_bwd GPPoint Dopri5"): (128, 24),
+              ("gp_dopri5", "dopri5_bwd GPPoint Tsit5"): (128, 24)}
 LIBRARIES = [("gp_dopri5", (5, 36)), ("gp_rk4", (5, 36)),
              ("mlp_rk4", (5, HIDDEN)), ("mlp_dopri5", (5, HIDDEN)),
              ("spiral_dopri5", (5, SPIRAL_HIDDEN)), ("fhn_dopri5", (5,)),
@@ -112,6 +121,17 @@ def field_cost(name, width):
     return (11, 0), (22, 0)
 
 
+def gp_recompute_vjp(width):
+    """(flops, expf calls) of a GP field VJP at one point that recomputes
+    its M kernel values instead of reusing the stage's: its own part plus,
+    per m, the distance, the exponent's argument and sf^2 (7 flops) and
+    one expf.  A reverse sweep with it costs 2M expf a point and stage
+    point: the floor of a kernel that keeps no kernel values, as K3 GP and
+    K5 do (gp_field.cuh, GPPoint)."""
+    (_, _), (fv, sv) = field_cost("gp", width)
+    return fv + 7 * width, sv + width
+
+
 def bound(nbytes, flops, sfu):
     """(bound_ms, bound_by) of work that moves `nbytes` and does `flops`
     FP32 operations and `sfu` special-function calls."""
@@ -122,14 +142,16 @@ def bound(nbytes, flops, sfu):
 
 
 def adaptive_bounds(name, width, C, N, T, w_bytes, wbar_bytes, attempts,
-                    accepted, record=True):
+                    accepted, record=True, vjp=None):
     """Bounds of the forward (K1/K2) and the replay backward (K3) from this
     run's attempted and accepted step counts (summed over the chains).  An
     accepted step's replay evaluates the field at its 7 stage points once
     (the last one's f is not needed, its activations are) and takes the 7
-    VJPs' own parts."""
+    VJPs' own parts; `vjp` replaces field_cost's VJP part (flops, calls)."""
     NS = 2 * N
     (f, s), (fv, sv) = field_cost(name, width)
+    if vjp:
+        fv, sv = vjp
     traj = T * C * NS * 4
     fwd = bound(w_bytes + C * (NS + 1) * 4 + traj + 4 * C * 4
                 + (accepted * (NS + 2) * 4 if record else 0),
@@ -141,12 +163,15 @@ def adaptive_bounds(name, width, C, N, T, w_bytes, wbar_bytes, attempts,
     return fwd, bwd
 
 
-def rk4_bounds(name, width, C, N, T, w_bytes, wbar_bytes):
+def rk4_bounds(name, width, C, N, T, w_bytes, wbar_bytes, vjp=None):
     """Bounds of the rk4 forward (K4/K6) and reverse sweep (K5/K7).  A
     reverse step evaluates the field at its 4 stage points once (k4's value
-    is not needed, u4's activations are) and takes the 4 VJPs' own parts."""
+    is not needed, u4's activations are) and takes the 4 VJPs' own parts;
+    `vjp` replaces field_cost's VJP part (flops, calls)."""
     NS = 2 * N
     (f, s), (fv, sv) = field_cost(name, width)
+    if vjp:
+        fv, sv = vjp
     steps = C * (T - 1)
     traj = T * C * NS * 4
     fwd = bound(w_bytes + traj, steps * (4 * N * f + 10 * NS),
@@ -273,7 +298,7 @@ def ptxas_summary(family, shape, log):
             mangled = m.group(1)
             parts = re.findall(r"(dopri5_fwd|dopri5_bwd|dopri5_step"
                                r"|svgd_phi|gp_rk4_fwd|gp_rk4_bwd"
-                               r"|mlp_rk4_fwd|mlp_rk4_bwd|GPDopri5|MLPDopri5"
+                               r"|mlp_rk4_fwd|mlp_rk4_bwd|GPDopri5|GPPoint|MLPDopri5"
                                r"|SpiralDopri5|FHNDopri5|Dopri5|Tsit5|Lb[01])",
                                mangled)
             name = " ".join(parts).replace("Lb1", "record").replace(
@@ -304,6 +329,14 @@ def warps_per_sm(regs, smem, threads):
     blocks = min(65536 // per_warp // warps, 233472 // (smem + 1024),
                  64 // warps, 32)
     return blocks * warps
+
+
+def occupancy(regs, smem, threads, chains, C, sms=132):
+    """(resident warps an SM, waves) of a kernel of `threads` and `chains`
+    a block over C chains: waves are its blocks over the blocks that all
+    `sms` SMs hold at once (a grid of 1.07 waves takes nearly two)."""
+    warps = warps_per_sm(regs, smem, threads)
+    return warps, -(-C // chains) / (warps // (threads // 32) * sms)
 
 
 def main() -> int:
@@ -351,11 +384,14 @@ def main() -> int:
         _build.load_library(*lib)
         for name, regs, st, ld, smem in ptxas_summary(
                 *lib, _build.build_log(*lib)):
-            if lib[0] in ("mlp_rk4", "mlp_dopri5") and name in MLP_BWD_THREADS:
-                threads = MLP_BWD_THREADS[name]
-                print(f"    {name}: {warps_per_sm(regs, smem, threads)} warps "
-                      f"per SM ({threads} threads a block, {regs} registers, "
-                      f"{smem} B shared memory, spills {st}/{ld} B)")
+            if (lib[0], name) in BWD_BLOCKS:
+                threads, chains = BWD_BLOCKS[lib[0], name]
+                warps, waves = occupancy(regs, smem, threads, chains,
+                                         N_CHAINS)
+                print(f"    {name}: {warps} warps an SM, {waves:.2f} waves "
+                      f"at {N_CHAINS} chains ({threads} threads and {chains} "
+                      f"chains a block, {regs} registers, {smem} B shared "
+                      f"memory, spills {st}/{ld} B)")
 
     # ---- inputs at the main path's shape ----
     data = make_dataset(seed=2, ode="vdp", N=5, T=60, t_max=6.0,
@@ -466,7 +502,11 @@ def main() -> int:
     ms3p = cuda_ms(lambda: fa.bwd_plain(gpf.make_rhs(gpw),
                                         gpf.make_rhs_vjp(gpw), gpw[:1], ts,
                                         rec_p, nacc_p, g), 1)
-    print(f"K3: {ms3:.3f} ms, plain replay {ms3p:.1f} ms")
+    (f3, _) = adaptive_bounds("gp", 36, N_CHAINS, 5, T, nbytes(gpw),
+                              nbytes(gpw[:1]), attempts, accepted,
+                              vjp=gp_recompute_vjp(36))[1]
+    print(f"K3: {ms3:.3f} ms, plain replay {ms3p:.1f} ms; bound {b3:.4f} ms "
+          f"({by3}), recompute floor {f3:.4f} ms")
     kernels["gp_dopri5_bwd"] = dict(
         source="bayesian_ode_tpu_torch/csrc/gp_dopri5_bwd.cu",
         replaces="bayesian_ode_tpu/ops/fused_adaptive.py:180",
@@ -525,10 +565,13 @@ def main() -> int:
     sched = schedules.polynomial_decay(lr0=1e-5, gamma=0.55, t0=100)
     pos = {"U": U, "logsn": torch.full((N_CHAINS, 2), float(np.log(0.05)),
                                        device=dev)}
-    for method, kern in (
-            ("SGLD", samplers.sgld_batched(pot, sched)),
-            ("pSGLD", samplers.psgld_batched(pot, sched, alpha=0.99,
-                                             lambda_=1e-8))):
+    steady_dopri5 = {
+        "SGLD": samplers.sgld_batched(pot, sched),
+        "pSGLD": samplers.psgld_batched(pot, sched, alpha=0.99,
+                                        lambda_=1e-8)}
+    for method, kern in steady_dopri5.items():
+        # the later phases draw their inputs from this `gen` (the pSGLD
+        # run's, after its 12 steps): keep it so, to keep their inputs
         gen = torch.Generator(device=dev).manual_seed(1)
         state = kern.init(pos)
         for _ in range(2):
@@ -543,7 +586,8 @@ def main() -> int:
         check(bool(torch.isfinite(state.potential).all()),
               f"{method}: finite potentials in the steady run")
         print(f"{method} steady: {ms:.3f} ms/step over {steps} steps = "
-              f"{N_CHAINS / ms * 1e3:.0f} chain-steps/s")
+              f"{N_CHAINS / ms * 1e3:.0f} chain-steps/s ({smi})")
+    profile_steps("GP dopri5 SGLD", steady_dopri5["SGLD"], pos, dev)
 
     # ---- phase 6: K4 (rk4 forward) and K5 (rk4 reverse sweep) ----
     dts = torch.diff(ts).contiguous()
@@ -584,6 +628,9 @@ def main() -> int:
           f"{ms5p:.1f} ms")
     (b4, by4), (b5, by5) = rk4_bounds("gp", 36, N_CHAINS, 5, T,
                                       nbytes(gpw), nbytes(gpw[:1]))
+    (f5, _) = rk4_bounds("gp", 36, N_CHAINS, 5, T, nbytes(gpw),
+                         nbytes(gpw[:1]), vjp=gp_recompute_vjp(36))[1]
+    print(f"K5: bound {b5:.4f} ms ({by5}), recompute floor {f5:.4f} ms")
     kernels["gp_rk4_fwd"] = dict(
         source="bayesian_ode_tpu_torch/csrc/gp_rk4.cu",
         replaces="bayesian_ode_tpu/ops/gp_rk4.py:81",
@@ -836,6 +883,13 @@ def main() -> int:
         (bf, byf), (bb, byb) = adaptive_bounds(
             name, width, N_CHAINS, x0i.shape[0], tsi.shape[0], nbytes(wi),
             nbytes(wi[:n]), int((nacck + nrejk).sum()), int(nacck.sum()))
+        if name == "gp":
+            fb = adaptive_bounds(
+                name, width, N_CHAINS, x0i.shape[0], tsi.shape[0],
+                nbytes(wi), nbytes(wi[:n]), int((nacck + nrejk).sum()),
+                int(nacck.sum()), vjp=gp_recompute_vjp(width))[1][0]
+            print(f"K3 {label}: bound {bb:.4f} ms ({byb}), recompute floor "
+                  f"{fb:.4f} ms")
         src = f"bayesian_ode_tpu_torch/csrc/{sources[name]}"
         kernels[f"{name}_{method}_fwd_record"] = dict(
             source=f"{src}_fwd.cu",

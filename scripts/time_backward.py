@@ -1,0 +1,361 @@
+#!/usr/bin/env python3
+"""Time one field's backward kernels of this tree against other trees'
+(the parent commit, unpacked with `git archive`), in one process on one
+NVIDIA GPU:
+
+    python3 scripts/time_backward.py --field gp --parent build/parent
+    python3 scripts/time_backward.py --field mlp --parent build/parent
+
+--field gp: K3 over the GP field (`gp_dopri5_bwd`, the replay backward, at
+DOPRI5 and TSIT5) and K5 (`gp_rk4_bwd`, the rk4 reverse sweep).  --field
+mlp: K7 (`mlp_rk4_bwd`) and MLP K3 (`mlp_dopri5_bwd`, DOPRI5 and TSIT5),
+and the forwards that share their field, K6 (`mlp_rk4_fwd`) and MLP K2
+(`mlp_dopri5_fwd`, recording, DOPRI5; with each tree's mean NFE).
+
+The trees' libraries keep the same C entry points, so each other tree's
+are built from its own `csrc/` with this tree's nvcc flags into
+`build/other_kernels/<label>/` (all nvcc processes started together) and
+called on the same tensors.  `--tree LABEL=DIR` adds a tree beside the
+parent.  The inputs are built as `chip_smoke.py` builds those of its
+phases 2 and 6 (GP) or 7 and 10 (MLP), with their own draws from seeded
+generators: 10,112 chains, N=5, T=60 to t=6, N(0, 1) trajectory
+cotangents, the records of this tree's K2 (store_steps 128 for the GP
+field, 256 for the MLP) and the trajectories of this tree's K4 or K6.
+
+Prints each backward kernel's ptxas line, resident warps an SM and waves
+(blocks over the blocks all SMs hold at once), then for each kernel and
+tree: whether the x0 cotangent is bit-equal to the parent's (else its
+first differing component), the largest max-rel of the weight cotangents
+to the parent's, and the time by CUDA events (20 launches after 10) in
+turns: parent, the other trees, this tree, and back in reverse order.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402  (the repo root's smoke test: its helpers)
+
+N_CHAINS, HIDDEN, N, T, M = chip_smoke.N_CHAINS, chip_smoke.HIDDEN, 5, 60, 36
+SPECS = {"gp": [("gp_dopri5", (N, M)), ("gp_rk4", (N, M))],
+         "mlp": [("mlp_rk4", (N, HIDDEN)), ("mlp_dopri5", (N, HIDDEN))]}
+
+
+def block_shape(csrc: Path, field: str):
+    """{kernel: (threads, chains) a block} of a tree's rk4 ("rk4") and
+    replay ("dopri5") backward kernels, read from its sources: the GP
+    field's per-point kernels (`struct GPPoint` in gp_field.cuh, 128
+    threads) or its chain-per-thread ones (64); the MLP field's two chains
+    a block of K3 (`kChains = 2` in mlp_field.cuh) or four."""
+    if field == "gp":
+        per_point = "struct GPPoint" in (csrc / "gp_field.cuh").read_text()
+        shape = (128, 128 // 32 * (32 // N)) if per_point else (64, 64)
+        return {"rk4": shape, "dopri5": shape}
+    two = "kChains = 2;" in (csrc / "mlp_field.cuh").read_text()
+    return {"rk4": (128, 4), "dopri5": (64, 2) if two else (128, 4)}
+
+
+def build_others(trees, specs):
+    """Each other tree's libraries of `specs`: {label: {family: (ctypes
+    library, nvcc log)}}.  One nvcc per source, all started together."""
+    from bayesian_ode_tpu_torch.ops import _build
+
+    jobs = []
+    for label, csrc in trees.items():
+        out = ROOT / "build" / "other_kernels" / label
+        out.mkdir(parents=True, exist_ok=True)
+        for family, shape in specs:
+            fam = _build.FAMILIES[family]
+            defines = [f"-D{n}={v}" for n, v in zip(fam.defines, shape)]
+            procs = []
+            for src in fam.sources:
+                obj = out / f"{Path(src).stem}.o"
+                procs.append((obj, subprocess.Popen(
+                    [_build._nvcc(), *_build.NVCC_FLAGS, *defines,
+                     f"-I{csrc}", "-c", str(csrc / src), "-o", str(obj)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            jobs.append((label, family, out / f"{family}.so", procs))
+    libs = {label: {} for label in trees}
+    for label, family, so, procs in jobs:
+        log = "".join(p.communicate()[0] for _, p in procs)
+        if any(p.returncode for _, p in procs):
+            raise RuntimeError(f"nvcc failed for {label}'s {family}:\n{log}")
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS[:2], "-shared",
+                        "-o", str(so), *(str(o) for o, _ in procs)],
+                       check=True)
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _build.FAMILIES[family].entry_points.items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+        libs[label][family] = (lib, log)
+    return libs
+
+
+def print_occupancy(label, family, shape, log, blocks):
+    for name, regs, st, ld, smem in chip_smoke.ptxas_summary(family, shape,
+                                                             log):
+        kind = ("rk4" if name.endswith("rk4_bwd") else
+                "dopri5" if name.startswith("dopri5_bwd") else None)
+        if kind:
+            threads, chains = blocks[kind]
+            warps, waves = chip_smoke.occupancy(regs, smem, threads, chains,
+                                                N_CHAINS)
+            print(f"    {label} {name}: {warps} warps an SM, {waves:.2f} "
+                  f"waves ({threads} threads and {chains} chains a block)")
+
+
+def gp_kernels(dev, stream):
+    """{label: run(libs) -> outputs, the x0 cotangent last} of the GP
+    field's backward kernels, on chip_smoke.py's phase 2 and 6 inputs."""
+    import torch
+
+    from bayesian_ode_tpu_torch.models import kernel_regression as kr
+    from bayesian_ode_tpu_torch.models import make_dataset
+    from bayesian_ode_tpu_torch.ops import _build
+    from bayesian_ode_tpu_torch.ops import fused_adaptive as fa
+    from bayesian_ode_tpu_torch.ops import gp_rk4
+    from bayesian_ode_tpu_torch.ops.gp_dopri5 import _pack_initial
+    from bayesian_ode_tpu_torch.ops.gp_field import gp_field
+
+    f32 = torch.float32
+    data = make_dataset(seed=2, ode="vdp", N=N, T=T, t_max=6.0, noise=0.05,
+                        x0_scale=1.5)
+    static = kr.make_static(kr.make_inducing_grid(data["Y"], M=6), sf=1.0,
+                            ell=0.75)
+    U0 = kr.init_params(data["Y"], data["t"], static, noise=0.05)["U"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    U = U0.to(dev, f32)[None] + 3e-3 * torch.randn(
+        (N_CHAINS, M, 2), generator=gen, device=dev, dtype=f32)
+    A = torch.einsum("mk,ckd->cmd", static.KzzinvL.to(dev, f32),
+                     U).contiguous()
+    Z = static.Z.to(dev, f32).contiguous()
+    x0 = data["x0"].to(dev, f32).contiguous()
+    ts = data["t"].to(dev, f32).contiguous()
+    dts = torch.diff(ts).contiguous()
+    sf, ell = float(static.sf), float(static.ell)
+    scalars = (sf * sf, 0.5 / (ell * ell), 1.0 / (ell * ell))
+    rtol, atol = chip_smoke.RTOL, chip_smoke.ATOL
+    x0b, f0, dt0 = _pack_initial(A, x0, Z, sf, ell, rtol, atol)
+    recs = {}
+    for method in ("dopri5", "tsit5"):
+        _, _, nacc, _, _, rec = fa.fwd(
+            gp_field(sf, ell), (A, Z), x0b, f0, dt0, ts, rtol, atol, 0.9,
+            10.0, 0.2, 100_000, "i", record=True,
+            store_steps=chip_smoke.STORE_STEPS, method=method)
+        recs[method] = (rec, nacc)
+    ys = gp_rk4.gp_rk4_fwd(A, Z, x0, dts, sf, ell)
+    g3, g5 = (torch.randn((T, N_CHAINS, N, 2), generator=gen, device=dev,
+                          dtype=f32) for _ in range(2))
+
+    def k3(libs, method):
+        rec, nacc = recs[method]
+        Abar = torch.empty_like(A)
+        lbar = torch.empty((N_CHAINS, N, 2), dtype=f32, device=dev)
+        _build.check(libs["gp_dopri5"].gp_dopri5_bwd(
+            _build.TABLEAUS.index(method), A.data_ptr(), Z.data_ptr(),
+            *scalars, Abar.data_ptr(), ts.data_ptr(), rec.data_ptr(),
+            nacc.data_ptr(), g3.data_ptr(), N_CHAINS, T, lbar.data_ptr(),
+            stream), "gp_dopri5_bwd")
+        return Abar, lbar
+
+    def k5(libs):
+        Abar = torch.empty_like(A)
+        lbar = torch.empty((N_CHAINS, N, 2), dtype=f32, device=dev)
+        _build.check(libs["gp_rk4"].gp_rk4_bwd(
+            A.data_ptr(), Z.data_ptr(), dts.data_ptr(), ys.data_ptr(),
+            g5.data_ptr(), N_CHAINS, T, *scalars, Abar.data_ptr(),
+            lbar.data_ptr(), stream), "gp_rk4_bwd")
+        return Abar, lbar
+
+    return {"K3 GP DOPRI5": lambda libs: k3(libs, "dopri5"),
+            "K3 GP TSIT5": lambda libs: k3(libs, "tsit5"),
+            "K5": k5}
+
+
+def mlp_kernels(dev, stream):
+    """{label: run(libs) -> outputs} of the MLP field's kernels, on
+    chip_smoke.py's phase 7 and 10 inputs; the backward kernels' x0
+    cotangent last, MLP K2's (trajectories, mean NFE)."""
+    import torch
+
+    from bayesian_ode_tpu_torch.models import make_dataset, mlp
+    from bayesian_ode_tpu_torch.ops import _build
+    from bayesian_ode_tpu_torch.ops import fused_adaptive as fa
+    from bayesian_ode_tpu_torch.ops import fused_field as ff
+    from bayesian_ode_tpu_torch.ops import mlp_rk4
+    from bayesian_ode_tpu_torch.ops.mlp_dopri5 import mlp_field
+
+    data = make_dataset(seed=2, ode="vdp", N=N, T=T, t_max=6.0, noise=0.05,
+                        x0_scale=1.5)
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params0 = mlp.init_mlp(torch.Generator().manual_seed(0),
+                           [2, HIDDEN, HIDDEN, 2], dtype=f32)
+    w = tuple((x.to(dev)[None] + 0.005 * torch.randn(
+        (N_CHAINS,) + tuple(x.shape), generator=gen, device=dev)
+    ).contiguous() for layer in params0 for x in (layer["w"], layer["b"]))
+    x0, ts = data["x0"].to(dev, f32), data["t"].to(dev, f32)
+    dts = torch.diff(ts).contiguous()
+    g7, g3 = (torch.randn((T, N_CHAINS, N, 2), generator=gen, device=dev,
+                          dtype=f32) for _ in range(2))
+    ys = mlp_rk4.mlp_rk4_fwd(w, x0.contiguous(), dts)
+    field = mlp_field(HIDDEN)
+    rtol, atol = chip_smoke.RTOL, chip_smoke.ATOL
+    x0b, f0, dt0 = ff._start(field, w, x0, rtol, atol)
+    recs = {}
+    for method in ("dopri5", "tsit5"):
+        _, _, nacc, _, _, rec = fa.fwd(field, w, x0b, f0, dt0, ts, rtol, atol,
+                                       0.9, 10.0, 0.2, 100_000, "i",
+                                       record=True, store_steps=256,
+                                       method=method)
+        recs[method] = (rec, nacc)
+    x0c, f0c, dt0c = x0.contiguous(), f0.contiguous(), dt0.contiguous()
+
+    def k7(libs):
+        wbar = tuple(torch.empty_like(x) for x in w)
+        lbar = torch.empty((N_CHAINS, N, 2), dtype=f32, device=dev)
+        _build.check(libs["mlp_rk4"].mlp_rk4_bwd(
+            *(x.data_ptr() for x in w), dts.data_ptr(), ys.data_ptr(),
+            g7.data_ptr(), N_CHAINS, T, *(x.data_ptr() for x in wbar),
+            lbar.data_ptr(), stream), "mlp_rk4_bwd")
+        return wbar + (lbar,)
+
+    def k3(libs, method):
+        rec, nacc = recs[method]
+        wbar = tuple(torch.empty_like(x) for x in w)
+        lbar = torch.empty((N_CHAINS, N, 2), dtype=f32, device=dev)
+        _build.check(libs["mlp_dopri5"].mlp_dopri5_bwd(
+            _build.TABLEAUS.index(method), *(x.data_ptr() for x in w),
+            *(x.data_ptr() for x in wbar), ts.data_ptr(), rec.data_ptr(),
+            nacc.data_ptr(), g3.data_ptr(), N_CHAINS, T, lbar.data_ptr(),
+            stream), "mlp_dopri5_bwd")
+        return wbar + (lbar,)
+
+    def k6(libs):
+        out = torch.empty_like(ys)
+        _build.check(libs["mlp_rk4"].mlp_rk4_fwd(
+            *(x.data_ptr() for x in w), x0c.data_ptr(), dts.data_ptr(),
+            N_CHAINS, T, out.data_ptr(), stream), "mlp_rk4_fwd")
+        return (out,)
+
+    def k2(libs):
+        out = torch.empty_like(ys)
+        nfe, nacc, nrej = (torch.empty(N_CHAINS, dtype=torch.int32,
+                                       device=dev) for _ in range(3))
+        t1 = torch.empty(N_CHAINS, dtype=f32, device=dev)
+        rec = torch.empty((256, 2 * N + 2, N_CHAINS), dtype=f32, device=dev)
+        _build.check(libs["mlp_dopri5"].mlp_dopri5_fwd(
+            1, 0, *(x.data_ptr() for x in w), x0c.data_ptr(),
+            f0c.data_ptr(), dt0c.data_ptr(), ts.data_ptr(), N_CHAINS, T,
+            rtol, atol, 0.9, 10.0, 0.2, 100_000, 0, 256, out.data_ptr(),
+            nfe.data_ptr(), nacc.data_ptr(), nrej.data_ptr(), t1.data_ptr(),
+            rec.data_ptr(), stream), "mlp_dopri5_fwd")
+        return out, nfe.float()
+
+    return {"K6": k6, "MLP K2 DOPRI5": k2, "K7": k7,
+            "MLP K3 DOPRI5": lambda libs: k3(libs, "dopri5"),
+            "MLP K3 TSIT5": lambda libs: k3(libs, "tsit5")}
+
+
+def first_difference(a, b):
+    """(flat index, a's value, b's value) of the first element where a and
+    b differ."""
+    idx = int((a != b).flatten().nonzero()[0])
+    return idx, float(a.flatten()[idx]), float(b.flatten()[idx])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--field", choices=sorted(SPECS), required=True)
+    ap.add_argument("--parent", type=Path, required=True,
+                    help="root of the parent tree (git archive of a commit)")
+    ap.add_argument("--tree", action="append", default=[],
+                    metavar="LABEL=DIR", help="another tree to compare")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_backward: no CUDA device", file=sys.stderr)
+        return 2
+    from bayesian_ode_tpu_torch.models import kernel_regression as kr
+    from bayesian_ode_tpu_torch.ops import _build
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    kr.full_f32_matmul()
+    pkg = Path("bayesian_ode_tpu_torch") / "csrc"
+    others = {"parent": args.parent.resolve() / pkg}
+    for spec in args.tree:
+        label, _, root = spec.partition("=")
+        others[label] = Path(root).resolve() / pkg
+    specs = SPECS[args.field]
+    t0 = time.perf_counter()
+    _build.build(specs)
+    built = build_others(others, specs)
+    print(f"builds: {time.perf_counter() - t0:.1f} s")
+    libs = {label: {f: lib for f, (lib, _) in fams.items()}
+            for label, fams in built.items()}
+    libs["this"] = {f: _build.load_library(f, s) for f, s in specs}
+    for label in libs:
+        csrc = others.get(label, ROOT / pkg)
+        for family, shape in specs:
+            log = (_build.build_log(family, shape) if label == "this"
+                   else built[label][family][1])
+            print_occupancy(label, family, shape, log,
+                            block_shape(csrc, args.field))
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kernels = (gp_kernels if args.field == "gp" else mlp_kernels)(dev, stream)
+    labels = [k for k in libs if k != "parent"]
+    for name, run in kernels.items():
+        base = run(libs["parent"])
+        outs = {label: run(libs[label]) for label in labels}
+        torch.cuda.synchronize()
+        for label, out in outs.items():
+            if name.startswith("MLP K2"):
+                # two float32 solves: their step meshes differ on some chains
+                print(f"{name} {label}: mean NFE {float(out[1].mean()):.3f}, "
+                      f"parent {float(base[1].mean()):.3f}; trajectories "
+                      f"max-rel {chip_smoke.max_rel(out[0], base[0]):.3e}")
+                continue
+            if len(out) == 1:
+                print(f"{name} {label}: max-rel to the parent's "
+                      f"{chip_smoke.max_rel(out[0], base[0]):.3e}")
+                continue
+            rel = max(chip_smoke.max_rel(x, y)
+                      for x, y in zip(out[:-1], base[:-1]))
+            same = torch.equal(out[-1], base[-1])
+            print(f"{name} {label}: x0 cotangent bit-equal to the parent's: "
+                  f"{same}"
+                  + ("" if same else " (first difference at flat index "
+                     "{} : {!r} vs {!r})".format(
+                         *first_difference(out[-1], base[-1])))
+                  + f"; x0 cotangent max-rel "
+                  f"{chip_smoke.max_rel(out[-1], base[-1]):.3e}; weight "
+                  f"cotangents max-rel {rel:.3e}")
+        order = ["parent"] + labels + labels[::-1] + ["parent"]
+        ms = {label: [] for label in libs}
+        for label in order:
+            ms[label].append(chip_smoke.cuda_ms(lambda: run(libs[label]), 20,
+                                                warmup=10))
+        print(f"{name}: ms " + "; ".join(
+            f"{label} {a:.3f} / {b:.3f}" for label, (a, b) in ms.items())
+            + f"; speed-up this tree {sum(ms['parent']) / sum(ms['this']):.2f}x"
+            f" ({smi})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -74,6 +74,24 @@ def test_replay_backward_counts_each_stage_forward_once(counts, field,
     assert flops < accepted * (7 * N * (2 * f + fv) + 2 * 70 * NS)
 
 
+def test_gp_recompute_floor_takes_two_expf_a_point_and_stage(counts):
+    """The floor of a GP backward that recomputes its kernel values in each
+    VJP (K3 GP, K5): per point and stage point, 2M expf and the VJP's own
+    part plus 7 flops an inducing point, beside the bound's M expf."""
+    (f, s), (fv, _) = HAND[("gp", 36)]
+    vjp = chip_smoke.gp_recompute_vjp(36)
+    assert vjp == (fv + 7 * 36, 36)
+    _, (_, flops, sfu) = chip_smoke.rk4_bounds("gp", 36, C, N, T, 1000, 1000,
+                                               vjp=vjp)
+    assert sfu == STEPS * N * 4 * 2 * 36
+    assert flops == STEPS * N * 4 * (f + fv + 7 * 36)
+    attempts, accepted = 41 * C, 37 * C
+    _, (_, flops, sfu) = chip_smoke.adaptive_bounds(
+        "gp", 36, C, N, T, 1000, 1000, attempts, accepted, vjp=vjp)
+    assert sfu == accepted * 7 * N * 2 * 36
+    assert flops == accepted * (7 * N * (f + fv + 7 * 36) + 2 * 70 * 2 * N)
+
+
 def test_the_mlp_reverse_sweep_bound_at_the_main_shape():
     """K7's bound at the driver's shape: 10,112 x 59 x 5 x 4 x 7,140 flops
     at 67 TFLOP/s, operation-bound."""
@@ -95,6 +113,22 @@ def test_warps_per_sm(regs, smem, threads, warps):
     assert chip_smoke.warps_per_sm(regs, smem, threads) == warps
 
 
+@pytest.mark.parametrize("regs,smem,threads,chains,warps,blocks_an_sm", [
+    (220, 37152, 64, 64, 8, 4),     # K3 GP, one chain a thread: 158 blocks
+    (117, 37152, 64, 64, 12, 6),    # K5, one chain a thread
+    (128, 35872, 128, 24, 16, 4),   # K3 GP, one thread a point: 422 blocks
+    (85, 44064, 128, 24, 20, 5),    # its Abar all in shared memory
+    (168, 7200, 128, 24, 12, 3),    # 3 blocks an SM: 1.07 waves
+])
+def test_occupancy_warps_and_waves(regs, smem, threads, chains, warps,
+                                   blocks_an_sm):
+    got_warps, waves = chip_smoke.occupancy(regs, smem, threads, chains, C)
+    assert got_warps == warps
+    assert waves == pytest.approx(-(-C // chains) / (blocks_an_sm * 132))
+    if blocks_an_sm == 3:
+        assert waves > 1.06
+
+
 def test_ptxas_summary_reads_registers_spills_and_shared_memory():
     log = (
         "ptxas info    : Compiling entry function "
@@ -105,3 +139,19 @@ def test_ptxas_summary_reads_registers_spills_and_shared_memory():
         "smem\n")
     assert chip_smoke.ptxas_summary("mlp_rk4", (5, 32), log) == [
         ("mlp_rk4_bwd", 128, 8, 4, 42432)]
+
+
+def test_ptxas_summary_names_the_per_point_gp_replay():
+    """K3 GP (`dopri5_bwd_kernel_bounded` over GPPoint<8>) at DOPRI5: the
+    name chip_smoke.BWD_BLOCKS keys."""
+    log = (
+        "ptxas info    : Compiling entry function "
+        "'_ZN4bode25dopri5_bwd_kernel_boundedINS_7GPPointILi8EEENS_6Dopri5"
+        "EEEvNT_4ArgsENS4_5GradsEPKfS8_PKiS8_iiPf' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers, 35872 bytes "
+        "smem\n")
+    name = "dopri5_bwd GPPoint Dopri5"
+    assert chip_smoke.ptxas_summary("gp_dopri5", (5, 36), log) == [
+        (name, 128, 0, 0, 35872)]
+    assert ("gp_dopri5", name) in chip_smoke.BWD_BLOCKS

@@ -11,7 +11,9 @@ machine need not have; this file imports torch and the port only).
 
 Small shapes and the cases `chip_smoke.py` does not reach at full size:
 a chain count that is not a multiple of the 64-thread block (or of the
-warps of a warp-per-chain field's block), the MLP field at H=20 (lanes past
+warps of a warp-per-chain field's block, or of the 6 chains a warp and 24
+a block of the GP field's per-point backward kernels, K5 and K3 GP, also
+built at N=3), the MLP field at H=20 (lanes past
 H hold zeros) and at the driver's H=32 (K7, and K3 under both tableaus
 against the plain replay of its records),
 the PI controller, budget
@@ -242,6 +244,73 @@ def test_gp_rk4_kernels_match_plain(gp):
     assert _max_rel(Abar_k, Abar_p) <= 1e-5
     assert _max_rel(lbar_k, lbar_p) <= 1e-5
     assert _max_rel(Abar_k, Abar_ag) <= 1e-5
+
+
+def _gp_point_case(gp, chains, points, seed):
+    """A (chains, 36, 2) from the jittered start and x0 of `points`
+    trajectory points: 3 points build the GP libraries at GP_N = 3."""
+    s = gp["static"]
+    gen = torch.Generator(device=gp["dev"]).manual_seed(seed)
+    U = gp["U"][:1] + 3e-3 * torch.randn((chains, 36, 2), generator=gen,
+                                         device=gp["dev"])
+    A = torch.einsum("mk,ckd->cmd", s.KzzinvL, U).contiguous()
+    return A, s.Z.contiguous(), gp["x0"][:points].contiguous(), gen
+
+
+# K5 and K3 GP run one thread per trajectory point, N consecutive lanes a
+# chain (csrc/gp_field.cuh, GPPoint): 257 chains leave the last warp and
+# block ragged, and 3 points build GP_N = 3, 10 chains a warp.
+POINT_CASES = [(257, 5), (257, 3)]
+
+
+@pytest.mark.parametrize("chains,points", POINT_CASES)
+def test_gp_rk4_backward_one_thread_a_point(gp, chains, points):
+    s = gp["static"]
+    A, Z, x0, gen = _gp_point_case(gp, chains, points, 6)
+    dts = torch.diff(gp["ts"]).contiguous()
+    ys = gp_rk4.gp_rk4_fwd(A, Z, x0, dts, s.sf, s.ell)
+    g = torch.randn(ys.shape, generator=gen, device=gp["dev"])
+    before = _build.launch_counts["gp_rk4_bwd"]
+    Abar_k, lbar_k = gp_rk4.gp_rk4_bwd(A, Z, ys, g, dts, s.sf, s.ell)
+    Abar_p, lbar_p = gp_rk4.gp_rk4_bwd_plain(A, Z, ys, g, dts, s.sf, s.ell)
+    Ar = A.clone().requires_grad_(True)
+    (Abar_ag,) = torch.autograd.grad(
+        (gp_rk4.gp_rk4_fwd_plain(Ar, Z, x0, dts, s.sf, s.ell) * g).sum(),
+        [Ar])
+    torch.cuda.synchronize()
+    assert _build.launch_counts["gp_rk4_bwd"] == before + 1
+    assert lbar_k.shape == (chains, points, 2)
+    assert bool(torch.isfinite(Abar_k).all() and torch.isfinite(lbar_k).all())
+    assert _max_rel(Abar_k, Abar_p) <= 1e-5
+    assert _max_rel(lbar_k, lbar_p) <= 1e-5
+    assert _max_rel(Abar_k, Abar_ag) <= 1e-5
+
+
+@pytest.mark.parametrize("method", ["dopri5", "tsit5"])
+@pytest.mark.parametrize("chains,points", POINT_CASES)
+def test_gp_replay_backward_one_thread_a_point(gp, chains, points, method):
+    """K3 GP against the plain replay of the kernel's own records (the
+    same step mesh), at the same-mesh gate of the other instances."""
+    s = gp["static"]
+    A, Z, x0, gen = _gp_point_case(gp, chains, points, 7)
+    field, w, ts = gp_field(s.sf, s.ell), (A, Z), gp["ts"]
+    x0b, f0, dt0 = ff._start(field, w, x0, 1e-7, 1e-9)
+    ys, _, nacc, _, _, rec = fa.fwd(field, w, x0b, f0, dt0, ts, 1e-7, 1e-9,
+                                    0.9, 10.0, 0.2, 100_000, "i",
+                                    record=True, store_steps=128,
+                                    method=method)
+    g = torch.randn(ys.shape, generator=gen, device=gp["dev"])
+    before = _build.launch_counts[f"gp_{method}_bwd"]
+    (Abar_k,), lbar_k = fa.bwd(field, w, ts, rec, nacc, g, method=method)
+    (Abar_p,), lbar_p = fa.bwd_plain(field.make_rhs(w), field.make_rhs_vjp(w),
+                                     w[:1], ts, rec, nacc, g,
+                                     fa.TABLEAUS[method])
+    torch.cuda.synchronize()
+    assert _build.launch_counts[f"gp_{method}_bwd"] == before + 1
+    assert lbar_k.shape == (chains, points, 2)
+    assert bool(torch.isfinite(Abar_k).all() and torch.isfinite(lbar_k).all())
+    assert _max_rel(Abar_k, Abar_p) <= 1e-4
+    assert _max_rel(lbar_k, lbar_p) <= 1e-4
 
 
 @pytest.mark.parametrize("chains,hidden", [(C_RK4, H_RK4), (257, H_RK4),
