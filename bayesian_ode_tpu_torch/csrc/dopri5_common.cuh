@@ -4,7 +4,10 @@
 // The step arithmetic lives here once, as in the JAX package's
 // ops/gp_dopri5.py (_rk_stages, _step_decision, _quartic_coeffs,
 // _midpoint), generic over
-//   NS       the state size of one chain (2N floats, y[2n + d]);
+//   NS       the state components a thread carries: a chain's 2N floats
+//            y[2n + d], or its share where the field spreads the state
+//            (field_stages.cuh: then only step_decision's error norm
+//            reaches across threads, through the field's norm_sums);
 //   Tableau  Dopri5 or Tsit5 below: constexpr beta, c_err and c_mid;
 //   Field    a functor with rhs(const float* y, float* f) const.
 // The kernels of dopri5_kernels.cuh are its only users, so the
@@ -22,6 +25,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "field_stages.cuh"
 
 namespace bode {
 
@@ -190,18 +195,21 @@ struct Decision {
   float err_next;
 };
 
-// Embedded error ratio (mean square over the 2N components with the
-// 32-ulps tolerance floor) and the step controller: the memoryless "i"
-// controller, or the Gustafsson PI.4.2 controller when pi is set.
-template <int NS, class TB>
+// Embedded error ratio (mean square over the chain's 2N components with
+// the 32-ulps tolerance floor) and the step controller: the memoryless "i"
+// controller, or the Gustafsson PI.4.2 controller when pi is set.  The
+// squared ratios are summed over the x components and the y components
+// apart, each in ascending n: on one thread, or by the field's norm_sums
+// where it spreads the state.
+template <int NS, class TB, class Field>
 __device__ __forceinline__ Decision step_decision(
-    const float (*k)[NS], const float* y0, const float* y1, float dt,
-    float rtol, float atol, float safety, float ifactor, float dfactor,
-    bool pi, float err_prev) {
+    const Field& fld, const float (*k)[NS], const float* y0, const float* y1,
+    float dt, float rtol, float atol, float safety, float ifactor,
+    float dfactor, bool pi, float err_prev) {
   // the controller exponents below are 1/5, -0.6/5 and 0.2/5
   static_assert(TB::kOrder == 5, "controller exponents assume order 5");
   const float eps = 1.1920929e-07f;
-  float sx = 0.f, sy = 0.f;
+  float r[NS];
 #pragma unroll
   for (int i = 0; i < NS; ++i) {
     float acc = 0.f;
@@ -217,11 +225,19 @@ __device__ __forceinline__ Decision step_decision(
     const float err = dt * acc;
     const float mag = nmax(fabsf(y0[i]), fabsf(y1[i]));
     const float tol = nmax(atol + rtol * mag, (32.0f * eps) * mag);
-    const float r = err / tol;
-    if (i % 2 == 0) sx += r * r; else sy += r * r;
+    r[i] = err / tol;
+  }
+  float sx = 0.f, sy = 0.f;
+  if constexpr (spreads_forward<Field>::value) {
+    fld.norm_sums(r, sx, sy);
+  } else {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      if (i % 2 == 0) sx += r[i] * r[i]; else sy += r[i] * r[i];
+    }
   }
   Decision d;
-  d.ratio = (sx + sy) / static_cast<float>(NS);
+  d.ratio = (sx + sy) / static_cast<float>(Field::kNS);
   d.accept = d.ratio <= 1.0f;
   const float ratio = d.ratio;
   // the JAX kernels' norm floor float32(1e-38) is a subnormal that XLA

@@ -7,7 +7,9 @@
 //       adjoint;
 //   dopri5_fwd_kernel<F, TB, false>: the same solve with no records, which
 //       for the GP field replaces ops/gp_dopri5.py::_make_whole_kernel (K1).
-//       One template is what keeps K1 and K2 trajectories bit-equal;
+//       One template is what keeps K1 and K2 trajectories bit-equal
+//       (dopri5_fwd_kernel_bounded for a field that names its blocks an
+//       SM);
 //   dopri5_bwd_kernel<F, TB>:        make_bwd_kernel (K3), the frozen-mesh
 //       discrete adjoint over the records (dopri5_bwd_kernel_bounded for a
 //       field that names its blocks an SM);
@@ -20,10 +22,6 @@
 // provides
 //   kNS, kThreads, kChains        state floats per chain, threads and
 //                                 chains per block;
-//   kStageShared                  keep the backward's per-step arrays in
-//                                 shared memory, one copy per chain (for
-//                                 warp-per-chain fields, whose lanes all
-//                                 hold the same state);
 //   Args, Grads                   weights (and scalars) by value, and the
 //                                 weight-cotangent outputs;
 //   Smem, AccSmem, Acc            the block's shared memory for the
@@ -31,16 +29,19 @@
 //                                 thread's cotangent accumulator;
 //   chain(), leader()             this thread's chain, and whether it
 //                                 writes the chain's outputs (once per
-//                                 chain);
+//                                 chain; where the forward spreads the
+//                                 state, its t0, dt and counters);
 //   load(args, smem, C, c)        called by every thread of the block
 //                                 (it may __syncthreads);
 //   acc_init(accsmem), acc_store(acc, grads, c)   likewise for acc_init;
 //   rhs(y, f), rhs_vjp(y, cot, ybar, acc);
-// and the backward takes the optional stage slots and state spreading of
+// and the kernels take the optional stage slots and state spreading of
 // field_stages.cuh (slot 0 is a step's start y0, slot r + 1 its stage
-// point u[r]), and two optional members:
+// point u[r]; the forwards spread the state where the field provides
+// norm_sums), and two optional members:
 //   kMinBlocks                    blocks an SM must hold (the second
-//                                 argument of __launch_bounds__; absent,
+//                                 argument of __launch_bounds__ of the
+//                                 forwards and the backward; absent,
 //                                 ptxas picks the registers);
 //   kWarpStore                    acc_store is a warp collective (it sums
 //                                 the lanes' cotangents by shuffles): every
@@ -52,8 +53,8 @@
 // What bounds the kernels on an H100: the serial per-chain chain of field
 // evaluations, not bytes.  Chains are independent with data-dependent step
 // counts, so a chain runs its own while loop (a warp only waits for its
-// slowest chain; a warp-per-chain field's lanes take every decision
-// together, since warp sums leave the same bits on every lane).  Device
+// slowest chain; the threads of a chain take every decision together,
+// since warp sums and norm_sums leave the same bits on each of them).  Device
 // memory sees only the dense output (T x 2N floats per chain), one record
 // row per accepted step, and the weights, read once per chain.
 //
@@ -86,26 +87,33 @@ struct FwdOut {
   float* rec;      // (store_steps, 2N + 2, C), or null
 };
 
+// One block of the whole solve (K1, K2).  A thread carries its
+// fwd_components of the chain's state (field_stages.cuh) and writes them
+// to the dense output and the records where it owns them; the chain's
+// leader writes t0, dt and the counters.
 template <class F, class TB, bool RECORD>
-__global__ void __launch_bounds__(F::kThreads)
-dopri5_fwd_kernel(typename F::Args w, const float* __restrict__ x0,
-                  const float* __restrict__ f0, const float* __restrict__ dt0,
-                  const float* __restrict__ ts, int C, int T, SolveArgs s,
-                  FwdOut o) {
-  constexpr int NS = F::kNS;
-  constexpr int kRec = NS + 2;      // record row: y0[NS], t0, dt
+__device__ __forceinline__ void fwd_block(
+    const typename F::Args& w, const float* __restrict__ x0,
+    const float* __restrict__ f0, const float* __restrict__ dt0,
+    const float* __restrict__ ts, int C, int T, const SolveArgs& s,
+    const FwdOut& o) {
+  constexpr int NS = fwd_components<F>();   // components carried here
+  constexpr int kNS = F::kNS;
+  constexpr int kRec = kNS + 2;     // record row: y0[kNS], t0, dt
   __shared__ typename F::Smem sm;
   const int c = F::chain();
   const F fld = F::load(w, sm, C, c);
-  if (c >= C) return;    // a warp-per-chain field's warp leaves whole
+  if (c >= C) return;    // a chain's threads leave together
   const bool lead = F::leader();
+  const bool own = fwd_owner<F>();
 
   float y[NS], k[7][NS], y1[NS], ym[NS];
 #pragma unroll
   for (int i = 0; i < NS; ++i) {
-    y[i] = x0[i];
-    k[0][i] = f0[static_cast<size_t>(c) * NS + i];
-    if (lead) o.ys[static_cast<size_t>(c) * NS + i] = y[i];   // row 0 is x0
+    const int j = fwd_component<F>(i);
+    y[i] = x0[j];
+    k[0][i] = f0[static_cast<size_t>(c) * kNS + j];
+    if (own) o.ys[static_cast<size_t>(c) * kNS + j] = y[i];   // row 0 is x0
   }
   const float tf = ts[T - 1];
   float t1 = ts[0];
@@ -116,35 +124,41 @@ dopri5_fwd_kernel(typename F::Args w, const float* __restrict__ x0,
   while (t1 < tf && nacc + nrej < s.max_steps) {
     rk_stages<NS, TB>(fld, y, k, dt, y1);
     const Decision d = step_decision<NS, TB>(
-        k, y, y1, dt, s.rtol, s.atol, s.safety, s.ifactor, s.dfactor,
+        fld, k, y, y1, dt, s.rtol, s.atol, s.safety, s.ifactor, s.dfactor,
         s.pi != 0, ep);
     nfe += 6;
     if (d.accept) {
-      if (RECORD && lead && nacc < s.store_steps) {
+      if (RECORD && nacc < s.store_steps) {
         float* row = o.rec + static_cast<size_t>(nacc) * kRec * C + c;
+        if (own) {
 #pragma unroll
-        for (int i = 0; i < NS; ++i) row[static_cast<size_t>(i) * C] = y[i];
-        row[static_cast<size_t>(NS) * C] = t1;
-        row[static_cast<size_t>(NS + 1) * C] = dt;
+          for (int i = 0; i < NS; ++i)
+            row[static_cast<size_t>(fwd_component<F>(i)) * C] = y[i];
+        }
+        if (lead) {
+          row[static_cast<size_t>(kNS) * C] = t1;
+          row[static_cast<size_t>(kNS + 1) * C] = dt;
+        }
       }
       // in-loop dense output: every output time this step crossed
       const float tn = t1 + dt;
       if (idx < T && ts[idx] <= tn) {
         midpoint<NS, TB>(y, k, dt, ym);
         for (; idx < T && ts[idx] <= tn; ++idx) {
-          if (!lead) continue;
-          float* out = o.ys + (static_cast<size_t>(idx) * C + c) * NS;
+          if (!own) continue;
+          float* out = o.ys + (static_cast<size_t>(idx) * C + c) * kNS;
           if (!(ts[idx] > t1)) {
             // a repeated output time is never emitted; it reads 0, as the
             // zero-initialised output of the TPU kernel
 #pragma unroll
-            for (int i = 0; i < NS; ++i) out[i] = 0.f;
+            for (int i = 0; i < NS; ++i) out[fwd_component<F>(i)] = 0.f;
             continue;
           }
           const float X = (ts[idx] - t1) / dt;
 #pragma unroll
           for (int i = 0; i < NS; ++i)
-            out[i] = quartic_eval(y[i], y1[i], ym[i], k[0][i], k[6][i], dt, X);
+            out[fwd_component<F>(i)] =
+                quartic_eval(y[i], y1[i], ym[i], k[0][i], k[6][i], dt, X);
         }
       }
 #pragma unroll
@@ -160,18 +174,39 @@ dopri5_fwd_kernel(typename F::Args w, const float* __restrict__ x0,
     dt = d.dt_next;
     if (s.pi) ep = d.err_next;
   }
-  if (!lead) return;
   // output times never crossed (only on budget exhaustion) hold the
   // chain's final state
-  for (; idx < T; ++idx) {
-    float* out = o.ys + (static_cast<size_t>(idx) * C + c) * NS;
+  if (own) {
+    for (; idx < T; ++idx) {
+      float* out = o.ys + (static_cast<size_t>(idx) * C + c) * kNS;
 #pragma unroll
-    for (int i = 0; i < NS; ++i) out[i] = y[i];
+      for (int i = 0; i < NS; ++i) out[fwd_component<F>(i)] = y[i];
+    }
   }
+  if (!lead) return;
   o.nfe[c] = nfe;
   o.nacc[c] = nacc;
   o.nrej[c] = nrej;
   o.t1[c] = t1;
+}
+
+template <class F, class TB, bool RECORD>
+__global__ void __launch_bounds__(F::kThreads)
+dopri5_fwd_kernel(typename F::Args w, const float* __restrict__ x0,
+                  const float* __restrict__ f0, const float* __restrict__ dt0,
+                  const float* __restrict__ ts, int C, int T, SolveArgs s,
+                  FwdOut o) {
+  fwd_block<F, TB, RECORD>(w, x0, f0, dt0, ts, C, T, s, o);
+}
+
+template <class F, class TB, bool RECORD>
+__global__ void __launch_bounds__(F::kThreads, F::kMinBlocks)
+dopri5_fwd_kernel_bounded(typename F::Args w, const float* __restrict__ x0,
+                          const float* __restrict__ f0,
+                          const float* __restrict__ dt0,
+                          const float* __restrict__ ts, int C, int T,
+                          SolveArgs s, FwdOut o) {
+  fwd_block<F, TB, RECORD>(w, x0, f0, dt0, ts, C, T, s, o);
 }
 
 // The per-step solver's state (K9), kept in device memory between
@@ -207,6 +242,8 @@ __global__ void __launch_bounds__(F::kThreads)
 dopri5_step_kernel(typename F::Args w, const float* __restrict__ ts, int k,
                    int T, int C, int steps, SolveArgs s, StepState st) {
   constexpr int NS = F::kNS;
+  static_assert(!spreads_forward<F>::value,
+                "the per-step solver keeps a chain's whole state a thread");
   __shared__ typename F::Smem sm;
   const int c = F::chain();
   const F fld = F::load(w, sm, C, c);
@@ -226,8 +263,8 @@ dopri5_step_kernel(typename F::Args w, const float* __restrict__ ts, int k,
   for (int it = 0; it < steps && t1 < next_t; ++it) {
     rk_stages<NS, TB>(fld, y, kk, dt, y1);
     const Decision d = step_decision<NS, TB>(
-        kk, y, y1, dt, s.rtol, s.atol, s.safety, s.ifactor, s.dfactor, false,
-        1.0f);
+        fld, kk, y, y1, dt, s.rtol, s.atol, s.safety, s.ifactor, s.dfactor,
+        false, 1.0f);
     nfe += 6;
     if (d.accept) {
       midpoint<NS, TB>(y, kk, dt, ym);
@@ -269,12 +306,10 @@ dopri5_step_kernel(typename F::Args w, const float* __restrict__ ts, int k,
   atomicMax(&st.flags[1], nacc + nrej);
 }
 
-// The backward's per-step arrays, NS of the chain's components (all of
-// them, or the one a lane carries where the field distributes the state):
-// registers for a chain-per-thread field or a distributed one, one shared
-// copy per chain for a warp-per-chain field that carries the whole state
-// on every lane (every lane writes the same values, so no lane reads
-// another's unfinished write).
+// The backward's per-step arrays, in registers: NS of the chain's
+// components, all of them on a chain-per-thread field, or the ones a
+// thread carries where the field spreads the state (the warp-per-chain
+// fields: one a lane).
 template <int NS>
 struct StageBuf {
   float y0[NS];
@@ -429,14 +464,8 @@ __device__ __forceinline__ void bwd_block(
   const int n = live ? nrec[c] : 0;
 
   float l[NS];
-  if constexpr (F::kStageShared) {
-    __shared__ StageBuf<NS> sbuf[F::kChains];
-    bwd_sweep<F, TB>(fld, acc, sbuf[c - blockIdx.x * F::kChains], ts, rec,
-                     n, g, C, T, c, l);
-  } else {
-    StageBuf<NS> rbuf;
-    bwd_sweep<F, TB>(fld, acc, rbuf, ts, rec, n, g, C, T, c, l);
-  }
+  StageBuf<NS> buf;
+  bwd_sweep<F, TB>(fld, acc, buf, ts, rec, n, g, C, T, c, l);
   if (live && owner<F>()) {
 #pragma unroll
     for (int i = 0; i < NS; ++i)
@@ -446,9 +475,10 @@ __device__ __forceinline__ void bwd_block(
 }
 
 // The replay backward kernel, and its instance for a field that declares
-// kMinBlocks.  Two kernels, because naming a minimum of 1 block an SM is
-// not the same as naming none: ptxas then gives the MLP field's K3 146
-// registers where it picks 128 by itself, and 12% more time on an H100.
+// kMinBlocks (so for the forwards).  Two kernels, because naming a minimum
+// of 1 block an SM is not the same as naming none: ptxas then gives the
+// MLP field's K3 146 registers where it picks 128 by itself, and 12% more
+// time on an H100.
 template <class F, class TB>
 __global__ void __launch_bounds__(F::kThreads)
 dopri5_bwd_kernel(typename F::Args w, typename F::Grads gw,
@@ -471,25 +501,34 @@ dopri5_bwd_kernel_bounded(typename F::Args w, typename F::Grads gw,
 
 // Host launchers: tableau 0 is DOPRI5, 1 is TSIT5.  Return
 // cudaGetLastError().
+template <class F, class TB, bool RECORD>
+void launch_fwd_as(const typename F::Args& w, const float* x0,
+                   const float* f0, const float* dt0, const float* ts, int C,
+                   int T, const SolveArgs& s, const FwdOut& o,
+                   cudaStream_t stream) {
+  const dim3 grid((C + F::kChains - 1) / F::kChains);
+  const dim3 block(F::kThreads);
+  if constexpr (has_min_blocks<F>::value)
+    dopri5_fwd_kernel_bounded<F, TB, RECORD><<<grid, block, 0, stream>>>(
+        w, x0, f0, dt0, ts, C, T, s, o);
+  else
+    dopri5_fwd_kernel<F, TB, RECORD><<<grid, block, 0, stream>>>(
+        w, x0, f0, dt0, ts, C, T, s, o);
+}
+
 template <class F>
 int launch_fwd(int record, int tableau, const typename F::Args& w,
                const float* x0, const float* f0, const float* dt0,
                const float* ts, int C, int T, const SolveArgs& s,
                const FwdOut& o, cudaStream_t stream) {
-  const dim3 grid((C + F::kChains - 1) / F::kChains);
-  const dim3 block(F::kThreads);
   if (tableau == 0 && record)
-    dopri5_fwd_kernel<F, Dopri5, true><<<grid, block, 0, stream>>>(
-        w, x0, f0, dt0, ts, C, T, s, o);
+    launch_fwd_as<F, Dopri5, true>(w, x0, f0, dt0, ts, C, T, s, o, stream);
   else if (tableau == 0)
-    dopri5_fwd_kernel<F, Dopri5, false><<<grid, block, 0, stream>>>(
-        w, x0, f0, dt0, ts, C, T, s, o);
+    launch_fwd_as<F, Dopri5, false>(w, x0, f0, dt0, ts, C, T, s, o, stream);
   else if (record)
-    dopri5_fwd_kernel<F, Tsit5, true><<<grid, block, 0, stream>>>(
-        w, x0, f0, dt0, ts, C, T, s, o);
+    launch_fwd_as<F, Tsit5, true>(w, x0, f0, dt0, ts, C, T, s, o, stream);
   else
-    dopri5_fwd_kernel<F, Tsit5, false><<<grid, block, 0, stream>>>(
-        w, x0, f0, dt0, ts, C, T, s, o);
+    launch_fwd_as<F, Tsit5, false>(w, x0, f0, dt0, ts, C, T, s, o, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,7 +32,6 @@ struct FHNDopri5 {
   static constexpr int kNS = 2 * FHN_N;
   static constexpr int kThreads = kFBlock;
   static constexpr int kChains = kFBlock;
-  static constexpr bool kStageShared = false;
   struct Args {
     const float *a, *b, *c;
   };

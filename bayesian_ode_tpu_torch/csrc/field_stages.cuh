@@ -23,6 +23,17 @@
 // A field without kOwn carries all kNS components on each thread, written
 // by its leader().  The fields that declare neither compute what they
 // computed before the slots existed, operation for operation.
+//
+// The forwards (dopri5_kernels.cuh: K1, K2) spread the state only where
+// the field also provides
+//   norm_sums(r, sx, sy)           the error norm's sums over the chain: r
+//                                  holds this thread's kOwn ratios, and sx
+//                                  (sy) gets the squares of the chain's x
+//                                  (y) components added in ascending n, the
+//                                  same bits on each of the chain's threads
+// (GPPoint, gp_field.cuh).  The warp-per-chain fields spread only their
+// reverse sweeps: their forwards keep the whole state on every lane, since
+// every lane must take the same step decisions.
 #pragma once
 
 #include <type_traits>
@@ -84,6 +95,37 @@ __device__ __forceinline__ int own_component(int q) {
 template <class F>
 __device__ __forceinline__ bool owner() {
   if constexpr (spreads_state<F>::value)
+    return F::owner();
+  else
+    return F::leader();
+}
+
+template <class F, class = void>
+struct spreads_forward : std::false_type {};
+template <class F>
+struct spreads_forward<F, std::void_t<decltype(&F::norm_sums)>>
+    : std::true_type {};
+
+// The forwards' counterparts of own_components, own_component and owner.
+template <class F>
+__host__ __device__ constexpr int fwd_components() {
+  if constexpr (spreads_forward<F>::value)
+    return F::kOwn;
+  else
+    return F::kNS;
+}
+
+template <class F>
+__device__ __forceinline__ int fwd_component(int q) {
+  if constexpr (spreads_forward<F>::value)
+    return F::comp(q);
+  else
+    return q;
+}
+
+template <class F>
+__device__ __forceinline__ bool fwd_owner() {
+  if constexpr (spreads_forward<F>::value)
     return F::owner();
   else
     return F::leader();

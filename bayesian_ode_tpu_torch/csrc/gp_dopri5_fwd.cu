@@ -1,5 +1,6 @@
-// Whole adaptive solve of the GP field, one chain per thread: the forward
-// kernels of dopri5_kernels.cuh over GPDopri5 (gp_field.cuh).
+// Whole adaptive solve of the GP field, one thread per trajectory point:
+// the forward kernels of dopri5_kernels.cuh over GPReplayPoint
+// (gp_field.cuh, GPPoint).
 //
 // Replaces, over the GP field, two TPU kernels with one template:
 //   record = 0: bayesian_ode_tpu/ops/gp_dopri5.py::_make_whole_kernel (K1,
@@ -8,12 +9,19 @@
 //               (K2, the forward that records the step mesh), as
 //               ops/gp_dopri5_grad.py and ops/gp_field.py instantiate it.
 //
-// What bounds it on an H100: the expf of the field, not bytes.  Per
-// attempted step a chain evaluates 6 x N x M = 1,080 expf at N=5, M=36 and
-// reads only its own state; the chain's A row (M x 2) and the grid Z sit
-// in shared memory, so device memory sees only the dense output and the
-// record rows.  Blocks of 64 threads give 158 blocks at 10,112 chains, so
-// all 132 SMs get work.
+// What bounds it on an H100: the instruction throughput of the field's
+// FP32 and expf work, with latency to hide, not bytes.  Per attempted step
+// a chain evaluates 6 x N x M = 1,080 expf at N=5, M=36, about 49 steps in
+// sequence, and reads only its own state; the chain's A (M float2
+// columns) and the grid Z sit in shared memory, so device memory sees only
+// the dense output and the record rows.  One chain a thread left 316
+// warps at 10,112 chains (2-4 an SM) to hide the latency of a serial chain
+// of expf and FMAs; one point a thread, N consecutive lanes a chain, gives
+// 1,686 warps (12.8 an SM, 422 blocks of 128 threads, all resident at
+// once) with each thread's chain N times shorter.  The only chain-wide
+// step, the error norm, is a gather of the N points' ratios by shuffles,
+// summed in the per-chain order, so the trajectories, counters and
+// records are the per-chain solve's bit for bit.
 #include "dopri5_kernels.cuh"
 #include "gp_field.cuh"
 
@@ -37,12 +45,12 @@ int gp_dopri5_fwd(int record, int tableau, const float* A, const float* Z,
                   float dfactor, int max_steps, int pi, int store_steps,
                   float* ys, int* nfe, int* nacc, int* nrej, float* t1,
                   float* rec, cudaStream_t stream) {
-  const bode::GPDopri5::Args w{A, Z, sf2, inv2ell2, invell2};
+  const bode::GPReplayPoint::Args w{A, Z, sf2, inv2ell2, invell2};
   const bode::SolveArgs s{rtol, atol, safety, ifactor, dfactor, max_steps,
                           pi, record ? store_steps : 0};
   const bode::FwdOut o{ys, nfe, nacc, nrej, t1, record ? rec : nullptr};
-  return bode::launch_fwd<bode::GPDopri5>(record, tableau, w, x0, f0, dt0,
-                                          ts, C, T, s, o, stream);
+  return bode::launch_fwd<bode::GPReplayPoint>(record, tableau, w, x0, f0,
+                                               dt0, ts, C, T, s, o, stream);
 }
 
 }  // extern "C"

@@ -3,17 +3,21 @@
 //   f(x_n) = sum_m sf^2 exp(-|x_n - z_m|^2 / (2 ell^2)) A_m
 //
 // GPField (and its adapter GPDopri5) carries one chain per thread, for the
-// forwards: the whole adaptive solves (K1, K2, K9; dopri5_kernels.cuh) and
-// the rk4 forward (K4, gp_rk4.cu).  State layout per chain: NS = 2 * GP_N
+// per-step solver (K9, dopri5_kernels.cuh over gp_dopri5_step.cu) and the
+// rk4 forward (K4, gp_rk4.cu).  State layout per chain: NS = 2 * GP_N
 // floats, y[2n + d] (the JAX (N, 2) layout).
 //
-// GPPoint carries one trajectory point per thread, for the reverse sweeps
-// (K3, dopri5_kernels.cuh over gp_dopri5_bwd.cu; K5, gp_rk4.cu).  Their
-// step mesh is frozen (K3 replays recorded steps, K5 steps on the output
-// grid), and f at point n reads only x_n and the chain's A, so the sweeps
-// of a chain's N points are independent: they share only the A they read
-// and the Abar they add to.  The forward is different: its error norm over
-// all 2N components picks the step, so it keeps a chain on one thread.
+// GPPoint carries one trajectory point per thread, for the whole adaptive
+// solves (K1, K2: dopri5_kernels.cuh over gp_dopri5_fwd.cu) and the
+// reverse sweeps (K3, over gp_dopri5_bwd.cu; K5, gp_rk4.cu).  f at point n
+// reads only x_n and the chain's A.  The reverse sweeps' step mesh is
+// frozen (K3 replays recorded steps, K5 steps on the output grid), so the
+// sweeps of a chain's N points are independent: they share only the A
+// they read and the Abar they add to.  The adaptive forwards share one
+// thing more: the error norm over all 2N components, which picks each
+// step.  norm_sums gathers the chain's ratios by shuffles and sums them in
+// the per-chain order, so every thread of the chain takes the step the
+// per-chain solve takes, bit for bit.
 //
 // Full float32 throughout: built without --use_fast_math and with expf.
 #pragma once
@@ -85,9 +89,9 @@ __device__ __forceinline__ void stage_weights(const float* __restrict__ A,
   for (int idx = threadIdx.x; idx < 2 * kM; idx += kBlock) sZ[idx] = Z[idx];
 }
 
-// The GP field as the fused adaptive forwards take it (dopri5_kernels.cuh:
-// K1, K2, K9): weights A (C, M, 2) per chain and the grid Z (M, 2) shared
-// by all chains.  One chain per thread; A and Z staged in shared memory.
+// The GP field as the per-step solver takes it (dopri5_kernels.cuh: K9):
+// weights A (C, M, 2) per chain and the grid Z (M, 2) shared by all
+// chains.  One chain per thread; A and Z staged in shared memory.
 struct GPDopri5 {
   static constexpr int kNS = 2 * GP_N;
   static constexpr int kThreads = kBlock;
@@ -117,8 +121,9 @@ struct GPDopri5 {
   __device__ void rhs(const float* y, float* out) const { f.rhs(y, out); }
 };
 
-// One trajectory point per thread: the GP field of the reverse sweeps (K3,
-// as the backward of dopri5_kernels.cuh takes it; K5, gp_rk4.cu).
+// One trajectory point per thread: the GP field of the whole adaptive
+// solves and of the reverse sweeps (K1, K2 and K3, as the kernels of
+// dopri5_kernels.cuh take it; K5, gp_rk4.cu).
 //
 // Lanes: N consecutive lanes carry one chain, lane = N * (chain in warp) +
 // n, so a warp holds 32 / N chains (6 at N = 5, lanes 30-31 idle) and a
@@ -140,6 +145,13 @@ struct GPDopri5 {
 // lanes of a chain read one word (a broadcast) and the chains of a warp
 // neighbouring words.
 //
+// The forwards carry the same 2 components a thread through the step
+// arithmetic (dopri5_common.cuh is per component) and write them to the
+// dense output and the records; the chain's lane n = 0 (leader) writes t0,
+// dt and the counters.  Their rhs is the same one point's, so their
+// stages are the per-chain solve's; norm_sums makes their decisions its
+// decisions.
+//
 // 128 threads a block (24 chains at N = 5) and at most 128 registers a
 // thread (__launch_bounds__ with kMinBlocks = 4): 10,112 chains are 422
 // blocks, under one wave of 4 blocks on each of 132 SMs (0.80 waves).
@@ -154,7 +166,6 @@ struct GPPoint {
   static constexpr int kThreads = 128;
   static constexpr int kChains = kThreads / 32 * kChainsPerWarp;
   static constexpr int kMinBlocks = 4;
-  static constexpr bool kStageShared = false;
   // acc_store sums over the warp's lanes: every lane of the warp calls it
   static constexpr bool kWarpStore = true;
   struct Args {
@@ -195,6 +206,12 @@ struct GPPoint {
   }
   static __device__ int comp(int q) { return 2 * point() + q; }
   static __device__ bool owner() { return true; }
+  static __device__ bool leader() { return point() == 0; }
+  // the lanes of this thread's chain
+  static __device__ unsigned chain_mask() {
+    const unsigned m = kN == 32 ? kFull : (1u << (kN % 32)) - 1u;
+    return m << (lane() - point());
+  }
 
   // Stage the block's A rows (C, M, 2) with coalesced loads (chains past
   // C read as zero) and Z; called by every thread of the block.
@@ -253,11 +270,31 @@ struct GPPoint {
     }
   }
 
-  // f = K(y, Z) A at this thread's point y[0..1].
+  // The error norm's sums (field_stages.cuh): point q's ratios r[0] (x)
+  // and r[1] (y) from the chain's lane q, added as the per-chain loop adds
+  // them (dopri5_common.cuh, step_decision), q = 0..N-1.  Every thread of
+  // the chain gets the same bits; only the chain's lanes take part, so
+  // chains that have finished their solves need not.
+  __device__ __forceinline__ void norm_sums(const float* r, float& sx,
+                                            float& sy) const {
+    const unsigned mask = chain_mask();
+    const int base = lane() - point();
+#pragma unroll
+    for (int q = 0; q < kN; ++q) {
+      const float rx = __shfl_sync(mask, r[0], base + q);
+      const float ry = __shfl_sync(mask, r[1], base + q);
+      sx += rx * rx;
+      sy += ry * ry;
+    }
+  }
+
+  // f = K(y, Z) A at this thread's point y[0..1].  The m loop unrolled by
+  // 12 (not GPField's 4): on an H100 the solves K1/K2 take 6% less time,
+  // K3 and K5 the same, and the sums are GPField's, bit for bit.
   __device__ __forceinline__ void rhs(const float* y, float* f) const {
     const float px = y[0], py = y[1];
     float fx = 0.f, fy = 0.f;
-#pragma unroll 4
+#pragma unroll 12
     for (int m = 0; m < kM; ++m) {
       const float2 z = sZ[m];
       const float dx = px - z.x;
@@ -319,7 +356,8 @@ struct GPPoint {
 // Abar all in shared memory (85 registers) and 1.28 ms at R = 12, which
 // spills; K5 0.94 ms at R = 12, against 1.02 ms with Abar all in shared
 // memory (63 registers), and spills past it.  A grid of M < R inducing
-// points keeps them all in registers.
+// points keeps them all in registers.  The forwards (K1, K2) take
+// GPReplayPoint as well: they keep no Abar, so R does not reach them.
 using GPReplayPoint = GPPoint<8>;
 using GPRk4Point = GPPoint<12>;
 

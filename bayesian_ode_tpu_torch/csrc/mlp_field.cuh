@@ -347,7 +347,6 @@ struct MLPDopri5 {
   static constexpr int kNS = kMNS;
   static constexpr int kChains = 2;
   static constexpr int kThreads = 32 * kChains;
-  static constexpr bool kStageShared = false;
   static constexpr int kStageSlots = 7;
   static constexpr int kOwn = 1;
   struct Args {

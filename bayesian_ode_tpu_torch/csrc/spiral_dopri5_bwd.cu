@@ -6,12 +6,16 @@
 // bayesian_ode_tpu/ops/spiral_dopri5.py registers the spiral field, with
 // its hand-written VJP (_spiral_factory).
 //
-// What bounds it on an H100: tanhf.  A step is 7 field evaluations and 7
-// VJPs at N points, each H tanhf over the warp.  The step's stage vectors
-// and cotangents live once per warp in shared memory (StageBuf), the
-// weights and their cotangents (12 + 12 floats a lane at H=50) in
-// registers; weight cotangents are written once per chain, with no
-// atomics.
+// What bounds it on an H100: the MIO pipe (shuffles and shared memory
+// instructions) beside tanhf.  A step is 7 field evaluations and 7 VJPs
+// at N points, each H tanhf over the warp at the evaluations alone (the
+// stage slots keep the tanh values for the VJPs).  Each lane carries one
+// state component of the step's stage vectors and cotangents in
+// registers; the N points reach the warp through its shared copy of them,
+// and the 2N sums of an evaluation or a VJP are one 16-wide
+// reduce-scatter (spiral_field.cuh).  The weights and their cotangents
+// (12 + 12 floats a lane at H=50) stay in registers; weight cotangents are
+// written once per chain, with no atomics.
 #include "dopri5_kernels.cuh"
 #include "spiral_field.cuh"
 

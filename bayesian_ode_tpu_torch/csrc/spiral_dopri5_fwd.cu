@@ -7,11 +7,13 @@
 // the public engine (record = 1), and the same solve without records
 // (record = 0).
 //
-// What bounds it on an H100: tanhf.  A field evaluation at one point is H
-// tanhf and 4H FMAs over the warp (2 unit slots a lane at H=50) and two
-// butterfly sums; a step is 6 x N such points.  The weights are read once
-// per chain into registers; lane 0 alone writes the dense output and
-// records.
+// What bounds it on an H100: tanhf, and the shuffles that sum and
+// broadcast f.  A field evaluation at one point is H tanhf and 4H FMAs
+// over the warp (2 unit slots a lane at H=50); the 2N sums of an
+// evaluation are one 16-wide reduce-scatter, broadcast back to every lane
+// by 2N shuffles, so every lane takes the same step decisions; a step is
+// 6 x N such points.  The weights are read once per chain into registers;
+// lane 0 alone writes the dense output and records.
 #include "dopri5_kernels.cuh"
 #include "spiral_field.cuh"
 

@@ -6,17 +6,34 @@
 // the reference spiral demo's learned dynamics with per-chain weights
 // (bayesian_ode_tpu/ops/spiral_dopri5.py, whose VJP this copies).
 //
-// Design: one warp per chain, ceil(H/32) hidden units per lane (lane l
-// holds units l, l + 32, ...; units past H hold zero weights and add
-// nothing), the per-point sums by butterfly.  At H=50 a lane keeps 12
-// weights and 12 cotangents in registers.  The alternative, one thread per
-// chain with its 252 weights staged in shared memory, would leave 10,112
-// chains as about 77 threads per SM: 2-3 warps to hide the latency of 50
-// serial tanhf per point.  A warp per chain puts about 77 warps on each SM
-// and 2 tanhf per lane per point; the price is 14 idle lanes in the second
-// unit slot and two butterfly sums per point.  Every lane carries the
-// chain's state and takes the same step decisions; lane 0 writes the
-// outputs.  tanhf is the full-precision one (no fast math).
+// One warp per chain, ceil(H/32) hidden units a lane (lane l holds units
+// l, l + 32, ...; units past H hold zero weights and add nothing): at H=50
+// a lane keeps 12 weights and 12 cotangents in registers.  One thread per
+// chain would leave 10,112 chains as about 77 threads an SM, 2-3 warps to
+// hide the latency of 50 serial tanhf a point; a warp per chain puts about
+// 77 warps on each SM and 2 tanhf a lane a point.
+//
+// What bounds the field on an H100 is the MIO pipe (shuffles and shared
+// memory instructions, about one warp instruction a clock an SM) beside
+// tanhf, so, as the MLP field (mlp_field.cuh), it spends few of those:
+//   - the 2N output sums of an evaluation (f) or a VJP (ybar) are one
+//     16-wide reduce-scatter (warp_sum16: 16 shuffles in place of 2N
+//     butterflies of 5), which leaves component i on lane i;
+//   - the reverse sweeps carry one state component a lane (kOwn = 1: lane
+//     i < 2N holds component i of every per-step array; lanes >= 2N mirror
+//     component 2N-1 and write nothing).  The N points reach every lane
+//     through the warp's shared copy of their 2N floats, one per stage slot
+//     (field_stages.cuh: slot 0 a step's y0, slot r + 1 its u[r]);
+//   - the stage slots also keep each stage point's tanh values, each
+//     lane's units in its own column, so a VJP takes no second tanhf (on
+//     an H100 recomputing them in the VJP made K3 27% slower).
+// The forward (K2) keeps the state on every lane, since its step decisions
+// need the same bits on every lane: rhs broadcasts the reduced f back by
+// shuffles, and lane 0 writes the outputs.  Every __syncwarp() separates a
+// lane's shared write from another lane's read: the lanes of a warp do not
+// run in lockstep.
+//
+// tanhf is the full-precision one (no fast math).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -34,9 +51,11 @@
 namespace bode {
 
 constexpr int kSN = SPIRAL_N;
+constexpr int kSNS = 2 * SPIRAL_N;            // state components per chain
 constexpr int kSH = SPIRAL_H;
 constexpr int kSU = (SPIRAL_H + 31) / 32;     // hidden units per lane
-constexpr int kSWarps = 4;                    // chains per block
+constexpr int kSVec = (kSNS + 3) / 4 * 4;
+static_assert(kSNS <= 16, "the 2N output sums are one warp_sum16: N <= 8");
 
 // This lane's hidden units of one chain's weights (or their cotangents).
 struct SpiralUnits {
@@ -51,93 +70,179 @@ __device__ __forceinline__ void spiral_zero(SpiralUnits& u) {
   u.b2x = u.b2y = 0.f;
 }
 
+// A warp's shared memory: the kSlots kept points (and their tanh values)
+// and the VJP's gathered cotangent.
+template <int kSlots>
+struct __align__(16) SpiralBuf {
+  float pts[kSlots][kSVec];    // the kept points, gathered from their lanes
+  float cot[kSVec];             // the VJP's cotangent, gathered likewise
+  // tanh of unit lane + 32 k at point n of each kept point, at [n][k][lane]
+  float h[kSlots][kSN][kSU][32];
+};
+
+template <int kSlots>
 struct SpiralField {
   SpiralUnits w;
+  SpiralBuf<kSlots>* b;    // this warp's buffer
+  int lane;
 
-  // f at the N points; every lane returns the same f.
-  __device__ __forceinline__ void rhs(const float* y, float* f) const {
+  // This lane's unit k at the cubed point (u, v).
+  __device__ __forceinline__ float act(int k, float u, float v) const {
+    return tanhf(w.w1x[k] * u + w.w1y[k] * v + w.b1[k]);
+  }
+
+  // f at the N points pt[2n], pt[2n + 1] (the same on every lane), its
+  // tanh values kept in h[n][k][lane] where h is given: lane i (i < 2N)
+  // returns f_i.
+  __device__ __forceinline__ float eval(const float* pt,
+                                        float (*h)[kSU][32]) const {
+    float v[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = 0.f;
 #pragma unroll
     for (int n = 0; n < kSN; ++n) {
-      const float x = y[2 * n], yy = y[2 * n + 1];
-      const float u = x * x * x, v = yy * yy * yy;
+      const float x = pt[2 * n], yy = pt[2 * n + 1];
+      const float u = x * x * x, vv = yy * yy * yy;
       float px = 0.f, py = 0.f;
 #pragma unroll
       for (int k = 0; k < kSU; ++k) {
-        const float h = tanhf(w.w1x[k] * u + w.w1y[k] * v + w.b1[k]);
-        px += w.w2x[k] * h;
-        py += w.w2y[k] * h;
+        const float hk = act(k, u, vv);
+        if (h) h[n][k][lane] = hk;
+        px += w.w2x[k] * hk;
+        py += w.w2y[k] * hk;
       }
-      f[2 * n] = warp_sum(px) + w.b2x;
-      f[2 * n + 1] = warp_sum(py) + w.b2y;
+      v[2 * n] = px;
+      v[2 * n + 1] = py;
+    }
+    return warp_sum16(v, lane) + ((lane & 1) ? w.b2y : w.b2x);
+  }
+
+  // The forward's evaluation: y and f (2N floats) the same on every lane.
+  __device__ __forceinline__ void rhs(const float* y, float* f) const {
+    const float fi = eval(y, nullptr);
+#pragma unroll
+    for (int i = 0; i < kSNS; ++i) f[i] = __shfl_sync(kFull, fi, i);
+  }
+
+  // The reverse sweeps' evaluations (field_stages.cuh).  y, f, cot and
+  // ybar are this lane's component: y[0] is component `lane` of the point.
+  __device__ __forceinline__ const float* keep_point(int slot,
+                                                     const float* y) const {
+    float* pt = b->pts[slot];
+    if (lane < kSNS) pt[lane] = y[0];
+    __syncwarp();
+    return pt;
+  }
+
+  __device__ __forceinline__ void stage_hidden(int slot,
+                                               const float* y) const {
+    const float* pt = keep_point(slot, y);
+#pragma unroll
+    for (int n = 0; n < kSN; ++n) {
+      const float x = pt[2 * n], yy = pt[2 * n + 1];
+      const float u = x * x * x, vv = yy * yy * yy;
+#pragma unroll
+      for (int k = 0; k < kSU; ++k) b->h[slot][n][k][lane] = act(k, u, vv);
     }
   }
 
-  // ybar = (df/dy)^T cot at the N points (the same on every lane), and the
-  // weight cotangents of this lane's units accumulated into g (b2's by
-  // every lane alike; lane 0 stores it).
-  __device__ __forceinline__ void rhs_vjp(const float* y, const float* cot,
-                                          float* ybar, SpiralUnits& g) const {
+  __device__ __forceinline__ void stage_rhs(int slot, const float* y,
+                                            float* f) const {
+    f[0] = eval(keep_point(slot, y), b->h[slot]);
+  }
+
+  // ybar = (df/dy)^T cot at the point kept in `slot`, and the weight
+  // cotangents of this lane's units accumulated into g (b2's by every lane
+  // alike; lane 0 stores it).
+  __device__ __forceinline__ void stage_vjp(int slot, const float*,
+                                            const float* cot, float* ybar,
+                                            SpiralUnits& g) const {
+    if (lane < kSNS) b->cot[lane] = cot[0];
+    __syncwarp();
+    const float* pt = b->pts[slot];
+    float v[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = 0.f;
 #pragma unroll
     for (int n = 0; n < kSN; ++n) {
-      const float x = y[2 * n], yy = y[2 * n + 1];
-      const float cx = cot[2 * n], cy = cot[2 * n + 1];
-      const float u = x * x * x, v = yy * yy * yy;
+      const float x = pt[2 * n], yy = pt[2 * n + 1];
+      const float cx = b->cot[2 * n], cy = b->cot[2 * n + 1];
+      const float u = x * x * x, vv = yy * yy * yy;
       float sx = 0.f, sy = 0.f;
 #pragma unroll
       for (int k = 0; k < kSU; ++k) {
-        const float h = tanhf(w.w1x[k] * u + w.w1y[k] * v + w.b1[k]);
-        g.w2x[k] += h * cx;
-        g.w2y[k] += h * cy;
+        const float hk = b->h[slot][n][k][lane];
+        g.w2x[k] += hk * cx;
+        g.w2y[k] += hk * cy;
         const float hb = w.w2x[k] * cx + w.w2y[k] * cy;
-        const float a1b = hb * (1.0f - h * h);    // tanh' = 1 - tanh^2
+        const float a1b = hb * (1.0f - hk * hk);    // tanh' = 1 - tanh^2
         g.b1[k] += a1b;
         g.w1x[k] += u * a1b;
-        g.w1y[k] += v * a1b;
+        g.w1y[k] += vv * a1b;
         sx += w.w1x[k] * a1b;
         sy += w.w1y[k] * a1b;
       }
       g.b2x += cx;
       g.b2y += cy;
-      // d(y^3)/dy = 3 y^2
-      ybar[2 * n] = 3.0f * x * x * warp_sum(sx);
-      ybar[2 * n + 1] = 3.0f * yy * yy * warp_sum(sy);
+      v[2 * n] = sx;
+      v[2 * n + 1] = sy;
     }
+    // d(y^3)/dy = 3 y^2, at this lane's component
+    const float yi = pt[lane < kSNS ? lane : kSNS - 1];
+    ybar[0] = 3.0f * yi * yi * warp_sum16(v, lane);
+    __syncwarp();     // cot and the point read before the next writes
   }
 };
 
 // The adapter of dopri5_kernels.cuh.  Weights w1 (C, 2, H), b1 (C, H),
 // w2 (C, H, 2), b2 (C, 2), the layout of models/spiral.py's parameters.
+// The backward (K3) keeps the 7 stage points of a step in slots 0 (y0) to
+// 6 (u[5]); as many chains a block (at most 4) as keep the block's warp
+// buffers within the 48 KB of static shared memory (4 at N=5, H=50:
+// 9,344 B a warp).
 struct SpiralDopri5 {
-  static constexpr int kNS = 2 * SPIRAL_N;
-  static constexpr int kThreads = 32 * kSWarps;
-  static constexpr int kChains = kSWarps;
-  static constexpr bool kStageShared = true;
+  static constexpr int kNS = kSNS;
+  static constexpr int kStageSlots = 7;
+  static constexpr int kOwn = 1;
+  static constexpr int kChains =
+      4 * sizeof(SpiralBuf<kStageSlots>) <= 48 * 1024   ? 4
+      : 2 * sizeof(SpiralBuf<kStageSlots>) <= 48 * 1024 ? 2
+                                                        : 1;
+  static constexpr int kThreads = 32 * kChains;
   struct Args {
     const float *w1, *b1, *w2, *b2;
   };
   struct Grads {
     float *w1, *b1, *w2, *b2;
   };
-  struct Smem {};
+  struct Smem {
+    SpiralBuf<kStageSlots> warp[kChains];
+  };
   struct AccSmem {};
   using Acc = SpiralUnits;
 
-  SpiralField f;
+  SpiralField<kStageSlots> f;
 
   static __device__ int chain() {
-    return blockIdx.x * kSWarps + (threadIdx.x >> 5);
+    return blockIdx.x * kChains + (threadIdx.x >> 5);
   }
   static __device__ bool leader() { return (threadIdx.x & 31) == 0; }
+  static __device__ int comp(int) {
+    const int lane = threadIdx.x & 31;
+    return lane < kSNS ? lane : kSNS - 1;
+  }
+  static __device__ bool owner() { return (threadIdx.x & 31) < kSNS; }
 
-  static __device__ SpiralDopri5 load(const Args& a, Smem&, int C, int c) {
+  static __device__ SpiralDopri5 load(const Args& a, Smem& sm, int C, int c) {
     SpiralDopri5 s;
+    s.f.lane = threadIdx.x & 31;
+    s.f.b = &sm.warp[threadIdx.x >> 5];
     spiral_zero(s.f.w);
     if (c >= C) return s;
     const size_t cc = static_cast<size_t>(c);
-    const int lane = threadIdx.x & 31;
 #pragma unroll
     for (int k = 0; k < kSU; ++k) {
-      const int j = lane + 32 * k;
+      const int j = s.f.lane + 32 * k;
       if (j < kSH) {
         s.f.w.w1x[k] = a.w1[cc * 2 * kSH + j];
         s.f.w.w1y[k] = a.w1[cc * 2 * kSH + kSH + j];
@@ -176,9 +281,15 @@ struct SpiralDopri5 {
   }
 
   __device__ void rhs(const float* y, float* out) const { f.rhs(y, out); }
-  __device__ void rhs_vjp(const float* y, const float* cot, float* ybar,
-                          Acc& acc) const {
-    f.rhs_vjp(y, cot, ybar, acc);
+  __device__ void stage_rhs(int slot, const float* y, float* out) const {
+    f.stage_rhs(slot, y, out);
+  }
+  __device__ void stage_hidden(int slot, const float* y) const {
+    f.stage_hidden(slot, y);
+  }
+  __device__ void stage_vjp(int slot, const float* y, const float* cot,
+                            float* ybar, Acc& acc) const {
+    f.stage_vjp(slot, y, cot, ybar, acc);
   }
 };
 

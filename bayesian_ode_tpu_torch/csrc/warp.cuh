@@ -1,6 +1,6 @@
-// Warp sums shared by the warp-per-chain fields (mlp_field.cuh,
+// The warp sum shared by the warp-per-chain fields (mlp_field.cuh,
 // spiral_field.cuh), and the full-warp mask of the GP field's per-point
-// backward (gp_field.cuh).
+// kernels (gp_field.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -8,15 +8,6 @@
 namespace bode {
 
 constexpr unsigned kFull = 0xffffffffu;
-
-// Sum over the warp, the same value on every lane (xor butterfly: each
-// pairwise sum is formed once per pair, in both lanes, so the lanes agree
-// bit for bit).
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
 
 // The 16 sums over the warp of v[0..15] at once, by recursive halving (a
 // reduce-scatter): at each of the steps xor 8, 4, 2, 1 a lane keeps the

@@ -5,8 +5,9 @@
 
 Builds the port's CUDA kernels from `bayesian_ode_tpu_torch/csrc/` (one
 nvcc per source, all started together), prints each kernel's registers and
-spills (and, for the backward kernels redesigned for the card, K7, MLP K3,
-K5 and GP K3, the warps an SM holds and the waves of their grid), and
+spills (and, for the kernels redesigned for the card, K7, MLP K3, K5, GP
+K3, the GP solves K1/K2 and spiral K3, the warps an SM holds and the waves
+of their grid), and
 holds each kernel against its plain PyTorch version at the main paths'
 full shape (Van der Pol: 5 trajectories, T=60 output times to
 t=6, 10,112 chains):
@@ -64,16 +65,23 @@ HIDDEN = 32
 SPIRAL_HIDDEN = 50
 SVGD_PARTICLES = (4096, 1024)     # K8 on "auto" at the first, not the second
 SVGD_STEPS = 50
-# (threads, chains) a block of the backward kernels redesigned for the
-# card, by library and ptxas name: the MLP field's (csrc/mlp_field.cuh: K7
-# 4 chains a block, MLP K3 2) and the GP field's one thread a trajectory
-# point (csrc/gp_field.cuh, GPPoint: 128 threads, 6 chains a warp at N=5)
-BWD_BLOCKS = {("mlp_rk4", "mlp_rk4_bwd"): (128, 4),
-              ("mlp_dopri5", "dopri5_bwd MLPDopri5 Dopri5"): (64, 2),
-              ("mlp_dopri5", "dopri5_bwd MLPDopri5 Tsit5"): (64, 2),
-              ("gp_rk4", "gp_rk4_bwd"): (128, 24),
-              ("gp_dopri5", "dopri5_bwd GPPoint Dopri5"): (128, 24),
-              ("gp_dopri5", "dopri5_bwd GPPoint Tsit5"): (128, 24)}
+# (threads, chains) a block of the kernels redesigned for the card, by
+# library and ptxas name: the MLP field's (csrc/mlp_field.cuh: K7 4 chains
+# a block, MLP K3 2), the GP field's one thread a trajectory point
+# (csrc/gp_field.cuh, GPPoint: 128 threads, 6 chains a warp at N=5; the
+# backward kernels K5 and K3, and the solves K1 and K2) and the spiral's
+# replay (csrc/spiral_field.cuh: one warp a chain, 4 a block)
+OCCUPANCY_BLOCKS = {
+    ("mlp_rk4", "mlp_rk4_bwd"): (128, 4),
+    ("mlp_dopri5", "dopri5_bwd MLPDopri5 Dopri5"): (64, 2),
+    ("mlp_dopri5", "dopri5_bwd MLPDopri5 Tsit5"): (64, 2),
+    ("gp_rk4", "gp_rk4_bwd"): (128, 24),
+    **{("gp_dopri5", f"{kernel} GPPoint {tableau}{record}"): (128, 24)
+       for kernel, records in (("dopri5_bwd", ("",)),
+                               ("dopri5_fwd", (" record", " no-record")))
+       for tableau in ("Dopri5", "Tsit5") for record in records},
+    ("spiral_dopri5", "dopri5_bwd SpiralDopri5 Dopri5"): (128, 4),
+    ("spiral_dopri5", "dopri5_bwd SpiralDopri5 Tsit5"): (128, 4)}
 LIBRARIES = [("gp_dopri5", (5, 36)), ("gp_rk4", (5, 36)),
              ("mlp_rk4", (5, HIDDEN)), ("mlp_dopri5", (5, HIDDEN)),
              ("spiral_dopri5", (5, SPIRAL_HIDDEN)), ("fhn_dopri5", (5,)),
@@ -384,8 +392,8 @@ def main() -> int:
         _build.load_library(*lib)
         for name, regs, st, ld, smem in ptxas_summary(
                 *lib, _build.build_log(*lib)):
-            if (lib[0], name) in BWD_BLOCKS:
-                threads, chains = BWD_BLOCKS[lib[0], name]
+            if (lib[0], name) in OCCUPANCY_BLOCKS:
+                threads, chains = OCCUPANCY_BLOCKS[lib[0], name]
                 warps, waves = occupancy(regs, smem, threads, chains,
                                          N_CHAINS)
                 print(f"    {name}: {warps} warps an SM, {waves:.2f} waves "

@@ -1,38 +1,48 @@
 #!/usr/bin/env python3
-"""Time one field's backward kernels of this tree against other trees'
-(the parent commit, unpacked with `git archive`), in one process on one
-NVIDIA GPU:
+"""Time one field's kernels of this tree against other trees' (the parent
+commit, unpacked with `git archive`), in one process on one NVIDIA GPU:
 
     python3 scripts/time_backward.py --field gp --parent build/parent
     python3 scripts/time_backward.py --field mlp --parent build/parent
+    python3 scripts/time_backward.py --field spiral --parent build/parent
 
---field gp: K3 over the GP field (`gp_dopri5_bwd`, the replay backward, at
+--field gp: the whole adaptive solve without records (K1,
+`gp_dopri5_fwd` record=0) and with them (K2, record=1), each at DOPRI5 and
+TSIT5, K3 over the GP field (`gp_dopri5_bwd`, the replay backward, at
 DOPRI5 and TSIT5) and K5 (`gp_rk4_bwd`, the rk4 reverse sweep).  --field
 mlp: K7 (`mlp_rk4_bwd`) and MLP K3 (`mlp_dopri5_bwd`, DOPRI5 and TSIT5),
 and the forwards that share their field, K6 (`mlp_rk4_fwd`) and MLP K2
 (`mlp_dopri5_fwd`, recording, DOPRI5; with each tree's mean NFE).
+--field spiral: spiral K2 (`spiral_dopri5_fwd`, recording; with each
+tree's mean NFE) and spiral K3 (`spiral_dopri5_bwd`), each at DOPRI5 and
+TSIT5.
 
 The trees' libraries keep the same C entry points, so each other tree's
 are built from its own `csrc/` with this tree's nvcc flags into
 `build/other_kernels/<label>/` (all nvcc processes started together) and
 called on the same tensors.  `--tree LABEL=DIR` adds a tree beside the
 parent.  The inputs are built as `chip_smoke.py` builds those of its
-phases 2 and 6 (GP) or 7 and 10 (MLP), with their own draws from seeded
-generators: 10,112 chains, N=5, T=60 to t=6, N(0, 1) trajectory
-cotangents, the records of this tree's K2 (store_steps 128 for the GP
-field, 256 for the MLP) and the trajectories of this tree's K4 or K6.
+phases 1, 2 and 6 (GP), 7 and 10 (MLP) or 10 (spiral, H=50), with their
+own draws from seeded generators: 10,112 chains, N=5, T=60 to t=6,
+rtol=1e-7 / atol=1e-9, N(0, 1) trajectory cotangents, the records of this
+tree's K2 (store_steps 128 for the GP and spiral fields, 256 for the MLP)
+and the trajectories of this tree's K4 or K6.
 
-Prints each backward kernel's ptxas line, resident warps an SM and waves
+Prints each redesigned kernel's ptxas line, resident warps an SM and waves
 (blocks over the blocks all SMs hold at once), then for each kernel and
-tree: whether the x0 cotangent is bit-equal to the parent's (else its
-first differing component), the largest max-rel of the weight cotangents
-to the parent's, and the time by CUDA events (20 launches after 10) in
-turns: parent, the other trees, this tree, and back in reverse order.
+tree: for a backward, whether the x0 cotangent is bit-equal to the
+parent's (else its first differing component) and the largest max-rel of
+the weight cotangents to the parent's; for the GP solves, whether the
+trajectories, counters, end times and records are bit-equal to the
+parent's; for the other solves, the mean NFE of each tree and the
+trajectories' max-rel; and the time by CUDA events (20 launches after 10)
+in turns: parent, the other trees, this tree, and back in reverse order.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 import sys
 import time
@@ -44,20 +54,31 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (the repo root's smoke test: its helpers)
 
 N_CHAINS, HIDDEN, N, T, M = chip_smoke.N_CHAINS, chip_smoke.HIDDEN, 5, 60, 36
+SPIRAL_HIDDEN = chip_smoke.SPIRAL_HIDDEN
 SPECS = {"gp": [("gp_dopri5", (N, M)), ("gp_rk4", (N, M))],
-         "mlp": [("mlp_rk4", (N, HIDDEN)), ("mlp_dopri5", (N, HIDDEN))]}
+         "mlp": [("mlp_rk4", (N, HIDDEN)), ("mlp_dopri5", (N, HIDDEN))],
+         "spiral": [("spiral_dopri5", (N, SPIRAL_HIDDEN))]}
 
 
 def block_shape(csrc: Path, field: str):
     """{kernel: (threads, chains) a block} of a tree's rk4 ("rk4") and
-    replay ("dopri5") backward kernels, read from its sources: the GP
-    field's per-point kernels (`struct GPPoint` in gp_field.cuh, 128
-    threads) or its chain-per-thread ones (64); the MLP field's two chains
-    a block of K3 (`kChains = 2` in mlp_field.cuh) or four."""
+    replay ("dopri5") backward kernels and adaptive forwards ("fwd"), read
+    from its sources: the GP field's per-point kernels (`struct GPPoint` in
+    gp_field.cuh, its kThreads; the forwards too where GPPoint has
+    `norm_sums`) or its chain-per-thread ones (64); the MLP field's two
+    chains a block of K3 (`kChains = 2` in mlp_field.cuh) or four; the
+    spiral's four (one warp a chain)."""
     if field == "gp":
-        per_point = "struct GPPoint" in (csrc / "gp_field.cuh").read_text()
-        shape = (128, 128 // 32 * (32 // N)) if per_point else (64, 64)
-        return {"rk4": shape, "dopri5": shape}
+        src = (csrc / "gp_field.cuh").read_text()
+        threads = re.search(r"static constexpr int kThreads = (\d+);", src)
+        threads = int(threads.group(1)) if threads else 128
+        point = (threads, threads // 32 * (32 // N))
+        per_point = "struct GPPoint" in src
+        shape = point if per_point else (64, 64)
+        return {"rk4": shape, "dopri5": shape,
+                "fwd": point if "norm_sums" in src else (64, 64)}
+    if field == "spiral":
+        return {"dopri5": (128, 4), "fwd": (128, 4)}
     two = "kChains = 2;" in (csrc / "mlp_field.cuh").read_text()
     return {"rk4": (128, 4), "dopri5": (64, 2) if two else (128, 4)}
 
@@ -103,8 +124,9 @@ def print_occupancy(label, family, shape, log, blocks):
     for name, regs, st, ld, smem in chip_smoke.ptxas_summary(family, shape,
                                                              log):
         kind = ("rk4" if name.endswith("rk4_bwd") else
-                "dopri5" if name.startswith("dopri5_bwd") else None)
-        if kind:
+                "dopri5" if name.startswith("dopri5_bwd") else
+                "fwd" if name.startswith("dopri5_fwd") else None)
+        if kind in blocks:
             threads, chains = blocks[kind]
             warps, waves = chip_smoke.occupancy(regs, smem, threads, chains,
                                                 N_CHAINS)
@@ -112,9 +134,39 @@ def print_occupancy(label, family, shape, log, blocks):
                   f"waves ({threads} threads and {chains} chains a block)")
 
 
+def solve(lib, family, w, scalars, x0, f0, dt0, ts, record, method, store,
+          stream):
+    """One launch of a family's adaptive forward (K1/K2) at rtol=1e-7 /
+    atol=1e-9 and the "i" controller: (trajectories, nfe, nacc, nrej, t1,
+    records or None)."""
+    import torch
+
+    from bayesian_ode_tpu_torch.ops import _build
+
+    C, T = f0.shape[0], ts.shape[0]
+    dev, f32, i32 = f0.device, torch.float32, torch.int32
+    ys = torch.empty((T,) + tuple(f0.shape), dtype=f32, device=dev)
+    nfe, nacc, nrej = (torch.empty(C, dtype=i32, device=dev)
+                       for _ in range(3))
+    t1 = torch.empty(C, dtype=f32, device=dev)
+    rec = (torch.empty((store, f0.shape[1] * 2 + 2, C), dtype=f32,
+                       device=dev) if record else None)
+    _build.check(getattr(lib, f"{family}_fwd")(
+        int(record), _build.TABLEAUS.index(method),
+        *(x.data_ptr() for x in w), *scalars, x0.data_ptr(), f0.data_ptr(),
+        dt0.data_ptr(), ts.data_ptr(), C, T, chip_smoke.RTOL,
+        chip_smoke.ATOL, 0.9, 10.0, 0.2, 100_000, 0,
+        store if record else 0, ys.data_ptr(), nfe.data_ptr(),
+        nacc.data_ptr(), nrej.data_ptr(), t1.data_ptr(),
+        rec.data_ptr() if record else None, stream), f"{family}_fwd")
+    return ys, nfe, nacc, nrej, t1, rec
+
+
 def gp_kernels(dev, stream):
-    """{label: run(libs) -> outputs, the x0 cotangent last} of the GP
-    field's backward kernels, on chip_smoke.py's phase 2 and 6 inputs."""
+    """{label: (kind, run(libs) -> outputs)} of the GP field's kernels, on
+    chip_smoke.py's phase 1, 2 and 6 inputs: the solves K1 and K2 ("exact",
+    the outputs of `solve`) and the backward kernels ("bwd", the x0
+    cotangent last)."""
     import torch
 
     from bayesian_ode_tpu_torch.models import kernel_regression as kr
@@ -144,6 +196,7 @@ def gp_kernels(dev, stream):
     scalars = (sf * sf, 0.5 / (ell * ell), 1.0 / (ell * ell))
     rtol, atol = chip_smoke.RTOL, chip_smoke.ATOL
     x0b, f0, dt0 = _pack_initial(A, x0, Z, sf, ell, rtol, atol)
+    f0, dt0 = f0.contiguous(), dt0.contiguous()
     recs = {}
     for method in ("dopri5", "tsit5"):
         _, _, nacc, _, _, rec = fa.fwd(
@@ -175,15 +228,26 @@ def gp_kernels(dev, stream):
             lbar.data_ptr(), stream), "gp_rk4_bwd")
         return Abar, lbar
 
-    return {"K3 GP DOPRI5": lambda libs: k3(libs, "dopri5"),
-            "K3 GP TSIT5": lambda libs: k3(libs, "tsit5"),
-            "K5": k5}
+    def fwd(libs, record, method):
+        return solve(libs["gp_dopri5"], "gp_dopri5", (A, Z), scalars, x0,
+                     f0, dt0, ts, record, method, chip_smoke.STORE_STEPS,
+                     stream)
+
+    return {"K1 DOPRI5": ("exact", lambda libs: fwd(libs, False, "dopri5")),
+            "K1 TSIT5": ("exact", lambda libs: fwd(libs, False, "tsit5")),
+            "K2 GP DOPRI5": ("exact",
+                             lambda libs: fwd(libs, True, "dopri5")),
+            "K2 GP TSIT5": ("exact", lambda libs: fwd(libs, True, "tsit5")),
+            "K3 GP DOPRI5": ("bwd", lambda libs: k3(libs, "dopri5")),
+            "K3 GP TSIT5": ("bwd", lambda libs: k3(libs, "tsit5")),
+            "K5": ("bwd", k5)}
 
 
 def mlp_kernels(dev, stream):
-    """{label: run(libs) -> outputs} of the MLP field's kernels, on
-    chip_smoke.py's phase 7 and 10 inputs; the backward kernels' x0
-    cotangent last, MLP K2's (trajectories, mean NFE)."""
+    """{label: (kind, run(libs) -> outputs)} of the MLP field's kernels, on
+    chip_smoke.py's phase 7 and 10 inputs: the backward kernels ("bwd", the
+    x0 cotangent last), K6 ("traj", its trajectories) and MLP K2 ("solve",
+    trajectories and NFE)."""
     import torch
 
     from bayesian_ode_tpu_torch.models import make_dataset, mlp
@@ -258,11 +322,71 @@ def mlp_kernels(dev, stream):
             rtol, atol, 0.9, 10.0, 0.2, 100_000, 0, 256, out.data_ptr(),
             nfe.data_ptr(), nacc.data_ptr(), nrej.data_ptr(), t1.data_ptr(),
             rec.data_ptr(), stream), "mlp_dopri5_fwd")
-        return out, nfe.float()
+        return out, nfe
 
-    return {"K6": k6, "MLP K2 DOPRI5": k2, "K7": k7,
-            "MLP K3 DOPRI5": lambda libs: k3(libs, "dopri5"),
-            "MLP K3 TSIT5": lambda libs: k3(libs, "tsit5")}
+    return {"K6": ("traj", k6), "MLP K2 DOPRI5": ("solve", k2),
+            "K7": ("bwd", k7),
+            "MLP K3 DOPRI5": ("bwd", lambda libs: k3(libs, "dopri5")),
+            "MLP K3 TSIT5": ("bwd", lambda libs: k3(libs, "tsit5"))}
+
+
+def spiral_kernels(dev, stream):
+    """{label: (kind, run(libs) -> outputs)} of the spiral field's kernels
+    at H=50, on chip_smoke.py's phase 10 inputs: spiral K2 ("solve") and
+    K3 ("bwd", on this tree's K2 records), each at DOPRI5 and TSIT5."""
+    import torch
+
+    from bayesian_ode_tpu_torch.models import make_dataset
+    from bayesian_ode_tpu_torch.models import spiral as spiral_model
+    from bayesian_ode_tpu_torch.ops import _build
+    from bayesian_ode_tpu_torch.ops import fused_adaptive as fa
+    from bayesian_ode_tpu_torch.ops import fused_field as ff
+    from bayesian_ode_tpu_torch.ops.spiral_dopri5 import spiral_field
+
+    data = make_dataset(seed=2, ode="vdp", N=N, T=T, t_max=6.0, noise=0.05,
+                        x0_scale=1.5)
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sp0 = spiral_model.init_params(torch.Generator().manual_seed(0),
+                                   hidden=SPIRAL_HIDDEN)
+    w = tuple((sp0[k].to(dev, f32)[None] + 0.005 * torch.randn(
+        (N_CHAINS,) + tuple(sp0[k].shape), generator=gen, device=dev)
+    ).contiguous() for k in ("w1", "b1", "w2", "b2"))
+    x0, ts = data["x0"].to(dev, f32).contiguous(), data["t"].to(dev, f32)
+    field, store = spiral_field(), chip_smoke.STORE_STEPS
+    rtol, atol = chip_smoke.RTOL, chip_smoke.ATOL
+    _, f0, dt0 = ff._start(field, w, x0, rtol, atol)
+    f0, dt0 = f0.contiguous(), dt0.contiguous()
+    g = torch.randn((T, N_CHAINS, N, 2), generator=gen, device=dev,
+                    dtype=f32)
+    recs = {}
+    for method in ("dopri5", "tsit5"):
+        _, _, nacc, _, _, rec = fa.fwd(field, w, x0.expand(N_CHAINS, N, 2),
+                                       f0, dt0, ts, rtol, atol, 0.9, 10.0,
+                                       0.2, 100_000, "i", record=True,
+                                       store_steps=store, method=method)
+        recs[method] = (rec, nacc)
+
+    def k2(libs, method):
+        ys, nfe, *_ = solve(libs["spiral_dopri5"], "spiral_dopri5", w, (),
+                            x0, f0, dt0, ts, True, method, store, stream)
+        return ys, nfe
+
+    def k3(libs, method):
+        rec, nacc = recs[method]
+        wbar = tuple(torch.empty_like(x) for x in w)
+        lbar = torch.empty((N_CHAINS, N, 2), dtype=f32, device=dev)
+        _build.check(libs["spiral_dopri5"].spiral_dopri5_bwd(
+            _build.TABLEAUS.index(method), *(x.data_ptr() for x in w),
+            *(x.data_ptr() for x in wbar), ts.data_ptr(), rec.data_ptr(),
+            nacc.data_ptr(), g.data_ptr(), N_CHAINS, T, lbar.data_ptr(),
+            stream), "spiral_dopri5_bwd")
+        return wbar + (lbar,)
+
+    return {"spiral K2 DOPRI5": ("solve", lambda libs: k2(libs, "dopri5")),
+            "spiral K2 TSIT5": ("solve", lambda libs: k2(libs, "tsit5")),
+            "spiral K3 DOPRI5": ("bwd", lambda libs: k3(libs, "dopri5")),
+            "spiral K3 TSIT5": ("bwd", lambda libs: k3(libs, "tsit5"))}
 
 
 def first_difference(a, b):
@@ -270,6 +394,60 @@ def first_difference(a, b):
     b differ."""
     idx = int((a != b).flatten().nonzero()[0])
     return idx, float(a.flatten()[idx]), float(b.flatten()[idx])
+
+
+def compare_bwd(out, base):
+    """A backward's outputs, the x0 cotangent last, against the parent's."""
+    import torch
+
+    rel = max(chip_smoke.max_rel(x, y) for x, y in zip(out[:-1], base[:-1]))
+    same = torch.equal(out[-1], base[-1])
+    return (f"x0 cotangent bit-equal to the parent's: {same}"
+            + ("" if same else " (first difference at flat index "
+               "{} : {!r} vs {!r})".format(*first_difference(out[-1],
+                                                              base[-1])))
+            + f"; x0 cotangent max-rel "
+            f"{chip_smoke.max_rel(out[-1], base[-1]):.3e}; weight "
+            f"cotangents max-rel {rel:.3e}")
+
+
+def compare_exact(out, base):
+    """The outputs of `solve` against the parent's, each bit for bit (the
+    records on the rows each chain wrote)."""
+    import torch
+
+    names = ("trajectories", "nfe", "nacc", "nrej", "t1", "records")
+    out, base = list(out), list(base)
+    if out[-1] is not None:
+        rows = torch.arange(out[-1].shape[0], device=out[-1].device)
+        for x, n in ((out, out[2]), (base, base[2])):
+            x[-1] = torch.where(rows[:, None, None] < n[None, None, :],
+                                x[-1], 0.0)
+    same = {k: torch.equal(a, b) for k, a, b in zip(names, out, base)
+            if a is not None}
+    text = "bit-equal to the parent's: " + ", ".join(
+        f"{k} {v}" for k, v in same.items())
+    if not same["trajectories"]:
+        text += (" (first difference at flat index {} : {!r} vs {!r})"
+                 .format(*first_difference(out[0], base[0]))
+                 + f"; trajectories max-rel "
+                 f"{chip_smoke.max_rel(out[0], base[0]):.3e}")
+    return text + (f"; mean NFE {float(out[1].float().mean()):.3f}, parent "
+                   f"{float(base[1].float().mean()):.3f}")
+
+
+def compare_solve(out, base):
+    """Two float32 solves (trajectories, nfe): their step meshes differ on
+    some chains."""
+    return (f"mean NFE {float(out[1].float().mean()):.3f}, parent "
+            f"{float(base[1].float().mean()):.3f}; trajectories max-rel "
+            f"{chip_smoke.max_rel(out[0], base[0]):.3e}")
+
+
+COMPARE = {"bwd": compare_bwd, "exact": compare_exact,
+           "solve": compare_solve,
+           "traj": lambda out, base: "max-rel to the parent's "
+           f"{chip_smoke.max_rel(out[0], base[0]):.3e}"}
 
 
 def main() -> int:
@@ -317,34 +495,15 @@ def main() -> int:
                             block_shape(csrc, args.field))
 
     stream = torch.cuda.current_stream(dev).cuda_stream
-    kernels = (gp_kernels if args.field == "gp" else mlp_kernels)(dev, stream)
+    kernels = {"gp": gp_kernels, "mlp": mlp_kernels,
+               "spiral": spiral_kernels}[args.field](dev, stream)
     labels = [k for k in libs if k != "parent"]
-    for name, run in kernels.items():
+    for name, (kind, run) in kernels.items():
         base = run(libs["parent"])
         outs = {label: run(libs[label]) for label in labels}
         torch.cuda.synchronize()
         for label, out in outs.items():
-            if name.startswith("MLP K2"):
-                # two float32 solves: their step meshes differ on some chains
-                print(f"{name} {label}: mean NFE {float(out[1].mean()):.3f}, "
-                      f"parent {float(base[1].mean()):.3f}; trajectories "
-                      f"max-rel {chip_smoke.max_rel(out[0], base[0]):.3e}")
-                continue
-            if len(out) == 1:
-                print(f"{name} {label}: max-rel to the parent's "
-                      f"{chip_smoke.max_rel(out[0], base[0]):.3e}")
-                continue
-            rel = max(chip_smoke.max_rel(x, y)
-                      for x, y in zip(out[:-1], base[:-1]))
-            same = torch.equal(out[-1], base[-1])
-            print(f"{name} {label}: x0 cotangent bit-equal to the parent's: "
-                  f"{same}"
-                  + ("" if same else " (first difference at flat index "
-                     "{} : {!r} vs {!r})".format(
-                         *first_difference(out[-1], base[-1])))
-                  + f"; x0 cotangent max-rel "
-                  f"{chip_smoke.max_rel(out[-1], base[-1]):.3e}; weight "
-                  f"cotangents max-rel {rel:.3e}")
+            print(f"{name} {label}: " + COMPARE[kind](out, base))
         order = ["parent"] + labels + labels[::-1] + ["parent"]
         ms = {label: [] for label in libs}
         for label in order:

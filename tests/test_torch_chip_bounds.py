@@ -119,6 +119,9 @@ def test_warps_per_sm(regs, smem, threads, warps):
     (128, 35872, 128, 24, 16, 4),   # K3 GP, one thread a point: 422 blocks
     (85, 44064, 128, 24, 20, 5),    # its Abar all in shared memory
     (168, 7200, 128, 24, 12, 3),    # 3 blocks an SM: 1.07 waves
+    (128, 18720, 64, 64, 16, 8),    # GP K1/K2, one chain a thread: 158
+    (76, 7200, 128, 24, 24, 6),     # GP K1/K2, one thread a point: 422
+    (80, 37376, 128, 4, 24, 6),     # spiral K3, one component a lane
 ])
 def test_occupancy_warps_and_waves(regs, smem, threads, chains, warps,
                                    blocks_an_sm):
@@ -143,7 +146,7 @@ def test_ptxas_summary_reads_registers_spills_and_shared_memory():
 
 def test_ptxas_summary_names_the_per_point_gp_replay():
     """K3 GP (`dopri5_bwd_kernel_bounded` over GPPoint<8>) at DOPRI5: the
-    name chip_smoke.BWD_BLOCKS keys."""
+    name chip_smoke.OCCUPANCY_BLOCKS keys."""
     log = (
         "ptxas info    : Compiling entry function "
         "'_ZN4bode25dopri5_bwd_kernel_boundedINS_7GPPointILi8EEENS_6Dopri5"
@@ -154,4 +157,32 @@ def test_ptxas_summary_names_the_per_point_gp_replay():
     name = "dopri5_bwd GPPoint Dopri5"
     assert chip_smoke.ptxas_summary("gp_dopri5", (5, 36), log) == [
         (name, 128, 0, 0, 35872)]
-    assert ("gp_dopri5", name) in chip_smoke.BWD_BLOCKS
+    assert ("gp_dopri5", name) in chip_smoke.OCCUPANCY_BLOCKS
+
+
+@pytest.mark.parametrize("family,mangled,regs,smem,name", [
+    # GP K2 and K1 (dopri5_fwd_kernel_bounded over GPPoint<8>)
+    ("gp_dopri5", "_ZN4bode25dopri5_fwd_kernel_boundedINS_7GPPointILi8EEEN"
+     "S_6Dopri5ELb1EEEvNT_4ArgsEPKfS7_S7_S7_iiNS_9SolveArgsENS_6FwdOutE",
+     76, 7200, "dopri5_fwd GPPoint Dopri5 record"),
+    ("gp_dopri5", "_ZN4bode25dopri5_fwd_kernel_boundedINS_7GPPointILi8EEEN"
+     "S_5Tsit5ELb0EEEvNT_4ArgsEPKfS7_S7_S7_iiNS_9SolveArgsENS_6FwdOutE",
+     78, 7200, "dopri5_fwd GPPoint Tsit5 no-record"),
+    # spiral K3 (dopri5_bwd_kernel over SpiralDopri5)
+    ("spiral_dopri5", "_ZN4bode17dopri5_bwd_kernelINS_12SpiralDopri5ENS_6D"
+     "opri5EEEvNT_4ArgsENS3_5GradsEPKfS7_PKiS7_iiPf", 80, 37376,
+     "dopri5_bwd SpiralDopri5 Dopri5"),
+])
+def test_ptxas_summary_names_the_redesigned_solves_and_spiral_replay(
+        family, mangled, regs, smem, name):
+    """The per-point GP solves (record and no-record) and the spiral's
+    replay parse to the names chip_smoke.OCCUPANCY_BLOCKS keys."""
+    log = (f"ptxas info    : Compiling entry function '{mangled}' for "
+           "'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\n"
+           f"ptxas info    : Used {regs} registers, used 1 barriers, {smem} "
+           "bytes smem\n")
+    assert chip_smoke.ptxas_summary(family, (5, 0), log) == [
+        (name, regs, 0, 0, smem)]
+    assert (family, name) in chip_smoke.OCCUPANCY_BLOCKS

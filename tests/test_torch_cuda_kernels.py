@@ -12,15 +12,16 @@ machine need not have; this file imports torch and the port only).
 Small shapes and the cases `chip_smoke.py` does not reach at full size:
 a chain count that is not a multiple of the 64-thread block (or of the
 warps of a warp-per-chain field's block, or of the 6 chains a warp and 24
-a block of the GP field's per-point backward kernels, K5 and K3 GP, also
-built at N=3), the MLP field at H=20 (lanes past
+a block of the GP field's per-point kernels, K1, K2, K3 GP and K5, also
+built at N=3; or of the spiral's 4 warps a block), the MLP field at H=20
+(lanes past
 H hold zeros) and at the driver's H=32 (K7, and K3 under both tableaus
 against the plain replay of its records),
 the PI controller, budget
 exhaustion, record overflow, a spiral of 50 hidden units (two per lane)
-and one of 20, the SVGD direction (K8) at particle counts and widths that
-are not multiples of its tiles, and the per-step solver (K9) against the
-whole solve.  Gates as the smoke's:
+and one of 20 under both tableaus, the SVGD direction (K8) at particle
+counts and widths that are not multiples of its tiles, and the per-step
+solver (K9) against the whole solve.  Gates as the smoke's:
 dopri5 trajectories within 1e-4 * max|y| of the plain version (two float32
 solves whose step meshes differ by rounding in the floor-bound regime),
 mean NFE within 1%, gradients within 1e-3 max-rel (the JAX package's
@@ -257,10 +258,42 @@ def _gp_point_case(gp, chains, points, seed):
     return A, s.Z.contiguous(), gp["x0"][:points].contiguous(), gen
 
 
-# K5 and K3 GP run one thread per trajectory point, N consecutive lanes a
-# chain (csrc/gp_field.cuh, GPPoint): 257 chains leave the last warp and
-# block ragged, and 3 points build GP_N = 3, 10 chains a warp.
+# K1, K2, K3 GP and K5 run one thread per trajectory point, N consecutive
+# lanes a chain (csrc/gp_field.cuh, GPPoint): 257 chains leave the last
+# warp and block ragged, and 3 points build GP_N = 3, 10 chains a warp.
 POINT_CASES = [(257, 5), (257, 3)]
+
+
+@pytest.mark.parametrize("controller", ["i", "pi"])
+@pytest.mark.parametrize("chains,points", POINT_CASES)
+def test_gp_solves_one_thread_a_point(gp, chains, points, controller):
+    """K1 and K2 against the plain forward at rtol=1e-5 (the gate of
+    test_whole_solve_kernel_matches_plain), and K2 bit-equal to K1: the
+    chain's threads sum the error norm by shuffles (norm_sums), so every
+    one of them takes the chain's steps."""
+    s = gp["static"]
+    A, Z, x0, _ = _gp_point_case(gp, chains, points, 8)
+    field, w, ts = gp_field(s.sf, s.ell), (A, Z), gp["ts"]
+    rtol, atol = 1e-5, 1e-7
+    x0b, f0, dt0 = ff._start(field, w, x0, rtol, atol)
+    args = (x0b, f0, dt0, ts, rtol, atol, 0.9, 10.0, 0.2, 100_000,
+            controller)
+    before = dict(_build.launch_counts)
+    whole = fa.fwd(field, w, *args, record=False)
+    rec = fa.fwd(field, w, *args, record=True, store_steps=128)
+    ys_p, nfe_p, *_ = fa.fwd_plain(field.make_rhs(w), *args)
+    torch.cuda.synchronize()
+    for kind in ("solve_whole", "fwd_record"):
+        assert _build.launch_counts[f"gp_dopri5_{kind}"] == \
+            before[f"gp_dopri5_{kind}"] + 1, kind
+    for a, b in zip(whole[:5], rec[:5]):
+        assert torch.equal(a, b)
+    ys, nfe, nacc, nrej = whole[:4]
+    assert ys.shape == (12, chains, points, 2)
+    assert torch.equal(ys[0], x0.expand(chains, points, 2))
+    assert bool((nfe == 2 + 6 * (nacc + nrej)).all())
+    assert int(rec[2].max()) <= 128
+    _close_solves(ys, {"nfe": nfe}, ys_p, {"nfe": nfe_p})
 
 
 @pytest.mark.parametrize("chains,points", POINT_CASES)
@@ -358,6 +391,20 @@ def test_mlp_rk4_wider_than_a_warp_raises(gp):
         mlp_rk4.mlp_rk4_fwd(w, gp["x0"], torch.diff(gp["ts"]))
 
 
+def _spiral_weights(gen, chains, H):
+    """The spiral's start weights (N(0, 0.1) and zero biases, models/
+    spiral.py), jittered by 0.005 per chain."""
+    dev = gen.device
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    return (0.1 * randn(1, 2, H) + 0.005 * randn(chains, 2, H),
+            0.005 * randn(chains, H),
+            0.1 * randn(1, H, 2) + 0.005 * randn(chains, H, 2),
+            0.005 * randn(chains, 2))
+
+
 def _adaptive_case(gp, case):
     """(field, weights, method) of one field/tableau instance at C chains:
     the driver's start weights, jittered per chain."""
@@ -380,12 +427,8 @@ def _adaptive_case(gp, case):
              0.1 * randn(C, 2))
         return mlp_field(H), w, "dopri5"
     if case.startswith("spiral"):
-        H = int(case.split("_")[1])
-        w = (0.1 * randn(1, 2, H) + 0.005 * randn(C, 2, H),
-             0.005 * randn(C, H),
-             0.1 * randn(1, H, 2) + 0.005 * randn(C, H, 2),
-             0.005 * randn(C, 2))
-        return spiral_field(), w, "dopri5"
+        return spiral_field(), _spiral_weights(gen, C, int(case[7:])), \
+            "dopri5"
     w = tuple(v + 0.05 * randn(C) for v in (0.2, 0.2, 3.0))
     return fhn_field(), w, "dopri5"
 
@@ -445,6 +488,45 @@ def test_adaptive_field_kernels_match_plain(gp, case):
         assert _max_rel(k, kp) <= 1e-4
         assert _max_rel(p, a) <= 1e-4
     assert _max_rel(lbar_k, lbar_kp) <= 1e-4
+
+
+@pytest.mark.parametrize("method", ["dopri5", "tsit5"])
+@pytest.mark.parametrize("hidden", [50, 20])
+def test_spiral_replay_backward_one_component_a_lane(gp, hidden, method):
+    """Spiral K3 (one state component a lane, the stage points' tanh values
+    kept in shared memory, csrc/spiral_field.cuh) at 257 chains, a last
+    block of one warp, under each tableau: against the plain replay of the
+    kernel's own records (the same step mesh).  At these start weights the
+    solves are 4-5 steps and their rejections follow the rounding of the
+    error estimates (a float64 solve differs from either float32 one on
+    about half the chains), so K2 is held to the plain forward at DOPRI5
+    in test_adaptive_field_kernels_match_plain and at full size in
+    chip_smoke.py, not here."""
+    dev, chains = gp["dev"], 257
+    gen = torch.Generator(device=dev).manual_seed(13)
+    w = tuple(x.contiguous() for x in _spiral_weights(gen, chains, hidden))
+    field, ts = spiral_field(), gp["ts"]
+    x0b, f0, dt0 = ff._start(field, w, gp["x0"], 1e-5, 1e-7)
+    args = (x0b, f0, dt0, ts, 1e-5, 1e-7, 0.9, 10.0, 0.2, 100_000, "i")
+    before = dict(_build.launch_counts)
+    ys, nfe, nacc, _, _, rec = fa.fwd(field, w, *args, record=True,
+                                      store_steps=128, method=method)
+    ys_w, nfe_w, *_ = fa.fwd(field, w, *args, record=False, method=method)
+    g = torch.randn(ys.shape, generator=gen, device=dev)
+    wbar_k, lbar_k = fa.bwd(field, w, ts, rec, nacc, g, method=method)
+    wbar_p, lbar_p = fa.bwd_plain(field.make_rhs(w), field.make_rhs_vjp(w),
+                                  w, ts, rec, nacc, g, fa.TABLEAUS[method])
+    torch.cuda.synchronize()
+    for kind in ("fwd_record", "solve_whole", "bwd"):
+        assert _build.launch_counts[f"spiral_{method}_{kind}"] == \
+            before[f"spiral_{method}_{kind}"] + 1, kind
+    assert torch.equal(ys_w, ys) and torch.equal(nfe_w, nfe)
+    assert bool(torch.isfinite(ys).all())
+    assert lbar_k.shape == (chains, 5, 2)
+    for k, p in zip(wbar_k, wbar_p):
+        assert bool(torch.isfinite(k).all())
+        assert _max_rel(k, p) <= 1e-4
+    assert _max_rel(lbar_k, lbar_p) <= 1e-4
 
 
 @pytest.mark.parametrize("method", ["dopri5", "tsit5"])
