@@ -14,8 +14,8 @@
 // helpers below call its rhs and rhs_vjp.
 //
 // Independently, a field that spreads a chain's state over threads (the
-// MLP field's backward: one component a lane; the GP field's per-point
-// backward, GPPoint in gp_field.cuh: one trajectory point a thread)
+// MLP field's: one component a lane; the GP field's per-point kernels,
+// GPPoint in gp_field.cuh: one trajectory point a thread)
 // declares
 //   kOwn, comp(q), owner()         the state components a thread carries in
 //                                  the sweep's arrays, the index of its q-th
@@ -31,9 +31,9 @@
 //                                  (sy) gets the squares of the chain's x
 //                                  (y) components added in ascending n, the
 //                                  same bits on each of the chain's threads
-// (GPPoint, gp_field.cuh).  The warp-per-chain fields spread only their
-// reverse sweeps: their forwards keep the whole state on every lane, since
-// every lane must take the same step decisions.
+// (GPPoint, gp_field.cuh: one trajectory point a thread; MLPDopri5Fwd,
+// mlp_field.cuh: one component a lane).  The spiral and FitzHugh-Nagumo
+// forwards keep the whole state on every thread of a chain.
 #pragma once
 
 #include <type_traits>

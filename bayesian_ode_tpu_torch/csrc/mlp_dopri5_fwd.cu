@@ -1,6 +1,6 @@
 // Whole adaptive solve of the MLP field 2 -> H -> H -> 2, one warp per
-// chain: the forward kernels of dopri5_kernels.cuh over MLPDopri5
-// (mlp_field.cuh).
+// chain and one state component a lane: the forward kernels of
+// dopri5_kernels.cuh over MLPDopri5Fwd (mlp_field.cuh).
 //
 // Replaces bayesian_ode_tpu/ops/fused_adaptive.py::make_fwd_rec_kernel (K2)
 // as bayesian_ode_tpu/ops/mlp_dopri5.py registers the MLP field on the
@@ -8,11 +8,15 @@
 // engine's stats path, record = 0).
 //
 // What bounds it on an H100: the MIO pipe and the FP32 FMAs.  A field
-// evaluation at N points is a hidden pass through the warp's shared copy
-// of h1 and W2 (mlp_field.cuh), 2NH expf over the warp and one 16-wide
-// reduce-scatter of the outputs, broadcast back by 2N shuffles; a step is
-// 6 such evaluations.  The while loop is warp-uniform (every lane holds
-// the same f, so the same step decisions), and lane 0 alone writes the
+// evaluation at N points gathers the point (lane i holds component i)
+// through the warp's shared copy, runs a hidden pass through the shared
+// copy of h1 with W2's column in the lane's registers (mlp_field.cuh),
+// 2NH expf over the warp, and one 16-wide reduce-scatter that leaves f_i
+// on lane i; a step is 6 such evaluations.  The step arithmetic runs once
+// a component, on its lane.  The error norm is gathered from lanes
+// 0..2N-1 by 2N shuffles and summed in the per-chain order
+// (MLPDopri5Fwd::norm_sums), so the while loop is warp-uniform and takes
+// the steps of one chain's loop, bit for bit.  Lanes 0..2N-1 write the
 // dense output and records.
 #include "dopri5_kernels.cuh"
 #include "mlp_field.cuh"
@@ -37,12 +41,12 @@ int mlp_dopri5_fwd(int record, int tableau, const float* w1, const float* b1,
                    float dfactor, int max_steps, int pi, int store_steps,
                    float* ys, int* nfe, int* nacc, int* nrej, float* t1,
                    float* rec, cudaStream_t stream) {
-  const bode::MLPDopri5::Args w{w1, b1, w2, b2, w3, b3};
+  const bode::MLPDopri5Fwd::Args w{w1, b1, w2, b2, w3, b3};
   const bode::SolveArgs s{rtol, atol, safety, ifactor, dfactor, max_steps,
                           pi, record ? store_steps : 0};
   const bode::FwdOut o{ys, nfe, nacc, nrej, t1, record ? rec : nullptr};
-  return bode::launch_fwd<bode::MLPDopri5>(record, tableau, w, x0, f0, dt0,
-                                           ts, C, T, s, o, stream);
+  return bode::launch_fwd<bode::MLPDopri5Fwd>(record, tableau, w, x0, f0,
+                                              dt0, ts, C, T, s, o, stream);
 }
 
 }  // extern "C"

@@ -1,18 +1,21 @@
 // The MLP field 2 -> H -> H -> 2 with ELU activations, as a functor for
-// the rk4 templates of rk4_common.cuh and (MLPDopri5 below) the fused
-// adaptive kernels of dopri5_kernels.cuh:
+// the rk4 templates of rk4_common.cuh and (MLPDopri5Fwd and MLPDopri5
+// below) the fused adaptive kernels of dopri5_kernels.cuh:
 //
 //   f(x) = W3^T elu(W2^T elu(W1^T x + b1) + b2) + b3
 //
 // One warp per chain: lane j holds hidden unit j of both hidden layers,
 // that is w1[:, j], b1[j], b2[j] and w3[j, :] in registers (b3 on every
 // lane), and the cotangents of those and of column j of W2 in the
-// backward.  W2 itself (1,024 of a chain's 1,218 weights at H=32) is kept
-// once per warp in shared memory, rows padded to a conflict-free stride:
-// lane j reads column j for the forward product and row j for the VJP's
-// transposed product.  In registers it would cost 32 a lane, and the
-// reverse sweeps would not fit 128 registers, 16 warps an SM.  Lanes
-// j >= H hold zero weights and contribute nothing.
+// backward.  Where W2 (1,024 of a chain's 1,218 weights at H=32) lives
+// depends on the kernel.  The forwards (K6, MLP K2: MLPField<0>) keep
+// column j in lane j's 32 registers (w.w2c), which fit beside the one
+// state component a lane carries.  The reverse sweeps (K7, MLP K3) keep
+// it once per warp in shared memory, rows padded to a conflict-free
+// stride: lane j reads column j for the forward product and row j for the
+// VJP's transposed product.  In registers it would cost 32 a lane, and
+// the sweeps would not fit 128 registers, 16 warps an SM.  Lanes j >= H
+// hold zero weights and contribute nothing.
 //
 // What bounds the field on an H100 is the MIO pipe (shuffles and shared
 // memory instructions, about one warp instruction a clock per SM) ahead of
@@ -21,10 +24,11 @@
 //   - h1 reaches the other lanes through a per-warp copy in shared memory:
 //     lane j writes h1_j of the N points, and each lane forms
 //     a2_j = sum_i W2[i][j] h1_i from 16-byte broadcast reads, in the order
-//     i = 0..H-1, each W2 load serving all N points.  The VJP's outer
+//     i = 0..H-1, W2[i][j] from registers (the forwards) or from the kept
+//     rows (the sweeps: one load serving all N points).  The VJP's outer
 //     product g.W2[i][j] += h1_i a2bar_j reads the same copy.  (At H=32 and
-//     N=5 a hidden pass is 40 broadcast and 32 column loads, where
-//     shuffles took 160.)
+//     N=5 a hidden pass is 40 broadcast loads, and in the sweeps 32 column
+//     loads, where shuffles took 160.)
 //   - The VJP's transposed product h1bar_i = sum_j W2[i][j] a2bar_j: lane i
 //     sums its row of W2 against a2bar broadcast from shared memory, in the
 //     order j = 0..H-1 (in place of 32 stores and 32 loads a point through
@@ -36,20 +40,25 @@
 //     units and a2) from the pass that recomputes the stages, in a stage
 //     slot (field_stages.cuh), so a VJP computes no second hidden layer.
 //     a1 is recomputed from the kept point (2 FMAs).
-// The reverse sweeps carry the chain's state distributed over the warp:
-// lane i < 2N holds component i of every per-step array (stage points and
-// cotangents), gathered through shared memory for an evaluation; lanes
-// >= 2N mirror component 2N-1 and write nothing.  The forwards (K6 and
-// MLP K2) keep the state on every lane, as the step decisions of K2 need
-// the same bits on every lane: there rhs broadcasts the reduced f back by
-// shuffles.
+// Every kernel carries the chain's state distributed over the warp: lane
+// i < 2N holds component i of every per-step array (stage points, stage
+// derivatives, cotangents), gathered through the warp's shared copy for an
+// evaluation, which leaves f_i on lane i; lanes >= 2N compute on values
+// nobody reads and write nothing.  MLP K2 takes its step decisions from
+// the error norm gathered from lanes 0..2N-1 (MLPDopri5Fwd::norm_sums),
+// the same bits on every lane.  A __syncwarp() separates every shared
+// write from another lane's read of it, and every read from the next
+// overwrite: the lanes of a warp do not run in lockstep.
 //
 // ELU is expf(a) - 1 with derivative a > 0 ? 1 : expf(a), as the TPU
-// kernel computes it.  Full float32 FMAs on the CUDA cores throughout.
+// kernel computes it (the forwards select between the arms without a
+// branch: elu_select).  Full float32 FMAs on the CUDA cores throughout.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "warp.cuh"
 
@@ -62,7 +71,11 @@
 
 namespace bode {
 
-constexpr int kWarpsPerBlock = 4;          // chains per block of K6/K7
+constexpr int kWarpsPerBlock = 4;          // chains per block of K7
+constexpr int kFwdWarps = 4;               // chains per block of K6, MLP K2
+// K6's blocks an SM for __launch_bounds__: 96 registers, no spills (left
+// to itself ptxas picks 72 and spills two values)
+constexpr int kFwdMinBlocks = 5;
 constexpr int kMLPBlock = 32 * kWarpsPerBlock;
 constexpr int kMN = MLP_N;
 constexpr int kMNS = 2 * MLP_N;            // state components per chain
@@ -77,6 +90,18 @@ static_assert(kMNS <= 16, "the 2N output sums are one warp_sum16: N <= 8");
 
 __device__ __forceinline__ float elu(float a) {
   return a > 0.f ? a : expf(a) - 1.0f;
+}
+// The same ELU with both arms computed and one selected: nvcc compiles
+// elu's ternary into a branch around the expf at each point, which keeps
+// the N points' expf from overlapping; a PTX selp it cannot turn back into
+// a branch.  The same bits; the forwards take it (on an H100, with no
+// launch bounds, K6 7-11% and MLP K2 17-21% faster than with elu).
+__device__ __forceinline__ float elu_select(float a) {
+  const float e = expf(a) - 1.0f;
+  float r;
+  asm("{\n\t.reg .pred p;\n\tsetp.gt.f32 p, %1, 0f00000000;\n\t"
+      "selp.f32 %0, %1, %2, p;\n\t}" : "=f"(r) : "f"(a), "f"(e));
+  return r;
 }
 __device__ __forceinline__ float elu_deriv(float a) {
   return a > 0.f ? 1.0f : expf(a);
@@ -151,11 +176,23 @@ struct __align__(16) MLPBuf {
   float cot[kVec];             // the VJP's cotangent, gathered likewise
 };
 
+// A forward's warp buffer: the gathered point and its h1 (W2 stays in
+// registers), 688 B at N=5.
+struct __align__(16) MLPFwdBuf {
+  float h1[kMN][32];
+  float pts[kVec];
+};
+
+// kSlots > 0: the reverse sweeps' field, W2 and kSlots stage slots in
+// MLPBuf<kSlots> (call keep_w2 once); kSlots = 0: the forwards' field, W2
+// in registers and an MLPFwdBuf.
 template <int kSlots>
 struct MLPField {
+  static constexpr bool kFwd = kSlots == 0;
   static constexpr int kStageSlots = kSlots;
+  using Buf = std::conditional_t<kFwd, MLPFwdBuf, MLPBuf<kSlots>>;
   MLPUnit w;
-  MLPBuf<kSlots>* b;   // this warp's buffer
+  Buf* b;              // this warp's buffer
   int lane;
 
   // Keep W2 in the warp's buffer, once per chain: the products read it
@@ -169,13 +206,18 @@ struct MLPField {
     __syncwarp();
   }
 
+  static __device__ __forceinline__ float act(float a) {
+    if constexpr (kFwd) return elu_select(a); else return elu(a);
+  }
+
   __device__ __forceinline__ float pre1(float x, float y) const {
     return w.w1x * x + w.w1y * y + w.b1;
   }
 
   // a2 of this lane's unit at the N points from h1 (all units, in shared
   // memory), summed in the order i = 0..H-1; W2's column `lane` is read
-  // from the kept rows (one conflict-free load per i for all N points).
+  // from registers (the forwards) or from the kept rows (one
+  // conflict-free load per i for all N points).
   __device__ __forceinline__ void layer2(const float (*h1)[32],
                                          float* a2) const {
     float s[kMN];
@@ -185,8 +227,12 @@ struct MLPField {
     for (int i = 0; i < kH; i += 4) {
       float c[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        c[k] = (i + k < kH && lane < kH) ? b->w2r[i + k][lane] : 0.f;
+      for (int k = 0; k < 4; ++k) {
+        if constexpr (kFwd)
+          c[k] = i + k < kH ? w.w2c[i + k] : 0.f;
+        else
+          c[k] = (i + k < kH && lane < kH) ? b->w2r[i + k][lane] : 0.f;
+      }
 #pragma unroll
       for (int n = 0; n < kMN; ++n) {
         const float4 v = *reinterpret_cast<const float4*>(&h1[n][i]);
@@ -206,7 +252,7 @@ struct MLPField {
                                          float* a2) const {
 #pragma unroll
     for (int n = 0; n < kMN; ++n)
-      h1s[n][lane] = elu(pre1(pt[2 * n], pt[2 * n + 1]));
+      h1s[n][lane] = act(pre1(pt[2 * n], pt[2 * n + 1]));
     __syncwarp();
     layer2(h1s, a2);
   }
@@ -218,21 +264,24 @@ struct MLPField {
     for (int k = 0; k < 16; ++k) v[k] = 0.f;
 #pragma unroll
     for (int n = 0; n < kMN; ++n) {
-      const float h2 = elu(a2[n]);
+      const float h2 = act(a2[n]);
       v[2 * n] = w.w3x * h2;
       v[2 * n + 1] = w.w3y * h2;
     }
     return warp_sum16(v, lane) + ((lane & 1) ? w.b3y : w.b3x);
   }
 
-  // The forwards' evaluation: y and f (2N floats) the same on every lane.
+  // The forwards' evaluation (MLPField<0>): y[0] is component `lane` of
+  // the point, f[0] returns f_lane.  The __syncwarp() after the point's
+  // write also orders the last evaluation's reads of pts and h1 before
+  // this one's writes.
   __device__ __forceinline__ void rhs(const float* y, float* f) const {
+    static_assert(kFwd, "the reverse sweeps evaluate through stage slots");
+    if (lane < kMNS) b->pts[lane] = y[0];
+    __syncwarp();
     float a2[kMN];
-    hidden(y, b->h1[0], a2);
-    __syncwarp();     // h1 read on every lane before the next write
-    const float fi = out_sums(a2);
-#pragma unroll
-    for (int i = 0; i < kMNS; ++i) f[i] = __shfl_sync(kFull, fi, i);
+    hidden(b->pts, b->h1, a2);
+    f[0] = out_sums(a2);
   }
 
   // The reverse sweeps' evaluations (field_stages.cuh).  y, f, cot and ybar
@@ -335,33 +384,24 @@ struct MLPField {
   }
 };
 
-// The MLP field as the fused adaptive kernels take it (dopri5_kernels.cuh):
-// one warp per chain, the weights in the layer-list layout of mlp_load.
-// The forward (K2) carries the state on every lane, which takes the same
-// step decisions (the broadcast f has the same bits everywhere); lane 0
-// writes the chain's outputs.  The backward (K3) keeps the 7 stage points
-// of a step in slots 0 (y0) to 6 (u[5]) and carries one state component a
-// lane.  Two chains a block: a warp's buffer is 13,952 B at N=5, H=32, so
-// four would pass the 48 KB of static shared memory a block may have.
-struct MLPDopri5 {
+// What the MLP field's two adaptive kernels share (dopri5_kernels.cuh):
+// one warp per chain, kC chains a block, lane i < 2N carrying component i
+// (lanes past it mirror the last), lane 0 the chain's leader; the weights
+// in the layer-list layout of mlp_load.
+template <int kC, int kSlots>
+struct MLPWarpChains {
   static constexpr int kNS = kMNS;
-  static constexpr int kChains = 2;
-  static constexpr int kThreads = 32 * kChains;
-  static constexpr int kStageSlots = 7;
+  static constexpr int kChains = kC;
+  static constexpr int kThreads = 32 * kC;
   static constexpr int kOwn = 1;
   struct Args {
     const float *w1, *b1, *w2, *b2, *w3, *b3;
   };
-  struct Grads {
-    float *w1, *b1, *w2, *b2, *w3, *b3;
-  };
   struct Smem {
-    MLPBuf<kStageSlots> warp[kChains];
+    typename MLPField<kSlots>::Buf warp[kC];
   };
-  struct AccSmem {};
-  using Acc = MLPUnit;
 
-  MLPField<kStageSlots> f;
+  MLPField<kSlots> f;
 
   static __device__ int chain() {
     return blockIdx.x * kChains + (threadIdx.x >> 5);
@@ -373,14 +413,63 @@ struct MLPDopri5 {
   }
   static __device__ bool owner() { return (threadIdx.x & 31) < kMNS; }
 
+  // this lane's weights (zeros past the last chain) and its warp's buffer
+  __device__ void load_weights(const Args& a, Smem& sm, int C, int c) {
+    f.lane = threadIdx.x & 31;
+    f.b = &sm.warp[threadIdx.x >> 5];
+    if (c < C)
+      mlp_load(f.w, c, f.lane, a.w1, a.b1, a.w2, a.b2, a.w3, a.b3);
+    else
+      mlp_zero(f.w);
+  }
+};
+
+// The forward (K2, with and without records): W2 in registers, a warp's
+// buffer 688 B at N=5.  Lanes 0..2N-1 write the dense output and records,
+// lane 0 t0, dt and the counters.
+struct MLPDopri5Fwd : MLPWarpChains<kFwdWarps, 0> {
+  // at most 128 registers, 16 warps an SM: no spills (left to itself, or
+  // given 112 or fewer, ptxas picks 96 and spills 12-24 B)
+  static constexpr int kMinBlocks = 4;
+  static __device__ MLPDopri5Fwd load(const Args& a, Smem& sm, int C,
+                                      int c) {
+    MLPDopri5Fwd m;
+    m.load_weights(a, sm, C, c);
+    return m;
+  }
+
+  // The error norm's sums (field_stages.cuh): component i's ratio from
+  // lane i, added as the per-chain loop adds them (dopri5_common.cuh,
+  // step_decision: even i into sx, odd into sy, ascending), so every lane
+  // takes the same step decision.  The warp is one chain and stays in its
+  // loop as a whole, so every lane takes part.
+  __device__ __forceinline__ void norm_sums(const float* r, float& sx,
+                                            float& sy) const {
+#pragma unroll
+    for (int i = 0; i < kMNS; ++i) {
+      const float ri = __shfl_sync(kFull, r[0], i);
+      if (i % 2 == 0) sx += ri * ri; else sy += ri * ri;
+    }
+  }
+
+  __device__ void rhs(const float* y, float* out) const { f.rhs(y, out); }
+};
+
+// The backward (K3): the 7 stage points of a step in slots 0 (y0) to 6
+// (u[5]), W2 in shared memory.  Two chains a block: a warp's buffer is
+// 13,952 B at N=5, H=32, so four would pass the 48 KB of static shared
+// memory a block may have.
+struct MLPDopri5 : MLPWarpChains<2, 7> {
+  static constexpr int kStageSlots = 7;
+  struct Grads {
+    float *w1, *b1, *w2, *b2, *w3, *b3;
+  };
+  struct AccSmem {};
+  using Acc = MLPUnit;
+
   static __device__ MLPDopri5 load(const Args& a, Smem& sm, int C, int c) {
     MLPDopri5 m;
-    m.f.lane = threadIdx.x & 31;
-    m.f.b = &sm.warp[threadIdx.x >> 5];
-    if (c < C)
-      mlp_load(m.f.w, c, m.f.lane, a.w1, a.b1, a.w2, a.b2, a.w3, a.b3);
-    else
-      mlp_zero(m.f.w);
+    m.load_weights(a, sm, C, c);
     m.f.keep_w2();
     return m;
   }
@@ -393,7 +482,6 @@ struct MLPDopri5 {
     mlp_store(acc, c, threadIdx.x & 31, g.w1, g.b1, g.w2, g.b2, g.w3, g.b3);
   }
 
-  __device__ void rhs(const float* y, float* out) const { f.rhs(y, out); }
   __device__ void stage_rhs(int slot, const float* y, float* out) const {
     f.stage_rhs(slot, y, out);
   }

@@ -1,5 +1,6 @@
 // Fixed-grid rk4 (3/8 rule) trajectories of the MLP field and their
-// gradient, one warp per chain (mlp_field.cuh says why).
+// gradient, one warp per chain and one state component a lane
+// (mlp_field.cuh says why).
 //
 // Replaces two TPU kernels of bayesian_ode_tpu/ops/mlp_rk4.py:
 //   mlp_rk4_fwd: _make_fwd_kernel (K6), the T-1 steps on the output grid,
@@ -17,52 +18,54 @@
 // weights once per chain, a trajectory row per step).  10,112 chains are
 // 10,112 warps in blocks of 4.
 //
+// K6's design: lane i < 2N carries component i of the step's arrays
+// (rk4_step<1>), so a lane holds 10 floats of them, not 10 x 2N, and
+// W2's column stays in the lane's registers (MLPField<0>): an evaluation
+// gathers the point through the warp's shared copy and leaves f_i on lane
+// i, with no W2 loads and no broadcast of f.  Every sum keeps the order
+// of one chain's loop, so the trajectories do not depend on how the state
+// is spread.  A warp's buffer is 688 B; 96 registers, 20 warps an SM
+// (kFwdMinBlocks).
+//
 // K7's design (mlp_field.cuh has the field's): a step recomputes its three
 // stage evaluations and the hidden layer at u4, keeping each stage point's
 // activations in a slot of the warp's shared buffer, so the four VJPs
 // compute no hidden layer: 4 hidden passes a step, not 7.  The per-step
-// arrays (stage points, stage cotangents) are distributed over the warp,
-// component i on lane i, so a lane carries 1 float of each instead of 2N;
-// with W2 in shared memory, a lane's 8 weights and 40 weight cotangents
-// fit in 128 registers, 16 warps an SM (__launch_bounds__ holds it there;
-// the rk4 loop kept on every lane took 255 registers, 8 warps).  A warp's
-// buffer is 9,968 B at N=5, H=32.
+// arrays (stage points, stage cotangents) are distributed over the warp
+// as in K6; with W2 in shared memory, a lane's 8 weights and 40 weight
+// cotangents fit in 128 registers, 16 warps an SM (__launch_bounds__
+// holds it there; the rk4 loop kept on every lane took 255 registers, 8
+// warps).  A warp's buffer is 9,968 B at N=5, H=32.
 #include "mlp_field.cuh"
 #include "rk4_common.cuh"
 
 namespace bode {
 
-__global__ void __launch_bounds__(kMLPBlock)
+__global__ void __launch_bounds__(32 * kFwdWarps, kFwdMinBlocks)
 mlp_rk4_fwd_kernel(const float* __restrict__ w1, const float* __restrict__ b1,
                    const float* __restrict__ w2, const float* __restrict__ b2,
                    const float* __restrict__ w3, const float* __restrict__ b3,
                    const float* __restrict__ x0,
                    const float* __restrict__ dts, int C, int T,
                    float* __restrict__ ys) {
-  __shared__ MLPBuf<1> buf[kWarpsPerBlock];
+  __shared__ MLPFwdBuf buf[kFwdWarps];
   const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int c = blockIdx.x * kFwdWarps + (threadIdx.x >> 5);
   if (c >= C) return;                    // whole warps leave together
-  MLPField<1> fld;
+  MLPField<0> fld;
   fld.b = &buf[threadIdx.x >> 5];
   fld.lane = lane;
   mlp_load(fld.w, c, lane, w1, b1, w2, b2, w3, b3);
-  fld.keep_w2();
 
-  float y[kMNS], y1[kMNS];
-#pragma unroll
-  for (int i = 0; i < kMNS; ++i) y[i] = x0[i];
-  if (lane < kMNS) ys[static_cast<size_t>(c) * kMNS + lane] = x0[lane];
+  // this lane's state component (lanes past 2N mirror the last one)
+  const int i = lane < kMNS ? lane : kMNS - 1;
+  float y[1] = {x0[i]}, y1[1];
+  if (lane < kMNS) ys[static_cast<size_t>(c) * kMNS + lane] = y[0];
   for (int t = 0; t < T - 1; ++t) {
-    rk4_step<kMNS>(fld, y, dts[t], y1);
-    float mine = 0.f;
-#pragma unroll
-    for (int i = 0; i < kMNS; ++i) {
-      if (lane == i) mine = y1[i];
-      y[i] = y1[i];
-    }
+    rk4_step<1>(fld, y, dts[t], y1);
+    y[0] = y1[0];
     if (lane < kMNS)
-      ys[(static_cast<size_t>(t + 1) * C + c) * kMNS + lane] = mine;
+      ys[(static_cast<size_t>(t + 1) * C + c) * kMNS + lane] = y[0];
   }
 }
 
@@ -122,8 +125,8 @@ int mlp_rk4_fwd(const float* w1, const float* b1, const float* w2,
                 const float* b2, const float* w3, const float* b3,
                 const float* x0, const float* dts, int C, int T, float* ys,
                 cudaStream_t stream) {
-  const dim3 grid((C + bode::kWarpsPerBlock - 1) / bode::kWarpsPerBlock);
-  bode::mlp_rk4_fwd_kernel<<<grid, bode::kMLPBlock, 0, stream>>>(
+  const dim3 grid((C + bode::kFwdWarps - 1) / bode::kFwdWarps);
+  bode::mlp_rk4_fwd_kernel<<<grid, 32 * bode::kFwdWarps, 0, stream>>>(
       w1, b1, w2, b2, w3, b3, x0, dts, C, T, ys);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,8 +6,9 @@ Counterpart of `bayesian_ode_tpu/ops/mlp_dopri5.py`: the MLP field
 
 (BASELINE config 3, the Van der Pol NN mean-function baseline) registered
 with the public fused engine (`ops/fused_field.py`).  The kernels are the
-engine's templates over `csrc/mlp_field.cuh::MLPDopri5` (one warp per
-chain, one hidden unit per lane, H <= 32 on the card; a wider field raises
+engine's templates over `csrc/mlp_field.cuh::MLPDopri5Fwd` (the forward)
+and `MLPDopri5` (the backward): one warp per chain, one hidden unit and
+one state component per lane, H <= 32 on the card (a wider field raises
 NotImplementedError there, ROADMAP queue 1 item 19).  The plain field and
 its VJP are those of `ops/mlp_rk4.py`.  The weights stay in the
 layer-list layout w1 (C, 2, H), b1 (C, H), w2 (C, H, H), b2 (C, H),

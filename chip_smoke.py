@@ -5,9 +5,9 @@
 
 Builds the port's CUDA kernels from `bayesian_ode_tpu_torch/csrc/` (one
 nvcc per source, all started together), prints each kernel's registers and
-spills (and, for the kernels redesigned for the card, K7, MLP K3, K5, GP
-K3, the GP solves K1/K2 and spiral K3, the warps an SM holds and the waves
-of their grid), and
+spills (and, for the kernels redesigned for the card, K6, MLP K2, K7, MLP
+K3, K5, GP K3, the GP solves K1/K2 and spiral K3, the warps an SM holds
+and the waves of their grid), and
 holds each kernel against its plain PyTorch version at the main paths'
 full shape (Van der Pol: 5 trajectories, T=60 output times to
 t=6, 10,112 chains):
@@ -67,11 +67,18 @@ SVGD_PARTICLES = (4096, 1024)     # K8 on "auto" at the first, not the second
 SVGD_STEPS = 50
 # (threads, chains) a block of the kernels redesigned for the card, by
 # library and ptxas name: the MLP field's (csrc/mlp_field.cuh: K7 4 chains
-# a block, MLP K3 2), the GP field's one thread a trajectory point
-# (csrc/gp_field.cuh, GPPoint: 128 threads, 6 chains a warp at N=5; the
-# backward kernels K5 and K3, and the solves K1 and K2) and the spiral's
-# replay (csrc/spiral_field.cuh: one warp a chain, 4 a block)
+# a block, MLP K3 2, the forwards K6 and MLP K2 kFwdWarps), the GP field's
+# one thread a trajectory point (csrc/gp_field.cuh, GPPoint: 128 threads,
+# 6 chains a warp at N=5; the backward kernels K5 and K3, and the solves K1
+# and K2) and the spiral's replay (csrc/spiral_field.cuh: one warp a chain,
+# 4 a block)
+MLP_FWD_WARPS = 4
 OCCUPANCY_BLOCKS = {
+    ("mlp_rk4", "mlp_rk4_fwd"): (32 * MLP_FWD_WARPS, MLP_FWD_WARPS),
+    **{("mlp_dopri5", f"dopri5_fwd MLPDopri5Fwd {tableau}{record}"):
+       (32 * MLP_FWD_WARPS, MLP_FWD_WARPS)
+       for tableau in ("Dopri5", "Tsit5")
+       for record in (" record", " no-record")},
     ("mlp_rk4", "mlp_rk4_bwd"): (128, 4),
     ("mlp_dopri5", "dopri5_bwd MLPDopri5 Dopri5"): (64, 2),
     ("mlp_dopri5", "dopri5_bwd MLPDopri5 Tsit5"): (64, 2),
@@ -306,7 +313,8 @@ def ptxas_summary(family, shape, log):
             mangled = m.group(1)
             parts = re.findall(r"(dopri5_fwd|dopri5_bwd|dopri5_step"
                                r"|svgd_phi|gp_rk4_fwd|gp_rk4_bwd"
-                               r"|mlp_rk4_fwd|mlp_rk4_bwd|GPDopri5|GPPoint|MLPDopri5"
+                               r"|mlp_rk4_fwd|mlp_rk4_bwd|GPDopri5|GPPoint"
+                               r"|MLPDopri5Fwd|MLPDopri5"
                                r"|SpiralDopri5|FHNDopri5|Dopri5|Tsit5|Lb[01])",
                                mangled)
             name = " ".join(parts).replace("Lb1", "record").replace(

@@ -10,12 +10,11 @@ commit, unpacked with `git archive`), in one process on one NVIDIA GPU:
 `gp_dopri5_fwd` record=0) and with them (K2, record=1), each at DOPRI5 and
 TSIT5, K3 over the GP field (`gp_dopri5_bwd`, the replay backward, at
 DOPRI5 and TSIT5) and K5 (`gp_rk4_bwd`, the rk4 reverse sweep).  --field
-mlp: K7 (`mlp_rk4_bwd`) and MLP K3 (`mlp_dopri5_bwd`, DOPRI5 and TSIT5),
-and the forwards that share their field, K6 (`mlp_rk4_fwd`) and MLP K2
-(`mlp_dopri5_fwd`, recording, DOPRI5; with each tree's mean NFE).
---field spiral: spiral K2 (`spiral_dopri5_fwd`, recording; with each
-tree's mean NFE) and spiral K3 (`spiral_dopri5_bwd`), each at DOPRI5 and
-TSIT5.
+mlp: K6 (`mlp_rk4_fwd`), MLP K2 (`mlp_dopri5_fwd`, with and without
+records, each at DOPRI5 and TSIT5), K7 (`mlp_rk4_bwd`) and MLP K3
+(`mlp_dopri5_bwd`, DOPRI5 and TSIT5).  --field spiral: spiral K2
+(`spiral_dopri5_fwd`, recording; with each tree's mean NFE) and spiral K3
+(`spiral_dopri5_bwd`), each at DOPRI5 and TSIT5.
 
 The trees' libraries keep the same C entry points, so each other tree's
 are built from its own `csrc/` with this tree's nvcc flags into
@@ -32,11 +31,13 @@ Prints each redesigned kernel's ptxas line, resident warps an SM and waves
 (blocks over the blocks all SMs hold at once), then for each kernel and
 tree: for a backward, whether the x0 cotangent is bit-equal to the
 parent's (else its first differing component) and the largest max-rel of
-the weight cotangents to the parent's; for the GP solves, whether the
-trajectories, counters, end times and records are bit-equal to the
-parent's; for the other solves, the mean NFE of each tree and the
-trajectories' max-rel; and the time by CUDA events (20 launches after 10)
-in turns: parent, the other trees, this tree, and back in reverse order.
+the weight cotangents to the parent's; for K6, the GP solves and MLP K2,
+whether the trajectories (and the solves' counters, end times and
+records) are bit-equal to the parent's; for the spiral solves, the mean
+NFE of each tree and the trajectories' max-rel; for MLP K2, this tree's
+bound (chip_smoke.adaptive_bounds from its step counts) and one plain
+solve's time; and the time by CUDA events (20 launches after 10) in
+turns: parent, the other trees, this tree, and back in reverse order.
 """
 from __future__ import annotations
 
@@ -62,12 +63,14 @@ SPECS = {"gp": [("gp_dopri5", (N, M)), ("gp_rk4", (N, M))],
 
 def block_shape(csrc: Path, field: str):
     """{kernel: (threads, chains) a block} of a tree's rk4 ("rk4") and
-    replay ("dopri5") backward kernels and adaptive forwards ("fwd"), read
-    from its sources: the GP field's per-point kernels (`struct GPPoint` in
-    gp_field.cuh, its kThreads; the forwards too where GPPoint has
-    `norm_sums`) or its chain-per-thread ones (64); the MLP field's two
-    chains a block of K3 (`kChains = 2` in mlp_field.cuh) or four; the
-    spiral's four (one warp a chain)."""
+    replay ("dopri5") backward kernels, rk4 forward ("rk4_fwd") and
+    adaptive forwards ("fwd"), read from its sources: the GP field's
+    per-point kernels (`struct GPPoint` in gp_field.cuh, its kThreads; the
+    forwards too where GPPoint has `norm_sums`) or its chain-per-thread ones
+    (64); the MLP field's two chains a block of K3 (`kChains = 2` in
+    mlp_field.cuh) or four, and its forwards' `kFwdWarps` chains a block
+    (before it, four for K6 and K3's for K2); the spiral's four (one warp a
+    chain)."""
     if field == "gp":
         src = (csrc / "gp_field.cuh").read_text()
         threads = re.search(r"static constexpr int kThreads = (\d+);", src)
@@ -79,8 +82,12 @@ def block_shape(csrc: Path, field: str):
                 "fwd": point if "norm_sums" in src else (64, 64)}
     if field == "spiral":
         return {"dopri5": (128, 4), "fwd": (128, 4)}
-    two = "kChains = 2;" in (csrc / "mlp_field.cuh").read_text()
-    return {"rk4": (128, 4), "dopri5": (64, 2) if two else (128, 4)}
+    src = (csrc / "mlp_field.cuh").read_text()
+    bwd = (64, 2) if "kChains = 2;" in src else (128, 4)
+    fwd = re.search(r"constexpr int kFwdWarps = (\d+);", src)
+    fwd = (32 * int(fwd.group(1)), int(fwd.group(1))) if fwd else None
+    return {"rk4": (128, 4), "dopri5": bwd, "rk4_fwd": fwd or (128, 4),
+            "fwd": fwd or bwd}
 
 
 def build_others(trees, specs):
@@ -124,6 +131,7 @@ def print_occupancy(label, family, shape, log, blocks):
     for name, regs, st, ld, smem in chip_smoke.ptxas_summary(family, shape,
                                                              log):
         kind = ("rk4" if name.endswith("rk4_bwd") else
+                "rk4_fwd" if name.endswith("rk4_fwd") else
                 "dopri5" if name.startswith("dopri5_bwd") else
                 "fwd" if name.startswith("dopri5_fwd") else None)
         if kind in blocks:
@@ -245,9 +253,10 @@ def gp_kernels(dev, stream):
 
 def mlp_kernels(dev, stream):
     """{label: (kind, run(libs) -> outputs)} of the MLP field's kernels, on
-    chip_smoke.py's phase 7 and 10 inputs: the backward kernels ("bwd", the
-    x0 cotangent last), K6 ("traj", its trajectories) and MLP K2 ("solve",
-    trajectories and NFE)."""
+    chip_smoke.py's phase 7 and 10 inputs: K6 ("exact", its trajectories),
+    MLP K2 ("exact", the outputs of `solve`; with a note of this tree's
+    bound and the plain solve's time) and the backward kernels ("bwd", the
+    x0 cotangent last)."""
     import torch
 
     from bayesian_ode_tpu_torch.models import make_dataset, mlp
@@ -310,22 +319,27 @@ def mlp_kernels(dev, stream):
             N_CHAINS, T, out.data_ptr(), stream), "mlp_rk4_fwd")
         return (out,)
 
-    def k2(libs):
-        out = torch.empty_like(ys)
-        nfe, nacc, nrej = (torch.empty(N_CHAINS, dtype=torch.int32,
-                                       device=dev) for _ in range(3))
-        t1 = torch.empty(N_CHAINS, dtype=f32, device=dev)
-        rec = torch.empty((256, 2 * N + 2, N_CHAINS), dtype=f32, device=dev)
-        _build.check(libs["mlp_dopri5"].mlp_dopri5_fwd(
-            1, 0, *(x.data_ptr() for x in w), x0c.data_ptr(),
-            f0c.data_ptr(), dt0c.data_ptr(), ts.data_ptr(), N_CHAINS, T,
-            rtol, atol, 0.9, 10.0, 0.2, 100_000, 0, 256, out.data_ptr(),
-            nfe.data_ptr(), nacc.data_ptr(), nrej.data_ptr(), t1.data_ptr(),
-            rec.data_ptr(), stream), "mlp_dopri5_fwd")
-        return out, nfe
+    def k2(libs, record, method):
+        return solve(libs["mlp_dopri5"], "mlp_dopri5", w, (), x0c, f0c,
+                     dt0c, ts, record, method, 256, stream)
 
-    return {"K6": ("traj", k6), "MLP K2 DOPRI5": ("solve", k2),
-            "K7": ("bwd", k7),
+    def k2_note(out, method):
+        """This tree's bound from its step counts, and one plain solve."""
+        nacc, nrej = out[2].sum(), out[3].sum()
+        (b, by), _ = chip_smoke.adaptive_bounds(
+            "mlp", HIDDEN, N_CHAINS, N, T, chip_smoke.nbytes(w), 0,
+            int(nacc + nrej), int(nacc), record=out[5] is not None)
+        plain = chip_smoke.cuda_ms(lambda: fa.fwd_plain(
+            field.make_rhs(w), x0b, f0, dt0, ts, rtol, atol, 0.9, 10.0,
+            0.2, 100_000, "i", tableau=fa.TABLEAUS[method]), 1)
+        return f"bound {b:.3f} ms ({by}); plain {plain:.1f} ms"
+
+    solves = {f"MLP K2 {method.upper()}{tag}": (
+        "exact", lambda libs, r=record, m=method: k2(libs, r, m),
+        lambda out, m=method: k2_note(out, m))
+        for tag, record in (("", True), (" no-record", False))
+        for method in ("dopri5", "tsit5")}
+    return {"K6": ("exact", k6), **solves, "K7": ("bwd", k7),
             "MLP K3 DOPRI5": ("bwd", lambda libs: k3(libs, "dopri5")),
             "MLP K3 TSIT5": ("bwd", lambda libs: k3(libs, "tsit5"))}
 
@@ -412,13 +426,13 @@ def compare_bwd(out, base):
 
 
 def compare_exact(out, base):
-    """The outputs of `solve` against the parent's, each bit for bit (the
-    records on the rows each chain wrote)."""
+    """K6's trajectories, or the outputs of `solve`, against the parent's,
+    each bit for bit (the records on the rows each chain wrote)."""
     import torch
 
     names = ("trajectories", "nfe", "nacc", "nrej", "t1", "records")
     out, base = list(out), list(base)
-    if out[-1] is not None:
+    if len(out) == len(names) and out[-1] is not None:
         rows = torch.arange(out[-1].shape[0], device=out[-1].device)
         for x, n in ((out, out[2]), (base, base[2])):
             x[-1] = torch.where(rows[:, None, None] < n[None, None, :],
@@ -432,6 +446,8 @@ def compare_exact(out, base):
                  .format(*first_difference(out[0], base[0]))
                  + f"; trajectories max-rel "
                  f"{chip_smoke.max_rel(out[0], base[0]):.3e}")
+    if len(out) == 1:
+        return text
     return text + (f"; mean NFE {float(out[1].float().mean()):.3f}, parent "
                    f"{float(base[1].float().mean()):.3f}")
 
@@ -445,9 +461,7 @@ def compare_solve(out, base):
 
 
 COMPARE = {"bwd": compare_bwd, "exact": compare_exact,
-           "solve": compare_solve,
-           "traj": lambda out, base: "max-rel to the parent's "
-           f"{chip_smoke.max_rel(out[0], base[0]):.3e}"}
+           "solve": compare_solve}
 
 
 def main() -> int:
@@ -498,12 +512,14 @@ def main() -> int:
     kernels = {"gp": gp_kernels, "mlp": mlp_kernels,
                "spiral": spiral_kernels}[args.field](dev, stream)
     labels = [k for k in libs if k != "parent"]
-    for name, (kind, run) in kernels.items():
+    for name, (kind, run, *note) in kernels.items():
         base = run(libs["parent"])
         outs = {label: run(libs[label]) for label in labels}
         torch.cuda.synchronize()
         for label, out in outs.items():
             print(f"{name} {label}: " + COMPARE[kind](out, base))
+        if note:
+            print(f"{name}: " + note[0](outs["this"]))
         order = ["parent"] + labels + labels[::-1] + ["parent"]
         ms = {label: [] for label in libs}
         for label in order:

@@ -122,6 +122,11 @@ def test_warps_per_sm(regs, smem, threads, warps):
     (128, 18720, 64, 64, 16, 8),    # GP K1/K2, one chain a thread: 158
     (76, 7200, 128, 24, 24, 6),     # GP K1/K2, one thread a point: 422
     (80, 37376, 128, 4, 24, 6),     # spiral K3, one component a lane
+    (80, 23936, 128, 4, 24, 6),     # K6, the state on every lane
+    (96, 2752, 128, 4, 20, 5),      # K6, one component a lane: 632 blocks
+    (128, 27904, 64, 2, 16, 8),     # MLP K2 DOPRI5, the state on every lane
+    (167, 27904, 64, 2, 12, 6),     # MLP K2 TSIT5, the same
+    (123, 2752, 128, 4, 16, 4),     # MLP K2, one component a lane
 ])
 def test_occupancy_warps_and_waves(regs, smem, threads, chains, warps,
                                    blocks_an_sm):
@@ -168,6 +173,13 @@ def test_ptxas_summary_names_the_per_point_gp_replay():
     ("gp_dopri5", "_ZN4bode25dopri5_fwd_kernel_boundedINS_7GPPointILi8EEEN"
      "S_5Tsit5ELb0EEEvNT_4ArgsEPKfS7_S7_S7_iiNS_9SolveArgsENS_6FwdOutE",
      78, 7200, "dopri5_fwd GPPoint Tsit5 no-record"),
+    # K6 (mlp_rk4_fwd_kernel) and MLP K2 (dopri5_fwd_kernel_bounded over
+    # MLPDopri5Fwd)
+    ("mlp_rk4", "_ZN4bode18mlp_rk4_fwd_kernelEPKfS1_S1_S1_S1_S1_S1_S1_iiPf",
+     96, 2752, "mlp_rk4_fwd"),
+    ("mlp_dopri5", "_ZN4bode25dopri5_fwd_kernel_boundedINS_12MLPDopri5FwdEN"
+     "S_5Tsit5ELb1EEEvNT_4ArgsEPKfS6_S6_S6_iiNS_9SolveArgsENS_6FwdOutE",
+     122, 2752, "dopri5_fwd MLPDopri5Fwd Tsit5 record"),
     # spiral K3 (dopri5_bwd_kernel over SpiralDopri5)
     ("spiral_dopri5", "_ZN4bode17dopri5_bwd_kernelINS_12SpiralDopri5ENS_6D"
      "opri5EEEvNT_4ArgsENS3_5GradsEPKfS7_PKiS7_iiPf", 80, 37376,
@@ -175,8 +187,9 @@ def test_ptxas_summary_names_the_per_point_gp_replay():
 ])
 def test_ptxas_summary_names_the_redesigned_solves_and_spiral_replay(
         family, mangled, regs, smem, name):
-    """The per-point GP solves (record and no-record) and the spiral's
-    replay parse to the names chip_smoke.OCCUPANCY_BLOCKS keys."""
+    """The per-point GP solves (record and no-record), the MLP forwards and
+    the spiral's replay parse to the names chip_smoke.OCCUPANCY_BLOCKS
+    keys."""
     log = (f"ptxas info    : Compiling entry function '{mangled}' for "
            "'sm_90a'\n"
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "

@@ -15,8 +15,8 @@ warps of a warp-per-chain field's block, or of the 6 chains a warp and 24
 a block of the GP field's per-point kernels, K1, K2, K3 GP and K5, also
 built at N=3; or of the spiral's 4 warps a block), the MLP field at H=20
 (lanes past
-H hold zeros) and at the driver's H=32 (K7, and K3 under both tableaus
-against the plain replay of its records),
+H hold zeros) and at the driver's H=32 (K7, K2 at 257 chains and K3
+under both tableaus against the plain replay of its records),
 the PI controller, budget
 exhaustion, record overflow, a spiral of 50 hidden units (two per lane)
 and one of 20 under both tableaus, the SVGD direction (K8) at particle
@@ -405,6 +405,22 @@ def _spiral_weights(gen, chains, H):
             0.005 * randn(chains, 2))
 
 
+def _mlp_weights(gen, chains, H):
+    """The MLP field's uniform(-0.5, 0.5) weights and biases of standard
+    deviation 0.1."""
+    dev = gen.device
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=gen, device=dev) - 0.5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    return (uniform(chains, 2, H), 0.1 * randn(chains, H),
+            uniform(chains, H, H), 0.1 * randn(chains, H),
+            uniform(chains, H, 2), 0.1 * randn(chains, 2))
+
+
 def _adaptive_case(gp, case):
     """(field, weights, method) of one field/tableau instance at C chains:
     the driver's start weights, jittered per chain."""
@@ -417,15 +433,9 @@ def _adaptive_case(gp, case):
     if case == "gp_tsit5":
         s = gp["static"]
         return gp_field(s.sf, s.ell), (gp["A"], s.Z.contiguous()), "tsit5"
-    if case == "mlp":
-        H = H_RK4
-        w = (torch.rand((C, 2, H), generator=gen, device=dev) - 0.5,
-             0.1 * randn(C, H),
-             torch.rand((C, H, H), generator=gen, device=dev) - 0.5,
-             0.1 * randn(C, H),
-             torch.rand((C, H, 2), generator=gen, device=dev) - 0.5,
-             0.1 * randn(C, 2))
-        return mlp_field(H), w, "dopri5"
+    if case.startswith("mlp"):
+        return mlp_field(H_RK4), _mlp_weights(gen, C, H_RK4), \
+            "tsit5" if case == "mlp_tsit5" else "dopri5"
     if case.startswith("spiral"):
         return spiral_field(), _spiral_weights(gen, C, int(case[7:])), \
             "dopri5"
@@ -433,8 +443,8 @@ def _adaptive_case(gp, case):
     return fhn_field(), w, "dopri5"
 
 
-@pytest.mark.parametrize("case", ["gp_tsit5", "mlp", "spiral_50",
-                                  "spiral_20", "fhn"])
+@pytest.mark.parametrize("case", ["gp_tsit5", "mlp", "mlp_tsit5",
+                                  "spiral_50", "spiral_20", "fhn"])
 def test_adaptive_field_kernels_match_plain(gp, case):
     """K2 and K3 of each new field/tableau instance against their plain
     versions; the forward without records is bit-equal to the recording
@@ -527,6 +537,46 @@ def test_spiral_replay_backward_one_component_a_lane(gp, hidden, method):
         assert bool(torch.isfinite(k).all())
         assert _max_rel(k, p) <= 1e-4
     assert _max_rel(lbar_k, lbar_p) <= 1e-4
+
+
+@pytest.mark.parametrize("method", ["dopri5", "tsit5"])
+@pytest.mark.parametrize("hidden", [20, 32])
+def test_mlp_solves_one_component_a_lane(gp, hidden, method):
+    """MLP K2 (one state component a lane, W2 in registers, the error norm
+    gathered from lanes 0..2N-1: MLPDopri5Fwd in csrc/mlp_field.cuh) at 257
+    chains, a last block of one warp, at H=20 (lanes past H hold zeros) and
+    H=32, under each tableau: within 1e-4 * max|y| of the plain forward
+    with mean NFE within 1%, and the solve with records bit-equal to the
+    one without.  At rtol=1e-5 / atol=1e-7, as the other small-shape
+    solves here: above the 32-ulp tolerance floor, where rounding moves a
+    step count less than at the driver's rtol=1e-7 (chip_smoke.py holds K2
+    there, averaged over 10,112 chains)."""
+    dev, chains, rtol, atol = gp["dev"], 257, 1e-5, 1e-7
+    gen = torch.Generator(device=dev).manual_seed(14)
+    w = tuple(x.contiguous() for x in _mlp_weights(gen, chains, hidden))
+    field, ts = mlp_field(hidden), gp["ts"]
+    x0b, f0, dt0 = ff._start(field, w, gp["x0"], rtol, atol)
+    args = (x0b, f0, dt0, ts, rtol, atol, 0.9, 10.0, 0.2, 100_000, "i")
+    before = dict(_build.launch_counts)
+    out_k = fa.fwd(field, w, *args, record=True, store_steps=128,
+                   method=method)
+    out_w = fa.fwd(field, w, *args, record=False, method=method)
+    ys_p, nfe_p, *_ = fa.fwd_plain(field.make_rhs(w), *args,
+                                   store_steps=128,
+                                   tableau=fa.TABLEAUS[method])
+    torch.cuda.synchronize()
+    for kind in ("fwd_record", "solve_whole"):
+        assert _build.launch_counts[f"mlp_{method}_{kind}"] == \
+            before[f"mlp_{method}_{kind}"] + 1, kind
+    for k, kw in zip(out_k[:5], out_w[:5]):
+        assert torch.equal(k, kw)
+    ys_k, nfe_k = out_k[:2]
+    assert ys_k.shape == (len(ts), chains, 5, 2)
+    assert bool(torch.isfinite(ys_k).all())
+    assert float((ys_k - ys_p).abs().max()) <= 1e-4 * float(
+        ys_p.abs().max())
+    mk, mp = float(nfe_k.float().mean()), float(nfe_p.float().mean())
+    assert abs(mk - mp) <= 0.01 * mp, (mk, mp)
 
 
 @pytest.mark.parametrize("method", ["dopri5", "tsit5"])
