@@ -25,7 +25,9 @@
 //   Args, Grads                   weights (and scalars) by value, and the
 //                                 weight-cotangent outputs;
 //   Smem, AccSmem, Acc            the block's shared memory for the
-//                                 weights and for the cotangents, and a
+//                                 weights and for the cotangents (static,
+//                                 or dynamic where the field declares
+//                                 kDynamicSmem: field_stages.cuh), and a
 //                                 thread's cotangent accumulator;
 //   chain(), leader()             this thread's chain, and whether it
 //                                 writes the chain's outputs (once per
@@ -100,9 +102,8 @@ __device__ __forceinline__ void fwd_block(
   constexpr int NS = fwd_components<F>();   // components carried here
   constexpr int kNS = F::kNS;
   constexpr int kRec = kNS + 2;     // record row: y0[kNS], t0, dt
-  __shared__ typename F::Smem sm;
   const int c = F::chain();
-  const F fld = F::load(w, sm, C, c);
+  const F fld = F::load(w, block_smem<F>(), C, c);
   if (c >= C) return;    // a chain's threads leave together
   const bool lead = F::leader();
   const bool own = fwd_owner<F>();
@@ -244,9 +245,8 @@ dopri5_step_kernel(typename F::Args w, const float* __restrict__ ts, int k,
   constexpr int NS = F::kNS;
   static_assert(!spreads_forward<F>::value,
                 "the per-step solver keeps a chain's whole state a thread");
-  __shared__ typename F::Smem sm;
   const int c = F::chain();
-  const F fld = F::load(w, sm, C, c);
+  const F fld = F::load(w, block_smem<F>(), C, c);
   if (c >= C) return;
   const bool lead = F::leader();
 
@@ -454,11 +454,9 @@ __device__ __forceinline__ void bwd_block(
     const int* __restrict__ nrec, const float* __restrict__ g, int C, int T,
     float* __restrict__ lbar) {
   constexpr int NS = own_components<F>();
-  __shared__ typename F::Smem sm;
-  __shared__ typename F::AccSmem asm_;
   const int c = F::chain();
-  const F fld = F::load(w, sm, C, c);
-  typename F::Acc acc = F::acc_init(asm_);
+  const F fld = F::load(w, block_smem<F>(), C, c);
+  typename F::Acc acc = F::acc_init(block_acc_smem<F>());
   const bool live = c < C;
   if (!warp_store<F>::value && !live) return;
   const int n = live ? nrec[c] : 0;
@@ -499,21 +497,45 @@ dopri5_bwd_kernel_bounded(typename F::Args w, typename F::Grads gw,
   bwd_block<F, TB>(w, gw, ts, rec, nrec, g, C, T, lbar);
 }
 
-// Host launchers: tableau 0 is DOPRI5, 1 is TSIT5.  Return
-// cudaGetLastError().
+// The kernels a field's launches take: the bounded instances where it
+// names its blocks an SM.
 template <class F, class TB, bool RECORD>
-void launch_fwd_as(const typename F::Args& w, const float* x0,
-                   const float* f0, const float* dt0, const float* ts, int C,
-                   int T, const SolveArgs& s, const FwdOut& o,
-                   cudaStream_t stream) {
-  const dim3 grid((C + F::kChains - 1) / F::kChains);
-  const dim3 block(F::kThreads);
+auto fwd_kernel() {
   if constexpr (has_min_blocks<F>::value)
-    dopri5_fwd_kernel_bounded<F, TB, RECORD><<<grid, block, 0, stream>>>(
-        w, x0, f0, dt0, ts, C, T, s, o);
+    return &dopri5_fwd_kernel_bounded<F, TB, RECORD>;
   else
-    dopri5_fwd_kernel<F, TB, RECORD><<<grid, block, 0, stream>>>(
-        w, x0, f0, dt0, ts, C, T, s, o);
+    return &dopri5_fwd_kernel<F, TB, RECORD>;
+}
+
+template <class F, class TB>
+auto bwd_kernel() {
+  if constexpr (has_min_blocks<F>::value)
+    return &dopri5_bwd_kernel_bounded<F, TB>;
+  else
+    return &dopri5_bwd_kernel<F, TB>;
+}
+
+// Host launchers: tableau 0 is DOPRI5, 1 is TSIT5.  Return
+// cudaGetLastError() (or the error of raising the block's shared-memory
+// limit).  The launchers that keep that limit's result in a local static
+// have internal linkage (`static`): a static local of a function template
+// with external linkage is one object in the whole process (a GNU unique
+// symbol), shared by every library of the family loaded beside this one,
+// so a library built for another inducing grid would skip raising its own
+// kernel's limit.
+template <class F, class TB, bool RECORD>
+static int launch_fwd_as(const typename F::Args& w, const float* x0,
+                  const float* f0, const float* dt0, const float* ts, int C,
+                  int T, const SolveArgs& s, const FwdOut& o,
+                  cudaStream_t stream) {
+  const auto kernel = fwd_kernel<F, TB, RECORD>();
+  constexpr size_t bytes = smem_bytes<F, false>();
+  static const cudaError_t allowed = allow_smem(kernel, bytes);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
+  const dim3 grid((C + F::kChains - 1) / F::kChains);
+  kernel<<<grid, F::kThreads, bytes, stream>>>(w, x0, f0, dt0, ts, C, T, s,
+                                                o);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <class F>
@@ -522,13 +544,30 @@ int launch_fwd(int record, int tableau, const typename F::Args& w,
                const float* ts, int C, int T, const SolveArgs& s,
                const FwdOut& o, cudaStream_t stream) {
   if (tableau == 0 && record)
-    launch_fwd_as<F, Dopri5, true>(w, x0, f0, dt0, ts, C, T, s, o, stream);
-  else if (tableau == 0)
-    launch_fwd_as<F, Dopri5, false>(w, x0, f0, dt0, ts, C, T, s, o, stream);
-  else if (record)
-    launch_fwd_as<F, Tsit5, true>(w, x0, f0, dt0, ts, C, T, s, o, stream);
-  else
-    launch_fwd_as<F, Tsit5, false>(w, x0, f0, dt0, ts, C, T, s, o, stream);
+    return launch_fwd_as<F, Dopri5, true>(w, x0, f0, dt0, ts, C, T, s, o,
+                                          stream);
+  if (tableau == 0)
+    return launch_fwd_as<F, Dopri5, false>(w, x0, f0, dt0, ts, C, T, s, o,
+                                           stream);
+  if (record)
+    return launch_fwd_as<F, Tsit5, true>(w, x0, f0, dt0, ts, C, T, s, o,
+                                         stream);
+  return launch_fwd_as<F, Tsit5, false>(w, x0, f0, dt0, ts, C, T, s, o,
+                                        stream);
+}
+
+template <class F, class TB>
+static int launch_bwd_as(const typename F::Args& w, const typename F::Grads& gw,
+                  const float* ts, const float* rec, const int* nrec,
+                  const float* g, int C, int T, float* lbar,
+                  cudaStream_t stream) {
+  const auto kernel = bwd_kernel<F, TB>();
+  constexpr size_t bytes = smem_bytes<F, true>();
+  static const cudaError_t allowed = allow_smem(kernel, bytes);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
+  const dim3 grid((C + F::kChains - 1) / F::kChains);
+  kernel<<<grid, F::kThreads, bytes, stream>>>(w, gw, ts, rec, nrec, g, C,
+                                                T, lbar);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -537,40 +576,63 @@ int launch_bwd(int tableau, const typename F::Args& w,
                const typename F::Grads& gw, const float* ts,
                const float* rec, const int* nrec, const float* g, int C,
                int T, float* lbar, cudaStream_t stream) {
-  const dim3 grid((C + F::kChains - 1) / F::kChains);
-  const dim3 block(F::kThreads);
-  if constexpr (has_min_blocks<F>::value) {
-    if (tableau == 0)
-      dopri5_bwd_kernel_bounded<F, Dopri5><<<grid, block, 0, stream>>>(
-          w, gw, ts, rec, nrec, g, C, T, lbar);
-    else
-      dopri5_bwd_kernel_bounded<F, Tsit5><<<grid, block, 0, stream>>>(
-          w, gw, ts, rec, nrec, g, C, T, lbar);
-  } else if (tableau == 0) {
-    dopri5_bwd_kernel<F, Dopri5><<<grid, block, 0, stream>>>(
-        w, gw, ts, rec, nrec, g, C, T, lbar);
-  } else {
-    dopri5_bwd_kernel<F, Tsit5><<<grid, block, 0, stream>>>(
-        w, gw, ts, rec, nrec, g, C, T, lbar);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (tableau == 0)
+    return launch_bwd_as<F, Dopri5>(w, gw, ts, rec, nrec, g, C, T, lbar,
+                                    stream);
+  return launch_bwd_as<F, Tsit5>(w, gw, ts, rec, nrec, g, C, T, lbar,
+                                 stream);
 }
 
 // One launch of the per-step solver at DOPRI5 (the JAX per-step kernel's
 // only tableau), after resetting the flags (flags[0] to a large int,
 // flags[1] to 0).
 template <class F>
-int launch_step(const typename F::Args& w, const float* ts, int k, int T,
+static int launch_step(const typename F::Args& w, const float* ts, int k, int T,
                 int C, int steps, const SolveArgs& s, const StepState& st,
                 cudaStream_t stream) {
+  const auto kernel = &dopri5_step_kernel<F, Dopri5>;
+  constexpr size_t bytes = smem_bytes<F, false>();
+  static const cudaError_t allowed = allow_smem(kernel, bytes);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
   cudaError_t e = cudaMemsetAsync(st.flags, 0x7f, sizeof(int), stream);
   if (e == cudaSuccess)
     e = cudaMemsetAsync(st.flags + 1, 0, sizeof(int), stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((C + F::kChains - 1) / F::kChains);
-  dopri5_step_kernel<F, Dopri5><<<grid, F::kThreads, 0, stream>>>(
-      w, ts, k, T, C, steps, s, st);
+  kernel<<<grid, F::kThreads, bytes, stream>>>(w, ts, k, T, C, steps, s, st);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The shared memory of the forwards' blocks, in the order (DOPRI5, no
+// records), (DOPRI5, records), (TSIT5, no records), (TSIT5, records); of
+// the backward's, DOPRI5 then TSIT5; of the per-step solver's.  Static and
+// dynamic bytes (kernel_smem), for the libraries' _smem entry points.
+template <class F>
+int fwd_smem(int* bytes) {
+  constexpr size_t dyn = smem_bytes<F, false>();
+  cudaError_t e = kernel_smem(fwd_kernel<F, Dopri5, false>(), dyn, bytes);
+  if (e == cudaSuccess)
+    e = kernel_smem(fwd_kernel<F, Dopri5, true>(), dyn, bytes + 1);
+  if (e == cudaSuccess)
+    e = kernel_smem(fwd_kernel<F, Tsit5, false>(), dyn, bytes + 2);
+  if (e == cudaSuccess)
+    e = kernel_smem(fwd_kernel<F, Tsit5, true>(), dyn, bytes + 3);
+  return static_cast<int>(e);
+}
+
+template <class F>
+int bwd_smem(int* bytes) {
+  constexpr size_t dyn = smem_bytes<F, true>();
+  cudaError_t e = kernel_smem(bwd_kernel<F, Dopri5>(), dyn, bytes);
+  if (e == cudaSuccess)
+    e = kernel_smem(bwd_kernel<F, Tsit5>(), dyn, bytes + 1);
+  return static_cast<int>(e);
+}
+
+template <class F>
+int step_smem(int* bytes) {
+  return static_cast<int>(kernel_smem(&dopri5_step_kernel<F, Dopri5>,
+                                      smem_bytes<F, false>(), bytes));
 }
 
 }  // namespace bode

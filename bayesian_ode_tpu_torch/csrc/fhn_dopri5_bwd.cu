@@ -29,4 +29,11 @@ int fhn_dopri5_bwd(int tableau, const float* a, const float* b,
                                            C, T, lbar, stream);
 }
 
+// The shared memory of a block of the backward at DOPRI5 and at TSIT5,
+// static and dynamic: the shape check's arithmetic (ops/_build.py) against
+// the build.
+int fhn_dopri5_bwd_smem(int* bytes) {
+  return bode::bwd_smem<bode::FHNDopri5>(bytes);
+}
+
 }  // extern "C"

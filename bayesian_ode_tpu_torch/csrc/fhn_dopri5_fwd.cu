@@ -39,4 +39,11 @@ int fhn_dopri5_fwd(int record, int tableau, const float* a, const float* b,
                                            ts, C, T, s, o, stream);
 }
 
+// The shared memory of a block of each forward (DOPRI5 and TSIT5, each
+// without and with records), static and dynamic: the shape check's
+// arithmetic (ops/_build.py) against the build.
+int fhn_dopri5_fwd_smem(int* bytes) {
+  return bode::fwd_smem<bode::FHNDopri5>(bytes);
+}
+
 }  // extern "C"

@@ -34,8 +34,23 @@
 // (GPPoint, gp_field.cuh: one trajectory point a thread; MLPDopri5Fwd,
 // mlp_field.cuh: one component a lane).  The spiral and FitzHugh-Nagumo
 // forwards keep the whole state on every thread of a chain.
+//
+// Last, where a block's buffers live.  A field's Smem (and a reverse
+// sweep's AccSmem) sit in static shared memory, which a block may have 48
+// KB of, unless the field declares
+//   kDynamicSmem                   its buffers grow with a shape past that
+//                                  (the GP field's, with the inducing
+//                                  grid: GPPoint, GPDopri5)
+// and then in dynamic shared memory, Smem first and AccSmem after it,
+// sized at launch (smem_bytes); a launcher raises the block's limit past
+// 48 KB once per kernel (allow_smem), up to the 232,448 B an H100 block
+// may take.  The build's shape check (ops/_build.py, check_shape) holds
+// every kernel to its limit before nvcc sees the shape.
 #pragma once
 
+#include <cuda_runtime.h>
+
+#include <cstddef>
 #include <type_traits>
 
 namespace bode {
@@ -129,6 +144,82 @@ __device__ __forceinline__ bool fwd_owner() {
     return F::owner();
   else
     return F::leader();
+}
+
+template <class F, class = void>
+struct dynamic_smem : std::false_type {};
+template <class F>
+struct dynamic_smem<F, std::void_t<decltype(F::kDynamicSmem)>>
+    : std::true_type {};
+
+// AccSmem's offset after Smem in dynamic shared memory
+template <class F>
+__host__ __device__ constexpr size_t acc_offset() {
+  constexpr size_t a = alignof(typename F::AccSmem);
+  return (sizeof(typename F::Smem) + a - 1) / a * a;
+}
+
+// The dynamic shared memory of a launch over F: Smem, and AccSmem after it
+// where the kernel takes cotangents (kAcc); 0 for a field with static
+// buffers.
+template <class F, bool kAcc>
+constexpr size_t smem_bytes() {
+  if constexpr (!dynamic_smem<F>::value)
+    return 0;
+  else if constexpr (kAcc)
+    return acc_offset<F>() + sizeof(typename F::AccSmem);
+  else
+    return sizeof(typename F::Smem);
+}
+
+__device__ __forceinline__ unsigned char* dynamic_smem_base() {
+  extern __shared__ __align__(16) unsigned char bode_smem[];
+  return bode_smem;
+}
+
+// The block's Smem and AccSmem, static or dynamic as the field says.
+template <class F>
+__device__ __forceinline__ typename F::Smem& block_smem() {
+  if constexpr (dynamic_smem<F>::value) {
+    return *reinterpret_cast<typename F::Smem*>(dynamic_smem_base());
+  } else {
+    __shared__ typename F::Smem sm;
+    return sm;
+  }
+}
+
+template <class F>
+__device__ __forceinline__ typename F::AccSmem& block_acc_smem() {
+  if constexpr (dynamic_smem<F>::value) {
+    return *reinterpret_cast<typename F::AccSmem*>(dynamic_smem_base()
+                                                   + acc_offset<F>());
+  } else {
+    __shared__ typename F::AccSmem acc;
+    return acc;
+  }
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory where that passes the
+// default 48 KB.  The launchers call it once per kernel and keep the
+// result.
+template <class K>
+cudaError_t allow_smem(K* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// The shared memory a block of `kernel` takes, its static bytes (as ptxas
+// allocated them) and the `dynamic` bytes its launch gives it, into
+// *bytes; for the libraries' <name>_smem entry points.
+template <class K>
+cudaError_t kernel_smem(K* kernel, size_t dynamic, int* bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  *bytes = e == cudaSuccess ? static_cast<int>(a.sharedSizeBytes + dynamic)
+                            : -1;
+  return e;
 }
 
 }  // namespace bode

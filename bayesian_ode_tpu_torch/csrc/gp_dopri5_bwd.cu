@@ -43,4 +43,11 @@ int gp_dopri5_bwd(int tableau, const float* A, const float* Z, float sf2,
                                                g, C, T, lbar, stream);
 }
 
+// The shared memory of a block of the backward at DOPRI5 and at TSIT5,
+// static and dynamic: the shape check's arithmetic (ops/_build.py) against
+// the build.
+int gp_dopri5_bwd_smem(int* bytes) {
+  return bode::bwd_smem<bode::GPReplayPoint>(bytes);
+}
+
 }  // extern "C"

@@ -53,4 +53,11 @@ int gp_dopri5_fwd(int record, int tableau, const float* A, const float* Z,
                                                dt0, ts, C, T, s, o, stream);
 }
 
+// The shared memory of a block of each forward (DOPRI5 and TSIT5, each
+// without and with records), static and dynamic: the shape check's
+// arithmetic (ops/_build.py) against the build.
+int gp_dopri5_fwd_smem(int* bytes) {
+  return bode::fwd_smem<bode::GPReplayPoint>(bytes);
+}
+
 }  // extern "C"

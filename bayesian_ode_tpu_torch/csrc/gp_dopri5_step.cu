@@ -43,4 +43,10 @@ int gp_dopri5_step(const float* A, const float* Z, float sf2, float inv2ell2,
                                            stream);
 }
 
+// The shared memory of a block of the per-step solver, static and
+// dynamic: the shape check's arithmetic (ops/_build.py) against the build.
+int gp_dopri5_step_smem(int* bytes) {
+  return bode::step_smem<bode::GPDopri5>(bytes);
+}
+
 }  // extern "C"

@@ -3,13 +3,15 @@
 //   f(x_n) = sum_m sf^2 exp(-|x_n - z_m|^2 / (2 ell^2)) A_m
 //
 // GPField (and its adapter GPDopri5) carries one chain per thread, for the
-// per-step solver (K9, dopri5_kernels.cuh over gp_dopri5_step.cu) and the
-// rk4 forward (K4, gp_rk4.cu).  State layout per chain: NS = 2 * GP_N
-// floats, y[2n + d] (the JAX (N, 2) layout).
+// per-step solver alone (K9, dopri5_kernels.cuh over gp_dopri5_step.cu).
+// State layout per chain: NS = 2 * GP_N floats, y[2n + d] (the JAX (N, 2)
+// layout).
 //
 // GPPoint carries one trajectory point per thread, for the whole adaptive
-// solves (K1, K2: dopri5_kernels.cuh over gp_dopri5_fwd.cu) and the
-// reverse sweeps (K3, over gp_dopri5_bwd.cu; K5, gp_rk4.cu).  f at point n
+// solves (K1, K2: dopri5_kernels.cuh over gp_dopri5_fwd.cu), the rk4
+// forward (K4, gp_rk4.cu) and the reverse sweeps (K3, over
+// gp_dopri5_bwd.cu; K5, gp_rk4.cu).  The rk4 forward's steps are on the
+// output grid, so its N points step independently too.  f at point n
 // reads only x_n and the chain's A.  The reverse sweeps' step mesh is
 // frozen (K3 replays recorded steps, K5 steps on the output grid), so the
 // sweeps of a chain's N points are independent: they share only the A
@@ -18,6 +20,13 @@
 // step.  norm_sums gathers the chain's ratios by shuffles and sums them in
 // the per-chain order, so every thread of the chain takes the step the
 // per-chain solve takes, bit for bit.
+//
+// Both keep their block's buffers (A, Z, and GPPoint's Abar columns) in
+// dynamic shared memory (kDynamicSmem, field_stages.cuh): they grow with
+// the inducing grid, past the 48 KB of static shared memory a block may
+// have from a 7x7 grid on in K3 (51,784 B at N = 5), 8x8 in K5 and 10x10
+// in K9 (520 B an inducing point).  ops/_build.py's check_shape holds
+// every instance to the 232,448 B a block may take before the build.
 //
 // Full float32 throughout: built without --use_fast_math and with expf.
 #pragma once
@@ -96,6 +105,7 @@ struct GPDopri5 {
   static constexpr int kNS = 2 * GP_N;
   static constexpr int kThreads = kBlock;
   static constexpr int kChains = kBlock;
+  static constexpr bool kDynamicSmem = true;
   struct Args {
     const float* A;
     const float* Z;
@@ -152,9 +162,14 @@ struct GPDopri5 {
 // stages are the per-chain solve's; norm_sums makes their decisions its
 // decisions.
 //
+// The rk4 forward (K4) is the forwards' pattern with no norm: a thread
+// steps its own point through rk4_step<2> and writes its 2 components.
+//
 // 128 threads a block (24 chains at N = 5) and at most 128 registers a
 // thread (__launch_bounds__ with kMinBlocks = 4): 10,112 chains are 422
 // blocks, under one wave of 4 blocks on each of 132 SMs (0.80 waves).
+// The block's buffers are dynamic (kDynamicSmem): 200 B an inducing point
+// for A and Z at N = 5, and 1,024 B for each one past R in Abar's columns.
 template <int R>
 struct GPPoint {
   static_assert(kN >= 1 && kN <= 32, "a chain's points must fit one warp");
@@ -168,6 +183,7 @@ struct GPPoint {
   static constexpr int kMinBlocks = 4;
   // acc_store sums over the warp's lanes: every lane of the warp calls it
   static constexpr bool kWarpStore = true;
+  static constexpr bool kDynamicSmem = true;
   struct Args {
     const float* A;
     const float* Z;
@@ -187,8 +203,6 @@ struct GPPoint {
     float v[2 * kR];   // Abar of this point, v[2m + d], m < kR
     float2* s;         // and its column, s[(m - kR) * kThreads]
   };
-  static_assert(sizeof(Smem) + sizeof(AccSmem) <= 48 * 1024,
-                "static shared memory of a block (N >= 2)");
 
   const float2* sA;      // this chain's column: sA[m * kChains]
   const float2* sZ;
@@ -356,7 +370,7 @@ struct GPPoint {
 // Abar all in shared memory (85 registers) and 1.28 ms at R = 12, which
 // spills; K5 0.94 ms at R = 12, against 1.02 ms with Abar all in shared
 // memory (63 registers), and spills past it.  A grid of M < R inducing
-// points keeps them all in registers.  The forwards (K1, K2) take
+// points keeps them all in registers.  The forwards (K1, K2, K4) take
 // GPReplayPoint as well: they keep no Abar, so R does not reach them.
 using GPReplayPoint = GPPoint<8>;
 using GPRk4Point = GPPoint<12>;

@@ -38,4 +38,11 @@ int mlp_dopri5_bwd(int tableau, const float* w1, const float* b1,
                                            C, T, lbar, stream);
 }
 
+// The shared memory of a block of the backward at DOPRI5 and at TSIT5,
+// static and dynamic: the shape check's arithmetic (ops/_build.py) against
+// the build.
+int mlp_dopri5_bwd_smem(int* bytes) {
+  return bode::bwd_smem<bode::MLPDopri5>(bytes);
+}
+
 }  // extern "C"

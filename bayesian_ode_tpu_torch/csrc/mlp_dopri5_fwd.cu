@@ -49,4 +49,11 @@ int mlp_dopri5_fwd(int record, int tableau, const float* w1, const float* b1,
                                               dt0, ts, C, T, s, o, stream);
 }
 
+// The shared memory of a block of each forward (DOPRI5 and TSIT5, each
+// without and with records), static and dynamic: the shape check's
+// arithmetic (ops/_build.py) against the build.
+int mlp_dopri5_fwd_smem(int* bytes) {
+  return bode::fwd_smem<bode::MLPDopri5Fwd>(bytes);
+}
+
 }  // extern "C"

@@ -35,7 +35,8 @@
 //     a transposing scratch).
 //   - The 2N output sums (f, or ybar in the VJP) are one 16-wide
 //     reduce-scatter (warp_sum16: 16 shuffles in place of 10 butterflies
-//     of 5), which leaves component i on lane i.
+//     of 5), which leaves component i on lane i; past N = 8 one 32-wide
+//     one (warp_sum32, 31 shuffles).  N <= 16: a state component a lane.
 //   - The reverse sweeps keep each stage point's activations (h1 of all
 //     units and a2) from the pass that recomputes the stages, in a stage
 //     slot (field_stages.cuh), so a VJP computes no second hidden layer.
@@ -71,12 +72,10 @@
 
 namespace bode {
 
-constexpr int kWarpsPerBlock = 4;          // chains per block of K7
 constexpr int kFwdWarps = 4;               // chains per block of K6, MLP K2
 // K6's blocks an SM for __launch_bounds__: 96 registers, no spills (left
 // to itself ptxas picks 72 and spills two values)
 constexpr int kFwdMinBlocks = 5;
-constexpr int kMLPBlock = 32 * kWarpsPerBlock;
 constexpr int kMN = MLP_N;
 constexpr int kMNS = 2 * MLP_N;            // state components per chain
 constexpr int kH = MLP_H;
@@ -86,7 +85,8 @@ constexpr int kH4 = (kH + 3) / 4 * 4;      // H in whole float4s
 constexpr int kRow = (kH4 / 4) % 2 ? kH4 : kH4 + 4;
 constexpr int kVec = (kMNS + 3) / 4 * 4;
 static_assert(kH >= 1 && kH <= 32, "one hidden unit per lane: H <= 32");
-static_assert(kMNS <= 16, "the 2N output sums are one warp_sum16: N <= 8");
+static_assert(kMNS <= 32, "one state component a lane: N <= 16");
+constexpr int kSums = kSumWidth<kMNS>;     // warp_sum16, or 32 past N = 8
 
 __device__ __forceinline__ float elu(float a) {
   return a > 0.f ? a : expf(a) - 1.0f;
@@ -183,6 +183,14 @@ struct __align__(16) MLPFwdBuf {
   float pts[kVec];
 };
 
+// K7's chains a block: 4 (9,968 B a warp at N=5, H=32), or 2 where four
+// warps' buffers would pass the 48 KB of static shared memory (from N = 8
+// on at H = 32: 13,120 B a warp at N=8, 21,632 B at N=16).  The register
+// target stays 16 warps an SM (kBwdMinBlocks).
+constexpr int kWarpsPerBlock = warps_fitting(4, sizeof(MLPBuf<4>));
+constexpr int kMLPBlock = 32 * kWarpsPerBlock;
+constexpr int kBwdMinBlocks = 16 / kWarpsPerBlock;
+
 // kSlots > 0: the reverse sweeps' field, W2 and kSlots stage slots in
 // MLPBuf<kSlots> (call keep_w2 once); kSlots = 0: the forwards' field, W2
 // in registers and an MLPFwdBuf.
@@ -259,16 +267,16 @@ struct MLPField {
 
   // f from the N points' a2: lane i (i < 2N) returns f_i.
   __device__ __forceinline__ float out_sums(const float* a2) const {
-    float v[16];
+    float v[kSums];
 #pragma unroll
-    for (int k = 0; k < 16; ++k) v[k] = 0.f;
+    for (int k = 0; k < kSums; ++k) v[k] = 0.f;
 #pragma unroll
     for (int n = 0; n < kMN; ++n) {
       const float h2 = act(a2[n]);
       v[2 * n] = w.w3x * h2;
       v[2 * n + 1] = w.w3y * h2;
     }
-    return warp_sum16(v, lane) + ((lane & 1) ? w.b3y : w.b3x);
+    return warp_sums(v, lane) + ((lane & 1) ? w.b3y : w.b3x);
   }
 
   // The forwards' evaluation (MLPField<0>): y[0] is component `lane` of
@@ -366,9 +374,9 @@ struct MLPField {
         }
       }
     }
-    float v[16];
+    float v[kSums];
 #pragma unroll
-    for (int k = 0; k < 16; ++k) v[k] = 0.f;
+    for (int k = 0; k < kSums; ++k) v[k] = 0.f;
 #pragma unroll
     for (int n = 0; n < kMN; ++n) {
       const float x = pt[2 * n], yy = pt[2 * n + 1];
@@ -379,7 +387,7 @@ struct MLPField {
       v[2 * n] = w.w1x * a1b;
       v[2 * n + 1] = w.w1y * a1b;
     }
-    ybar[0] = warp_sum16(v, lane);
+    ybar[0] = warp_sums(v, lane);
     __syncwarp();     // cot and a2bar read before the next VJP writes them
   }
 };
@@ -458,8 +466,9 @@ struct MLPDopri5Fwd : MLPWarpChains<kFwdWarps, 0> {
 // The backward (K3): the 7 stage points of a step in slots 0 (y0) to 6
 // (u[5]), W2 in shared memory.  Two chains a block: a warp's buffer is
 // 13,952 B at N=5, H=32, so four would pass the 48 KB of static shared
-// memory a block may have.
-struct MLPDopri5 : MLPWarpChains<2, 7> {
+// memory a block may have; one from N = 11 on at H = 32 (34,304 B at
+// N=16).
+struct MLPDopri5 : MLPWarpChains<warps_fitting(2, sizeof(MLPBuf<7>)), 7> {
   static constexpr int kStageSlots = 7;
   struct Grads {
     float *w1, *b1, *w2, *b2, *w3, *b3;

@@ -69,7 +69,7 @@ mlp_rk4_fwd_kernel(const float* __restrict__ w1, const float* __restrict__ b1,
   }
 }
 
-__global__ void __launch_bounds__(kMLPBlock, 4)
+__global__ void __launch_bounds__(kMLPBlock, kBwdMinBlocks)
 mlp_rk4_bwd_kernel(const float* __restrict__ w1, const float* __restrict__ b1,
                    const float* __restrict__ w2, const float* __restrict__ b2,
                    const float* __restrict__ w3, const float* __restrict__ b3,
@@ -144,6 +144,15 @@ int mlp_rk4_bwd(const float* w1, const float* b1, const float* w2,
       w1, b1, w2, b2, w3, b3, dts, ys, g, C, T, gw1, gb1, gw2, gb2, gw3,
       gb3, lbar);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The shared memory of a block of K6 and of K7 (static): the shape check's
+// arithmetic (ops/_build.py) against the build.
+int mlp_rk4_smem(int* bytes) {
+  cudaError_t e = bode::kernel_smem(bode::mlp_rk4_fwd_kernel, 0, bytes);
+  if (e == cudaSuccess)
+    e = bode::kernel_smem(bode::mlp_rk4_bwd_kernel, 0, bytes + 1);
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

@@ -35,4 +35,11 @@ int spiral_dopri5_bwd(int tableau, const float* w1, const float* b1,
                                               g, C, T, lbar, stream);
 }
 
+// The shared memory of a block of the backward at DOPRI5 and at TSIT5,
+// static and dynamic: the shape check's arithmetic (ops/_build.py) against
+// the build.
+int spiral_dopri5_bwd_smem(int* bytes) {
+  return bode::bwd_smem<bode::SpiralDopri5>(bytes);
+}
+
 }  // extern "C"

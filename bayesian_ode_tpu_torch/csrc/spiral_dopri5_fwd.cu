@@ -44,4 +44,11 @@ int spiral_dopri5_fwd(int record, int tableau, const float* w1,
                                               dt0, ts, C, T, s, o, stream);
 }
 
+// The shared memory of a block of each forward (DOPRI5 and TSIT5, each
+// without and with records), static and dynamic: the shape check's
+// arithmetic (ops/_build.py) against the build.
+int spiral_dopri5_fwd_smem(int* bytes) {
+  return bode::fwd_smem<bode::SpiralDopri5>(bytes);
+}
+
 }  // extern "C"

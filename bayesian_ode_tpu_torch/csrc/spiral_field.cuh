@@ -18,7 +18,8 @@
 // tanhf, so, as the MLP field (mlp_field.cuh), it spends few of those:
 //   - the 2N output sums of an evaluation (f) or a VJP (ybar) are one
 //     16-wide reduce-scatter (warp_sum16: 16 shuffles in place of 2N
-//     butterflies of 5), which leaves component i on lane i;
+//     butterflies of 5), which leaves component i on lane i (past N = 8
+//     one 32-wide one, warp_sum32; N <= 16);
 //   - the reverse sweeps carry one state component a lane (kOwn = 1: lane
 //     i < 2N holds component i of every per-step array; lanes >= 2N mirror
 //     component 2N-1 and write nothing).  The N points reach every lane
@@ -55,7 +56,8 @@ constexpr int kSNS = 2 * SPIRAL_N;            // state components per chain
 constexpr int kSH = SPIRAL_H;
 constexpr int kSU = (SPIRAL_H + 31) / 32;     // hidden units per lane
 constexpr int kSVec = (kSNS + 3) / 4 * 4;
-static_assert(kSNS <= 16, "the 2N output sums are one warp_sum16: N <= 8");
+static_assert(kSNS <= 32, "one state component a lane: N <= 16");
+constexpr int kSSums = kSumWidth<kSNS>;    // warp_sum16, or 32 past N = 8
 
 // This lane's hidden units of one chain's weights (or their cotangents).
 struct SpiralUnits {
@@ -96,9 +98,9 @@ struct SpiralField {
   // returns f_i.
   __device__ __forceinline__ float eval(const float* pt,
                                         float (*h)[kSU][32]) const {
-    float v[16];
+    float v[kSSums];
 #pragma unroll
-    for (int k = 0; k < 16; ++k) v[k] = 0.f;
+    for (int k = 0; k < kSSums; ++k) v[k] = 0.f;
 #pragma unroll
     for (int n = 0; n < kSN; ++n) {
       const float x = pt[2 * n], yy = pt[2 * n + 1];
@@ -114,7 +116,7 @@ struct SpiralField {
       v[2 * n] = px;
       v[2 * n + 1] = py;
     }
-    return warp_sum16(v, lane) + ((lane & 1) ? w.b2y : w.b2x);
+    return warp_sums(v, lane) + ((lane & 1) ? w.b2y : w.b2x);
   }
 
   // The forward's evaluation: y and f (2N floats) the same on every lane.
@@ -160,9 +162,9 @@ struct SpiralField {
     if (lane < kSNS) b->cot[lane] = cot[0];
     __syncwarp();
     const float* pt = b->pts[slot];
-    float v[16];
+    float v[kSSums];
 #pragma unroll
-    for (int k = 0; k < 16; ++k) v[k] = 0.f;
+    for (int k = 0; k < kSSums; ++k) v[k] = 0.f;
 #pragma unroll
     for (int n = 0; n < kSN; ++n) {
       const float x = pt[2 * n], yy = pt[2 * n + 1];
@@ -189,7 +191,7 @@ struct SpiralField {
     }
     // d(y^3)/dy = 3 y^2, at this lane's component
     const float yi = pt[lane < kSNS ? lane : kSNS - 1];
-    ybar[0] = 3.0f * yi * yi * warp_sum16(v, lane);
+    ybar[0] = 3.0f * yi * yi * warp_sums(v, lane);
     __syncwarp();     // cot and the point read before the next writes
   }
 };
@@ -199,15 +201,13 @@ struct SpiralField {
 // The backward (K3) keeps the 7 stage points of a step in slots 0 (y0) to
 // 6 (u[5]); as many chains a block (at most 4) as keep the block's warp
 // buffers within the 48 KB of static shared memory (4 at N=5, H=50:
-// 9,344 B a warp).
+// 9,344 B a warp; 2 at N=9, H=50: 16,768 B; 1 at N=16: 29,696 B).
 struct SpiralDopri5 {
   static constexpr int kNS = kSNS;
   static constexpr int kStageSlots = 7;
   static constexpr int kOwn = 1;
   static constexpr int kChains =
-      4 * sizeof(SpiralBuf<kStageSlots>) <= 48 * 1024   ? 4
-      : 2 * sizeof(SpiralBuf<kStageSlots>) <= 48 * 1024 ? 2
-                                                        : 1;
+      warps_fitting(4, sizeof(SpiralBuf<kStageSlots>));
   static constexpr int kThreads = 32 * kChains;
   struct Args {
     const float *w1, *b1, *w2, *b2;

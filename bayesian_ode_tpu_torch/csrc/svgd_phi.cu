@@ -220,4 +220,15 @@ int svgd_phi(const float* X, const float* S, const float* gamma, int n, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The shared memory of a block (dynamic): the shape check's arithmetic
+// (ops/_build.py) against the build.
+int svgd_phi_smem(int* bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, bode::svgd_phi_kernel);
+  *bytes = e == cudaSuccess
+               ? static_cast<int>(a.sharedSizeBytes + sizeof(bode::PhiSmem))
+               : -1;
+  return static_cast<int>(e);
+}
+
 }  // extern "C"

@@ -17,6 +17,18 @@ kernel family and shape, the shape baked in at compile time:
 Each adaptive library holds both tableaus (DOPRI5 and TSIT5) and both
 forwards (recording or not); its entry points take them as arguments.
 
+`check_shape` refuses, before any build, a shape the kernels cannot take,
+with a NotImplementedError that names ROADMAP queue 1 item 19: more
+trajectory points than a warp's lanes hold (N <= 32 for the GP field's one
+point a lane, N <= 16 for the MLP and spiral fields' one state component
+a lane), an MLP wider than a warp (H <= 32), or a block's shared memory
+past its limit, by the arithmetic of the kernels' structs (`smem_bytes`):
+48 KB for the buffers a kernel keeps in static shared memory, 232,448 B
+(an sm_90 block's opt-in maximum) for the GP field's and K8's dynamic
+ones.  Each library reports what its build allocated through its
+`*_smem` entry points (`built_smem`), which the card tests hold to that
+arithmetic.
+
 A library is built at first use into `build/kernels/` beside the package
 (git-ignored), named by a hash of its sources and flags, so a changed
 source rebuilds and an unchanged one loads at once.  `build` compiles
@@ -55,6 +67,9 @@ class Family(NamedTuple):
     defines: Tuple[str, ...]        # the shape macros
     dims: str                       # C entry point reporting the shape
     entry_points: Dict[str, list]   # C entry point -> argtypes (int result)
+    # C entry point reporting its kernels' shared-memory bytes -> the kind
+    # of each kernel it reports, in its order (keys of smem_bytes)
+    smem: Dict[str, Tuple[str, ...]]
 
 
 def _adaptive(field: str, headers: Tuple[str, ...], defines: Tuple[str, ...],
@@ -71,7 +86,12 @@ def _adaptive(field: str, headers: Tuple[str, ...], defines: Tuple[str, ...],
         {f"{field}_dopri5_fwd": [_I, _I] + field_args + [_P] * 4 + [_I] * 2
                                 + [_F] * 5 + [_I] * 3 + [_P] * 6 + [_P],
          f"{field}_dopri5_bwd": [_I] + field_args + [_P] * n_wbar
-                                + [_P] * 4 + [_I] * 2 + [_P] + [_P]})
+                                + [_P] * 4 + [_I] * 2 + [_P] + [_P],
+         f"{field}_dopri5_fwd_smem": [_P],
+         f"{field}_dopri5_bwd_smem": [_P]},
+        # (DOPRI5, TSIT5) x (no records, records); DOPRI5, TSIT5
+        {f"{field}_dopri5_fwd_smem": ("fwd",) * 4,
+         f"{field}_dopri5_bwd_smem": ("bwd",) * 2})
 
 
 FAMILIES: Dict[str, Family] = {
@@ -87,24 +107,140 @@ FAMILIES: Dict[str, Family] = {
         ("rk4_common.cuh", "field_stages.cuh", "gp_field.cuh", "warp.cuh"),
         ("GP_N", "GP_M"), "gp_rk4_dims",
         {"gp_rk4_fwd": [_P] * 4 + [_I, _I] + [_F] * 2 + [_P, _P],
-         "gp_rk4_bwd": [_P] * 5 + [_I, _I] + [_F] * 3 + [_P] * 3}),
+         "gp_rk4_bwd": [_P] * 5 + [_I, _I] + [_F] * 3 + [_P] * 3,
+         "gp_rk4_smem": [_P]},
+        {"gp_rk4_smem": ("fwd", "bwd")}),
     "mlp_rk4": Family(
         ("mlp_rk4.cu",),
         ("rk4_common.cuh", "field_stages.cuh", "mlp_field.cuh", "warp.cuh"),
         ("MLP_N", "MLP_H"), "mlp_rk4_dims",
         {"mlp_rk4_fwd": [_P] * 8 + [_I, _I] + [_P, _P],
-         "mlp_rk4_bwd": [_P] * 9 + [_I, _I] + [_P] * 8}),
+         "mlp_rk4_bwd": [_P] * 9 + [_I, _I] + [_P] * 8,
+         "mlp_rk4_smem": [_P]},
+        {"mlp_rk4_smem": ("fwd", "bwd")}),
     "gp_dopri5_step": Family(
         ("gp_dopri5_step.cu",),
         ("dopri5_common.cuh", "dopri5_kernels.cuh", "field_stages.cuh",
          "gp_field.cuh", "warp.cuh"),
         ("GP_N", "GP_M"), "gp_dopri5_step_dims",
         {"gp_dopri5_step": [_P] * 2 + [_F] * 3 + [_P] + [_I] * 4 + [_F] * 5
-                           + [_P] * 10 + [_P]}),
+                           + [_P] * 10 + [_P],
+         "gp_dopri5_step_smem": [_P]},
+        {"gp_dopri5_step_smem": ("step",)}),
     "svgd_phi": Family(
         ("svgd_phi.cu",), (), (), "svgd_phi_dims",
-        {"svgd_phi": [_P] * 3 + [_I, _I] + [_P, _P]}),
+        {"svgd_phi": [_P] * 3 + [_I, _I] + [_P, _P],
+         "svgd_phi_smem": [_P]},
+        {"svgd_phi_smem": ("phi",)}),
 }
+
+# The shape limits of check_shape (csrc/: one GP trajectory point a lane,
+# gp_field.cuh; one MLP or spiral state component a lane and one MLP hidden
+# unit a lane, mlp_field.cuh, spiral_field.cuh), and the shared memory a
+# block may have: 48 KB static, 232,448 B dynamic on sm_90 (the build's
+# only target).
+MAX_POINTS = {"gp_dopri5": 32, "gp_rk4": 32, "gp_dopri5_step": 32,
+              "mlp_dopri5": 16, "mlp_rk4": 16, "spiral_dopri5": 16}
+MLP_MAX_HIDDEN = 32
+STATIC_SMEM_MAX = 48 * 1024
+DYNAMIC_SMEM_MAX = 232_448
+# the families whose kernels keep their block's buffers in dynamic shared
+# memory (the GP field's kDynamicSmem; K8's PhiSmem)
+DYNAMIC_SMEM = ("gp_dopri5", "gp_rk4", "gp_dopri5_step", "svgd_phi")
+ITEM_19 = "ROADMAP queue 1 item 19"
+
+
+def _round_up(n: int, a: int) -> int:
+    return -(-n // a) * a
+
+
+def _warps_fitting(most: int, nbytes: int) -> int:
+    """csrc/warp.cuh warps_fitting: the most warps a block, `most` or a
+    half or quarter of it, whose buffers fit 48 KB of static shared
+    memory."""
+    while most > 1 and most * nbytes > STATIC_SMEM_MAX:
+        most //= 2
+    return most
+
+
+def smem_bytes(family: str, shape: Tuple[int, ...]) -> Dict[str, int]:
+    """Shared-memory bytes a block of each kernel of the library takes, by
+    kind ("fwd", "bwd", "step", "phi"), by the arithmetic of the structs in
+    csrc/ (sizeof of arrays of float and float2; MLPBuf, MLPFwdBuf and
+    SpiralBuf aligned to 16 B)."""
+    f4 = 4
+    if family in ("gp_dopri5", "gp_rk4"):
+        N, M = shape
+        chains = 128 // 32 * (32 // N)          # GPPoint::kChains
+
+        def acc(R):                             # GPPoint<R>::AccSmem
+            kR = min(R, M)
+            return 8 * ((M - kR) * 128 + (kR == M))
+
+        sm = 8 * (M * chains + M)               # GPPoint::Smem: A, Z
+        R = 8 if family == "gp_dopri5" else 12  # GPReplayPoint, GPRk4Point
+        return {"fwd": sm, "bwd": sm + acc(R)}
+    if family == "gp_dopri5_step":
+        N, M = shape
+        return {"step": f4 * (2 * M * 64 + 2 * M)}      # GPDopri5::Smem
+    if family in ("mlp_rk4", "mlp_dopri5"):
+        N, H = shape
+        h4 = _round_up(H, 4)
+        row = h4 if (h4 // 4) % 2 else h4 + 4
+        vec = _round_up(2 * N, 4)
+        fwd_buf = _round_up(f4 * (N * 32 + vec), 16)            # MLPFwdBuf
+
+        def buf(slots):                                         # MLPBuf
+            return _round_up(f4 * (2 * slots * N * 32 + H * row
+                                   + slots * vec + vec), 16)
+
+        bwd = buf(4) if family == "mlp_rk4" else buf(7)
+        most = 4 if family == "mlp_rk4" else 2
+        return {"fwd": 4 * fwd_buf, "bwd": _warps_fitting(most, bwd) * bwd}
+    if family == "spiral_dopri5":
+        # the forward keeps the state on every lane and reads no buffer:
+        # the build allocates none
+        N, H = shape
+        vec = _round_up(2 * N, 4)
+        buf = _round_up(f4 * (8 * vec + 7 * N * -(-H // 32) * 32), 16)
+        return {"fwd": 0, "bwd": _warps_fitting(4, buf) * buf}
+    if family == "fhn_dopri5":
+        return {"fwd": 0, "bwd": 0}
+    if family == "svgd_phi":
+        # PhiSmem: xr, xc, xx, yy in float64; the K tile, scores, particles
+        return {"phi": 8 * (16 * 36 + 16 * 68 + 32 + 64)
+                + f4 * (64 * 32 + 2 * 64 * 128)}
+    raise ValueError(f"unknown kernel family {family!r}")
+
+
+def check_shape(family: str, shape: Tuple[int, ...]) -> None:
+    """Raise NotImplementedError, naming ROADMAP queue 1 item 19 and the
+    limit, for a shape the family's kernels cannot compile; before any
+    build, so nvcc never sees it."""
+    if family not in FAMILIES:
+        raise ValueError(f"unknown kernel family {family!r}")
+    shape = tuple(int(s) for s in shape)
+    _defines(family, shape)                     # the key's length
+    if any(s < 1 for s in shape):
+        raise ValueError(f"{family}: shape {shape} must be positive")
+    if family in MAX_POINTS and shape[0] > MAX_POINTS[family]:
+        what = ("one trajectory point a lane" if family.startswith("gp")
+                else "one state component a lane")
+        raise NotImplementedError(
+            f"{family} at N={shape[0]}: the kernels hold {what}, N <= "
+            f"{MAX_POINTS[family]} ({ITEM_19})")
+    if family.startswith("mlp") and shape[1] > MLP_MAX_HIDDEN:
+        raise NotImplementedError(
+            f"hidden width {shape[1]}: the MLP kernels hold one hidden unit "
+            f"per lane, H <= {MLP_MAX_HIDDEN} ({ITEM_19})")
+    dynamic = family in DYNAMIC_SMEM
+    limit = DYNAMIC_SMEM_MAX if dynamic else STATIC_SMEM_MAX
+    for kind, nbytes in smem_bytes(family, shape).items():
+        if nbytes > limit:
+            raise NotImplementedError(
+                f"{family} at {shape}: a block of its {kind} kernel needs "
+                f"{nbytes} B of {'dynamic' if dynamic else 'static'} shared "
+                f"memory, past the {limit} B a block may have ({ITEM_19})")
 
 ADAPTIVE_FIELDS = ("gp", "mlp", "spiral", "fhn")
 TABLEAUS = ("dopri5", "tsit5")      # the entry points' tableau 0 and 1
@@ -165,10 +301,16 @@ def build_log(family: str, shape: Tuple[int, ...]) -> str:
 def build(specs: Iterable[Tuple[str, Tuple[int, ...]]]) -> None:
     """Build every library of `specs` ((family, shape) pairs) that is not
     built yet: one nvcc per source, all started together, then one link
-    per library.  Raises with nvcc's output if any step fails."""
+    per library.  Raises check_shape's error for a shape the kernels
+    cannot take, before any nvcc, and with nvcc's output if any step
+    fails."""
+    specs = list(dict.fromkeys((f, tuple(int(v) for v in s))
+                               for f, s in specs))
+    for family, shape in specs:
+        check_shape(family, shape)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
-    for family, shape in dict.fromkeys((f, tuple(s)) for f, s in specs):
+    for family, shape in specs:
         so = library_path(family, shape)
         if so.exists():
             continue
@@ -212,12 +354,14 @@ def build(specs: Iterable[Tuple[str, Tuple[int, ...]]]) -> None:
 
 
 def load_library(family: str, shape: Tuple[int, ...]) -> ctypes.CDLL:
-    """The kernel library of `family` for this shape, built at first
-    use."""
+    """The kernel library of `family` for this shape, built at first use;
+    a shape the kernels cannot take raises check_shape's
+    NotImplementedError first."""
     shape = tuple(int(s) for s in shape)
     lib = _LIBS.get((family, shape))
     if lib is not None:
         return lib
+    check_shape(family, shape)
     so = library_path(family, shape)
     if not so.exists():
         build([(family, shape)])
@@ -237,6 +381,21 @@ def load_library(family: str, shape: Tuple[int, ...]) -> ctypes.CDLL:
                            f"{tuple(v.value for v in got)}, not {shape}")
     _LIBS[(family, shape)] = lib
     return lib
+
+
+def built_smem(family: str, shape: Tuple[int, ...]) -> Dict[str, list]:
+    """The shared-memory bytes a block of each of the built library's
+    kernels takes (static as ptxas allocated them, plus the dynamic bytes
+    its launch gives), by kind as smem_bytes keys them: {kind: [bytes of
+    each kernel of that kind]}."""
+    lib = load_library(family, shape)
+    out: Dict[str, list] = {}
+    for name, kinds in FAMILIES[family].smem.items():
+        got = (_I * len(kinds))()
+        check(getattr(lib, name)(got), name)
+        for kind, nbytes in zip(kinds, got):
+            out.setdefault(kind, []).append(nbytes)
+    return out
 
 
 def check(status: int, what: str) -> None:

@@ -12,8 +12,9 @@ the MLP field functor of `csrc/mlp_field.cuh` (one warp per chain, one
 hidden unit per lane) and the rk4 templates the GP kernels use.  The
 weights stay in the layer-list layout, w1 (C, 2, H), b1 (C, H),
 w2 (C, H, H), b2 (C, H), w3 (C, H, 2), b3 (C, 2), and so do the weight
-cotangents.  The kernels take H <= 32; a wider field raises
-NotImplementedError on the card (ROADMAP queue 1 item 19).
+cotangents.  The kernels take H <= 32 and N <= 16 (one hidden unit and
+one state component a lane); a wider field raises NotImplementedError on
+the card (ROADMAP queue 1 item 19).
 
 The plain versions use the 3/8-rule step and reverse sweep of
 `ops/gp_rk4.py` over a batched torch field; their products are matmuls,
@@ -30,7 +31,7 @@ from . import _build
 from .fused_adaptive import _check_args
 from .gp_rk4 import _rk4_bwd_plain, _rk4_fwd_plain, _steps, _stream
 
-MAX_HIDDEN = 32          # one hidden unit per lane of a warp
+MAX_HIDDEN = _build.MLP_MAX_HIDDEN      # one hidden unit per lane
 
 
 def _elu(a):

@@ -6,8 +6,10 @@
 Builds the port's CUDA kernels from `bayesian_ode_tpu_torch/csrc/` (one
 nvcc per source, all started together), prints each kernel's registers and
 spills (and, for the kernels redesigned for the card, K6, MLP K2, K7, MLP
-K3, K5, GP K3, the GP solves K1/K2 and spiral K3, the warps an SM holds
-and the waves of their grid), and
+K3, K4, K5, GP K3, the GP solves K1/K2 and spiral K3, the warps an SM
+holds and the waves of their grid, the GP ones also at 7x7 and 8x8
+inducing grids), checks each library's reported shared memory against
+the shape check's arithmetic (`_build.smem_bytes`), and
 holds each kernel against its plain PyTorch version at the main paths'
 full shape (Van der Pol: 5 trajectories, T=60 output times to
 t=6, 10,112 chains):
@@ -34,8 +36,12 @@ and the GP field at TSIT5 through `ops.gp_field.gp_field_trajectory` under
 SGLD; SVGD (`samplers.svgd_batched` over `ops.gp_rk4.make_fused_gp_potential`,
 AdaGrad at lr=1e-2, 50 steps) at 4,096 particles, where phi goes through
 K8, and at 1,024, where it does not; and one `ops.gp_dopri5.gp_dopri5_solve`
-(K9).  The launch counters are set to 0 just before each path's runs and
-read just after, and must show the path's own kernels on every
+(K9); and the main path once more at a 7x7 inducing grid (M=7 in the
+driver's config: 49 inducing points, past the 48 KB of static shared
+memory a block of K3 may have) under SGLD, and the spiral's K2/K3 at N=9
+trajectories (the JAX package's wide case, H=6) against their plain
+versions.  The launch counters are set to 0 just before each path's runs
+and read just after, and must show the path's own kernels on every
 potential-gradient evaluation (or step, or launch) and no other kernel.
 Last, it times steady-state sampler steps of each path, and profiles 5
 steady steps of the GP dopri5 SGLD path, of the GP and NN rk4 paths, of
@@ -45,8 +51,9 @@ time by kernel, the median's sort, the other kernels, the card's idle
 share of the window).
 
 Exits non-zero on any failed phase, and when no CUDA device is available.
-The line before the last is a JSON object with each kernel's launches,
-error against its plain version, times and bound; the last line is
+Before the last two lines it prints its own seconds; the line before the
+last is a JSON object with each kernel's launches, error against its
+plain version, times and bound; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -70,8 +77,8 @@ SVGD_STEPS = 50
 # a block, MLP K3 2, the forwards K6 and MLP K2 kFwdWarps), the GP field's
 # one thread a trajectory point (csrc/gp_field.cuh, GPPoint: 128 threads,
 # 6 chains a warp at N=5; the backward kernels K5 and K3, and the solves K1
-# and K2) and the spiral's replay (csrc/spiral_field.cuh: one warp a chain,
-# 4 a block)
+# and K2, and the rk4 forward K4) and the spiral's replay
+# (csrc/spiral_field.cuh: one warp a chain, 4 a block)
 MLP_FWD_WARPS = 4
 OCCUPANCY_BLOCKS = {
     ("mlp_rk4", "mlp_rk4_fwd"): (32 * MLP_FWD_WARPS, MLP_FWD_WARPS),
@@ -82,6 +89,7 @@ OCCUPANCY_BLOCKS = {
     ("mlp_rk4", "mlp_rk4_bwd"): (128, 4),
     ("mlp_dopri5", "dopri5_bwd MLPDopri5 Dopri5"): (64, 2),
     ("mlp_dopri5", "dopri5_bwd MLPDopri5 Tsit5"): (64, 2),
+    ("gp_rk4", "gp_rk4_fwd"): (128, 24),
     ("gp_rk4", "gp_rk4_bwd"): (128, 24),
     **{("gp_dopri5", f"{kernel} GPPoint {tableau}{record}"): (128, 24)
        for kernel, records in (("dopri5_bwd", ("",)),
@@ -89,10 +97,18 @@ OCCUPANCY_BLOCKS = {
        for tableau in ("Dopri5", "Tsit5") for record in records},
     ("spiral_dopri5", "dopri5_bwd SpiralDopri5 Dopri5"): (128, 4),
     ("spiral_dopri5", "dopri5_bwd SpiralDopri5 Tsit5"): (128, 4)}
+# the wide shapes: the main path at a 7x7 inducing grid, the spiral at the
+# JAX package's N=9 case; and, for their occupancy alone, the GP kernels at
+# 7x7 and 8x8 grids
+WIDE_GRID = 7
+SPIRAL_WIDE = (9, 6)
 LIBRARIES = [("gp_dopri5", (5, 36)), ("gp_rk4", (5, 36)),
              ("mlp_rk4", (5, HIDDEN)), ("mlp_dopri5", (5, HIDDEN)),
              ("spiral_dopri5", (5, SPIRAL_HIDDEN)), ("fhn_dopri5", (5,)),
-             ("gp_dopri5_step", (5, 36)), ("svgd_phi", ())]
+             ("gp_dopri5_step", (5, 36)), ("svgd_phi", ()),
+             ("gp_dopri5", (5, WIDE_GRID ** 2)), ("gp_dopri5", (5, 64)),
+             ("gp_rk4", (5, WIDE_GRID ** 2)), ("gp_rk4", (5, 64)),
+             ("spiral_dopri5", SPIRAL_WIDE)]
 
 # The least time the card could take for a kernel's work: the larger of
 # its bytes over the memory rate and its operations over the peak rate for
@@ -202,6 +218,40 @@ def svgd_phi_bound(n, d):
     exponent's argument and the row sum (4 flops) and one expf; bytes the
     particles and scores read once and phi written once."""
     return bound(3 * n * d * 4 + 4, n * n * (6 * d + 4), n * n)
+
+
+def replay_dense_output(rhs, rec, nacc, x0b, ts, tableau):
+    """The plain version's step arithmetic on a solve's own step mesh: each
+    recorded step (start state, t0, dt) taken again with `rhs` and its
+    quartic evaluated at the output times it crossed, as fused_adaptive.
+    fwd_plain does (the FSAL slope recomputed at the start state).
+    Returns the trajectories (T, C, N, 2)."""
+    import torch
+
+    from bayesian_ode_tpu_torch.ops.gp_dopri5 import (
+        _bc,
+        _midpoint,
+        _quartic_coeffs,
+        _rk_stages,
+    )
+
+    C, N = x0b.shape[0], x0b.shape[1]
+    ys = torch.zeros((ts.shape[0], C, N, 2), device=rec.device)
+    for j in range(int(nacc.max())):
+        row = rec[j].t()                                          # (C, R)
+        y0 = row[:, :2 * N].reshape(C, N, 2)
+        t0, dt = row[:, 2 * N], row[:, 2 * N + 1]
+        dt = torch.where(j < nacc, dt, torch.ones_like(dt))
+        f0 = rhs(y0)
+        k, y1 = _rk_stages(rhs, y0, f0, dt, tableau)
+        ym = _midpoint(y0, k, dt, tableau)
+        a, b, c, d, e = _quartic_coeffs(y0, y1, ym, f0, k[6], _bc(dt))
+        X = ((ts[:, None] - t0) / dt)[..., None, None]
+        val = (((a * X + b) * X + c) * X + d) * X + e
+        emit = (ts[:, None] > t0) & (ts[:, None] <= t0 + dt) & (j < nacc)
+        ys = torch.where(emit[..., None, None], val, ys)
+    ys[0] = x0b
+    return ys
 
 
 def nbytes(tensors):
@@ -334,9 +384,30 @@ def ptxas_summary(family, shape, log):
     return out
 
 
+def kernel_kind(name):
+    """The kind (`_build.smem_bytes`' key) of a kernel named by
+    ptxas_summary."""
+    for prefix, kind in (("dopri5_fwd", "fwd"), ("dopri5_bwd", "bwd"),
+                         ("dopri5_step", "step"), ("svgd_phi", "phi")):
+        if name.startswith(prefix):
+            return kind
+    return name.rsplit("_", 1)[-1]          # gp_rk4_fwd, mlp_rk4_bwd, ...
+
+
+def block_smem(family, shape, name, static):
+    """A block's shared memory: ptxas's static bytes, or the dynamic bytes
+    of the GP field's kernels (`_build.smem_bytes`), whichever is more (a
+    tree whose buffers are static reports them to ptxas)."""
+    from bayesian_ode_tpu_torch.ops import _build
+
+    if family not in _build.DYNAMIC_SMEM:
+        return static
+    return max(static, _build.smem_bytes(family, shape)[kernel_kind(name)])
+
+
 def warps_per_sm(regs, smem, threads):
     """Resident warps an SM of an H100 holds for a kernel of `regs`
-    registers a thread, `smem` bytes of static shared memory a block and
+    registers a thread, `smem` bytes of shared memory a block and
     `threads` a block: 65,536 registers allocated per warp in units of 256,
     233,472 B of shared memory with 1 KB reserved a block, at most 64
     warps and 32 blocks (the CUDA occupancy rules for sm_90)."""
@@ -359,6 +430,7 @@ def main() -> int:
     import numpy as np
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the GPU only",
               file=sys.stderr)
@@ -398,10 +470,18 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     for lib in LIBRARIES:
         _build.load_library(*lib)
+        # what the build allocated against the shape check's arithmetic
+        built, want = _build.built_smem(*lib), _build.smem_bytes(*lib)
+        print(f"  shared memory {lib[0]}{lib[1]}: built {built}, "
+              f"arithmetic {want}")
+        check(all(set(v) == {want[k]} for k, v in built.items())
+              and set(built) == set(want),
+              f"{lib}: built shared memory equals check_shape's arithmetic")
         for name, regs, st, ld, smem in ptxas_summary(
                 *lib, _build.build_log(*lib)):
             if (lib[0], name) in OCCUPANCY_BLOCKS:
                 threads, chains = OCCUPANCY_BLOCKS[lib[0], name]
+                smem = block_smem(*lib, name, smem)
                 warps, waves = occupancy(regs, smem, threads, chains,
                                          N_CHAINS)
                 print(f"    {name}: {warps} warps an SM, {waves:.2f} waves "
@@ -1220,6 +1300,103 @@ def main() -> int:
         max_abs_err=err9, ms=ms9, plain_ms=ms9p, bound_ms=b1, bound_by=by1)
     del ys9, ys9p
 
+    # ---- phase 16: the main path at a 7x7 inducing grid ----
+    # M=7 in the driver's config: 49 inducing points, whose K3 block takes
+    # 51,784 B of dynamic shared memory (past the 48 KB a static block may
+    # have); SGLD at the main path's step size
+    with tempfile.TemporaryDirectory() as out:
+        c = dict(cfg, M=WIDE_GRID, method="SGLD", burn_in=1, num_samples=4,
+                 id=f"gp_M{WIDE_GRID}")
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = run_sampler(c, data, out, make_plots=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        delta = dict(_build.launch_counts)
+        steps = c["burn_in"] + c["num_samples"]
+        print(f"gp dopri5 SGLD at M={WIDE_GRID} ({WIDE_GRID ** 2} inducing "
+              f"points): {steps} steps x {summary['num_chains']} chains in "
+              f"{wall:.3f} s (set-up included); launches "
+              f"{ {k: v for k, v in delta.items() if v} }")
+        print(f"gp dopri5 SGLD at M={WIDE_GRID}: summary "
+              f"{json.dumps(summary)}")
+        want = {"gp_dopri5_fwd_record": steps + 1, "gp_dopri5_bwd": steps + 1,
+                "gp_dopri5_solve_whole": 1}
+        for name in delta:
+            check(delta[name] == want.get(name, 0),
+                  f"gp dopri5 SGLD at M={WIDE_GRID}: {name} launched "
+                  f"{want.get(name, 0)} times")
+        pots = np.load(os.path.join(out, "SGLD", c["id"],
+                                    "total_loss_arr.npy"))
+        check(pots.shape == (N_CHAINS, c["num_samples"]),
+              f"gp dopri5 SGLD at M={WIDE_GRID}: pots shape")
+        check(bool(np.isfinite(pots).all()),
+              f"gp dopri5 SGLD at M={WIDE_GRID}: finite potentials")
+
+    # ---- phase 17: the spiral's K2/K3 at N=9 against plain ----
+    # the JAX package's wide case (tests/test_fused_field.py: H=6, x0 on two
+    # lines, 6 output times to t=1.2, weights jittered by 0.1, rtol=1e-5)
+    # at 10,112 chains: 2N = 18 state components, past one 16-wide sum.
+    # These solves take 3-4 steps of up to 0.4, whose sizes follow the
+    # rounding of their error estimates: K2's step meshes differ from the
+    # plain solve's on all but about 150 chains (on an H100), and their
+    # dense outputs then differ by the quartic interpolant's error over such
+    # steps, up to 2.8e-3 at max|y| 3.15.  So K2 is held, at the 1e-4 max|y|
+    # gate, against the plain version's step arithmetic replayed on its own
+    # records (as K3 is held on them), and against the plain solve by the
+    # mean NFE, within the spiral's 2%; the two solves' trajectories are
+    # printed.
+    Nw, Hw = SPIRAL_WIDE
+    rtol9, atol9 = 1e-5, 1e-7
+    gen9 = torch.Generator(device=dev).manual_seed(9)
+    x09 = torch.stack([torch.linspace(-1.5, 2.0, Nw),
+                       torch.linspace(0.8, -0.9, Nw)], dim=-1).to(dev, f32)
+    ts9 = torch.linspace(0.0, 1.2, 6).to(dev, f32)
+    sp9 = spiral_model.init_params(torch.Generator().manual_seed(9),
+                                   hidden=Hw)
+    w9 = tuple((sp9[k].to(dev, f32)[None] + 0.1 * torch.randn(
+        (N_CHAINS,) + tuple(sp9[k].shape), generator=gen9, device=dev)
+    ).contiguous() for k in ("w1", "b1", "w2", "b2"))
+    field9, tab = spiral_field(), fa.TABLEAUS["dopri5"]
+    rhs9, vjp9 = field9.make_rhs(w9), field9.make_rhs_vjp(w9)
+    x0b9, f09, dt09 = ff._start(field9, w9, x09, rtol9, atol9)
+    a9 = (x0b9, f09, dt09, ts9, rtol9, atol9, 0.9, 10.0, 0.2, 100_000, "i")
+    _build.reset_launch_counts()
+    ysk, nfek, nacck, _, _, reck = fa.fwd(field9, w9, *a9, record=True,
+                                          store_steps=STORE_STEPS)
+    g9 = torch.randn(ysk.shape, generator=gen9, device=dev, dtype=f32)
+    wbk, lbk = fa.bwd(field9, w9, ts9, reck, nacck, g9)
+    torch.cuda.synchronize()
+    delta = {k: v for k, v in _build.launch_counts.items() if v}
+    ysp, nfep, *_ = fa.fwd_plain(rhs9, *a9, store_steps=STORE_STEPS,
+                                 tableau=tab)
+    ysr = replay_dense_output(rhs9, reck, nacck, x0b9, ts9, tab)
+    wbp, lbp = fa.bwd_plain(rhs9, vjp9, w9, ts9, reck, nacck, g9, tab)
+    torch.cuda.synchronize()
+    scale = float(ysp.abs().max())
+    err = float((ysk - ysr).abs().max())
+    err_solve = float((ysk - ysp).abs().max())
+    mk, mp = float(nfek.float().mean()), float(nfep.float().mean())
+    rel = max(max_rel(k, q) for k, q in zip(wbk + (lbk,), wbp + (lbp,)))
+    print(f"spiral N={Nw} H={Hw}: K2 max|ys - plain on its records| = "
+          f"{err:.3e}, max|ys - plain solve| = {err_solve:.3e} (max|y| "
+          f"{scale:.4f}), mean NFE {mk:.3f} vs plain {mp:.3f}, largest "
+          f"record count {int(nacck.max())}/{STORE_STEPS}; K3 max-rel "
+          f"{rel:.3e} vs the plain replay of its records; launches {delta}")
+    check(delta == {"spiral_dopri5_fwd_record": 1, "spiral_dopri5_bwd": 1},
+          f"spiral N={Nw}: K2 and K3 launched once each")
+    check(bool(torch.isfinite(ysk).all())
+          and all(bool(torch.isfinite(x).all()) for x in wbk + (lbk,)),
+          f"spiral N={Nw}: finite")
+    check(err <= 1e-4 * scale,
+          f"spiral N={Nw}: K2 within 1e-4 max|y| of plain on its records")
+    check(abs(mk - mp) <= 0.02 * mp, f"spiral N={Nw}: mean NFE within 2%")
+    check(rel <= 1e-3, f"spiral N={Nw}: K3 within 1e-3 of the plain replay")
+    del ysp, ysr, reck, wbk, wbp
+
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start "
+          f"to the kernels line, build included ({smi})")
     # no single PyTorch call computes an adaptive solve, an rk4 sweep or
     # the SVGD direction, so no kernel has a library yardstick (K8's plain
     # version, the matmul form on cuBLAS, is the one to beat)

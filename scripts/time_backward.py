@@ -5,11 +5,18 @@ commit, unpacked with `git archive`), in one process on one NVIDIA GPU:
     python3 scripts/time_backward.py --field gp --parent build/parent
     python3 scripts/time_backward.py --field mlp --parent build/parent
     python3 scripts/time_backward.py --field spiral --parent build/parent
+    python3 scripts/time_backward.py --field gp --grid 7   # this tree alone
+
+`--grid G` puts the GP field on a G x G inducing grid (M = G^2; 6 by
+default, the main path's); without `--parent` (a parent whose kernels
+cannot take the shape, say) only this tree's kernels are timed.
 
 --field gp: the whole adaptive solve without records (K1,
 `gp_dopri5_fwd` record=0) and with them (K2, record=1), each at DOPRI5 and
 TSIT5, K3 over the GP field (`gp_dopri5_bwd`, the replay backward, at
-DOPRI5 and TSIT5) and K5 (`gp_rk4_bwd`, the rk4 reverse sweep).  --field
+DOPRI5 and TSIT5), K4 (`gp_rk4_fwd`, the rk4 forward), K5
+(`gp_rk4_bwd`, the rk4 reverse sweep) and K9 (`gp_dopri5_step`, a whole
+solve of the per-step solver `gp_dopri5_solve`, its host loop included).  --field
 mlp: K6 (`mlp_rk4_fwd`), MLP K2 (`mlp_dopri5_fwd`, with and without
 records, each at DOPRI5 and TSIT5), K7 (`mlp_rk4_bwd`) and MLP K3
 (`mlp_dopri5_bwd`, DOPRI5 and TSIT5).  --field spiral: spiral K2
@@ -33,7 +40,8 @@ tree: for a backward, whether the x0 cotangent is bit-equal to the
 parent's (else its first differing component) and the largest max-rel of
 the weight cotangents to the parent's; for K6, the GP solves and MLP K2,
 whether the trajectories (and the solves' counters, end times and
-records) are bit-equal to the parent's; for the spiral solves, the mean
+records) are bit-equal to the parent's (K4 too, and K9's trajectories
+and counters); for the spiral solves, the mean
 NFE of each tree and the trajectories' max-rel; for MLP K2, this tree's
 bound (chip_smoke.adaptive_bounds from its step counts) and one plain
 solve's time; and the time by CUDA events (20 launches after 10) in
@@ -54,11 +62,19 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (the repo root's smoke test: its helpers)
 
-N_CHAINS, HIDDEN, N, T, M = chip_smoke.N_CHAINS, chip_smoke.HIDDEN, 5, 60, 36
+N_CHAINS, HIDDEN, N, T = chip_smoke.N_CHAINS, chip_smoke.HIDDEN, 5, 60
 SPIRAL_HIDDEN = chip_smoke.SPIRAL_HIDDEN
-SPECS = {"gp": [("gp_dopri5", (N, M)), ("gp_rk4", (N, M))],
-         "mlp": [("mlp_rk4", (N, HIDDEN)), ("mlp_dopri5", (N, HIDDEN))],
-         "spiral": [("spiral_dopri5", (N, SPIRAL_HIDDEN))]}
+FIELDS = ("gp", "mlp", "spiral")
+
+
+def field_specs(field, grid=6):
+    """The (family, shape) libraries of a field's kernels: the GP field's
+    on a grid x grid inducing grid."""
+    M = grid * grid
+    return {"gp": [("gp_dopri5", (N, M)), ("gp_rk4", (N, M)),
+                   ("gp_dopri5_step", (N, M))],
+            "mlp": [("mlp_rk4", (N, HIDDEN)), ("mlp_dopri5", (N, HIDDEN))],
+            "spiral": [("spiral_dopri5", (N, SPIRAL_HIDDEN))]}[field]
 
 
 def block_shape(csrc: Path, field: str):
@@ -66,11 +82,12 @@ def block_shape(csrc: Path, field: str):
     replay ("dopri5") backward kernels, rk4 forward ("rk4_fwd") and
     adaptive forwards ("fwd"), read from its sources: the GP field's
     per-point kernels (`struct GPPoint` in gp_field.cuh, its kThreads; the
-    forwards too where GPPoint has `norm_sums`) or its chain-per-thread ones
-    (64); the MLP field's two chains a block of K3 (`kChains = 2` in
-    mlp_field.cuh) or four, and its forwards' `kFwdWarps` chains a block
-    (before it, four for K6 and K3's for K2); the spiral's four (one warp a
-    chain)."""
+    forwards too where GPPoint has `norm_sums`, K4 where gp_rk4.cu steps
+    one point, `rk4_step<2>`) or its chain-per-thread ones (64); the MLP
+    field's chains a block of K3 (`MLPWarpChains<2` or `kChains = 2` in
+    mlp_field.cuh: two; else four), and its forwards' `kFwdWarps` chains a
+    block (before it, four for K6 and K3's for K2); the spiral's four (one
+    warp a chain)."""
     if field == "gp":
         src = (csrc / "gp_field.cuh").read_text()
         threads = re.search(r"static constexpr int kThreads = (\d+);", src)
@@ -78,12 +95,15 @@ def block_shape(csrc: Path, field: str):
         point = (threads, threads // 32 * (32 // N))
         per_point = "struct GPPoint" in src
         shape = point if per_point else (64, 64)
+        rk4_fwd = "rk4_step<2>" in (csrc / "gp_rk4.cu").read_text()
         return {"rk4": shape, "dopri5": shape,
-                "fwd": point if "norm_sums" in src else (64, 64)}
+                "fwd": point if "norm_sums" in src else (64, 64),
+                "rk4_fwd": point if rk4_fwd else (64, 64)}
     if field == "spiral":
         return {"dopri5": (128, 4), "fwd": (128, 4)}
     src = (csrc / "mlp_field.cuh").read_text()
-    bwd = (64, 2) if "kChains = 2;" in src else (128, 4)
+    two = re.search(r"kChains = 2;|MLPWarpChains<(warps_fitting\()?2\b", src)
+    bwd = (64, 2) if two else (128, 4)
     fwd = re.search(r"constexpr int kFwdWarps = (\d+);", src)
     fwd = (32 * int(fwd.group(1)), int(fwd.group(1))) if fwd else None
     return {"rk4": (128, 4), "dopri5": bwd, "rk4_fwd": fwd or (128, 4),
@@ -121,6 +141,8 @@ def build_others(trees, specs):
                        check=True)
         lib = ctypes.CDLL(str(so))
         for name, argtypes in _build.FAMILIES[family].entry_points.items():
+            if not hasattr(lib, name):      # an entry point this tree lacks
+                continue
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = ctypes.c_int
         libs[label][family] = (lib, log)
@@ -136,10 +158,12 @@ def print_occupancy(label, family, shape, log, blocks):
                 "fwd" if name.startswith("dopri5_fwd") else None)
         if kind in blocks:
             threads, chains = blocks[kind]
+            smem = chip_smoke.block_smem(family, shape, name, smem)
             warps, waves = chip_smoke.occupancy(regs, smem, threads, chains,
                                                 N_CHAINS)
             print(f"    {label} {name}: {warps} warps an SM, {waves:.2f} "
-                  f"waves ({threads} threads and {chains} chains a block)")
+                  f"waves ({threads} threads and {chains} chains a block, "
+                  f"{smem} B shared memory)")
 
 
 def solve(lib, family, w, scalars, x0, f0, dt0, ts, record, method, store,
@@ -170,11 +194,11 @@ def solve(lib, family, w, scalars, x0, f0, dt0, ts, record, method, store,
     return ys, nfe, nacc, nrej, t1, rec
 
 
-def gp_kernels(dev, stream):
+def gp_kernels(dev, stream, grid=6):
     """{label: (kind, run(libs) -> outputs)} of the GP field's kernels, on
     chip_smoke.py's phase 1, 2 and 6 inputs: the solves K1 and K2 ("exact",
-    the outputs of `solve`) and the backward kernels ("bwd", the x0
-    cotangent last)."""
+    the outputs of `solve`), K4 and K9 ("exact": trajectories, and K9's
+    counters) and the backward kernels ("bwd", the x0 cotangent last)."""
     import torch
 
     from bayesian_ode_tpu_torch.models import kernel_regression as kr
@@ -182,14 +206,18 @@ def gp_kernels(dev, stream):
     from bayesian_ode_tpu_torch.ops import _build
     from bayesian_ode_tpu_torch.ops import fused_adaptive as fa
     from bayesian_ode_tpu_torch.ops import gp_rk4
-    from bayesian_ode_tpu_torch.ops.gp_dopri5 import _pack_initial
+    from bayesian_ode_tpu_torch.ops.gp_dopri5 import (
+        _pack_initial,
+        gp_dopri5_solve,
+    )
     from bayesian_ode_tpu_torch.ops.gp_field import gp_field
 
     f32 = torch.float32
     data = make_dataset(seed=2, ode="vdp", N=N, T=T, t_max=6.0, noise=0.05,
                         x0_scale=1.5)
-    static = kr.make_static(kr.make_inducing_grid(data["Y"], M=6), sf=1.0,
-                            ell=0.75)
+    static = kr.make_static(kr.make_inducing_grid(data["Y"], M=grid),
+                            sf=1.0, ell=0.75)
+    M = grid * grid
     U0 = kr.init_params(data["Y"], data["t"], static, noise=0.05)["U"]
     gen = torch.Generator(device=dev).manual_seed(0)
     U = U0.to(dev, f32)[None] + 3e-3 * torch.randn(
@@ -227,6 +255,24 @@ def gp_kernels(dev, stream):
             stream), "gp_dopri5_bwd")
         return Abar, lbar
 
+    def k4(libs):
+        out = torch.empty_like(ys)
+        _build.check(libs["gp_rk4"].gp_rk4_fwd(
+            A.data_ptr(), x0.data_ptr(), Z.data_ptr(), dts.data_ptr(),
+            N_CHAINS, T, *scalars[:2], out.data_ptr(), stream), "gp_rk4_fwd")
+        return (out,)
+
+    def k9(libs):
+        """gp_dopri5_solve's host loop over this tree's K9 or another's."""
+        load = _build.load_library
+        _build.load_library = lambda family, shape: libs[family]
+        try:
+            ys9, st = gp_dopri5_solve(A, x0, ts, static, rtol=rtol,
+                                      atol=atol)
+        finally:
+            _build.load_library = load
+        return ys9, st["nfe"], st["n_accepted"], st["n_rejected"]
+
     def k5(libs):
         Abar = torch.empty_like(A)
         lbar = torch.empty((N_CHAINS, N, 2), dtype=f32, device=dev)
@@ -248,7 +294,7 @@ def gp_kernels(dev, stream):
             "K2 GP TSIT5": ("exact", lambda libs: fwd(libs, True, "tsit5")),
             "K3 GP DOPRI5": ("bwd", lambda libs: k3(libs, "dopri5")),
             "K3 GP TSIT5": ("bwd", lambda libs: k3(libs, "tsit5")),
-            "K5": ("bwd", k5)}
+            "K4": ("exact", k4), "K5": ("bwd", k5), "K9": ("exact", k9)}
 
 
 def mlp_kernels(dev, stream):
@@ -426,8 +472,9 @@ def compare_bwd(out, base):
 
 
 def compare_exact(out, base):
-    """K6's trajectories, or the outputs of `solve`, against the parent's,
-    each bit for bit (the records on the rows each chain wrote)."""
+    """K4's or K6's trajectories, or the outputs of `solve`, against the
+    parent's, each bit for bit (the records on the rows each chain
+    wrote)."""
     import torch
 
     names = ("trajectories", "nfe", "nacc", "nrej", "t1", "records")
@@ -466,9 +513,14 @@ COMPARE = {"bwd": compare_bwd, "exact": compare_exact,
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--field", choices=sorted(SPECS), required=True)
-    ap.add_argument("--parent", type=Path, required=True,
-                    help="root of the parent tree (git archive of a commit)")
+    ap.add_argument("--field", choices=FIELDS, required=True)
+    ap.add_argument("--parent", type=Path,
+                    help="root of the parent tree (git archive of a "
+                    "commit); without it, this tree's kernels are timed "
+                    "alone")
+    ap.add_argument("--grid", type=int, default=6,
+                    help="--field gp: the inducing grid's side (M = grid^2;"
+                    " 6, the main path's, by default)")
     ap.add_argument("--tree", action="append", default=[],
                     metavar="LABEL=DIR", help="another tree to compare")
     args = ap.parse_args()
@@ -488,11 +540,11 @@ def main() -> int:
     print(smi)
     kr.full_f32_matmul()
     pkg = Path("bayesian_ode_tpu_torch") / "csrc"
-    others = {"parent": args.parent.resolve() / pkg}
+    others = {"parent": args.parent.resolve() / pkg} if args.parent else {}
     for spec in args.tree:
         label, _, root = spec.partition("=")
         others[label] = Path(root).resolve() / pkg
-    specs = SPECS[args.field]
+    specs = field_specs(args.field, args.grid)
     t0 = time.perf_counter()
     _build.build(specs)
     built = build_others(others, specs)
@@ -509,26 +561,34 @@ def main() -> int:
                             block_shape(csrc, args.field))
 
     stream = torch.cuda.current_stream(dev).cuda_stream
-    kernels = {"gp": gp_kernels, "mlp": mlp_kernels,
-               "spiral": spiral_kernels}[args.field](dev, stream)
+    if args.field == "gp":
+        kernels = gp_kernels(dev, stream, args.grid)
+    else:
+        kernels = {"mlp": mlp_kernels,
+                   "spiral": spiral_kernels}[args.field](dev, stream)
+    parent = "parent" in libs
     labels = [k for k in libs if k != "parent"]
     for name, (kind, run, *note) in kernels.items():
-        base = run(libs["parent"])
         outs = {label: run(libs[label]) for label in labels}
-        torch.cuda.synchronize()
-        for label, out in outs.items():
-            print(f"{name} {label}: " + COMPARE[kind](out, base))
+        if parent:
+            base = run(libs["parent"])
+            torch.cuda.synchronize()
+            for label, out in outs.items():
+                print(f"{name} {label}: " + COMPARE[kind](out, base))
         if note:
             print(f"{name}: " + note[0](outs["this"]))
-        order = ["parent"] + labels + labels[::-1] + ["parent"]
+        order = labels + labels[::-1]
+        if parent:
+            order = ["parent"] + order + ["parent"]
         ms = {label: [] for label in libs}
         for label in order:
             ms[label].append(chip_smoke.cuda_ms(lambda: run(libs[label]), 20,
                                                 warmup=10))
         print(f"{name}: ms " + "; ".join(
             f"{label} {a:.3f} / {b:.3f}" for label, (a, b) in ms.items())
-            + f"; speed-up this tree {sum(ms['parent']) / sum(ms['this']):.2f}x"
-            f" ({smi})")
+            + (f"; speed-up this tree "
+               f"{sum(ms['parent']) / sum(ms['this']):.2f}x" if parent else "")
+            + f" ({smi})")
     return 0
 
 

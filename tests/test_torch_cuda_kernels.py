@@ -12,16 +12,20 @@ machine need not have; this file imports torch and the port only).
 Small shapes and the cases `chip_smoke.py` does not reach at full size:
 a chain count that is not a multiple of the 64-thread block (or of the
 warps of a warp-per-chain field's block, or of the 6 chains a warp and 24
-a block of the GP field's per-point kernels, K1, K2, K3 GP and K5, also
-built at N=3; or of the spiral's 4 warps a block), the MLP field at H=20
-(lanes past
-H hold zeros) and at the driver's H=32 (K7, K2 at 257 chains and K3
-under both tableaus against the plain replay of its records),
-the PI controller, budget
-exhaustion, record overflow, a spiral of 50 hidden units (two per lane)
-and one of 20 under both tableaus, the SVGD direction (K8) at particle
-counts and widths that are not multiples of its tiles, and the per-step
-solver (K9) against the whole solve.  Gates as the smoke's:
+a block of the GP field's per-point kernels, K1, K2, K3 GP, K4 and K5,
+also built at N=3; or of the spiral's 4 warps a block), the MLP field at
+H=20 (lanes past H hold zeros) and at the driver's H=32 (K7, K2 at 257
+chains and K3 under both tableaus against the plain replay of its
+records), the PI controller, budget exhaustion, record overflow, a spiral
+of 50 hidden units (two per lane) and one of 20 under both tableaus, the
+SVGD direction (K8) at particle counts and widths that are not multiples
+of its tiles, and the per-step solver (K9) against the whole solve.  The
+wide shapes the JAX package takes: the GP kernels (K1-K5, K9) at 7x7 and
+8x8 inducing grids (their blocks' buffers in dynamic shared memory), the
+MLP kernels (K6, K7, MLP K2/K3) at N=9 and 16 trajectory points and the
+spiral's K2/K3 at N=9, H=6; and each library's shared memory as built
+against the shape check's arithmetic.  All libraries are built at once,
+one nvcc per source, by the first fixture.  Gates as the smoke's:
 dopri5 trajectories within 1e-4 * max|y| of the plain version (two float32
 solves whose step meshes differ by rounding in the floor-bound regime),
 mean NFE within 1%, gradients within 1e-3 max-rel (the JAX package's
@@ -63,6 +67,25 @@ pytestmark = pytest.mark.cuda
 
 C = 200                      # 3 full blocks of 64 and a ragged one
 
+# every library these tests build, at the small shapes and the wide ones
+# (GP at 7x7 and 8x8 inducing grids, MLP at N = 9 and 16, the spiral at
+# N = 9): built together by the first fixture, one nvcc per source
+LIBRARIES = [
+    ("gp_dopri5", (5, 36)), ("gp_dopri5", (3, 36)), ("gp_dopri5", (5, 49)),
+    ("gp_dopri5", (5, 64)),
+    ("gp_rk4", (5, 36)), ("gp_rk4", (3, 36)), ("gp_rk4", (5, 49)),
+    ("gp_rk4", (5, 64)),
+    ("gp_dopri5_step", (5, 36)), ("gp_dopri5_step", (5, 49)),
+    ("gp_dopri5_step", (5, 64)),
+    ("mlp_rk4", (5, 20)), ("mlp_rk4", (5, 32)), ("mlp_rk4", (9, 32)),
+    ("mlp_rk4", (16, 32)),
+    ("mlp_dopri5", (5, 20)), ("mlp_dopri5", (5, 32)),
+    ("mlp_dopri5", (9, 32)), ("mlp_dopri5", (16, 32)),
+    ("spiral_dopri5", (5, 50)), ("spiral_dopri5", (5, 20)),
+    ("spiral_dopri5", (9, 6)),
+    ("fhn_dopri5", (5,)), ("svgd_phi", ()),
+]
+
 
 @pytest.fixture(scope="module")
 def gp():
@@ -71,6 +94,7 @@ def gp():
                     "sm_90a and run only there")
     dev = torch.device("cuda", 0)
     kr.full_f32_matmul()
+    _build.build(LIBRARIES)
     data = make_dataset(seed=2, N=5, T=12, t_max=2.5, noise=0.05,
                         x0_scale=1.5)
     static = kr.make_static(kr.make_inducing_grid(data["Y"], M=6), sf=1.0,
@@ -86,7 +110,7 @@ def gp():
     A = torch.einsum("mk,ckd->cmd", s32.KzzinvL, U).contiguous()
     return {"A": A, "U": U, "x0": data["x0"].to(dev, f32),
             "ts": data["t"].to(dev, f32), "Y": data["Y"].to(dev, f32),
-            "static": s32, "dev": dev}
+            "static": s32, "dev": dev, "data": data}
 
 
 def _close_solves(ys_k, st_k, ys_p, st_p):
@@ -247,32 +271,51 @@ def test_gp_rk4_kernels_match_plain(gp):
     assert _max_rel(Abar_k, Abar_ag) <= 1e-5
 
 
-def _gp_point_case(gp, chains, points, seed):
-    """A (chains, 36, 2) from the jittered start and x0 of `points`
-    trajectory points: 3 points build the GP libraries at GP_N = 3."""
-    s = gp["static"]
+def _gp_grid(gp, grid):
+    """(static on the card, U's gradient-matched start (grid^2, 2)) of the
+    GP problem on a grid x grid inducing grid."""
+    if grid == 6:
+        return gp["static"], gp["U"][0]
+    data, dev, f32 = gp["data"], gp["dev"], torch.float32
+    static = kr.make_static(kr.make_inducing_grid(data["Y"], M=grid), sf=1.0,
+                            ell=0.75)
+    U0 = kr.init_params(data["Y"], data["t"], static, noise=0.05)["U"]
+    s32 = kr.GPVectorFieldStatic(
+        Z=static.Z.to(dev, f32), KzzinvL=static.KzzinvL.to(dev, f32),
+        Kzzinv=static.Kzzinv.to(dev, f32), sf=static.sf, ell=static.ell)
+    return s32, U0.to(dev, f32)
+
+
+def _gp_point_case(gp, chains, points, seed, grid=6):
+    """A (chains, grid^2, 2) from the jittered start and x0 of `points`
+    trajectory points: 3 points build the GP libraries at GP_N = 3, a 7x7
+    or 8x8 grid at M = 49 or 64."""
+    s, U0 = _gp_grid(gp, grid)
     gen = torch.Generator(device=gp["dev"]).manual_seed(seed)
-    U = gp["U"][:1] + 3e-3 * torch.randn((chains, 36, 2), generator=gen,
-                                         device=gp["dev"])
+    U = U0[None] + 3e-3 * torch.randn((chains, grid * grid, 2),
+                                      generator=gen, device=gp["dev"])
     A = torch.einsum("mk,ckd->cmd", s.KzzinvL, U).contiguous()
     return A, s.Z.contiguous(), gp["x0"][:points].contiguous(), gen
 
 
-# K1, K2, K3 GP and K5 run one thread per trajectory point, N consecutive
-# lanes a chain (csrc/gp_field.cuh, GPPoint): 257 chains leave the last
-# warp and block ragged, and 3 points build GP_N = 3, 10 chains a warp.
-POINT_CASES = [(257, 5), (257, 3)]
+# K1, K2, K3 GP, K4 and K5 run one thread per trajectory point, N
+# consecutive lanes a chain (csrc/gp_field.cuh, GPPoint): 257 chains leave
+# the last warp and block ragged, 3 points build GP_N = 3, 10 chains a
+# warp, and the 7x7 and 8x8 inducing grids (M = 49, 64) put the blocks'
+# buffers past 48 KB of shared memory (dynamic: K3 at M = 49, K3 and K5 at
+# M = 64).
+POINT_CASES = [(257, 5, 6), (257, 3, 6), (257, 5, 7), (257, 5, 8)]
 
 
 @pytest.mark.parametrize("controller", ["i", "pi"])
-@pytest.mark.parametrize("chains,points", POINT_CASES)
-def test_gp_solves_one_thread_a_point(gp, chains, points, controller):
+@pytest.mark.parametrize("chains,points,grid", POINT_CASES)
+def test_gp_solves_one_thread_a_point(gp, chains, points, grid, controller):
     """K1 and K2 against the plain forward at rtol=1e-5 (the gate of
     test_whole_solve_kernel_matches_plain), and K2 bit-equal to K1: the
     chain's threads sum the error norm by shuffles (norm_sums), so every
     one of them takes the chain's steps."""
     s = gp["static"]
-    A, Z, x0, _ = _gp_point_case(gp, chains, points, 8)
+    A, Z, x0, _ = _gp_point_case(gp, chains, points, 8, grid)
     field, w, ts = gp_field(s.sf, s.ell), (A, Z), gp["ts"]
     rtol, atol = 1e-5, 1e-7
     x0b, f0, dt0 = ff._start(field, w, x0, rtol, atol)
@@ -296,10 +339,29 @@ def test_gp_solves_one_thread_a_point(gp, chains, points, controller):
     _close_solves(ys, {"nfe": nfe}, ys_p, {"nfe": nfe_p})
 
 
-@pytest.mark.parametrize("chains,points", POINT_CASES)
-def test_gp_rk4_backward_one_thread_a_point(gp, chains, points):
+@pytest.mark.parametrize("chains,points,grid", POINT_CASES)
+def test_gp_rk4_forward_one_thread_a_point(gp, chains, points, grid):
+    """K4 (one thread a point, GPPoint's one-point rhs through
+    rk4_step<2>) against its plain version, at the rk4 gate."""
     s = gp["static"]
-    A, Z, x0, gen = _gp_point_case(gp, chains, points, 6)
+    A, Z, x0, _ = _gp_point_case(gp, chains, points, 9, grid)
+    dts = torch.diff(gp["ts"]).contiguous()
+    before = _build.launch_counts["gp_rk4_fwd"]
+    ys_k = gp_rk4.gp_rk4_fwd(A, Z, x0, dts, s.sf, s.ell)
+    ys_p = gp_rk4.gp_rk4_fwd_plain(A, Z, x0, dts, s.sf, s.ell)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["gp_rk4_fwd"] == before + 1
+    assert ys_k.shape == (12, chains, points, 2)
+    assert torch.equal(ys_k[0], x0.expand(chains, points, 2))
+    assert bool(torch.isfinite(ys_k).all())
+    assert float((ys_k - ys_p).abs().max()) <= 1e-5 * float(
+        ys_p.abs().max())
+
+
+@pytest.mark.parametrize("chains,points,grid", POINT_CASES)
+def test_gp_rk4_backward_one_thread_a_point(gp, chains, points, grid):
+    s = gp["static"]
+    A, Z, x0, gen = _gp_point_case(gp, chains, points, 6, grid)
     dts = torch.diff(gp["ts"]).contiguous()
     ys = gp_rk4.gp_rk4_fwd(A, Z, x0, dts, s.sf, s.ell)
     g = torch.randn(ys.shape, generator=gen, device=gp["dev"])
@@ -320,12 +382,13 @@ def test_gp_rk4_backward_one_thread_a_point(gp, chains, points):
 
 
 @pytest.mark.parametrize("method", ["dopri5", "tsit5"])
-@pytest.mark.parametrize("chains,points", POINT_CASES)
-def test_gp_replay_backward_one_thread_a_point(gp, chains, points, method):
+@pytest.mark.parametrize("chains,points,grid", POINT_CASES)
+def test_gp_replay_backward_one_thread_a_point(gp, chains, points, grid,
+                                               method):
     """K3 GP against the plain replay of the kernel's own records (the
     same step mesh), at the same-mesh gate of the other instances."""
     s = gp["static"]
-    A, Z, x0, gen = _gp_point_case(gp, chains, points, 7)
+    A, Z, x0, gen = _gp_point_case(gp, chains, points, 7, grid)
     field, w, ts = gp_field(s.sf, s.ell), (A, Z), gp["ts"]
     x0b, f0, dt0 = ff._start(field, w, x0, 1e-7, 1e-9)
     ys, _, nacc, _, _, rec = fa.fwd(field, w, x0b, f0, dt0, ts, 1e-7, 1e-9,
@@ -359,8 +422,13 @@ def test_mlp_rk4_kernels_match_plain(gp, chains, hidden):
     for a, b in zip(sizes[:-1], sizes[1:]):
         w += [torch.rand((chains, a, b), generator=gen, device=dev) - 0.5,
               0.1 * torch.randn((chains, b), generator=gen, device=dev)]
-    w = tuple(w)
-    x0, dts = gp["x0"].contiguous(), torch.diff(gp["ts"]).contiguous()
+    _check_mlp_rk4_kernels(gp, tuple(w), gp["x0"], gen)
+
+
+def _check_mlp_rk4_kernels(gp, w, x0, gen):
+    """K6/K7 against their plain versions and autograd, at the rk4 gate."""
+    dev = gp["dev"]
+    x0, dts = x0.contiguous(), torch.diff(gp["ts"]).contiguous()
     before = dict(_build.launch_counts)
     ys_k = mlp_rk4.mlp_rk4_fwd(w, x0, dts)
     ys_p = mlp_rk4.mlp_rk4_fwd_plain(w, x0, dts)
@@ -373,6 +441,7 @@ def test_mlp_rk4_kernels_match_plain(gp, chains, hidden):
     torch.cuda.synchronize()
     assert _build.launch_counts["mlp_rk4_fwd"] == before["mlp_rk4_fwd"] + 1
     assert _build.launch_counts["mlp_rk4_bwd"] == before["mlp_rk4_bwd"] + 1
+    assert ys_k.shape == (len(gp["ts"]),) + tuple(lbar_k.shape)
     assert float((ys_k - ys_p).abs().max()) <= 1e-5 * float(
         ys_p.abs().max())
     for k, p, ag in zip(wbar_k, wbar_p, wbar_ag):
@@ -421,6 +490,17 @@ def _mlp_weights(gen, chains, H):
             uniform(chains, H, 2), 0.1 * randn(chains, 2))
 
 
+def _driver_mlp_weights(gen, chains):
+    """The driver's start weights of the MLP 2-32-32-2 (uniform(-0.5, 0.5),
+    zero biases), jittered by 0.005 per chain."""
+    dev = gen.device
+    params = init_mlp(torch.Generator().manual_seed(0), [2, 32, 32, 2],
+                      dtype=torch.float32)
+    return tuple((x.to(dev)[None] + 0.005 * torch.randn(
+        (chains, *x.shape), generator=gen, device=dev)).contiguous()
+                 for layer in params for x in (layer["w"], layer["b"]))
+
+
 def _adaptive_case(gp, case):
     """(field, weights, method) of one field/tableau instance at C chains:
     the driver's start weights, jittered per chain."""
@@ -456,9 +536,15 @@ def test_adaptive_field_kernels_match_plain(gp, case):
     forward (measured 3e-7 to 1.2e-6 apart on the CPU), each within 1e-4.
     """
     field, w, method = _adaptive_case(gp, case)
+    _check_adaptive_kernels(gp, field, w, method, gp["x0"], gp["ts"])
+
+
+def _check_adaptive_kernels(gp, field, w, method, x0, ts, nfe_tol=0.01):
+    """K2 (with and without records) and K3 of one field instance against
+    their plain versions at rtol=1e-5, as test_adaptive_field_kernels_
+    match_plain says; mean NFE within nfe_tol."""
     w = tuple(x.contiguous() for x in w)
     rtol, atol = 1e-5, 1e-7
-    x0, ts = gp["x0"], gp["ts"]
     x0b, f0, dt0 = ff._start(field, w, x0, rtol, atol)
     args = (x0b, f0, dt0, ts, rtol, atol, 0.9, 10.0, 0.2, 100_000, "i")
     tableau = fa.TABLEAUS[method]
@@ -492,7 +578,7 @@ def test_adaptive_field_kernels_match_plain(gp, case):
     scale = float(ys_p.abs().max())
     assert float((ys_k - ys_p).abs().max()) <= 1e-4 * scale
     mk, mp = float(nfe_k.float().mean()), float(nfe_p.float().mean())
-    assert abs(mk - mp) <= 0.01 * mp, (mk, mp)
+    assert abs(mk - mp) <= nfe_tol * mp, (mk, mp)
     for k, kp, p, a in zip(wbar_k, wbar_kp, wbar_p, wbar_ag):
         assert bool(torch.isfinite(k).all())
         assert _max_rel(k, kp) <= 1e-4
@@ -588,11 +674,7 @@ def test_mlp_replay_backward_at_the_driver_width(gp, method):
     some chains; chip_smoke.py holds K2 at the full shape)."""
     dev = gp["dev"]
     gen = torch.Generator(device=dev).manual_seed(12)
-    params = init_mlp(torch.Generator().manual_seed(0), [2, 32, 32, 2],
-                      dtype=torch.float32)
-    w = tuple((x.to(dev)[None] + 0.005 * torch.randn(
-        (C, *x.shape), generator=gen, device=dev)).contiguous()
-              for layer in params for x in (layer["w"], layer["b"]))
+    w = _driver_mlp_weights(gen, C)
     field, ts = mlp_field(32), gp["ts"]
     x0b, f0, dt0 = ff._start(field, w, gp["x0"], 1e-5, 1e-7)
     before = dict(_build.launch_counts)
@@ -614,6 +696,63 @@ def test_mlp_replay_backward_at_the_driver_width(gp, method):
     assert _max_rel(lbar_k, lbar_p) <= 1e-4
 
 
+# Past N = 8 the MLP and spiral fields' 2N sums are one 32-wide
+# reduce-scatter (warp_sum32), and K7's and MLP K3's blocks take fewer
+# warps (csrc/mlp_field.cuh); start points on two lines, as the JAX
+# package's N = 9 case (tests/test_fused_field.py).
+WIDE_POINTS = (9, 16)
+
+
+def _line_x0(gp, n):
+    return torch.stack([torch.linspace(-1.5, 2.0, n),
+                        torch.linspace(0.8, -0.9, n)], dim=-1).to(gp["dev"])
+
+
+@pytest.mark.parametrize("points", WIDE_POINTS)
+def test_mlp_rk4_kernels_past_eight_points(gp, points):
+    """K6/K7 at N = 9 and 16, H = 32."""
+    gen = torch.Generator(device=gp["dev"]).manual_seed(17)
+    _check_mlp_rk4_kernels(gp, _mlp_weights(gen, C, 32), _line_x0(gp, points),
+                           gen)
+
+
+@pytest.mark.parametrize("method", ["dopri5", "tsit5"])
+@pytest.mark.parametrize("points", WIDE_POINTS)
+def test_mlp_adaptive_kernels_past_eight_points(gp, points, method):
+    """MLP K2 and K3 at N = 9 and 16, H = 32, under each tableau, from the
+    driver's start weights (with _mlp_weights' biases the trajectories of
+    these start points grow to |y| ~ 70 by t = 2.5, where exp overflows in
+    the plain field's ELU and autograd through it gives NaN)."""
+    gen = torch.Generator(device=gp["dev"]).manual_seed(15)
+    _check_adaptive_kernels(gp, mlp_field(32), _driver_mlp_weights(gen, C),
+                            method, _line_x0(gp, points), gp["ts"])
+
+
+def test_spiral_kernels_at_nine_points(gp):
+    """Spiral K2/K3 at the JAX package's wide case: N = 9, H = 6, 6 output
+    times to t = 1.2, rtol = 1e-5 (ROADMAP queue 3, fault 1, step 3).  The
+    solves are 3-4 steps, so a rejection that follows the rounding of an
+    error estimate moves the mean NFE visibly: the spiral's gate of
+    chip_smoke.py, 2%."""
+    gen = torch.Generator(device=gp["dev"]).manual_seed(16)
+    ts = torch.linspace(0.0, 1.2, 6, device=gp["dev"])
+    _check_adaptive_kernels(gp, spiral_field(), _spiral_weights(gen, C, 6),
+                            "dopri5", _line_x0(gp, 9), ts, nfe_tol=0.02)
+
+
+@pytest.mark.parametrize("family,shape", LIBRARIES)
+def test_reported_shared_memory_is_the_shape_checks_arithmetic(
+        gp, family, shape):
+    """Each library's *_smem entry points (ptxas's static bytes plus the
+    launch's dynamic bytes, per kernel) against _build.smem_bytes, the
+    arithmetic check_shape holds to the limits before any build."""
+    built = _build.built_smem(family, shape)
+    want = _build.smem_bytes(family, shape)
+    assert set(built) == set(want)
+    for kind, sizes in built.items():
+        assert sizes == [want[kind]] * len(sizes), (kind, sizes, want)
+
+
 @pytest.mark.parametrize("n,d", [(300, 5), (1000, 3), (130, 200),
                                  (4097, 74)])
 def test_svgd_phi_kernel_matches_plain(gp, n, d):
@@ -632,6 +771,22 @@ def test_svgd_phi_kernel_matches_plain(gp, n, d):
     assert _build.launch_counts["svgd_phi"] == before + 1
     assert got.shape == (n, d) and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("grid", [7, 8])
+def test_per_step_solver_at_wide_grids(gp, grid):
+    """K9 (one chain a thread, its A and Z in dynamic shared memory) at
+    M = 49 and 64 against K1: the same steps on every chain."""
+    A, Z, x0, _ = _gp_point_case(gp, 256, 5, 4, grid)
+    static = _gp_grid(gp, grid)[0]
+    ys1, st1 = gp_dopri5_solve_whole(A, x0, gp["ts"], static)
+    ys9, st9 = gp_dopri5_solve(A, x0, gp["ts"], static)
+    torch.cuda.synchronize()
+    assert Z.shape == (grid * grid, 2)
+    assert st9["reached_final_time"]
+    for k in ("nfe", "n_accepted", "n_rejected"):
+        assert torch.equal(st9[k], st1[k]), k
+    assert float((ys9 - ys1).abs().max()) <= 5e-6
 
 
 def test_per_step_solver_takes_the_whole_solves_steps(gp):

@@ -1,0 +1,230 @@
+"""The shapes the port's CUDA kernels take, checked before any build, and
+the plain versions against the JAX package at the widened shapes.
+
+`ops/_build.py::check_shape` refuses what the kernels cannot compile with
+a NotImplementedError naming ROADMAP queue 1 item 19: more than 32
+trajectory points for the GP field (one point a lane), more than 16 for
+the MLP and spiral fields (one state component a lane), an MLP wider than
+32 (one hidden unit a lane), and a block's shared memory past 48 KB of
+static or 232,448 B of dynamic memory, by the arithmetic of the kernels'
+structs (`smem_bytes`; the card tests hold it to the built libraries'
+reports).  No card or nvcc is needed: the check runs first, so here
+`load_library` raises it where it would otherwise fail to find nvcc.
+
+Parity gates are those of the existing parity tests: the spiral engine at
+JAX's N = 9 case (tests/test_fused_field.py: H = 6, C = 4, T = 6,
+rtol 1e-5) as test_torch_spiral_dopri5.py holds it (trajectories within
+1e-4 * max|y| and step counts by `check_solve`, the replay gradient
+within 1e-3 of jax.grad through the JAX engine), and the GP rk4 kernels'
+plain versions at a 7 x 7 inducing grid as test_torch_gp_rk4.py holds
+them at 6 x 6 (trajectories within 1e-5 * max|y|, cotangents within 1e-5
+max-rel of the JAX kernels' jax.vjp).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bayesian_ode_tpu.ops import spiral_dopri5 as js
+from bayesian_ode_tpu.ops.gp_rk4 import gp_rk4_trajectory as jtrajectory
+from bayesian_ode_tpu_torch.models import spiral
+from bayesian_ode_tpu_torch.ops import _build
+from bayesian_ode_tpu_torch.ops import gp_rk4 as tg
+from bayesian_ode_tpu_torch.ops import spiral_dopri5 as ts_
+from torch_parity import (
+    check_solve,
+    gp_problem,
+    max_rel,
+    spiral_params,
+    to_np,
+    tree_max_rel,
+)
+
+ITEM = "ROADMAP queue 1 item 19"
+
+# (family, shape) past one limit each: GP N = 33; MLP and spiral N = 17;
+# MLP H = 33; a GP inducing grid whose block passes 232,448 B (15 x 15 for
+# K3 and K5: 267,208 and 263,112 B at N = 5; 22 x 22 for K9: 251,680 B);
+# a spiral whose one warp's buffer passes 48 KB of static memory (H = 128
+# at N = 16: 58,368 B)
+PAST = [
+    ("gp_dopri5", (33, 36), "N <= 32"),
+    ("gp_rk4", (33, 36), "N <= 32"),
+    ("gp_dopri5_step", (33, 36), "N <= 32"),
+    ("mlp_dopri5", (17, 32), "N <= 16"),
+    ("mlp_rk4", (17, 32), "N <= 16"),
+    ("spiral_dopri5", (17, 6), "N <= 16"),
+    ("mlp_dopri5", (5, 33), "H <= 32"),
+    ("mlp_rk4", (5, 33), "H <= 32"),
+    ("gp_dopri5", (5, 225), "232448 B"),
+    ("gp_rk4", (5, 225), "232448 B"),
+    ("gp_dopri5_step", (5, 484), "232448 B"),
+    ("spiral_dopri5", (16, 128), "49152 B"),
+]
+
+# the shapes of the card tests and chip_smoke.py
+TAKEN = [
+    ("gp_dopri5", (5, 36)), ("gp_dopri5", (3, 36)), ("gp_dopri5", (5, 49)),
+    ("gp_dopri5", (5, 64)), ("gp_dopri5", (32, 196)),
+    ("gp_rk4", (5, 36)), ("gp_rk4", (3, 36)), ("gp_rk4", (5, 49)),
+    ("gp_rk4", (5, 64)),
+    ("gp_dopri5_step", (5, 36)), ("gp_dopri5_step", (5, 49)),
+    ("gp_dopri5_step", (5, 64)),
+    ("mlp_rk4", (5, 20)), ("mlp_rk4", (5, 32)), ("mlp_rk4", (9, 32)),
+    ("mlp_rk4", (16, 32)),
+    ("mlp_dopri5", (5, 20)), ("mlp_dopri5", (5, 32)),
+    ("mlp_dopri5", (9, 32)), ("mlp_dopri5", (16, 32)),
+    ("spiral_dopri5", (5, 50)), ("spiral_dopri5", (5, 20)),
+    ("spiral_dopri5", (9, 6)), ("spiral_dopri5", (16, 50)),
+    ("fhn_dopri5", (5,)), ("svgd_phi", ()),
+]
+
+
+@pytest.mark.parametrize("family,shape,limit", PAST)
+def test_check_shape_names_item_19_and_the_limit(family, shape, limit):
+    with pytest.raises(NotImplementedError, match=ITEM) as err:
+        _build.check_shape(family, shape)
+    assert limit in str(err.value)
+
+
+@pytest.mark.parametrize("family,shape", TAKEN)
+def test_check_shape_takes_the_tested_shapes(family, shape):
+    _build.check_shape(family, shape)
+
+
+@pytest.mark.parametrize("family,shape,limit", PAST)
+def test_load_library_raises_before_any_build(family, shape, limit):
+    """No nvcc here: without the check first, load_library and build
+    would raise RuntimeError("nvcc not found ...")."""
+    with pytest.raises(NotImplementedError, match=ITEM):
+        _build.load_library(family, shape)
+    with pytest.raises(NotImplementedError, match=ITEM):
+        _build.build([("fhn_dopri5", (5,)), (family, shape)])
+    assert (family, shape) not in _build._LIBS
+
+
+# What ptxas reported as each kernel's static shared memory on the H100 at
+# the main shape (N = 5, M = 36, MLP H = 32, spiral H = 50; PERF.md §6),
+# where the buffers were static: the arithmetic of the same structs.  The
+# GP rk4 forward (K4) now keeps GPPoint's buffers, the solves' 7,200 B,
+# and the spiral's forward, which reads no buffer, no longer has one
+# allocated (37,376 B before).
+MAIN = [
+    ("gp_dopri5", (5, 36), {"fwd": 7200, "bwd": 35872}),
+    ("gp_rk4", (5, 36), {"fwd": 7200, "bwd": 31776}),
+    ("gp_dopri5_step", (5, 36), {"step": 18720}),
+    ("mlp_rk4", (5, 32), {"fwd": 2752, "bwd": 39872}),
+    ("mlp_dopri5", (5, 32), {"fwd": 2752, "bwd": 27904}),
+    ("spiral_dopri5", (5, 50), {"fwd": 0, "bwd": 37376}),
+    ("fhn_dopri5", (5,), {"fwd": 0, "bwd": 0}),
+    ("svgd_phi", (), {"phi": 87808}),
+]
+
+
+@pytest.mark.parametrize("family,shape,want", MAIN)
+def test_smem_arithmetic_at_the_main_shape(family, shape, want):
+    assert _build.smem_bytes(family, shape) == want
+
+
+def test_widened_blocks_fit_by_fewer_warps_or_dynamic_memory():
+    """K3 GP at a 7 x 7 grid takes 200 * 49 + 1,024 * (49 - 8) B, past the
+    48 KB a static block may have; the MLP's K7 and K3 and the spiral's
+    buffers at N = 16 fit 48 KB with fewer warps a block."""
+    assert _build.smem_bytes("gp_dopri5", (5, 49))["bwd"] == 51784
+    assert _build.smem_bytes("mlp_rk4", (16, 32))["bwd"] == 2 * 21632
+    assert _build.smem_bytes("mlp_dopri5", (16, 32))["bwd"] == 34304
+    assert _build.smem_bytes("spiral_dopri5", (9, 50))["bwd"] == 2 * 16768
+    assert _build.smem_bytes("spiral_dopri5", (16, 50))["bwd"] == 29696
+
+
+# ---- the plain versions against JAX at the widened shapes ----
+
+SPIRAL_TOL = {"rtol": 1e-5, "atol": 1e-7}
+N9, T6, C4 = 9, 6, 4
+
+
+@pytest.fixture(scope="module")
+def spiral9():
+    """JAX's N = 9 spiral case: its engine's solve and replay gradient."""
+    params = spiral_params(C=C4, H=6, seed=9)
+    x0 = np.stack([np.linspace(-1.5, 2.0, N9),
+                   np.linspace(0.8, -0.9, N9)], axis=-1).astype(np.float32)
+    ts = np.linspace(0.0, 1.2, T6).astype(np.float32)
+    W = np.random.RandomState(5).randn(T6, C4, N9, 2).astype(np.float32)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    ys, st = js.spiral_dopri5_solve_stats(jp, jnp.asarray(x0),
+                                          jnp.asarray(ts), interpret=True,
+                                          **SPIRAL_TOL)
+    grad = jax.grad(lambda p: jnp.sum(js.spiral_dopri5_trajectory(
+        p, jnp.asarray(x0), jnp.asarray(ts), interpret=True,
+        **SPIRAL_TOL) * W))(jp)
+    return {"params": params, "x0": x0, "ts": ts, "W": W, "ys": ys,
+            "st": st, "grad": grad}
+
+
+def _spiral9_params(ref):
+    return {k: v.requires_grad_(True) for k, v in
+            spiral.params_from_numpy(ref["params"]).items()}
+
+
+def test_spiral_plain_forward_at_nine_points_matches_jax(spiral9):
+    ys, st = ts_.spiral_dopri5_solve_stats(
+        _spiral9_params(spiral9), torch.tensor(spiral9["x0"]),
+        torch.tensor(spiral9["ts"]), **SPIRAL_TOL)
+    assert tuple(ys.shape) == (T6, C4, N9, 2)
+    check_solve(ys, st, spiral9["ys"], spiral9["st"])
+
+
+def test_spiral_plain_gradient_at_nine_points_matches_jax(spiral9):
+    params = _spiral9_params(spiral9)
+    ys = ts_.spiral_dopri5_trajectory(params, torch.tensor(spiral9["x0"]),
+                                      torch.tensor(spiral9["ts"]),
+                                      **SPIRAL_TOL)
+    (ys * torch.tensor(spiral9["W"])).sum().backward()
+    assert tree_max_rel({k: v.grad for k, v in params.items()},
+                        spiral9["grad"]) <= 1e-3
+
+
+@pytest.fixture(scope="module")
+def gp49():
+    """The GP rk4 problem on a 7 x 7 inducing grid: the JAX kernels'
+    trajectories and their vjp for a seeded cotangent."""
+    p = gp_problem(C=128, M=7)
+    ts = jnp.asarray(p["t"])
+
+    def traj(A, x0):
+        return jtrajectory(A, x0, ts, p["jstatic32"], tile=128,
+                           interpret=True)
+
+    ys, vjp = jax.vjp(traj, jnp.asarray(p["A"]), jnp.asarray(p["x0"]))
+    g = np.random.RandomState(5).randn(*ys.shape).astype(np.float32)
+    Abar, x0bar = vjp(jnp.asarray(g))
+    return p, np.asarray(ys), g, np.asarray(Abar), np.asarray(x0bar)
+
+
+def _gp49_tensors(p):
+    s = p["tstatic"]
+    return (torch.tensor(p["A"]), s.Z.to(torch.float32),
+            torch.tensor(p["x0"]),
+            torch.diff(torch.tensor(p["t"], dtype=torch.float32)),
+            s.sf, s.ell)
+
+
+def test_gp_rk4_plain_forward_at_a_7x7_grid_matches_jax(gp49):
+    p, ys_j, *_ = gp49
+    A, Z, x0, dts, sf, ell = _gp49_tensors(p)
+    assert A.shape == (128, 49, 2)
+    ys = tg.gp_rk4_fwd_plain(A, Z, x0, dts, sf, ell)
+    assert tuple(ys.shape) == ys_j.shape
+    assert np.max(np.abs(to_np(ys) - ys_j)) <= 1e-5 * np.max(np.abs(ys_j))
+
+
+def test_gp_rk4_plain_backward_at_a_7x7_grid_matches_jax(gp49):
+    p, _, g, Abar_j, x0bar_j = gp49
+    A, Z, x0, dts, sf, ell = _gp49_tensors(p)
+    ys = tg.gp_rk4_fwd_plain(A, Z, x0, dts, sf, ell)
+    Abar, lbar = tg.gp_rk4_bwd_plain(A, Z, ys, torch.tensor(g), dts, sf, ell)
+    assert Abar.shape == (128, 49, 2)
+    assert max_rel(Abar, Abar_j) <= 1e-5
+    assert max_rel(lbar.sum(dim=0), x0bar_j) <= 1e-5

@@ -30,17 +30,18 @@ def max_rel(a, b):
     return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
 
 
-def gp_problem(C=8, T=12, t_max=2.5, seed=0, jitter=3e-3):
-    """The GP posterior problem in both packages.  Returns a dict of numpy
-    arrays (float32 solver inputs, float64 statics) and the two statics."""
+def gp_problem(C=8, T=12, t_max=2.5, seed=0, jitter=3e-3, M=6):
+    """The GP posterior problem in both packages, on an M x M inducing
+    grid.  Returns a dict of numpy arrays (float32 solver inputs, float64
+    statics) and the two statics."""
     data = make_dataset(jax.random.PRNGKey(2), "vdp", N=5, T=T, t_max=t_max,
                         noise=0.05, x0_scale=1.5)
-    Z = jkr.make_inducing_grid(data["Y"], M=6)
+    Z = jkr.make_inducing_grid(data["Y"], M=M)
     static = jkr.make_static(Z, sf=1.0, ell=0.75)
     p0 = jkr.init_params(data["Y"], data["t"], static, noise=0.05)
     rng = np.random.RandomState(seed)
     U = (np.asarray(p0["U"], np.float32)[None]
-         + jitter * rng.randn(C, 36, 2).astype(np.float32))
+         + jitter * rng.randn(C, M * M, 2).astype(np.float32))
     KzzinvL32 = np.asarray(static.KzzinvL, np.float32)
     A = np.einsum("mk,ckd->cmd", KzzinvL32, U).astype(np.float32)
     logsn = (np.broadcast_to(np.asarray(p0["logsn"], np.float32), (C, 2))
