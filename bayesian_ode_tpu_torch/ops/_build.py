@@ -24,8 +24,8 @@ point a lane, N <= 16 for the MLP and spiral fields' one state component
 a lane), an MLP wider than a warp (H <= 32), or a block's shared memory
 past its limit, by the arithmetic of the kernels' structs (`smem_bytes`):
 48 KB for the buffers a kernel keeps in static shared memory, 232,448 B
-(an sm_90 block's opt-in maximum) for the GP field's and K8's dynamic
-ones.  Each library reports what its build allocated through its
+(an sm_90 block's opt-in maximum) for the GP field's dynamic ones.  Each
+library reports what its build allocated through its
 `*_smem` entry points (`built_smem`), which the card tests hold to that
 arithmetic.
 
@@ -129,9 +129,11 @@ FAMILIES: Dict[str, Family] = {
         {"gp_dopri5_step_smem": ("step",)}),
     "svgd_phi": Family(
         ("svgd_phi.cu",), (), (), "svgd_phi_dims",
-        {"svgd_phi": [_P] * 3 + [_I, _I] + [_P, _P],
+        {"svgd_phi": [_P] * 3 + [_I] * 3 + [_P] * 3,
+         "svgd_phi_splits": [_I, _I, _P],
          "svgd_phi_smem": [_P]},
-        {"svgd_phi_smem": ("phi",)}),
+        # the 32-, 64- and 96-feature chunk instances, then the combine
+        {"svgd_phi_smem": ("phi",) * 3 + ("combine",)}),
 }
 
 # The shape limits of check_shape (csrc/: one GP trajectory point a lane,
@@ -145,8 +147,8 @@ MLP_MAX_HIDDEN = 32
 STATIC_SMEM_MAX = 48 * 1024
 DYNAMIC_SMEM_MAX = 232_448
 # the families whose kernels keep their block's buffers in dynamic shared
-# memory (the GP field's kDynamicSmem; K8's PhiSmem)
-DYNAMIC_SMEM = ("gp_dopri5", "gp_rk4", "gp_dopri5_step", "svgd_phi")
+# memory (the GP field's kDynamicSmem)
+DYNAMIC_SMEM = ("gp_dopri5", "gp_rk4", "gp_dopri5_step")
 ITEM_19 = "ROADMAP queue 1 item 19"
 
 
@@ -165,7 +167,7 @@ def _warps_fitting(most: int, nbytes: int) -> int:
 
 def smem_bytes(family: str, shape: Tuple[int, ...]) -> Dict[str, int]:
     """Shared-memory bytes a block of each kernel of the library takes, by
-    kind ("fwd", "bwd", "step", "phi"), by the arithmetic of the structs in
+    kind ("fwd", "bwd", "step", "phi", "combine"), by the arithmetic of the structs in
     csrc/ (sizeof of arrays of float and float2; MLPBuf, MLPFwdBuf and
     SpiralBuf aligned to 16 B)."""
     f4 = 4
@@ -207,9 +209,12 @@ def smem_bytes(family: str, shape: Tuple[int, ...]) -> Dict[str, int]:
     if family == "fhn_dopri5":
         return {"fwd": 0, "bwd": 0}
     if family == "svgd_phi":
-        # PhiSmem: xr, xc, xx, yy in float64; the K tile, scores, particles
-        return {"phi": 8 * (16 * 36 + 16 * 68 + 32 + 64)
-                + f4 * (64 * 32 + 2 * 64 * 128)}
+        # PhiSmem (static, one size for every chunk width): the rows'
+        # features (96 x 36), the columns' particles (32 x 97) and scores
+        # (32 x 96), the K tile (32 x 36), the norms (32 + 32); the combine
+        # has none
+        return {"phi": f4 * (96 * 36 + 32 * 97 + 32 * 96 + 32 * 36 + 64),
+                "combine": 0}
     raise ValueError(f"unknown kernel family {family!r}")
 
 

@@ -6,8 +6,8 @@
 Builds the port's CUDA kernels from `bayesian_ode_tpu_torch/csrc/` (one
 nvcc per source, all started together), prints each kernel's registers and
 spills (and, for the kernels redesigned for the card, K6, MLP K2, K7, MLP
-K3, K4, K5, GP K3, the GP solves K1/K2 and spiral K3, the warps an SM
-holds and the waves of their grid, the GP ones also at 7x7 and 8x8
+K3, K4, K5, GP K3, the GP solves K1/K2, spiral K3 and K8, the warps an
+SM holds and the waves of their grid, the GP ones also at 7x7 and 8x8
 inducing grids), checks each library's reported shared memory against
 the shape check's arithmetic (`_build.smem_bytes`), and
 holds each kernel against its plain PyTorch version at the main paths'
@@ -22,9 +22,12 @@ t=6, 10,112 chains):
     (H=32, store_steps=256), the spiral y^3-net (H=50, store_steps=128),
     the FitzHugh-Nagumo theta-field on FitzHugh-Nagumo data
     (store_steps=128), and the GP field at TSIT5;
-  - the SVGD direction (K8) at 4,096 particles of the GP posterior (74
-    parameters each), before and after the SVGD run below, and at 16,384
-    N(0, 1) particles, each against its plain version and float64;
+  - the SVGD direction (K8, with its column splits and their combine) at
+    4,096 particles of the GP posterior (74 parameters each), before and
+    after the SVGD run below, and at 16,384 N(0, 1) particles, each
+    against its plain version and float64, with its column splits,
+    registers, spills and warps an SM, and its time at 1,024 particles
+    beside the matmul form's;
   - the per-step GP dopri5 solver (K9) against the whole solve K1 (the
     same steps on every chain) and against its plain version.
 
@@ -72,13 +75,16 @@ HIDDEN = 32
 SPIRAL_HIDDEN = 50
 SVGD_PARTICLES = (4096, 1024)     # K8 on "auto" at the first, not the second
 SVGD_STEPS = 50
+SVGD_WIDTH = 74                   # a GP particle: U (36 x 2) and logsn (2)
 # (threads, chains) a block of the kernels redesigned for the card, by
 # library and ptxas name: the MLP field's (csrc/mlp_field.cuh: K7 4 chains
 # a block, MLP K3 2, the forwards K6 and MLP K2 kFwdWarps), the GP field's
 # one thread a trajectory point (csrc/gp_field.cuh, GPPoint: 128 threads,
 # 6 chains a warp at N=5; the backward kernels K5 and K3, and the solves K1
 # and K2, and the rk4 forward K4) and the spiral's replay
-# (csrc/spiral_field.cuh: one warp a chain, 4 a block)
+# (csrc/spiral_field.cuh: one warp a chain, 4 a block); K8's block holds
+# 32 particle rows (csrc/svgd_phi.cu; its 96-feature instance, the SVGD
+# path's at 74 features), its waves counted over rows times column splits
 MLP_FWD_WARPS = 4
 OCCUPANCY_BLOCKS = {
     ("mlp_rk4", "mlp_rk4_fwd"): (32 * MLP_FWD_WARPS, MLP_FWD_WARPS),
@@ -96,7 +102,8 @@ OCCUPANCY_BLOCKS = {
                                ("dopri5_fwd", (" record", " no-record")))
        for tableau in ("Dopri5", "Tsit5") for record in records},
     ("spiral_dopri5", "dopri5_bwd SpiralDopri5 Dopri5"): (128, 4),
-    ("spiral_dopri5", "dopri5_bwd SpiralDopri5 Tsit5"): (128, 4)}
+    ("spiral_dopri5", "dopri5_bwd SpiralDopri5 Tsit5"): (128, 4),
+    ("svgd_phi", "svgd_phi 96"): (128, 32)}
 # the wide shapes: the main path at a 7x7 inducing grid, the spiral at the
 # JAX package's N=9 case; and, for their occupancy alone, the GP kernels at
 # 7x7 and 8x8 grids
@@ -365,10 +372,14 @@ def ptxas_summary(family, shape, log):
                                r"|svgd_phi|gp_rk4_fwd|gp_rk4_bwd"
                                r"|mlp_rk4_fwd|mlp_rk4_bwd|GPDopri5|GPPoint"
                                r"|MLPDopri5Fwd|MLPDopri5"
-                               r"|SpiralDopri5|FHNDopri5|Dopri5|Tsit5|Lb[01])",
-                               mangled)
+                               r"|SpiralDopri5|FHNDopri5|Dopri5|Tsit5|Lb[01]"
+                               r"|combine)", mangled)
             name = " ".join(parts).replace("Lb1", "record").replace(
                 "Lb0", "no-record")
+            # K8's instances by the width of their feature chunk
+            m = re.search(r"svgd_phi_kernelILi(\d)E", mangled)
+            if m:
+                name += f" {32 * int(m.group(1))}"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -388,7 +399,8 @@ def kernel_kind(name):
     """The kind (`_build.smem_bytes`' key) of a kernel named by
     ptxas_summary."""
     for prefix, kind in (("dopri5_fwd", "fwd"), ("dopri5_bwd", "bwd"),
-                         ("dopri5_step", "step"), ("svgd_phi", "phi")):
+                         ("dopri5_step", "step"),
+                         ("svgd_phi combine", "combine"), ("svgd_phi", "phi")):
         if name.startswith(prefix):
             return kind
     return name.rsplit("_", 1)[-1]          # gp_rk4_fwd, mlp_rk4_bwd, ...
@@ -442,6 +454,7 @@ def main() -> int:
     from bayesian_ode_tpu_torch.ops import _build
     from bayesian_ode_tpu_torch.ops import fused_adaptive as fa
     from bayesian_ode_tpu_torch.ops import gp_rk4, mlp_rk4
+    from bayesian_ode_tpu_torch.ops import svgd_phi as k8
     from bayesian_ode_tpu_torch.ops.gp_dopri5 import (
         _pack_initial,
         gp_dopri5_solve_whole,
@@ -468,6 +481,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build(LIBRARIES)
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    k8_ptxas = {}
     for lib in LIBRARIES:
         _build.load_library(*lib)
         # what the build allocated against the shape check's arithmetic
@@ -482,12 +496,19 @@ def main() -> int:
             if (lib[0], name) in OCCUPANCY_BLOCKS:
                 threads, chains = OCCUPANCY_BLOCKS[lib[0], name]
                 smem = block_smem(*lib, name, smem)
-                warps, waves = occupancy(regs, smem, threads, chains,
-                                         N_CHAINS)
+                C, unit = N_CHAINS, "chains"
+                if lib[0] == "svgd_phi":
+                    # rows times column splits at the SVGD path's shape
+                    n = SVGD_PARTICLES[0]
+                    C = n * k8.splits(n, SVGD_WIDTH, dev)
+                    unit = f"rows ({n} particles x {C // n} column splits)"
+                    k8_ptxas = dict(regs=regs, spills=(st, ld),
+                                    warps=warps_per_sm(regs, smem, threads))
+                warps, waves = occupancy(regs, smem, threads, chains, C)
                 print(f"    {name}: {warps} warps an SM, {waves:.2f} waves "
-                      f"at {N_CHAINS} chains ({threads} threads and {chains} "
-                      f"chains a block, {regs} registers, {smem} B shared "
-                      f"memory, spills {st}/{ld} B)")
+                      f"at {C} {unit} ({threads} threads and {chains} "
+                      f"{unit.split()[0]} a block, {regs} registers, {smem} B"
+                      f" shared memory, spills {st}/{ld} B)")
 
     # ---- inputs at the main path's shape ----
     data = make_dataset(seed=2, ode="vdp", N=5, T=60, t_max=6.0,
@@ -1119,7 +1140,6 @@ def main() -> int:
     # scores), particles at the gradient-matched start jittered by 0.005 on
     # U and logsn, AdaGrad at lr=1e-2, 50 steps; phi through K8 on "auto"
     # at 4,096 particles and through the matmul form at 1,024
-    from bayesian_ode_tpu_torch.ops import svgd_phi as k8
     from bayesian_ode_tpu_torch.samplers import stein
     from bayesian_ode_tpu_torch.utils.pytree import ravel_pytree
 
@@ -1219,6 +1239,20 @@ def main() -> int:
     print(f"K8: {ms8:.3f} ms at n={X0.shape[0]} d={X0.shape[1]}, plain "
           f"(matmul form, cuBLAS, TF32 off) {ms8p:.3f} ms, bound {b8:.4f} ms "
           f"({by8}) ({smi})")
+    print(f"K8 at n={X0.shape[0]} d={X0.shape[1]}: "
+          f"{k8.splits(X0.shape[0], X0.shape[1], dev)} column splits, "
+          f"{k8_ptxas['regs']} registers, spills {k8_ptxas['spills'][0]}/"
+          f"{k8_ptxas['spills'][1]} B, {k8_ptxas['warps']} warps an SM")
+    n1 = SVGD_PARTICLES[1]
+    X1 = svgd_runs[n1][0].init(svgd_runs[n1][1]).particles
+    S1 = scores(X1)
+    gamma1 = stein.rbf_bandwidth(X1, None, 256)
+    ms1 = cuda_ms(lambda: k8._launch(X1, S1, gamma1), 20, warmup=10)
+    ms1p = cuda_ms(lambda: k8.svgd_phi_reference(X1, S1, gamma1), 20,
+                   warmup=3)
+    print(f"K8 at n={n1} d={X1.shape[1]} ({k8.splits(n1, X1.shape[1], dev)} "
+          f"column splits): {ms1:.3f} ms, matmul form {ms1p:.3f} ms; the "
+          f"SVGD path takes the matmul form below 4,096 particles ({smi})")
     kernels["svgd_phi"] = dict(
         source="bayesian_ode_tpu_torch/csrc/svgd_phi.cu",
         replaces="bayesian_ode_tpu/ops/pallas_rbf.py:25",
@@ -1231,7 +1265,7 @@ def main() -> int:
               f"{n / ms * 1e3:.0f} particle-steps/s ({smi})")
     profile_steps(f"SVGD n={SVGD_PARTICLES[0]}",
                   *svgd_runs[SVGD_PARTICLES[0]], dev)
-    del X0, S0, svgd_runs
+    del X0, S0, X1, S1, svgd_runs
 
     # ---- phase 14: K8 where the plain K is 1 GiB, on N(0, 1) inputs ----
     gen8 = torch.Generator(device=dev).manual_seed(8)
@@ -1242,7 +1276,8 @@ def main() -> int:
     ms16 = cuda_ms(lambda: k8._launch(X, S, gamma), 5, warmup=2)
     ms16p = cuda_ms(lambda: k8.svgd_phi_reference(X, S, gamma), 5, warmup=1)
     print(f"K8 n=16384: within rtol 2e-5 / atol 2e-6 of plain: {close}; "
-          f"{ms16:.3f} ms, plain {ms16p:.3f} ms")
+          f"{ms16:.3f} ms, plain {ms16p:.3f} ms "
+          f"({k8.splits(16384, 74, dev)} column splits)")
     check(close, "K8 at n=16384 within rtol 2e-5 / atol 2e-6 of plain")
     del X, S, phik, phip
 

@@ -5,6 +5,7 @@ commit, unpacked with `git archive`), in one process on one NVIDIA GPU:
     python3 scripts/time_backward.py --field gp --parent build/parent
     python3 scripts/time_backward.py --field mlp --parent build/parent
     python3 scripts/time_backward.py --field spiral --parent build/parent
+    python3 scripts/time_backward.py --field svgd --parent build/parent
     python3 scripts/time_backward.py --field gp --grid 7   # this tree alone
 
 `--grid G` puts the GP field on a G x G inducing grid (M = G^2; 6 by
@@ -21,7 +22,11 @@ mlp: K6 (`mlp_rk4_fwd`), MLP K2 (`mlp_dopri5_fwd`, with and without
 records, each at DOPRI5 and TSIT5), K7 (`mlp_rk4_bwd`) and MLP K3
 (`mlp_dopri5_bwd`, DOPRI5 and TSIT5).  --field spiral: spiral K2
 (`spiral_dopri5_fwd`, recording; with each tree's mean NFE) and spiral K3
-(`spiral_dopri5_bwd`), each at DOPRI5 and TSIT5.
+(`spiral_dopri5_bwd`), each at DOPRI5 and TSIT5.  --field svgd: K8
+(`svgd_phi`, with its combine) at 1,024, 4,096 and 16,384 particles of
+d = 74, on the SVGD ensemble and on N(0, 1) inputs, with each tree's and
+the plain float32 matmul form's max-rel to a float64 truth and the matmul
+form's time.
 
 The trees' libraries keep the same C entry points, so each other tree's
 are built from its own `csrc/` with this tree's nvcc flags into
@@ -64,7 +69,8 @@ import chip_smoke  # noqa: E402  (the repo root's smoke test: its helpers)
 
 N_CHAINS, HIDDEN, N, T = chip_smoke.N_CHAINS, chip_smoke.HIDDEN, 5, 60
 SPIRAL_HIDDEN = chip_smoke.SPIRAL_HIDDEN
-FIELDS = ("gp", "mlp", "spiral")
+FIELDS = ("gp", "mlp", "spiral", "svgd")
+SVGD_SIZES = (1024, 4096, 16384)
 
 
 def field_specs(field, grid=6):
@@ -74,7 +80,8 @@ def field_specs(field, grid=6):
     return {"gp": [("gp_dopri5", (N, M)), ("gp_rk4", (N, M)),
                    ("gp_dopri5_step", (N, M))],
             "mlp": [("mlp_rk4", (N, HIDDEN)), ("mlp_dopri5", (N, HIDDEN))],
-            "spiral": [("spiral_dopri5", (N, SPIRAL_HIDDEN))]}[field]
+            "spiral": [("spiral_dopri5", (N, SPIRAL_HIDDEN))],
+            "svgd": [("svgd_phi", ())]}[field]
 
 
 def block_shape(csrc: Path, field: str):
@@ -101,6 +108,12 @@ def block_shape(csrc: Path, field: str):
                 "rk4_fwd": point if rk4_fwd else (64, 64)}
     if field == "spiral":
         return {"dopri5": (128, 4), "fwd": (128, 4)}
+    if field == "svgd":
+        src = (csrc / "svgd_phi.cu").read_text()
+        rows = int(re.search(r"constexpr int kRows = (\d+);", src).group(1))
+        threads = re.search(r"constexpr int kThreads = (\d+);", src)
+        return {"svgd": (int(threads.group(1)) if threads else 4 * rows,
+                         rows)}
     src = (csrc / "mlp_field.cuh").read_text()
     two = re.search(r"kChains = 2;|MLPWarpChains<(warps_fitting\()?2\b", src)
     bwd = (64, 2) if two else (128, 4)
@@ -155,8 +168,19 @@ def print_occupancy(label, family, shape, log, blocks):
         kind = ("rk4" if name.endswith("rk4_bwd") else
                 "rk4_fwd" if name.endswith("rk4_fwd") else
                 "dopri5" if name.startswith("dopri5_bwd") else
-                "fwd" if name.startswith("dopri5_fwd") else None)
-        if kind in blocks:
+                "fwd" if name.startswith("dopri5_fwd") else
+                "svgd" if name.startswith("svgd_phi")
+                and not name.endswith("combine") else None)
+        if kind == "svgd":
+            # K8's blocks are particle rows; a tree whose buffers are
+            # dynamic reports none to ptxas
+            threads, rows = blocks[kind]
+            warps = (f"{chip_smoke.warps_per_sm(regs, smem, threads)} warps "
+                     "an SM" if smem else "dynamic shared memory")
+            print(f"    {label} {name}: {warps} ({threads} threads and "
+                  f"{rows} rows a block, {regs} registers, spills {st}/{ld}"
+                  f" B, {smem} B static shared memory)")
+        elif kind in blocks:
             threads, chains = blocks[kind]
             smem = chip_smoke.block_smem(family, shape, name, smem)
             warps, waves = chip_smoke.occupancy(regs, smem, threads, chains,
@@ -449,6 +473,107 @@ def spiral_kernels(dev, stream):
             "spiral K3 TSIT5": ("bwd", lambda libs: k3(libs, "tsit5"))}
 
 
+def svgd_kernels(dev, stream):
+    """{label: (kind, run(libs) -> (phi, float64 truth), note)} of K8 at
+    SVGD_SIZES particles of d = 74: on the SVGD ensemble of chip_smoke.py's
+    phase 13 (the GP posterior's start jittered by 0.005, scores of the
+    fused rk4 potential) and on N(0, 1) particles and scores (phase 14),
+    each at the median bandwidth.  A tree whose library lacks
+    `svgd_phi_splits` (before the column splits) is called with its own
+    signature."""
+    import torch
+
+    from bayesian_ode_tpu_torch.models import kernel_regression as kr
+    from bayesian_ode_tpu_torch.models import make_dataset
+    from bayesian_ode_tpu_torch.ops import _build
+    from bayesian_ode_tpu_torch.ops.gp_rk4 import make_fused_gp_potential
+    from bayesian_ode_tpu_torch.ops.svgd_phi import svgd_phi_reference
+    from bayesian_ode_tpu_torch.samplers import stein
+    from bayesian_ode_tpu_torch.utils.pytree import ravel_pytree
+
+    f32 = torch.float32
+    data = make_dataset(seed=2, ode="vdp", N=N, T=T, t_max=6.0, noise=0.05,
+                        x0_scale=1.5)
+    static = kr.make_static(kr.make_inducing_grid(data["Y"], M=6), sf=1.0,
+                            ell=0.75)
+    p0 = kr.init_params(data["Y"], data["t"], static, noise=0.05)
+    s32 = kr.GPVectorFieldStatic(
+        Z=static.Z.to(dev, f32), KzzinvL=static.KzzinvL.to(dev, f32),
+        Kzzinv=static.Kzzinv.to(dev, f32), sf=static.sf, ell=static.ell)
+    pot = make_fused_gp_potential(s32, data["x0"].to(dev, f32),
+                                  data["t"].to(dev, f32),
+                                  data["Y"].to(dev, f32))
+    unravel = ravel_pytree({k: p0[k].to(dev, f32)
+                            for k in ("U", "logsn")})[1]
+
+    def ensemble(n):
+        g = torch.Generator(device=dev).manual_seed(n)
+        U = p0["U"].to(dev, f32)[None] + 0.005 * torch.randn(
+            (n, 36, 2), generator=g, device=dev)
+        logsn = p0["logsn"].to(dev, f32)[None] + 0.005 * torch.randn(
+            (n, 2), generator=g, device=dev)
+        flat = torch.cat([U.reshape(n, -1), logsn], dim=1)  # leaf order
+        x = flat.detach().requires_grad_(True)
+        (grad,) = torch.autograd.grad(pot(unravel(x)).sum(), [x])
+        return flat.contiguous(), (-grad).contiguous()
+
+    def normal(n):
+        g = torch.Generator(device=dev).manual_seed(8)
+        return (torch.randn((n, 74), generator=g, device=dev),
+                torch.randn((n, 74), generator=g, device=dev))
+
+    old_api = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p] * 2
+
+    def case(X, S):
+        gamma = stein.rbf_bandwidth(X, None, 256).to(f32).reshape(1)
+        truth = svgd_phi_reference(X.double(), S.double(), gamma.double())
+        n, d = X.shape
+
+        def run(libs):
+            lib = libs["svgd_phi"]
+            out = torch.empty_like(X)
+            if hasattr(lib, "svgd_phi_splits"):
+                got = ctypes.c_int()
+                _build.check(lib.svgd_phi_splits(n, d, ctypes.byref(got)),
+                             "svgd_phi_splits")
+                work = torch.empty((got.value, n, 2 * d + 1), dtype=f32,
+                                   device=dev)
+                status = lib.svgd_phi(X.data_ptr(), S.data_ptr(),
+                                      gamma.data_ptr(), n, d, got.value,
+                                      work.data_ptr(), out.data_ptr(),
+                                      stream)
+            else:
+                lib.svgd_phi.argtypes = old_api
+                status = lib.svgd_phi(X.data_ptr(), S.data_ptr(),
+                                      gamma.data_ptr(), n, d, out.data_ptr(),
+                                      stream)
+            _build.check(status, "svgd_phi")
+            return out, truth
+
+        def note(out):
+            plain = svgd_phi_reference(X, S, gamma)
+            ms = chip_smoke.cuda_ms(lambda: svgd_phi_reference(X, S, gamma),
+                                    10, warmup=2)
+            return (f"max-rel to float64 {phi_error(out[0], truth):.3e}, "
+                    f"plain float32 (matmul form) "
+                    f"{phi_error(plain, truth):.3e}; matmul form {ms:.3f} "
+                    f"ms")
+
+        return "phi", run, note
+
+    out = {}
+    for n in SVGD_SIZES:
+        out[f"K8 n={n} d=74 ensemble"] = case(*ensemble(n))
+        out[f"K8 n={n} d=74 N(0,1)"] = case(*normal(n))
+    return out
+
+
+def phi_error(phi, truth):
+    """max-rel of a float32 phi to the float64 truth."""
+    return float((phi.double() - truth).abs().max() / truth.abs().max())
+
+
 def first_difference(a, b):
     """(flat index, a's value, b's value) of the first element where a and
     b differ."""
@@ -507,8 +632,18 @@ def compare_solve(out, base):
             f"{chip_smoke.max_rel(out[0], base[0]):.3e}")
 
 
+def compare_phi(out, base):
+    """Two trees' phi (with the float64 truth): each one's max-rel to it,
+    and whether they are bit-equal."""
+    import torch
+
+    return (f"max-rel to float64 {phi_error(out[0], out[1]):.3e}, parent "
+            f"{phi_error(base[0], base[1]):.3e}; bit-equal to the parent's: "
+            f"{torch.equal(out[0], base[0])}")
+
+
 COMPARE = {"bwd": compare_bwd, "exact": compare_exact,
-           "solve": compare_solve}
+           "solve": compare_solve, "phi": compare_phi}
 
 
 def main() -> int:
@@ -564,8 +699,8 @@ def main() -> int:
     if args.field == "gp":
         kernels = gp_kernels(dev, stream, args.grid)
     else:
-        kernels = {"mlp": mlp_kernels,
-                   "spiral": spiral_kernels}[args.field](dev, stream)
+        kernels = {"mlp": mlp_kernels, "spiral": spiral_kernels,
+                   "svgd": svgd_kernels}[args.field](dev, stream)
     parent = "parent" in libs
     labels = [k for k in libs if k != "parent"]
     for name, (kind, run, *note) in kernels.items():

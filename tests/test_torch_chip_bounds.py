@@ -131,6 +131,8 @@ def test_warps_per_sm(regs, smem, threads, warps):
     (56, 7200, 128, 24, 36, 9),     # K4, one thread a point: 422 blocks
     (104, 51784, 128, 24, 16, 4),   # K3 GP at a 7x7 grid, dynamic memory
     (103, 70144, 128, 24, 12, 3),   # K3 GP at an 8x8 grid: 1.07 waves
+    (97, 87808, 256, 32, 16, 2),    # K8 before the column splits
+    (127, 43392, 128, 32, 16, 4),   # K8, 32 rows a block: 4 by registers
 ])
 def test_occupancy_warps_and_waves(regs, smem, threads, chains, warps,
                                    blocks_an_sm):
@@ -205,6 +207,33 @@ def test_ptxas_summary_names_the_redesigned_solves_and_spiral_replay(
     assert (family, name) in chip_smoke.OCCUPANCY_BLOCKS
 
 
+def test_ptxas_summary_names_k8_by_its_feature_chunk():
+    """K8's instances (svgd_phi_kernel<kFq>, 32 kFq features a lane
+    group) and its combine: the SVGD path's 96-feature instance is keyed in
+    chip_smoke.OCCUPANCY_BLOCKS; the combine has its own shared-memory
+    kind."""
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{mangled}' for "
+        "'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\n"
+        f"ptxas info    : Used {regs} registers, used 1 barriers{smem}\n"
+        for mangled, regs, smem in (
+            ("_ZN4bode15svgd_phi_kernelILi3EEEvPKfS2_S2_iiiPf", 127,
+             ", 43392 bytes smem"),
+            ("_ZN4bode15svgd_phi_kernelILi1EEEvPKfS2_S2_iiiPf", 126,
+             ", 43392 bytes smem"),
+            ("_ZN4bode23svgd_phi_combine_kernelEPKfS1_S1_iiiPf", 32, "")))
+    got = chip_smoke.ptxas_summary("svgd_phi", (), log)
+    assert got == [("svgd_phi 96", 127, 0, 0, 43392),
+                   ("svgd_phi 32", 126, 0, 0, 43392),
+                   ("svgd_phi combine", 32, 0, 0, 0)]
+    assert [chip_smoke.kernel_kind(g[0]) for g in got] == [
+        "phi", "phi", "combine"]
+    assert chip_smoke.OCCUPANCY_BLOCKS["svgd_phi", "svgd_phi 96"] == (128,
+                                                                       32)
+
+
 def test_ptxas_summary_names_the_per_point_rk4_forward():
     """K4 (gp_rk4_fwd_kernel on GPPoint<8>): its buffers are dynamic, so
     ptxas reports no shared memory, and chip_smoke.block_smem takes the
@@ -232,6 +261,7 @@ def test_ptxas_summary_names_the_per_point_rk4_forward():
     ("mlp_rk4", (5, 32), "mlp_rk4_bwd", 39872, 39872),
     ("spiral_dopri5", (5, 50), "dopri5_fwd SpiralDopri5 Dopri5 record", 0,
      0),
+    ("svgd_phi", (), "svgd_phi 96", 43392, 43392),
 ])
 def test_block_smem(family, shape, name, static, smem):
     assert chip_smoke.block_smem(family, shape, name, static) == smem

@@ -19,7 +19,8 @@ chains and K3 under both tableaus against the plain replay of its
 records), the PI controller, budget exhaustion, record overflow, a spiral
 of 50 hidden units (two per lane) and one of 20 under both tableaus, the
 SVGD direction (K8) at particle counts and widths that are not multiples
-of its tiles, and the per-step solver (K9) against the whole solve.  The
+of its tiles, on the clustered SVGD ensemble against float64 and bit for
+bit from call to call, and the per-step solver (K9) against the whole solve.  The
 wide shapes the JAX package takes: the GP kernels (K1-K5, K9) at 7x7 and
 8x8 inducing grids (their blocks' buffers in dynamic shared memory), the
 MLP kernels (K6, K7, MLP K2/K3) at N=9 and 16 trajectory points and the
@@ -62,6 +63,7 @@ from bayesian_ode_tpu_torch.ops.gp_field import gp_field
 from bayesian_ode_tpu_torch.ops.mlp_dopri5 import mlp_field
 from bayesian_ode_tpu_torch.ops.spiral_dopri5 import spiral_field
 from bayesian_ode_tpu_torch.ops.svgd_phi import svgd_phi, svgd_phi_reference
+from bayesian_ode_tpu_torch.samplers import stein
 
 pytestmark = pytest.mark.cuda
 
@@ -754,11 +756,11 @@ def test_reported_shared_memory_is_the_shape_checks_arithmetic(
 
 
 @pytest.mark.parametrize("n,d", [(300, 5), (1000, 3), (130, 200),
-                                 (4097, 74)])
+                                 (4097, 74), (1, 74), (20, 74)])
 def test_svgd_phi_kernel_matches_plain(gp, n, d):
-    """Ragged particle counts against the 32-row and 64-column tiles, a
-    width past the 128-feature chunk (two chunks) and one that is not a
-    multiple of the 16-feature step."""
+    """Ragged particle counts against the 32-row and 32-column tiles, a
+    width past the 96-feature chunk (three chunks), the SVGD path's 74
+    features at a ragged count, one particle and fewer than a tile."""
     dev = gp["dev"]
     gen = torch.Generator(device=dev).manual_seed(n + d)
     X = torch.randn((n, d), generator=gen, device=dev)
@@ -771,6 +773,68 @@ def test_svgd_phi_kernel_matches_plain(gp, n, d):
     assert _build.launch_counts["svgd_phi"] == before + 1
     assert got.shape == (n, d) and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+
+
+def _svgd_ensemble(dev, n):
+    """n particles of the GP posterior as chip_smoke.py's SVGD phase makes
+    them (U and logsn of the gradient-matched start jittered by 0.005, 74
+    parameters) and their scores from the fused rk4 potential (K4/K5)."""
+    f32 = torch.float32
+    data = make_dataset(seed=2, ode="vdp", N=5, T=60, t_max=6.0, noise=0.05,
+                        x0_scale=1.5)
+    static = kr.make_static(kr.make_inducing_grid(data["Y"], M=6), sf=1.0,
+                            ell=0.75)
+    p0 = kr.init_params(data["Y"], data["t"], static, noise=0.05)
+    s32 = kr.GPVectorFieldStatic(
+        Z=static.Z.to(dev, f32), KzzinvL=static.KzzinvL.to(dev, f32),
+        Kzzinv=static.Kzzinv.to(dev, f32), sf=static.sf, ell=static.ell)
+    pot = gp_rk4.make_fused_gp_potential(s32, data["x0"].to(dev, f32),
+                                         data["t"].to(dev, f32),
+                                         data["Y"].to(dev, f32))
+    gen = torch.Generator(device=dev).manual_seed(n)
+    U = (p0["U"].to(dev, f32)[None] + 0.005 * torch.randn(
+        (n, 36, 2), generator=gen, device=dev)).requires_grad_(True)
+    logsn = (p0["logsn"].to(dev, f32)[None] + 0.005 * torch.randn(
+        (n, 2), generator=gen, device=dev)).requires_grad_(True)
+    gU, gl = torch.autograd.grad(pot({"U": U, "logsn": logsn}).sum(),
+                                 [U, logsn])
+    X = torch.cat([U.detach().reshape(n, -1), logsn.detach()], dim=1)
+    return X, -torch.cat([gU.reshape(n, -1), gl], dim=1)
+
+
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_svgd_phi_kernel_on_the_svgd_ensemble(gp, n):
+    """The clustered ensemble, where the plain float32 matmul form is
+    percent-level off float64 (the norm expansion cancels): K8 centres each
+    row tile on one of its particles, within 1e-4 of float64 and within 2x
+    the plain version's error (floor 1e-5), the JAX gate for float32
+    paths."""
+    X, S = _svgd_ensemble(gp["dev"], n)
+    gamma = stein.rbf_bandwidth(X, None, 256)
+    got = svgd_phi(X, S, gamma)
+    plain = svgd_phi_reference(X, S, gamma)
+    truth = svgd_phi_reference(X.double(), S.double(), gamma.double())
+    torch.cuda.synchronize()
+    scale = float(truth.abs().max())
+    err = float((got.double() - truth).abs().max()) / scale
+    err_plain = float((plain.double() - truth).abs().max()) / scale
+    assert err <= 1e-4, (err, err_plain)
+    assert err <= 2.0 * max(err_plain, 1e-5), (err, err_plain)
+
+
+@pytest.mark.parametrize("n,d", [(1024, 74), (4096, 74), (130, 200)])
+def test_svgd_phi_kernel_is_deterministic(gp, n, d):
+    """The column splits' partial sums are added in a fixed order, with no
+    atomics: two calls on the same inputs give the same bits."""
+    dev = gp["dev"]
+    gen = torch.Generator(device=dev).manual_seed(n)
+    X = torch.randn((n, d), generator=gen, device=dev)
+    S = torch.randn((n, d), generator=gen, device=dev)
+    gamma = torch.tensor(0.7 / d, device=dev)
+    first = svgd_phi(X, S, gamma)
+    second = svgd_phi(X, S, gamma)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("grid", [7, 8])

@@ -118,7 +118,7 @@ MAIN = [
     ("mlp_dopri5", (5, 32), {"fwd": 2752, "bwd": 27904}),
     ("spiral_dopri5", (5, 50), {"fwd": 0, "bwd": 37376}),
     ("fhn_dopri5", (5,), {"fwd": 0, "bwd": 0}),
-    ("svgd_phi", (), {"phi": 87808}),
+    ("svgd_phi", (), {"phi": 43392, "combine": 0}),
 ]
 
 
