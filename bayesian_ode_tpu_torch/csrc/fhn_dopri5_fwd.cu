@@ -1,6 +1,6 @@
-// Whole adaptive solve of the FitzHugh-Nagumo theta-field, one chain per
-// thread: the forward kernels of dopri5_kernels.cuh over FHNDopri5
-// (fhn_field.cuh).
+// Whole adaptive solve of the FitzHugh-Nagumo theta-field, one trajectory
+// point a thread: the forward kernels of dopri5_kernels.cuh over FHNFwd
+// (fhn_field.cuh: FHNPoint, or FHNDopri5 past 32 points a chain).
 //
 // Replaces bayesian_ode_tpu/ops/fused_adaptive.py::make_fwd_rec_kernel (K2)
 // as bayesian_ode_tpu/ops/fhn_dopri5.py registers the FHN field on the
@@ -10,8 +10,13 @@
 // What bounds it on an H100: a field evaluation is about 8 FP32 operations
 // per point, so a step's arithmetic is small beside its serial latency,
 // and at full width the dense output and the record rows (bytes) are the
-// least time the card could take.  theta sits in registers; blocks of 64
-// threads give 158 blocks at 10,112 chains.
+// least time the card could take.  One chain a thread left 316 warps at
+// 10,112 chains (2-3 an SM), each thread carrying 2N components through a
+// step; one point a thread, N consecutive lanes a chain, gives 1,686 warps
+// (422 blocks of 128 threads, all resident at once) with each thread's
+// chain N times shorter.  The error norm is gathered by shuffles over the
+// chain's lanes and summed in the per-chain order, so the solves are the
+// per-chain design's bit for bit.  theta sits in registers.
 #include "dopri5_kernels.cuh"
 #include "fhn_field.cuh"
 
@@ -31,19 +36,19 @@ int fhn_dopri5_fwd(int record, int tableau, const float* a, const float* b,
                    float dfactor, int max_steps, int pi, int store_steps,
                    float* ys, int* nfe, int* nacc, int* nrej, float* t1,
                    float* rec, cudaStream_t stream) {
-  const bode::FHNDopri5::Args w{a, b, c};
+  const bode::FHNFwd::Args w{a, b, c};
   const bode::SolveArgs s{rtol, atol, safety, ifactor, dfactor, max_steps,
                           pi, record ? store_steps : 0};
   const bode::FwdOut o{ys, nfe, nacc, nrej, t1, record ? rec : nullptr};
-  return bode::launch_fwd<bode::FHNDopri5>(record, tableau, w, x0, f0, dt0,
-                                           ts, C, T, s, o, stream);
+  return bode::launch_fwd<bode::FHNFwd>(record, tableau, w, x0, f0, dt0, ts,
+                                        C, T, s, o, stream);
 }
 
 // The shared memory of a block of each forward (DOPRI5 and TSIT5, each
 // without and with records), static and dynamic: the shape check's
 // arithmetic (ops/_build.py) against the build.
 int fhn_dopri5_fwd_smem(int* bytes) {
-  return bode::fwd_smem<bode::FHNDopri5>(bytes);
+  return bode::fwd_smem<bode::FHNFwd>(bytes);
 }
 
 }  // extern "C"

@@ -4,15 +4,31 @@
 //   V' = c (V - V^3/3 + R),   R' = -(V - a + b R) / c,   theta = (a, b, c)
 //
 // per chain, as bayesian_ode_tpu/ops/fhn_dopri5.py registers it on the
-// public engine.  One chain per thread, theta in registers; the field
-// multiplies by inv_c = 1/c, computed once per chain, as the TPU kernel
-// does (the host reference of ops/fhn_dopri5.py divides by c).  At three
-// weights a chain, the kernels are bound by the FMAs of their serial step
-// chain and by the bytes of the dense output and records.
+// public engine.  theta sits in registers; the field multiplies by
+// inv_c = 1/c, computed once per chain, as the TPU kernel does (the host
+// reference of ops/fhn_dopri5.py divides by c).  At three weights a chain,
+// the kernels are bound by the serial latency of their step chain and by
+// the bytes of the dense output and records.
+//
+// The field is pointwise: f at point n reads only that point's V and R and
+// theta.  So the forward (K2, FHNPoint) carries one trajectory point a
+// thread, N consecutive lanes a chain, as the GP field's solves do
+// (gp_field.cuh, GPPoint): a thread's serial chain is one point's, not N
+// points', and 10,112 chains are 1,686 warps where one chain a thread made
+// 316.  The error norm is the only chain-wide step: norm_sums gathers the
+// chain's ratios by shuffles and adds them in the per-chain order, so the
+// trajectories, counters and records are the per-chain solve's bit for
+// bit.  Past 32 points a chain does not fit a warp, and the forward is
+// built on FHNDopri5, one chain a thread (FHNFwd, chosen by N).  The
+// replay backward (K3) keeps FHNDopri5.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
+
+#include "warp.cuh"
 
 #ifndef FHN_N
 #error "FHN_N (trajectory points per chain) must be defined at build time"
@@ -64,15 +80,19 @@ struct FHNDopri5 {
     g.c[ch] = acc.c;
   }
 
+  // f at one point (V, R) = (x, r).
+  __device__ __forceinline__ void point_rhs(float x, float r, float& fx,
+                                            float& fy) const {
+    const float s = x - x * x * x * kThird + r;   // V' = c s
+    const float q = x - a + b * r;                // R' = -q / c
+    fx = c * s;
+    fy = -q * inv_c;
+  }
+
   __device__ void rhs(const float* y, float* f) const {
 #pragma unroll
-    for (int n = 0; n < kFN; ++n) {
-      const float x = y[2 * n], r = y[2 * n + 1];
-      const float s = x - x * x * x * kThird + r;   // V' = c s
-      const float q = x - a + b * r;                // R' = -q / c
-      f[2 * n] = c * s;
-      f[2 * n + 1] = -q * inv_c;
-    }
+    for (int n = 0; n < kFN; ++n)
+      point_rhs(y[2 * n], y[2 * n + 1], f[2 * n], f[2 * n + 1]);
   }
 
   // ybar = (df/dy)^T cot, and the theta cotangent accumulated into acc:
@@ -94,5 +114,75 @@ struct FHNDopri5 {
     }
   }
 };
+
+// The forward's field at N <= 32 (K2, with and without records): one
+// trajectory point a thread.  kOwn = 2: a thread carries its point's V and
+// R (components 2n and 2n + 1); 32 / N chains a warp, 128 threads a
+// block (24 chains at N = 5: 422 blocks at 10,112 chains, all resident at
+// once); the chain's lane n = 0 writes t0, dt and the counters.
+template <int N>
+struct FHNPoint {
+  static_assert(N >= 1 && N <= 32, "a chain's points must fit one warp");
+  static constexpr int kNS = 2 * N;
+  static constexpr int kOwn = 2;
+  static constexpr int kChainsPerWarp = 32 / N;
+  static constexpr int kThreads = 128;
+  static constexpr int kChains = kThreads / 32 * kChainsPerWarp;
+  static constexpr int kMinBlocks = 4;
+  using Args = FHNDopri5::Args;
+  using Smem = FHNDopri5::Smem;
+
+  FHNDopri5 th;        // the chain's theta
+
+  static __device__ int lane() { return threadIdx.x & 31; }
+  static __device__ int point() { return lane() % N; }
+  // this thread's chain; a lane past the warp's last chain has none
+  // (returns a count past any C)
+  static __device__ int chain() {
+    return lane() < kChainsPerWarp * N
+               ? blockIdx.x * kChains + (threadIdx.x >> 5) * kChainsPerWarp
+                     + lane() / N
+               : 0x7fffffff;
+  }
+  static __device__ int comp(int q) { return 2 * point() + q; }
+  static __device__ bool owner() { return true; }
+  static __device__ bool leader() { return point() == 0; }
+  // the lanes of this thread's chain
+  static __device__ unsigned chain_mask() {
+    const unsigned m = N == 32 ? kFull : (1u << (N % 32)) - 1u;
+    return m << (lane() - point());
+  }
+
+  static __device__ FHNPoint load(const Args& w, Smem& sm, int C, int ch) {
+    return FHNPoint{FHNDopri5::load(w, sm, C, ch)};
+  }
+
+  // The error norm's sums (field_stages.cuh): point q's ratios r[0] (V)
+  // and r[1] (R) from the chain's lane q, added as the per-chain loop adds
+  // them (dopri5_common.cuh, step_decision), q = 0..N-1.  Every thread of
+  // the chain gets the same bits; only the chain's lanes take part, so
+  // chains that have finished their solves need not.
+  __device__ __forceinline__ void norm_sums(const float* r, float& sx,
+                                            float& sy) const {
+    const unsigned mask = chain_mask();
+    const int base = lane() - point();
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      const float rx = __shfl_sync(mask, r[0], base + q);
+      const float ry = __shfl_sync(mask, r[1], base + q);
+      sx += rx * rx;
+      sy += ry * ry;
+    }
+  }
+
+  // f at this thread's point y[0..1].
+  __device__ void rhs(const float* y, float* f) const {
+    th.point_rhs(y[0], y[1], f[0], f[1]);
+  }
+};
+
+// The forward's field: one point a thread where a chain fits a warp.
+using FHNFwd =
+    std::conditional_t<(kFN <= 32), FHNPoint<kFN>, FHNDopri5>;
 
 }  // namespace bode

@@ -31,9 +31,11 @@
 //                                  (sy) gets the squares of the chain's x
 //                                  (y) components added in ascending n, the
 //                                  same bits on each of the chain's threads
-// (GPPoint, gp_field.cuh: one trajectory point a thread; MLPDopri5Fwd,
-// mlp_field.cuh: one component a lane).  The spiral and FitzHugh-Nagumo
-// forwards keep the whole state on every thread of a chain.
+// (GPPoint, gp_field.cuh, and FHNPoint, fhn_field.cuh: one trajectory
+// point a thread; MLPDopri5Fwd, mlp_field.cuh, and SpiralDopri5Fwd,
+// spiral_field.cuh: one component a lane).  A field without it (the GP
+// field's GPDopri5 of the per-step solver, FHNDopri5 past 32 points a
+// chain) keeps the whole state on each of its threads.
 //
 // Last, where a block's buffers live.  A field's Smem (and a reverse
 // sweep's AccSmem) sit in static shared memory, which a block may have 48

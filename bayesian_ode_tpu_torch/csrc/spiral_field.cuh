@@ -20,25 +20,30 @@
 //     16-wide reduce-scatter (warp_sum16: 16 shuffles in place of 2N
 //     butterflies of 5), which leaves component i on lane i (past N = 8
 //     one 32-wide one, warp_sum32; N <= 16);
-//   - the reverse sweeps carry one state component a lane (kOwn = 1: lane
+//   - every kernel carries one state component a lane (kOwn = 1: lane
 //     i < 2N holds component i of every per-step array; lanes >= 2N mirror
 //     component 2N-1 and write nothing).  The N points reach every lane
-//     through the warp's shared copy of their 2N floats, one per stage slot
-//     (field_stages.cuh: slot 0 a step's y0, slot r + 1 its u[r]);
+//     through the warp's shared copy of their 2N floats: in the forward
+//     (K2) one copy, read back by 16-byte broadcast loads; in the reverse
+//     sweeps one per stage slot (field_stages.cuh: slot 0 a step's y0,
+//     slot r + 1 its u[r]);
 //   - the stage slots also keep each stage point's tanh values, each
 //     lane's units in its own column, so a VJP takes no second tanhf (on
 //     an H100 recomputing them in the VJP made K3 27% slower).
-// The forward (K2) keeps the state on every lane, since its step decisions
-// need the same bits on every lane: rhs broadcasts the reduced f back by
-// shuffles, and lane 0 writes the outputs.  Every __syncwarp() separates a
-// lane's shared write from another lane's read: the lanes of a warp do not
-// run in lockstep.
+// The forward's step decisions come from the error norm gathered from
+// lanes 0..2N-1 (SpiralDopri5Fwd::norm_sums) in the per-chain order, the
+// same bits on every lane; lanes 0..2N-1 write their components of the
+// dense output and the records, lane 0 t0, dt and the counters.  Every
+// __syncwarp() separates a lane's shared write from another lane's read:
+// the lanes of a warp do not run in lockstep.
 //
 // tanhf is the full-precision one (no fast math).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "warp.cuh"
 
@@ -82,10 +87,20 @@ struct __align__(16) SpiralBuf {
   float h[kSlots][kSN][kSU][32];
 };
 
+// The forward's warp buffer: the gathered point, 48 B at N=5.
+struct __align__(16) SpiralFwdBuf {
+  float pts[kSVec];
+};
+
+// kSlots > 0: the reverse sweeps' field, kSlots stage slots in
+// SpiralBuf<kSlots>; kSlots = 0: the forward's, one gathered point in a
+// SpiralFwdBuf.
 template <int kSlots>
 struct SpiralField {
+  static constexpr bool kFwd = kSlots == 0;
+  using Buf = std::conditional_t<kFwd, SpiralFwdBuf, SpiralBuf<kSlots>>;
   SpiralUnits w;
-  SpiralBuf<kSlots>* b;    // this warp's buffer
+  Buf* b;                  // this warp's buffer
   int lane;
 
   // This lane's unit k at the cubed point (u, v).
@@ -119,11 +134,24 @@ struct SpiralField {
     return warp_sums(v, lane) + ((lane & 1) ? w.b2y : w.b2x);
   }
 
-  // The forward's evaluation: y and f (2N floats) the same on every lane.
+  // The forward's evaluation (SpiralField<0>): y[0] is component `lane`
+  // of the point, f[0] returns f_lane.  The point is read back by 16-byte
+  // broadcast loads, whose values feed eval's full-warp shuffles: no lane
+  // writes the next point before every lane has read this one.
   __device__ __forceinline__ void rhs(const float* y, float* f) const {
-    const float fi = eval(y, nullptr);
+    static_assert(kFwd, "the reverse sweeps evaluate through stage slots");
+    if (lane < kSNS) b->pts[lane] = y[0];
+    __syncwarp();
+    float pt[kSVec];
 #pragma unroll
-    for (int i = 0; i < kSNS; ++i) f[i] = __shfl_sync(kFull, fi, i);
+    for (int i = 0; i < kSVec; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(&b->pts[i]);
+      pt[i] = v.x;
+      pt[i + 1] = v.y;
+      pt[i + 2] = v.z;
+      pt[i + 3] = v.w;
+    }
+    f[0] = eval(pt, nullptr);
   }
 
   // The reverse sweeps' evaluations (field_stages.cuh).  y, f, cot and
@@ -196,32 +224,25 @@ struct SpiralField {
   }
 };
 
-// The adapter of dopri5_kernels.cuh.  Weights w1 (C, 2, H), b1 (C, H),
-// w2 (C, H, 2), b2 (C, 2), the layout of models/spiral.py's parameters.
-// The backward (K3) keeps the 7 stage points of a step in slots 0 (y0) to
-// 6 (u[5]); as many chains a block (at most 4) as keep the block's warp
-// buffers within the 48 KB of static shared memory (4 at N=5, H=50:
-// 9,344 B a warp; 2 at N=9, H=50: 16,768 B; 1 at N=16: 29,696 B).
-struct SpiralDopri5 {
+// What the spiral field's two adaptive kernels share (dopri5_kernels.cuh):
+// one warp per chain, kC chains a block, lane i < 2N carrying component i
+// (lanes past it mirror the last), lane 0 the chain's leader.  Weights w1
+// (C, 2, H), b1 (C, H), w2 (C, H, 2), b2 (C, 2), the layout of
+// models/spiral.py's parameters.
+template <int kC, int kSlots>
+struct SpiralWarpChains {
   static constexpr int kNS = kSNS;
-  static constexpr int kStageSlots = 7;
   static constexpr int kOwn = 1;
-  static constexpr int kChains =
-      warps_fitting(4, sizeof(SpiralBuf<kStageSlots>));
-  static constexpr int kThreads = 32 * kChains;
+  static constexpr int kChains = kC;
+  static constexpr int kThreads = 32 * kC;
   struct Args {
     const float *w1, *b1, *w2, *b2;
   };
-  struct Grads {
-    float *w1, *b1, *w2, *b2;
-  };
   struct Smem {
-    SpiralBuf<kStageSlots> warp[kChains];
+    typename SpiralField<kSlots>::Buf warp[kC];
   };
-  struct AccSmem {};
-  using Acc = SpiralUnits;
 
-  SpiralField<kStageSlots> f;
+  SpiralField<kSlots> f;
 
   static __device__ int chain() {
     return blockIdx.x * kChains + (threadIdx.x >> 5);
@@ -233,26 +254,76 @@ struct SpiralDopri5 {
   }
   static __device__ bool owner() { return (threadIdx.x & 31) < kSNS; }
 
-  static __device__ SpiralDopri5 load(const Args& a, Smem& sm, int C, int c) {
-    SpiralDopri5 s;
-    s.f.lane = threadIdx.x & 31;
-    s.f.b = &sm.warp[threadIdx.x >> 5];
-    spiral_zero(s.f.w);
-    if (c >= C) return s;
+  // this lane's units of chain c's weights (zeros past the last chain) and
+  // its warp's buffer
+  __device__ void load_weights(const Args& a, Smem& sm, int C, int c) {
+    f.lane = threadIdx.x & 31;
+    f.b = &sm.warp[threadIdx.x >> 5];
+    spiral_zero(f.w);
+    if (c >= C) return;
     const size_t cc = static_cast<size_t>(c);
 #pragma unroll
     for (int k = 0; k < kSU; ++k) {
-      const int j = s.f.lane + 32 * k;
+      const int j = f.lane + 32 * k;
       if (j < kSH) {
-        s.f.w.w1x[k] = a.w1[cc * 2 * kSH + j];
-        s.f.w.w1y[k] = a.w1[cc * 2 * kSH + kSH + j];
-        s.f.w.b1[k] = a.b1[cc * kSH + j];
-        s.f.w.w2x[k] = a.w2[(cc * kSH + j) * 2];
-        s.f.w.w2y[k] = a.w2[(cc * kSH + j) * 2 + 1];
+        f.w.w1x[k] = a.w1[cc * 2 * kSH + j];
+        f.w.w1y[k] = a.w1[cc * 2 * kSH + kSH + j];
+        f.w.b1[k] = a.b1[cc * kSH + j];
+        f.w.w2x[k] = a.w2[(cc * kSH + j) * 2];
+        f.w.w2y[k] = a.w2[(cc * kSH + j) * 2 + 1];
       }
     }
-    s.f.w.b2x = a.b2[cc * 2];
-    s.f.w.b2y = a.b2[cc * 2 + 1];
+    f.w.b2x = a.b2[cc * 2];
+    f.w.b2y = a.b2[cc * 2 + 1];
+  }
+};
+
+// The forward (K2, with and without records): 4 chains a block, a warp's
+// buffer 48 B at N=5.
+struct SpiralDopri5Fwd : SpiralWarpChains<4, 0> {
+  // 32 warps an SM: 64 registers, no spills (at 6 blocks ptxas takes 70
+  // registers, 28 warps an SM, for the same time on an H100)
+  static constexpr int kMinBlocks = 8;
+  static __device__ SpiralDopri5Fwd load(const Args& a, Smem& sm, int C,
+                                         int c) {
+    SpiralDopri5Fwd s;
+    s.load_weights(a, sm, C, c);
+    return s;
+  }
+
+  // The error norm's sums (field_stages.cuh): component i's ratio from
+  // lane i, added as the per-chain loop adds them (dopri5_common.cuh,
+  // step_decision: even i into sx, odd into sy, ascending), so every lane
+  // takes the same step decision.  The warp is one chain and stays in its
+  // loop as a whole, so every lane takes part.
+  __device__ __forceinline__ void norm_sums(const float* r, float& sx,
+                                            float& sy) const {
+#pragma unroll
+    for (int i = 0; i < kSNS; ++i) {
+      const float ri = __shfl_sync(kFull, r[0], i);
+      if (i % 2 == 0) sx += ri * ri; else sy += ri * ri;
+    }
+  }
+
+  __device__ void rhs(const float* y, float* out) const { f.rhs(y, out); }
+};
+
+// The backward (K3): the 7 stage points of a step in slots 0 (y0) to 6
+// (u[5]); as many chains a block (at most 4) as keep the block's warp
+// buffers within the 48 KB of static shared memory (4 at N=5, H=50:
+// 9,344 B a warp; 2 at N=9, H=50: 16,768 B; 1 at N=16: 29,696 B).
+struct SpiralDopri5
+    : SpiralWarpChains<warps_fitting(4, sizeof(SpiralBuf<7>)), 7> {
+  static constexpr int kStageSlots = 7;
+  struct Grads {
+    float *w1, *b1, *w2, *b2;
+  };
+  struct AccSmem {};
+  using Acc = SpiralUnits;
+
+  static __device__ SpiralDopri5 load(const Args& a, Smem& sm, int C, int c) {
+    SpiralDopri5 s;
+    s.load_weights(a, sm, C, c);
     return s;
   }
   static __device__ Acc acc_init(AccSmem&) {
@@ -280,7 +351,6 @@ struct SpiralDopri5 {
     }
   }
 
-  __device__ void rhs(const float* y, float* out) const { f.rhs(y, out); }
   __device__ void stage_rhs(int slot, const float* y, float* out) const {
     f.stage_rhs(slot, y, out);
   }

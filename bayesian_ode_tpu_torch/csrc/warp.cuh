@@ -1,6 +1,6 @@
 // The warp sums shared by the warp-per-chain fields (mlp_field.cuh,
-// spiral_field.cuh), and the full-warp mask of the GP field's per-point
-// kernels (gp_field.cuh).
+// spiral_field.cuh), and the full-warp mask of the per-point kernels
+// (gp_field.cuh, fhn_field.cuh).
 #pragma once
 
 #include <cuda_runtime.h>

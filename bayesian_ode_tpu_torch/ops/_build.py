@@ -101,7 +101,8 @@ FAMILIES: Dict[str, Family] = {
                             ("MLP_N", "MLP_H"), 6, 0, 6),
     "spiral_dopri5": _adaptive("spiral", ("spiral_field.cuh", "warp.cuh"),
                                ("SPIRAL_N", "SPIRAL_H"), 4, 0, 4),
-    "fhn_dopri5": _adaptive("fhn", ("fhn_field.cuh",), ("FHN_N",), 3, 0, 3),
+    "fhn_dopri5": _adaptive("fhn", ("fhn_field.cuh", "warp.cuh"), ("FHN_N",),
+                            3, 0, 3),
     "gp_rk4": Family(
         ("gp_rk4.cu",),
         ("rk4_common.cuh", "field_stages.cuh", "gp_field.cuh", "warp.cuh"),
@@ -168,8 +169,8 @@ def _warps_fitting(most: int, nbytes: int) -> int:
 def smem_bytes(family: str, shape: Tuple[int, ...]) -> Dict[str, int]:
     """Shared-memory bytes a block of each kernel of the library takes, by
     kind ("fwd", "bwd", "step", "phi", "combine"), by the arithmetic of the structs in
-    csrc/ (sizeof of arrays of float and float2; MLPBuf, MLPFwdBuf and
-    SpiralBuf aligned to 16 B)."""
+    csrc/ (sizeof of arrays of float and float2; MLPBuf, MLPFwdBuf,
+    SpiralBuf and SpiralFwdBuf aligned to 16 B)."""
     f4 = 4
     if family in ("gp_dopri5", "gp_rk4"):
         N, M = shape
@@ -200,13 +201,15 @@ def smem_bytes(family: str, shape: Tuple[int, ...]) -> Dict[str, int]:
         most = 4 if family == "mlp_rk4" else 2
         return {"fwd": 4 * fwd_buf, "bwd": _warps_fitting(most, bwd) * bwd}
     if family == "spiral_dopri5":
-        # the forward keeps the state on every lane and reads no buffer:
-        # the build allocates none
+        # the forward's 4 warps each gather the point (SpiralFwdBuf); the
+        # backward's keep 7 stage slots and a cotangent (SpiralBuf<7>)
         N, H = shape
         vec = _round_up(2 * N, 4)
         buf = _round_up(f4 * (8 * vec + 7 * N * -(-H // 32) * 32), 16)
-        return {"fwd": 0, "bwd": _warps_fitting(4, buf) * buf}
+        return {"fwd": 4 * _round_up(f4 * vec, 16),
+                "bwd": _warps_fitting(4, buf) * buf}
     if family == "fhn_dopri5":
+        # theta in registers and the error norm by shuffles: no buffers
         return {"fwd": 0, "bwd": 0}
     if family == "svgd_phi":
         # PhiSmem (static, one size for every chunk width): the rows'

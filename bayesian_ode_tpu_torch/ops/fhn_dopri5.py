@@ -6,10 +6,12 @@ field of `models/fhn_inference.py` with per-chain theta = (a, b, c),
     V' = c (V - V^3/3 + R),   R' = -(V - a + b R) / c,
 
 registered with the public fused engine (`ops/fused_field.py`).  The
-kernels are the engine's templates over `csrc/fhn_field.cuh::FHNDopri5`
-(one chain per thread, theta in registers).  The field multiplies by
-inv_c = 1/c, as the TPU kernel does; the host reference used for the
-Hairer start step divides by c, as the JAX package's does.
+kernels are the engine's templates over `csrc/fhn_field.cuh`: the
+forward over `FHNPoint` (one trajectory point a thread, N lanes a chain;
+past 32 points a chain over `FHNDopri5`), the replay backward over
+`FHNDopri5` (one chain a thread); theta in registers.  The field
+multiplies by inv_c = 1/c, as the TPU kernel does; the host reference
+used for the Hairer start step divides by c, as the JAX package's does.
 """
 from __future__ import annotations
 

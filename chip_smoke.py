@@ -6,10 +6,10 @@
 Builds the port's CUDA kernels from `bayesian_ode_tpu_torch/csrc/` (one
 nvcc per source, all started together), prints each kernel's registers and
 spills (and, for the kernels redesigned for the card, K6, MLP K2, K7, MLP
-K3, K4, K5, GP K3, the GP solves K1/K2, spiral K3 and K8, the warps an
-SM holds and the waves of their grid, the GP ones also at 7x7 and 8x8
-inducing grids), checks each library's reported shared memory against
-the shape check's arithmetic (`_build.smem_bytes`), and
+K3, K4, K5, GP K3, the GP solves K1/K2, spiral K2 and K3, FHN K2 and K8,
+the warps an SM holds and the waves of their grid, the GP ones also at
+7x7 and 8x8 inducing grids), checks each library's reported shared
+memory against the shape check's arithmetic (`_build.smem_bytes`), and
 holds each kernel against its plain PyTorch version at the main paths'
 full shape (Van der Pol: 5 trajectories, T=60 output times to
 t=6, 10,112 chains):
@@ -56,7 +56,8 @@ share of the window).
 Exits non-zero on any failed phase, and when no CUDA device is available.
 Before the last two lines it prints its own seconds; the line before the
 last is a JSON object with each kernel's launches, error against its
-plain version, times and bound; the last line is
+plain version, times and bound (and spiral K2's and FHN K2's registers,
+warps an SM and waves); the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -82,9 +83,12 @@ SVGD_WIDTH = 74                   # a GP particle: U (36 x 2) and logsn (2)
 # one thread a trajectory point (csrc/gp_field.cuh, GPPoint: 128 threads,
 # 6 chains a warp at N=5; the backward kernels K5 and K3, and the solves K1
 # and K2, and the rk4 forward K4) and the spiral's replay
-# (csrc/spiral_field.cuh: one warp a chain, 4 a block); K8's block holds
-# 32 particle rows (csrc/svgd_phi.cu; its 96-feature instance, the SVGD
-# path's at 74 features), its waves counted over rows times column splits
+# (csrc/spiral_field.cuh: one warp a chain, 4 a block) and forward (the
+# same), the FitzHugh-Nagumo forward's one thread a trajectory point
+# (csrc/fhn_field.cuh, FHNPoint: 128 threads, 6 chains a warp at N=5);
+# K8's block holds 32 particle rows (csrc/svgd_phi.cu; its 96-feature
+# instance, the SVGD path's at 74 features), its waves counted over rows
+# times column splits
 MLP_FWD_WARPS = 4
 OCCUPANCY_BLOCKS = {
     ("mlp_rk4", "mlp_rk4_fwd"): (32 * MLP_FWD_WARPS, MLP_FWD_WARPS),
@@ -103,7 +107,20 @@ OCCUPANCY_BLOCKS = {
        for tableau in ("Dopri5", "Tsit5") for record in records},
     ("spiral_dopri5", "dopri5_bwd SpiralDopri5 Dopri5"): (128, 4),
     ("spiral_dopri5", "dopri5_bwd SpiralDopri5 Tsit5"): (128, 4),
+    **{(family, f"dopri5_fwd {field} {tableau}{record}"): block
+       for family, field, block in (
+           ("spiral_dopri5", "SpiralDopri5Fwd", (128, 4)),
+           ("fhn_dopri5", "FHNPoint", (128, 24)))
+       for tableau in ("Dopri5", "Tsit5")
+       for record in (" record", " no-record")},
     ("svgd_phi", "svgd_phi 96"): (128, 32)}
+# the forwards redesigned in the kernels line with their registers, warps
+# an SM and waves: {kernel: (library, ptxas name)}
+LINE_OCCUPANCY = {
+    "spiral_dopri5_fwd_record": (("spiral_dopri5", (5, SPIRAL_HIDDEN)),
+                                 "dopri5_fwd SpiralDopri5Fwd Dopri5 record"),
+    "fhn_dopri5_fwd_record": (("fhn_dopri5", (5,)),
+                              "dopri5_fwd FHNPoint Dopri5 record")}
 # the wide shapes: the main path at a 7x7 inducing grid, the spiral at the
 # JAX package's N=9 case; and, for their occupancy alone, the GP kernels at
 # 7x7 and 8x8 grids
@@ -371,8 +388,9 @@ def ptxas_summary(family, shape, log):
             parts = re.findall(r"(dopri5_fwd|dopri5_bwd|dopri5_step"
                                r"|svgd_phi|gp_rk4_fwd|gp_rk4_bwd"
                                r"|mlp_rk4_fwd|mlp_rk4_bwd|GPDopri5|GPPoint"
-                               r"|MLPDopri5Fwd|MLPDopri5"
-                               r"|SpiralDopri5|FHNDopri5|Dopri5|Tsit5|Lb[01]"
+                               r"|MLPDopri5Fwd|MLPDopri5|SpiralDopri5Fwd"
+                               r"|SpiralDopri5|FHNPoint|FHNDopri5|Dopri5"
+                               r"|Tsit5|Lb[01]"
                                r"|combine)", mangled)
             name = " ".join(parts).replace("Lb1", "record").replace(
                 "Lb0", "no-record")
@@ -481,7 +499,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build(LIBRARIES)
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
-    k8_ptxas = {}
+    k8_ptxas, occupied = {}, {}
     for lib in LIBRARIES:
         _build.load_library(*lib)
         # what the build allocated against the shape check's arithmetic
@@ -505,10 +523,15 @@ def main() -> int:
                     k8_ptxas = dict(regs=regs, spills=(st, ld),
                                     warps=warps_per_sm(regs, smem, threads))
                 warps, waves = occupancy(regs, smem, threads, chains, C)
+                occupied[lib, name] = dict(regs=regs, warps_an_sm=warps,
+                                           waves=waves)
                 print(f"    {name}: {warps} warps an SM, {waves:.2f} waves "
                       f"at {C} {unit} ({threads} threads and {chains} "
                       f"{unit.split()[0]} a block, {regs} registers, {smem} B"
                       f" shared memory, spills {st}/{ld} B)")
+
+    check(all(v in occupied for v in LINE_OCCUPANCY.values()),
+          "ptxas reported the redesigned forwards of the kernels line")
 
     # ---- inputs at the main path's shape ----
     data = make_dataset(seed=2, ode="vdp", N=5, T=60, t_max=6.0,
@@ -1440,7 +1463,8 @@ def main() -> int:
          "replaces": k["replaces"], "launches": counts[name],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-         "bound_by": k["bound_by"], "library_ms": None}
+         "bound_by": k["bound_by"], "library_ms": None,
+         **occupied.get(LINE_OCCUPANCY.get(name), {})}
         for name, k in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

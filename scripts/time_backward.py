@@ -5,6 +5,7 @@ commit, unpacked with `git archive`), in one process on one NVIDIA GPU:
     python3 scripts/time_backward.py --field gp --parent build/parent
     python3 scripts/time_backward.py --field mlp --parent build/parent
     python3 scripts/time_backward.py --field spiral --parent build/parent
+    python3 scripts/time_backward.py --field fhn --parent build/parent
     python3 scripts/time_backward.py --field svgd --parent build/parent
     python3 scripts/time_backward.py --field gp --grid 7   # this tree alone
 
@@ -21,8 +22,10 @@ solve of the per-step solver `gp_dopri5_solve`, its host loop included).  --fiel
 mlp: K6 (`mlp_rk4_fwd`), MLP K2 (`mlp_dopri5_fwd`, with and without
 records, each at DOPRI5 and TSIT5), K7 (`mlp_rk4_bwd`) and MLP K3
 (`mlp_dopri5_bwd`, DOPRI5 and TSIT5).  --field spiral: spiral K2
-(`spiral_dopri5_fwd`, recording; with each tree's mean NFE) and spiral K3
-(`spiral_dopri5_bwd`), each at DOPRI5 and TSIT5.  --field svgd: K8
+(`spiral_dopri5_fwd`, with and without records) and spiral K3
+(`spiral_dopri5_bwd`), each at DOPRI5 and TSIT5.  --field fhn: the
+FitzHugh-Nagumo field's K2 (`fhn_dopri5_fwd`, with and without records)
+and K3 (`fhn_dopri5_bwd`), each at DOPRI5 and TSIT5.  --field svgd: K8
 (`svgd_phi`, with its combine) at 1,024, 4,096 and 16,384 particles of
 d = 74, on the SVGD ensemble and on N(0, 1) inputs, with each tree's and
 the plain float32 matmul form's max-rel to a float64 truth and the matmul
@@ -33,24 +36,25 @@ are built from its own `csrc/` with this tree's nvcc flags into
 `build/other_kernels/<label>/` (all nvcc processes started together) and
 called on the same tensors.  `--tree LABEL=DIR` adds a tree beside the
 parent.  The inputs are built as `chip_smoke.py` builds those of its
-phases 1, 2 and 6 (GP), 7 and 10 (MLP) or 10 (spiral, H=50), with their
-own draws from seeded generators: 10,112 chains, N=5, T=60 to t=6,
-rtol=1e-7 / atol=1e-9, N(0, 1) trajectory cotangents, the records of this
-tree's K2 (store_steps 128 for the GP and spiral fields, 256 for the MLP)
-and the trajectories of this tree's K4 or K6.
+phases 1, 2 and 6 (GP), 7 and 10 (MLP) or 10 (spiral, H=50; FHN, on
+FitzHugh-Nagumo data), with their own draws from seeded generators:
+10,112 chains, N=5, T=60 to t=6, rtol=1e-7 / atol=1e-9, N(0, 1)
+trajectory cotangents, the records of this tree's K2 (store_steps 128 for
+the GP, spiral and FHN fields, 256 for the MLP) and the trajectories of
+this tree's K4 or K6.
 
 Prints each redesigned kernel's ptxas line, resident warps an SM and waves
 (blocks over the blocks all SMs hold at once), then for each kernel and
 tree: for a backward, whether the x0 cotangent is bit-equal to the
 parent's (else its first differing component) and the largest max-rel of
-the weight cotangents to the parent's; for K6, the GP solves and MLP K2,
-whether the trajectories (and the solves' counters, end times and
-records) are bit-equal to the parent's (K4 too, and K9's trajectories
-and counters); for the spiral solves, the mean
-NFE of each tree and the trajectories' max-rel; for MLP K2, this tree's
-bound (chip_smoke.adaptive_bounds from its step counts) and one plain
-solve's time; and the time by CUDA events (20 launches after 10) in
-turns: parent, the other trees, this tree, and back in reverse order.
+the weight cotangents to the parent's; for K6 and the GP, MLP, spiral and
+FHN solves, whether the trajectories (and the solves' counters, end times
+and records) are bit-equal to the parent's (K4 too, and K9's trajectories
+and counters), else the trajectories' max-rel, and each tree's mean NFE;
+for MLP K2, this tree's bound (chip_smoke.adaptive_bounds from its step
+counts) and one plain solve's time; and the time by CUDA events (20
+launches after 10) in turns: parent, the other trees, this tree, and back
+in reverse order.
 """
 from __future__ import annotations
 
@@ -69,7 +73,7 @@ import chip_smoke  # noqa: E402  (the repo root's smoke test: its helpers)
 
 N_CHAINS, HIDDEN, N, T = chip_smoke.N_CHAINS, chip_smoke.HIDDEN, 5, 60
 SPIRAL_HIDDEN = chip_smoke.SPIRAL_HIDDEN
-FIELDS = ("gp", "mlp", "spiral", "svgd")
+FIELDS = ("gp", "mlp", "spiral", "fhn", "svgd")
 SVGD_SIZES = (1024, 4096, 16384)
 
 
@@ -81,6 +85,7 @@ def field_specs(field, grid=6):
                    ("gp_dopri5_step", (N, M))],
             "mlp": [("mlp_rk4", (N, HIDDEN)), ("mlp_dopri5", (N, HIDDEN))],
             "spiral": [("spiral_dopri5", (N, SPIRAL_HIDDEN))],
+            "fhn": [("fhn_dopri5", (N,))],
             "svgd": [("svgd_phi", ())]}[field]
 
 
@@ -94,7 +99,10 @@ def block_shape(csrc: Path, field: str):
     field's chains a block of K3 (`MLPWarpChains<2` or `kChains = 2` in
     mlp_field.cuh: two; else four), and its forwards' `kFwdWarps` chains a
     block (before it, four for K6 and K3's for K2); the spiral's four (one
-    warp a chain)."""
+    warp a chain); the FitzHugh-Nagumo forward's one point a thread
+    (`struct FHNPoint` in fhn_field.cuh: 128 threads, 32 // N chains a
+    warp) or one chain a thread (64), and its backward's one chain a
+    thread."""
     if field == "gp":
         src = (csrc / "gp_field.cuh").read_text()
         threads = re.search(r"static constexpr int kThreads = (\d+);", src)
@@ -108,6 +116,10 @@ def block_shape(csrc: Path, field: str):
                 "rk4_fwd": point if rk4_fwd else (64, 64)}
     if field == "spiral":
         return {"dopri5": (128, 4), "fwd": (128, 4)}
+    if field == "fhn":
+        point = "struct FHNPoint" in (csrc / "fhn_field.cuh").read_text()
+        return {"dopri5": (64, 64),
+                "fwd": (128, 128 // 32 * (32 // N)) if point else (64, 64)}
     if field == "svgd":
         src = (csrc / "svgd_phi.cu").read_text()
         rows = int(re.search(r"constexpr int kRows = (\d+);", src).group(1))
@@ -404,40 +416,67 @@ def mlp_kernels(dev, stream):
             0.2, 100_000, "i", tableau=fa.TABLEAUS[method]), 1)
         return f"bound {b:.3f} ms ({by}); plain {plain:.1f} ms"
 
-    solves = {f"MLP K2 {method.upper()}{tag}": (
-        "exact", lambda libs, r=record, m=method: k2(libs, r, m),
-        lambda out, m=method: k2_note(out, m))
-        for tag, record in (("", True), (" no-record", False))
-        for method in ("dopri5", "tsit5")}
-    return {"K6": ("exact", k6), **solves, "K7": ("bwd", k7),
+    return {"K6": ("exact", k6), **solve_kernels("MLP K2", k2, k2_note),
+            "K7": ("bwd", k7),
             "MLP K3 DOPRI5": ("bwd", lambda libs: k3(libs, "dopri5")),
             "MLP K3 TSIT5": ("bwd", lambda libs: k3(libs, "tsit5"))}
 
 
 def spiral_kernels(dev, stream):
-    """{label: (kind, run(libs) -> outputs)} of the spiral field's kernels
-    at H=50, on chip_smoke.py's phase 10 inputs: spiral K2 ("solve") and
-    K3 ("bwd", on this tree's K2 records), each at DOPRI5 and TSIT5."""
+    """field_kernels of the spiral field at H=50 on chip_smoke.py's phase
+    10 inputs (its start weights jittered by 0.005 a chain)."""
     import torch
 
     from bayesian_ode_tpu_torch.models import make_dataset
     from bayesian_ode_tpu_torch.models import spiral as spiral_model
-    from bayesian_ode_tpu_torch.ops import _build
-    from bayesian_ode_tpu_torch.ops import fused_adaptive as fa
-    from bayesian_ode_tpu_torch.ops import fused_field as ff
     from bayesian_ode_tpu_torch.ops.spiral_dopri5 import spiral_field
 
     data = make_dataset(seed=2, ode="vdp", N=N, T=T, t_max=6.0, noise=0.05,
                         x0_scale=1.5)
-    f32 = torch.float32
     gen = torch.Generator(device=dev).manual_seed(0)
     sp0 = spiral_model.init_params(torch.Generator().manual_seed(0),
                                    hidden=SPIRAL_HIDDEN)
-    w = tuple((sp0[k].to(dev, f32)[None] + 0.005 * torch.randn(
+    w = tuple((sp0[k].to(dev, torch.float32)[None] + 0.005 * torch.randn(
         (N_CHAINS,) + tuple(sp0[k].shape), generator=gen, device=dev)
     ).contiguous() for k in ("w1", "b1", "w2", "b2"))
+    return field_kernels("spiral", spiral_field(), w, data, gen, dev,
+                         stream)
+
+
+def fhn_kernels(dev, stream):
+    """field_kernels of the FitzHugh-Nagumo field on chip_smoke.py's phase
+    10 inputs (FitzHugh-Nagumo data, theta at (0.2, 0.2, 3.0) jittered by
+    0.005 a chain)."""
+    import torch
+
+    from bayesian_ode_tpu_torch.models import make_dataset
+    from bayesian_ode_tpu_torch.ops.fhn_dopri5 import fhn_field
+
+    data = make_dataset(seed=2, ode="fhn", N=N, T=T, t_max=6.0, noise=0.05,
+                        x0_scale=1.5)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w = tuple((torch.full((N_CHAINS,), v, device=dev) + 0.005 * torch.randn(
+        (N_CHAINS,), generator=gen, device=dev)).contiguous()
+        for v in (0.2, 0.2, 3.0))
+    return field_kernels("FHN", fhn_field(), w, data, gen, dev, stream)
+
+
+def field_kernels(label, field, w, data, gen, dev, stream):
+    """{label: (kind, run(libs) -> outputs)} of a fused-engine field's
+    kernels: K2 ("exact", the outputs of `solve`, with and without
+    records) and K3 ("bwd", on this tree's K2 records, N(0, 1) trajectory
+    cotangents from gen), each at DOPRI5 and TSIT5, from the data's x0 to
+    its output times, store_steps 128."""
+    import torch
+
+    from bayesian_ode_tpu_torch.ops import _build
+    from bayesian_ode_tpu_torch.ops import fused_adaptive as fa
+    from bayesian_ode_tpu_torch.ops import fused_field as ff
+
+    f32 = torch.float32
+    family = f"{field.name}_dopri5"
     x0, ts = data["x0"].to(dev, f32).contiguous(), data["t"].to(dev, f32)
-    field, store = spiral_field(), chip_smoke.STORE_STEPS
+    store = chip_smoke.STORE_STEPS
     rtol, atol = chip_smoke.RTOL, chip_smoke.ATOL
     _, f0, dt0 = ff._start(field, w, x0, rtol, atol)
     f0, dt0 = f0.contiguous(), dt0.contiguous()
@@ -451,26 +490,35 @@ def spiral_kernels(dev, stream):
                                        store_steps=store, method=method)
         recs[method] = (rec, nacc)
 
-    def k2(libs, method):
-        ys, nfe, *_ = solve(libs["spiral_dopri5"], "spiral_dopri5", w, (),
-                            x0, f0, dt0, ts, True, method, store, stream)
-        return ys, nfe
+    def k2(libs, record, method):
+        return solve(libs[family], family, w, (), x0, f0, dt0, ts, record,
+                     method, store, stream)
 
     def k3(libs, method):
         rec, nacc = recs[method]
         wbar = tuple(torch.empty_like(x) for x in w)
         lbar = torch.empty((N_CHAINS, N, 2), dtype=f32, device=dev)
-        _build.check(libs["spiral_dopri5"].spiral_dopri5_bwd(
+        _build.check(getattr(libs[family], f"{family}_bwd")(
             _build.TABLEAUS.index(method), *(x.data_ptr() for x in w),
             *(x.data_ptr() for x in wbar), ts.data_ptr(), rec.data_ptr(),
             nacc.data_ptr(), g.data_ptr(), N_CHAINS, T, lbar.data_ptr(),
-            stream), "spiral_dopri5_bwd")
+            stream), f"{family}_bwd")
         return wbar + (lbar,)
 
-    return {"spiral K2 DOPRI5": ("solve", lambda libs: k2(libs, "dopri5")),
-            "spiral K2 TSIT5": ("solve", lambda libs: k2(libs, "tsit5")),
-            "spiral K3 DOPRI5": ("bwd", lambda libs: k3(libs, "dopri5")),
-            "spiral K3 TSIT5": ("bwd", lambda libs: k3(libs, "tsit5"))}
+    return {**solve_kernels(f"{label} K2", k2),
+            f"{label} K3 DOPRI5": ("bwd", lambda libs: k3(libs, "dopri5")),
+            f"{label} K3 TSIT5": ("bwd", lambda libs: k3(libs, "tsit5"))}
+
+
+def solve_kernels(label, k2, note=None):
+    """{label: ("exact", run[, note])} of a field's K2 with and without
+    records at each tableau: k2(libs, record, method) the launch,
+    note(outputs, method) a line about this tree's outputs."""
+    return {f"{label} {method.upper()}{tag}": (
+        "exact", lambda libs, r=record, m=method: k2(libs, r, m),
+        *((lambda out, m=method: note(out, m),) if note else ()))
+        for tag, record in (("", True), (" no-record", False))
+        for method in ("dopri5", "tsit5")}
 
 
 def svgd_kernels(dev, stream):
@@ -624,14 +672,6 @@ def compare_exact(out, base):
                    f"{float(base[1].float().mean()):.3f}")
 
 
-def compare_solve(out, base):
-    """Two float32 solves (trajectories, nfe): their step meshes differ on
-    some chains."""
-    return (f"mean NFE {float(out[1].float().mean()):.3f}, parent "
-            f"{float(base[1].float().mean()):.3f}; trajectories max-rel "
-            f"{chip_smoke.max_rel(out[0], base[0]):.3e}")
-
-
 def compare_phi(out, base):
     """Two trees' phi (with the float64 truth): each one's max-rel to it,
     and whether they are bit-equal."""
@@ -643,7 +683,7 @@ def compare_phi(out, base):
 
 
 COMPARE = {"bwd": compare_bwd, "exact": compare_exact,
-           "solve": compare_solve, "phi": compare_phi}
+           "phi": compare_phi}
 
 
 def main() -> int:
@@ -700,6 +740,7 @@ def main() -> int:
         kernels = gp_kernels(dev, stream, args.grid)
     else:
         kernels = {"mlp": mlp_kernels, "spiral": spiral_kernels,
+                   "fhn": fhn_kernels,
                    "svgd": svgd_kernels}[args.field](dev, stream)
     parent = "parent" in libs
     labels = [k for k in libs if k != "parent"]

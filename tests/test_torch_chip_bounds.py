@@ -133,6 +133,11 @@ def test_warps_per_sm(regs, smem, threads, warps):
     (103, 70144, 128, 24, 12, 3),   # K3 GP at an 8x8 grid: 1.07 waves
     (97, 87808, 256, 32, 16, 2),    # K8 before the column splits
     (127, 43392, 128, 32, 16, 4),   # K8, 32 rows a block: 4 by registers
+    (128, 0, 128, 4, 16, 4),        # spiral K2, the state on every lane
+    (155, 0, 128, 4, 12, 3),        # its TSIT5 instance
+    (64, 192, 128, 4, 32, 8),       # spiral K2, one component a lane
+    (128, 0, 64, 64, 16, 8),        # FHN K2, one chain a thread
+    (59, 0, 128, 24, 32, 8),        # FHN K2, one point a thread
 ])
 def test_occupancy_warps_and_waves(regs, smem, threads, chains, warps,
                                    blocks_an_sm):
@@ -190,12 +195,26 @@ def test_ptxas_summary_names_the_per_point_gp_replay():
     ("spiral_dopri5", "_ZN4bode17dopri5_bwd_kernelINS_12SpiralDopri5ENS_6D"
      "opri5EEEvNT_4ArgsENS3_5GradsEPKfS7_PKiS7_iiPf", 80, 37376,
      "dopri5_bwd SpiralDopri5 Dopri5"),
+    # spiral K2 (dopri5_fwd_kernel_bounded over SpiralDopri5Fwd)
+    ("spiral_dopri5", "_ZN4bode25dopri5_fwd_kernel_boundedINS_15SpiralDopri"
+     "5FwdENS_6Dopri5ELb1EEEvNT_4ArgsEPKfS6_S6_S6_iiNS_9SolveArgsENS_6FwdO"
+     "utE", 64, 192, "dopri5_fwd SpiralDopri5Fwd Dopri5 record"),
+    ("spiral_dopri5", "_ZN4bode25dopri5_fwd_kernel_boundedINS_15SpiralDopri"
+     "5FwdENS_5Tsit5ELb0EEEvNT_4ArgsEPKfS6_S6_S6_iiNS_9SolveArgsENS_6FwdOut"
+     "E", 64, 192, "dopri5_fwd SpiralDopri5Fwd Tsit5 no-record"),
+    # FHN K2 (dopri5_fwd_kernel_bounded over FHNPoint<5>)
+    ("fhn_dopri5", "_ZN4bode25dopri5_fwd_kernel_boundedINS_8FHNPointILi5EE"
+     "EENS_6Dopri5ELb1EEEvNT_4ArgsEPKfS7_S7_S7_iiNS_9SolveArgsENS_6FwdOutE",
+     59, 0, "dopri5_fwd FHNPoint Dopri5 record"),
+    ("fhn_dopri5", "_ZN4bode25dopri5_fwd_kernel_boundedINS_8FHNPointILi5EE"
+     "EENS_5Tsit5ELb0EEEvNT_4ArgsEPKfS7_S7_S7_iiNS_9SolveArgsENS_6FwdOutE",
+     56, 0, "dopri5_fwd FHNPoint Tsit5 no-record"),
 ])
 def test_ptxas_summary_names_the_redesigned_solves_and_spiral_replay(
         family, mangled, regs, smem, name):
-    """The per-point GP solves (record and no-record), the MLP forwards and
-    the spiral's replay parse to the names chip_smoke.OCCUPANCY_BLOCKS
-    keys."""
+    """The per-point GP solves (record and no-record), the MLP forwards,
+    the spiral's forward and replay and the FitzHugh-Nagumo forward parse
+    to the names chip_smoke.OCCUPANCY_BLOCKS keys."""
     log = (f"ptxas info    : Compiling entry function '{mangled}' for "
            "'sm_90a'\n"
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
@@ -261,6 +280,9 @@ def test_ptxas_summary_names_the_per_point_rk4_forward():
     ("mlp_rk4", (5, 32), "mlp_rk4_bwd", 39872, 39872),
     ("spiral_dopri5", (5, 50), "dopri5_fwd SpiralDopri5 Dopri5 record", 0,
      0),
+    ("spiral_dopri5", (5, 50), "dopri5_fwd SpiralDopri5Fwd Dopri5 record",
+     192, 192),
+    ("fhn_dopri5", (5,), "dopri5_fwd FHNPoint Tsit5 no-record", 0, 0),
     ("svgd_phi", (), "svgd_phi 96", 43392, 43392),
 ])
 def test_block_smem(family, shape, name, static, smem):

@@ -24,11 +24,15 @@ bit from call to call, and the per-step solver (K9) against the whole solve.  Th
 wide shapes the JAX package takes: the GP kernels (K1-K5, K9) at 7x7 and
 8x8 inducing grids (their blocks' buffers in dynamic shared memory), the
 MLP kernels (K6, K7, MLP K2/K3) at N=9 and 16 trajectory points and the
-spiral's K2/K3 at N=9, H=6; and each library's shared memory as built
-against the shape check's arithmetic.  All libraries are built at once,
-one nvcc per source, by the first fixture.  Gates as the smoke's:
-dopri5 trajectories within 1e-4 * max|y| of the plain version (two float32
-solves whose step meshes differ by rounding in the floor-bound regime),
+spiral's K2/K3 at N=9, H=6; the spread forwards (spiral K2 one state
+component a lane at N=5, 9 and 16, FHN K2 one trajectory point a thread
+at N=5 and one chain a thread at N=40) under both tableaus, with and
+without records, and the same bits from call to call; and each library's
+shared memory as built against the shape check's arithmetic.  All
+libraries are built at once, one nvcc per source, by the first fixture.
+Gates as the smoke's: dopri5 trajectories within 1e-4 * max|y| of the
+plain version (two float32 solves whose step meshes differ by rounding in
+the floor-bound regime),
 mean NFE within 1%, gradients within 1e-3 max-rel (the JAX package's
 float32 gate).  The fixed-grid rk4 kernels (K4-K7) take the same steps as
 their plain versions, so they are held closer: trajectories within
@@ -84,8 +88,8 @@ LIBRARIES = [
     ("mlp_dopri5", (5, 20)), ("mlp_dopri5", (5, 32)),
     ("mlp_dopri5", (9, 32)), ("mlp_dopri5", (16, 32)),
     ("spiral_dopri5", (5, 50)), ("spiral_dopri5", (5, 20)),
-    ("spiral_dopri5", (9, 6)),
-    ("fhn_dopri5", (5,)), ("svgd_phi", ()),
+    ("spiral_dopri5", (9, 6)), ("spiral_dopri5", (16, 50)),
+    ("fhn_dopri5", (5,)), ("fhn_dopri5", (40,)), ("svgd_phi", ()),
 ]
 
 
@@ -740,6 +744,52 @@ def test_spiral_kernels_at_nine_points(gp):
     ts = torch.linspace(0.0, 1.2, 6, device=gp["dev"])
     _check_adaptive_kernels(gp, spiral_field(), _spiral_weights(gen, C, 6),
                             "dopri5", _line_x0(gp, 9), ts, nfe_tol=0.02)
+
+
+# The forwards that spread a chain's state over its threads (spiral K2:
+# SpiralDopri5Fwd, one state component a lane; FHN K2: FHNPoint, one
+# trajectory point a thread, and FHNDopri5 past 32 points a chain):
+# (field, N, H); the spiral at N = 9 on the JAX package's wide case (H = 6,
+# 6 output times to t = 1.2).
+SPREAD = [("spiral", 5, 50), ("spiral", 9, 6), ("spiral", 16, 50),
+          ("fhn", 5, None), ("fhn", 40, None)]
+
+
+@pytest.mark.parametrize("method", ["dopri5", "tsit5"])
+@pytest.mark.parametrize("name,points,hidden", SPREAD)
+def test_spread_forwards_match_plain(gp, name, points, hidden, method):
+    """K2 with and without records (and K3 on its records) against the
+    plain versions at _check_adaptive_kernels' gates, the spiral's mean
+    NFE within its 2% (its short solves' rejections follow the rounding of
+    the error estimates), and a second launch of K2 bit-equal to the
+    first: trajectories, counters, end times and the record rows each
+    chain wrote."""
+    dev = gp["dev"]
+    gen = torch.Generator(device=dev).manual_seed(18)
+    x0 = gp["x0"] if points == 5 else _line_x0(gp, points)
+    ts = gp["ts"]
+    if name == "spiral":
+        field, w = spiral_field(), _spiral_weights(gen, C, hidden)
+        if points == 9:
+            ts = torch.linspace(0.0, 1.2, 6, device=dev)
+    else:
+        field = fhn_field()
+        w = tuple(v + 0.05 * torch.randn(C, generator=gen, device=dev)
+                  for v in (0.2, 0.2, 3.0))
+    w = tuple(x.contiguous() for x in w)
+    _check_adaptive_kernels(gp, field, w, method, x0, ts,
+                            nfe_tol=0.02 if name == "spiral" else 0.01)
+    x0b, f0, dt0 = ff._start(field, w, x0, 1e-5, 1e-7)
+    args = (x0b, f0, dt0, ts, 1e-5, 1e-7, 0.9, 10.0, 0.2, 100_000, "i")
+    first, again = (fa.fwd(field, w, *args, record=True, store_steps=128,
+                           method=method) for _ in range(2))
+    assert first[0].shape == (len(ts), C, points, 2)
+    for a, b in zip(first[:5], again[:5]):
+        assert torch.equal(a, b)
+    # the record rows each chain wrote (the buffer is torch.empty)
+    wrote = torch.arange(128, device=dev)[:, None, None] < first[2]
+    assert torch.equal(torch.where(wrote, first[5], 0.0),
+                       torch.where(wrote, again[5], 0.0))
 
 
 @pytest.mark.parametrize("family,shape", LIBRARIES)

@@ -77,7 +77,7 @@ TAKEN = [
     ("mlp_dopri5", (9, 32)), ("mlp_dopri5", (16, 32)),
     ("spiral_dopri5", (5, 50)), ("spiral_dopri5", (5, 20)),
     ("spiral_dopri5", (9, 6)), ("spiral_dopri5", (16, 50)),
-    ("fhn_dopri5", (5,)), ("svgd_phi", ()),
+    ("fhn_dopri5", (5,)), ("fhn_dopri5", (40,)), ("svgd_phi", ()),
 ]
 
 
@@ -108,15 +108,15 @@ def test_load_library_raises_before_any_build(family, shape, limit):
 # the main shape (N = 5, M = 36, MLP H = 32, spiral H = 50; PERF.md §6),
 # where the buffers were static: the arithmetic of the same structs.  The
 # GP rk4 forward (K4) now keeps GPPoint's buffers, the solves' 7,200 B,
-# and the spiral's forward, which reads no buffer, no longer has one
-# allocated (37,376 B before).
+# and the spiral's forward its 4 warps' gathered points (48 B each; it
+# had none while it kept the state on every lane).
 MAIN = [
     ("gp_dopri5", (5, 36), {"fwd": 7200, "bwd": 35872}),
     ("gp_rk4", (5, 36), {"fwd": 7200, "bwd": 31776}),
     ("gp_dopri5_step", (5, 36), {"step": 18720}),
     ("mlp_rk4", (5, 32), {"fwd": 2752, "bwd": 39872}),
     ("mlp_dopri5", (5, 32), {"fwd": 2752, "bwd": 27904}),
-    ("spiral_dopri5", (5, 50), {"fwd": 0, "bwd": 37376}),
+    ("spiral_dopri5", (5, 50), {"fwd": 192, "bwd": 37376}),
     ("fhn_dopri5", (5,), {"fwd": 0, "bwd": 0}),
     ("svgd_phi", (), {"phi": 43392, "combine": 0}),
 ]
@@ -136,6 +136,21 @@ def test_widened_blocks_fit_by_fewer_warps_or_dynamic_memory():
     assert _build.smem_bytes("mlp_dopri5", (16, 32))["bwd"] == 34304
     assert _build.smem_bytes("spiral_dopri5", (9, 50))["bwd"] == 2 * 16768
     assert _build.smem_bytes("spiral_dopri5", (16, 50))["bwd"] == 29696
+
+
+# The spread forwards' blocks past the main shape: the spiral's 4 warps
+# each gather the 2N floats of the point, padded to 4 (SpiralFwdBuf, 16 B
+# aligned); the FitzHugh-Nagumo forward keeps theta in registers and
+# gathers its norm by shuffles, one point a thread to N = 32 and one chain
+# a thread past it.
+@pytest.mark.parametrize("family,shape,fwd", [
+    ("spiral_dopri5", (9, 6), 4 * 80), ("spiral_dopri5", (16, 50), 4 * 128),
+    ("spiral_dopri5", (1, 50), 4 * 16), ("fhn_dopri5", (32,), 0),
+    ("fhn_dopri5", (40,), 0),
+])
+def test_spread_forward_buffers(family, shape, fwd):
+    assert _build.smem_bytes(family, shape)["fwd"] == fwd
+    _build.check_shape(family, shape)
 
 
 # ---- the plain versions against JAX at the widened shapes ----
