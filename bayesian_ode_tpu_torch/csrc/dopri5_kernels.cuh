@@ -14,8 +14,8 @@
 //       discrete adjoint over the records (dopri5_bwd_kernel_bounded for a
 //       field that names its blocks an SM);
 //   dopri5_step_kernel<F, TB>:       for the GP field, ops/gp_dopri5.py::
-//       _make_kernel (K9), masked steps of the per-step solver, whose host
-//       loop launches it until every chain passes the next output time.
+//       _make_kernel (K9) and the while loop around it: one output
+//       interval of the per-step solver, its dense output included.
 // TB is Dopri5 or Tsit5 (dopri5_common.cuh).
 //
 // A field F (gp_field.cuh, mlp_field.cuh, spiral_field.cuh, fhn_field.cuh)
@@ -71,6 +71,7 @@
 
 #include "dopri5_common.cuh"
 #include "field_stages.cuh"
+#include "warp.cuh"
 
 namespace bode {
 
@@ -211,8 +212,8 @@ dopri5_fwd_kernel_bounded(typename F::Args w, const float* __restrict__ x0,
 }
 
 // The per-step solver's state (K9), kept in device memory between
-// launches: each launch reads a chain's row, takes its steps and writes
-// the row back.
+// launches: each launch reads a chain's row, takes its steps, writes its
+// dense output at the launch's output time and the row back.
 struct StepState {
   float* y;        // (C, NS) state at t1
   float* f;        // (C, NS) FSAL slope at t1
@@ -223,87 +224,147 @@ struct StepState {
   int* nfe;        // (C,)
   int* nacc;
   int* nrej;
-  // flags[0]: the least, over chains, first output index m with
-  //           ts[m] > t1 (T if none): interval k needs another launch
-  //           while flags[0] <= k;
-  // flags[1]: the most steps (accepted + rejected) any chain has taken.
+  // this launch's flags, zeroed before it: [0] is 1 if a chain is still
+  // short of ts[k] after it (the interval needs another launch, budget
+  // allowing), [1] the most steps (accepted + rejected) any chain has
+  // taken.  Where the launches of all intervals are issued at once, each
+  // interval k has its pair at flags + 2k, and the pair before it holds
+  // the previous launch's.
   int* flags;
 };
 
-// Up to `steps` masked steps of every chain still short of ts[k]:
-// replaces ops/gp_dopri5.py::_make_kernel (K9) for any field.  A chain is
-// active while t1 < ts[k]; an active chain takes the step of the whole
-// solve (the same rk_stages, step_decision with the "i" controller and
-// midpoint as K1), so the two take the same steps.  On acceptance the
-// step's quartic coefficients are kept for the dense output, which the
-// host evaluates between intervals.  The step budget is the host's: it
-// is collective, read from flags[1] between launches.
+// A launch's cap of iterations: the budget left, rounded up to a multiple
+// of steps_per_call (the JAX loop checks its budget once every
+// steps_per_call steps), 0 once it is spent, at most the largest such
+// multiple an int holds; ops/gp_dopri5.py::_cap is the same arithmetic.
+__device__ __forceinline__ int interval_cap(int left, int steps_per_call) {
+  if (left <= 0) return 0;
+  const long long spc = steps_per_call;
+  const long long cap = (left + spc - 1) / spc * spc;
+  const long long most = 2147483647LL / spc * spc;
+  return static_cast<int>(cap < most ? cap : most);
+}
+
+// The dense output of one component at t in the order of the port's
+// ode/interp.py interp_evaluate: X = (t - t0) / (t1 - t0), 0 for a step of
+// zero length, then Horner, each operation rounded on its own (the _rn
+// intrinsics are never contracted), so that it is the plain version's
+// evaluation bit for bit.
+__device__ __forceinline__ float dense_output(const float (&cf)[5], float X) {
+  float v = __fadd_rn(__fmul_rn(cf[0], X), cf[1]);
+  v = __fadd_rn(__fmul_rn(v, X), cf[2]);
+  v = __fadd_rn(__fmul_rn(v, X), cf[3]);
+  return __fadd_rn(__fmul_rn(v, X), cf[4]);
+}
+
+// One output interval of the per-step solver: replaces ops/gp_dopri5.py::
+// _make_kernel (K9) with the device-side loop of its lax.while_loop.
+// Every chain still short of ts[k] steps while t1 < ts[k], for at most
+// `cap` iterations; a negative cap is read from the previous launch's
+// flags (interval_cap of the budget left after it), so that the launches
+// of all intervals can be issued at once.  An active chain takes the step
+// of the whole solve (the same rk_stages, step_decision with the "i"
+// controller and midpoint as K1), so the two take the same steps.  On
+// acceptance the step's quartic is kept, and at the end every chain
+// writes its dense output at ts[k] (extrapolated where a spent budget
+// left it short, as in JAX) and its state.  The chain's threads spread its
+// state as K1's do (field_stages.cuh) and leave the loop together.  Every
+// lane of the warp reaches the flags' warp reductions (a lane with no
+// chain takes no step); the warp's lane 0 then updates them with one
+// atomic each.
 template <class F, class TB>
-__global__ void __launch_bounds__(F::kThreads)
+__global__ void __launch_bounds__(F::kThreads, F::kMinBlocks)
 dopri5_step_kernel(typename F::Args w, const float* __restrict__ ts, int k,
-                   int T, int C, int steps, SolveArgs s, StepState st) {
-  constexpr int NS = F::kNS;
-  static_assert(!spreads_forward<F>::value,
-                "the per-step solver keeps a chain's whole state a thread");
+                   int C, int cap, int max_steps, int steps_per_call,
+                   SolveArgs s, StepState st, float* __restrict__ ys) {
+  constexpr int NS = fwd_components<F>();   // components carried here
+  constexpr int kNS = F::kNS;
   const int c = F::chain();
   const F fld = F::load(w, block_smem<F>(), C, c);
-  if (c >= C) return;
-  const bool lead = F::leader();
-
-  float y[NS], kk[7][NS], y1[NS], ym[NS];
-  const size_t row = static_cast<size_t>(c) * NS;
-#pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    y[i] = st.y[row + i];
-    kk[0][i] = st.f[row + i];
-  }
-  float t0 = st.t0[c], t1 = st.t1[c], dt = st.dt[c];
-  int nfe = st.nfe[c], nacc = st.nacc[c], nrej = st.nrej[c];
+  const bool live = c < C;
   const float next_t = ts[k];
-  for (int it = 0; it < steps && t1 < next_t; ++it) {
-    rk_stages<NS, TB>(fld, y, kk, dt, y1);
-    const Decision d = step_decision<NS, TB>(
-        fld, kk, y, y1, dt, s.rtol, s.atol, s.safety, s.ifactor, s.dfactor,
-        false, 1.0f);
-    nfe += 6;
-    if (d.accept) {
-      midpoint<NS, TB>(y, kk, dt, ym);
+  if (cap < 0) cap = interval_cap(max_steps - st.flags[-1], steps_per_call);
+  float t0 = 0.f, t1 = next_t, dt = 0.f;
+  int nfe = 0, nacc = 0, nrej = 0;
+  if (live) {
+    float y[NS], kk[7][NS], y1[NS], ym[NS], cf[5][NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const size_t j = static_cast<size_t>(c) * kNS + fwd_component<F>(i);
+      y[i] = st.y[j];
+      kk[0][i] = st.f[j];
+#pragma unroll
+      for (int q = 0; q < 5; ++q)
+        cf[q][i] = st.coef[static_cast<size_t>(q) * C * kNS + j];
+    }
+    t0 = st.t0[c];
+    t1 = st.t1[c];
+    dt = st.dt[c];
+    nfe = st.nfe[c];
+    nacc = st.nacc[c];
+    nrej = st.nrej[c];
+    int it = 0;
+    for (; it < cap && t1 < next_t; ++it) {
+      rk_stages<NS, TB>(fld, y, kk, dt, y1);
+      const Decision d = step_decision<NS, TB>(
+          fld, kk, y, y1, dt, s.rtol, s.atol, s.safety, s.ifactor,
+          s.dfactor, false, 1.0f);
+      nfe += 6;
+      if (d.accept) {
+        midpoint<NS, TB>(y, kk, dt, ym);
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          float q[5];
+          quartic_coeffs(y[i], y1[i], ym[i], kk[0][i], kk[6][i], dt, q);
+#pragma unroll
+          for (int j = 0; j < 5; ++j) cf[j][i] = q[j];
+          y[i] = y1[i];
+          kk[0][i] = kk[6][i];
+        }
+        t0 = t1;
+        t1 = t1 + dt;
+        ++nacc;
+      } else {
+        ++nrej;
+      }
+      dt = d.dt_next;
+    }
+    // the dense output at ts[k], and the state where this launch moved it
+    const bool same = t1 == t0;
+    const float X =
+        same ? 0.f : __fdiv_rn(__fsub_rn(next_t, t0), __fsub_rn(t1, t0));
+    if (fwd_owner<F>()) {
 #pragma unroll
       for (int i = 0; i < NS; ++i) {
-        float cf[5];
-        quartic_coeffs(y[i], y1[i], ym[i], kk[0][i], kk[6][i], dt, cf);
-        if (lead) {
+        const size_t j = static_cast<size_t>(c) * kNS + fwd_component<F>(i);
+        const float q[5] = {cf[0][i], cf[1][i], cf[2][i], cf[3][i],
+                            cf[4][i]};
+        ys[static_cast<size_t>(k) * C * kNS + j] = dense_output(q, X);
+        if (it == 0) continue;
+        st.y[j] = y[i];
+        st.f[j] = kk[0][i];
 #pragma unroll
-          for (int j = 0; j < 5; ++j)
-            st.coef[(static_cast<size_t>(j) * C + c) * NS + i] = cf[j];
-        }
-        y[i] = y1[i];
-        kk[0][i] = kk[6][i];
+        for (int r = 0; r < 5; ++r)
+          st.coef[static_cast<size_t>(r) * C * kNS + j] = cf[r][i];
       }
-      t0 = t1;
-      t1 = t1 + dt;
-      ++nacc;
-    } else {
-      ++nrej;
     }
-    dt = d.dt_next;
+    if (it > 0 && F::leader()) {
+      st.t0[c] = t0;
+      st.t1[c] = t1;
+      st.dt[c] = dt;
+      st.nfe[c] = nfe;
+      st.nacc[c] = nacc;
+      st.nrej[c] = nrej;
+    }
   }
-  if (!lead) return;
-#pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    st.y[row + i] = y[i];
-    st.f[row + i] = kk[0][i];
+  // the launch's flags, over the warp's chains first (every thread of a
+  // chain holds the same t1 and counters; a lane with no chain adds 0)
+  const int short_k = __reduce_max_sync(kFull, live && t1 < next_t ? 1 : 0);
+  const int taken = __reduce_max_sync(kFull, live ? nacc + nrej : 0);
+  if ((threadIdx.x & 31) == 0) {
+    if (short_k) atomicMax(&st.flags[0], 1);
+    if (taken) atomicMax(&st.flags[1], taken);
   }
-  st.t0[c] = t0;
-  st.t1[c] = t1;
-  st.dt[c] = dt;
-  st.nfe[c] = nfe;
-  st.nacc[c] = nacc;
-  st.nrej[c] = nrej;
-  int m = k;
-  while (m < T && !(ts[m] > t1)) ++m;
-  atomicMin(&st.flags[0], m);
-  atomicMax(&st.flags[1], nacc + nrej);
 }
 
 // The backward's per-step arrays, in registers: NS of the chain's
@@ -583,24 +644,51 @@ int launch_bwd(int tableau, const typename F::Args& w,
                                  stream);
 }
 
-// One launch of the per-step solver at DOPRI5 (the JAX per-step kernel's
-// only tableau), after resetting the flags (flags[0] to a large int,
-// flags[1] to 0).
+// The per-step solver at DOPRI5 (the JAX per-step kernel's only tableau):
+// one launch for output interval k with a cap of iterations from the host,
+// after zeroing its flags (launch_step), or the launches of all output
+// intervals 1..T-1 at once, each with its cap from the flags of the one
+// before it, after zeroing all T pairs of flags (launch_steps).
 template <class F>
-static int launch_step(const typename F::Args& w, const float* ts, int k, int T,
-                int C, int steps, const SolveArgs& s, const StepState& st,
-                cudaStream_t stream) {
+static int launch_step_as(const typename F::Args& w, const float* ts, int k,
+                          int C, int cap, int max_steps, int steps_per_call,
+                          const SolveArgs& s, const StepState& st, float* ys,
+                          cudaStream_t stream) {
   const auto kernel = &dopri5_step_kernel<F, Dopri5>;
   constexpr size_t bytes = smem_bytes<F, false>();
   static const cudaError_t allowed = allow_smem(kernel, bytes);
   if (allowed != cudaSuccess) return static_cast<int>(allowed);
-  cudaError_t e = cudaMemsetAsync(st.flags, 0x7f, sizeof(int), stream);
-  if (e == cudaSuccess)
-    e = cudaMemsetAsync(st.flags + 1, 0, sizeof(int), stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((C + F::kChains - 1) / F::kChains);
-  kernel<<<grid, F::kThreads, bytes, stream>>>(w, ts, k, T, C, steps, s, st);
+  kernel<<<grid, F::kThreads, bytes, stream>>>(w, ts, k, C, cap, max_steps,
+                                                steps_per_call, s, st, ys);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class F>
+static int launch_step(const typename F::Args& w, const float* ts, int k,
+                       int C, int cap, const SolveArgs& s,
+                       const StepState& st, float* ys, cudaStream_t stream) {
+  const cudaError_t e = cudaMemsetAsync(st.flags, 0, 2 * sizeof(int), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_step_as<F>(w, ts, k, C, cap, 0, 1, s, st, ys, stream);
+}
+
+template <class F>
+static int launch_steps(const typename F::Args& w, const float* ts, int T,
+                        int C, int max_steps, int steps_per_call,
+                        const SolveArgs& s, const StepState& st, float* ys,
+                        cudaStream_t stream) {
+  const cudaError_t e =
+      cudaMemsetAsync(st.flags, 0, 2 * sizeof(int) * T, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  for (int k = 1; k < T; ++k) {
+    StepState sk = st;
+    sk.flags = st.flags + 2 * k;
+    const int status = launch_step_as<F>(w, ts, k, C, -1, max_steps,
+                                         steps_per_call, s, sk, ys, stream);
+    if (status != 0) return status;
+  }
+  return 0;
 }
 
 // The shared memory of the forwards' blocks, in the order (DOPRI5, no

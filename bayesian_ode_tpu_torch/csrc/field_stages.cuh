@@ -33,16 +33,16 @@
 //                                  same bits on each of the chain's threads
 // (GPPoint, gp_field.cuh, and FHNPoint, fhn_field.cuh: one trajectory
 // point a thread; MLPDopri5Fwd, mlp_field.cuh, and SpiralDopri5Fwd,
-// spiral_field.cuh: one component a lane).  A field without it (the GP
-// field's GPDopri5 of the per-step solver, FHNDopri5 past 32 points a
-// chain) keeps the whole state on each of its threads.
+// spiral_field.cuh: one component a lane).  A field without it
+// (FHNDopri5, past 32 points a chain) keeps the whole state on each of its
+// threads.
 //
 // Last, where a block's buffers live.  A field's Smem (and a reverse
 // sweep's AccSmem) sit in static shared memory, which a block may have 48
 // KB of, unless the field declares
 //   kDynamicSmem                   its buffers grow with a shape past that
 //                                  (the GP field's, with the inducing
-//                                  grid: GPPoint, GPDopri5)
+//                                  grid: GPPoint)
 // and then in dynamic shared memory, Smem first and AccSmem after it,
 // sized at launch (smem_bytes); a launcher raises the block's limit past
 // 48 KB once per kernel (allow_smem), up to the 232,448 B an H100 block

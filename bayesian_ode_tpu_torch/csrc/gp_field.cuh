@@ -2,16 +2,13 @@
 //
 //   f(x_n) = sum_m sf^2 exp(-|x_n - z_m|^2 / (2 ell^2)) A_m
 //
-// GPField (and its adapter GPDopri5) carries one chain per thread, for the
-// per-step solver alone (K9, dopri5_kernels.cuh over gp_dopri5_step.cu).
-// State layout per chain: NS = 2 * GP_N floats, y[2n + d] (the JAX (N, 2)
-// layout).
-//
 // GPPoint carries one trajectory point per thread, for the whole adaptive
-// solves (K1, K2: dopri5_kernels.cuh over gp_dopri5_fwd.cu), the rk4
-// forward (K4, gp_rk4.cu) and the reverse sweeps (K3, over
-// gp_dopri5_bwd.cu; K5, gp_rk4.cu).  The rk4 forward's steps are on the
-// output grid, so its N points step independently too.  f at point n
+// solves (K1, K2: dopri5_kernels.cuh over gp_dopri5_fwd.cu), the per-step
+// solver's output intervals (K9, over gp_dopri5_step.cu), the rk4 forward
+// (K4, gp_rk4.cu) and the reverse sweeps (K3, over gp_dopri5_bwd.cu; K5,
+// gp_rk4.cu).  State layout per chain: 2 * GP_N floats, y[2n + d] (the
+// JAX (N, 2) layout).  The rk4 forward's steps are on the output grid, so
+// its N points step independently too.  f at point n
 // reads only x_n and the chain's A.  The reverse sweeps' step mesh is
 // frozen (K3 replays recorded steps, K5 steps on the output grid), so the
 // sweeps of a chain's N points are independent: they share only the A
@@ -21,12 +18,12 @@
 // the per-chain order, so every thread of the chain takes the step the
 // per-chain solve takes, bit for bit.
 //
-// Both keep their block's buffers (A, Z, and GPPoint's Abar columns) in
-// dynamic shared memory (kDynamicSmem, field_stages.cuh): they grow with
-// the inducing grid, past the 48 KB of static shared memory a block may
-// have from a 7x7 grid on in K3 (51,784 B at N = 5), 8x8 in K5 and 10x10
-// in K9 (520 B an inducing point).  ops/_build.py's check_shape holds
-// every instance to the 232,448 B a block may take before the build.
+// GPPoint keeps its block's buffers (A, Z and the Abar columns) in dynamic
+// shared memory (kDynamicSmem, field_stages.cuh): they grow with the
+// inducing grid, past the 48 KB of static shared memory a block may have
+// from a 7x7 grid on in K3 (51,784 B at N = 5) and 8x8 in K5.
+// ops/_build.py's check_shape holds every instance to the 232,448 B a
+// block may take before the build.
 //
 // Full float32 throughout: built without --use_fast_math and with expf.
 #pragma once
@@ -45,95 +42,13 @@
 
 namespace bode {
 
-constexpr int kBlock = 64;       // threads per block, one chain per thread
 constexpr int kN = GP_N;
 constexpr int kM = GP_M;
 constexpr int kNS = 2 * GP_N;    // state components per chain
 
-// A is staged per block in shared memory as sA[(2m + d) * kBlock + lane],
-// so a warp reads 32 consecutive words; the grid Z is shared by all chains.
-struct GPField {
-  const float* sA;
-  const float* sZ;     // sZ[2m + d]
-  int lane;
-  float sf2;           // sf^2
-  float inv2ell2;      // 1 / (2 ell^2)
-
-  __device__ __forceinline__ float a(int m, int d) const {
-    return sA[(2 * m + d) * kBlock + lane];
-  }
-
-  // f = K(y, Z) A at the N points.
-  __device__ __forceinline__ void rhs(const float* y, float* f) const {
-#pragma unroll
-    for (int n = 0; n < kN; ++n) {
-      const float px = y[2 * n], py = y[2 * n + 1];
-      float fx = 0.f, fy = 0.f;
-#pragma unroll 4
-      for (int m = 0; m < kM; ++m) {
-        const float dx = px - sZ[2 * m];
-        const float dy = py - sZ[2 * m + 1];
-        const float K = sf2 * expf(-(dx * dx + dy * dy) * inv2ell2);
-        fx += K * a(m, 0);
-        fy += K * a(m, 1);
-      }
-      f[2 * n] = fx;
-      f[2 * n + 1] = fy;
-    }
-  }
-};
-
-// Stage this block's A rows (C, M, 2) into sA with coalesced loads; chains
-// past C read as zero.  Z is copied once per block.
-__device__ __forceinline__ void stage_weights(const float* __restrict__ A,
-                                              const float* __restrict__ Z,
-                                              int C, float* sA, float* sZ) {
-  const int c0 = blockIdx.x * kBlock;
-  for (int idx = threadIdx.x; idx < kBlock * 2 * kM; idx += kBlock) {
-    const int l = idx / (2 * kM);
-    const int j = idx - l * (2 * kM);
-    sA[j * kBlock + l] =
-        (c0 + l < C) ? A[static_cast<size_t>(c0) * 2 * kM + idx] : 0.f;
-  }
-  for (int idx = threadIdx.x; idx < 2 * kM; idx += kBlock) sZ[idx] = Z[idx];
-}
-
-// The GP field as the per-step solver takes it (dopri5_kernels.cuh: K9):
-// weights A (C, M, 2) per chain and the grid Z (M, 2) shared by all
-// chains.  One chain per thread; A and Z staged in shared memory.
-struct GPDopri5 {
-  static constexpr int kNS = 2 * GP_N;
-  static constexpr int kThreads = kBlock;
-  static constexpr int kChains = kBlock;
-  static constexpr bool kDynamicSmem = true;
-  struct Args {
-    const float* A;
-    const float* Z;
-    float sf2, inv2ell2, invell2;
-  };
-  struct Smem {
-    float sA[2 * kM * kBlock];
-    float sZ[2 * kM];
-  };
-
-  GPField f;
-
-  static __device__ int chain() { return blockIdx.x * kBlock + threadIdx.x; }
-  static __device__ bool leader() { return true; }
-
-  static __device__ GPDopri5 load(const Args& a, Smem& sm, int C, int) {
-    stage_weights(a.A, a.Z, C, sm.sA, sm.sZ);
-    __syncthreads();
-    return GPDopri5{GPField{sm.sA, sm.sZ, static_cast<int>(threadIdx.x),
-                            a.sf2, a.inv2ell2}};
-  }
-
-  __device__ void rhs(const float* y, float* out) const { f.rhs(y, out); }
-};
-
 // One trajectory point per thread: the GP field of the whole adaptive
-// solves and of the reverse sweeps (K1, K2 and K3, as the kernels of
-// dopri5_kernels.cuh take it; K5, gp_rk4.cu).
+// solves, the per-step solver and the reverse sweeps (K1, K2, K9 and K3,
+// as the kernels of dopri5_kernels.cuh take it; K4 and K5, gp_rk4.cu).
 //
 // Lanes: N consecutive lanes carry one chain, lane = N * (chain in warp) +
 // n, so a warp holds 32 / N chains (6 at N = 5, lanes 30-31 idle) and a
@@ -142,15 +57,16 @@ struct GPDopri5 {
 // g and lbar; neighbouring lanes read neighbouring words, so those loads
 // coalesce.
 //
-// rhs and rhs_vjp are GPField's expressions at one point, in the same
-// ascending order over m, so the stage values, ybar and the x0 cotangent
-// are GPField's bit for bit.  Abar: each thread sums its own point's share,
-// for the first R inducing points in registers (the m loop over them is
-// unrolled, so every index is a constant) and for the rest in its own
-// column of shared memory (a float2 a point, sAbar[(m - R) * kThreads +
-// thread]: a warp's 32 columns are 256 consecutive bytes).  acc_store adds
-// the N partials of a chain by shuffles inside the warp, in ascending n:
-// the sum over points is the only reassociation.  A chain's A sits in
+// rhs and rhs_vjp are the field's expressions at one point, each sum in
+// ascending order over m, as one chain a thread evaluated them, so the
+// stage values, ybar and the x0 cotangent are that design's bit for bit.
+// Abar: each thread sums its own point's share, for the first R inducing
+// points in registers (the m loop over them is unrolled, so every index
+// is a constant) and for the rest in its own column of shared memory (a
+// float2 a point, sAbar[(m - R) * kThreads + thread]: a warp's 32 columns
+// are 256 consecutive bytes).  acc_store adds the N partials of a chain
+// by shuffles inside the warp, in ascending n: the sum over points is the
+// only reassociation.  A chain's A sits in
 // shared memory as float2 columns sA[m * kChains + chain in block]: the N
 // lanes of a chain read one word (a broadcast) and the chains of a warp
 // neighbouring words.
@@ -160,7 +76,8 @@ struct GPDopri5 {
 // dense output and the records; the chain's lane n = 0 (leader) writes t0,
 // dt and the counters.  Their rhs is the same one point's, so their
 // stages are the per-chain solve's; norm_sums makes their decisions its
-// decisions.
+// decisions.  K9 steps the same way, one output interval a launch, and
+// carries its point's quartic coefficients between launches.
 //
 // The rk4 forward (K4) is the forwards' pattern with no norm: a thread
 // steps its own point through rk4_step<2> and writes its 2 components.
@@ -303,8 +220,8 @@ struct GPPoint {
   }
 
   // f = K(y, Z) A at this thread's point y[0..1].  The m loop unrolled by
-  // 12 (not GPField's 4): on an H100 the solves K1/K2 take 6% less time,
-  // K3 and K5 the same, and the sums are GPField's, bit for bit.
+  // 12, not 4: on an H100 the solves K1/K2 took less time, K3 and K5 the
+  // same, and the sums are the same bit for bit.
   __device__ __forceinline__ void rhs(const float* y, float* f) const {
     const float px = y[0], py = y[1];
     float fx = 0.f, fy = 0.f;
@@ -371,7 +288,8 @@ struct GPPoint {
 // spills; K5 0.94 ms at R = 12, against 1.02 ms with Abar all in shared
 // memory (63 registers), and spills past it.  A grid of M < R inducing
 // points keeps them all in registers.  The forwards (K1, K2, K4) take
-// GPReplayPoint as well: they keep no Abar, so R does not reach them.
+// GPReplayPoint as well, and so does K9: they keep no Abar, so R does not
+// reach them.
 using GPReplayPoint = GPPoint<8>;
 using GPRk4Point = GPPoint<12>;
 

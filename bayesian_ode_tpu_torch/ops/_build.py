@@ -11,7 +11,8 @@ kernel family and shape, the shape baked in at compile time:
     "fhn_dopri5"     K2/K3 over the FitzHugh-Nagumo field, keyed by (N,)
     "gp_rk4"         K4-K5, keyed by (N, M)
     "mlp_rk4"        K6-K7, keyed by (N, H)
-    "gp_dopri5_step" K9, the per-step GP solver, keyed by (N, M)
+    "gp_dopri5_step" K9, the per-step GP solver's output intervals, keyed
+                     by (N, M)
     "svgd_phi"       K8, the SVGD direction, with no shape baked in
 
 Each adaptive library holds both tableaus (DOPRI5 and TSIT5) and both
@@ -124,8 +125,10 @@ FAMILIES: Dict[str, Family] = {
         ("dopri5_common.cuh", "dopri5_kernels.cuh", "field_stages.cuh",
          "gp_field.cuh", "warp.cuh"),
         ("GP_N", "GP_M"), "gp_dopri5_step_dims",
-        {"gp_dopri5_step": [_P] * 2 + [_F] * 3 + [_P] + [_I] * 4 + [_F] * 5
-                           + [_P] * 10 + [_P],
+        {"gp_dopri5_interval": [_P] * 2 + [_F] * 3 + [_P] + [_I] * 3
+                               + [_F] * 5 + [_P] * 11 + [_P],
+         "gp_dopri5_intervals": [_P] * 2 + [_F] * 3 + [_P] + [_I] * 4
+                                + [_F] * 5 + [_P] * 11 + [_P],
          "gp_dopri5_step_smem": [_P]},
         {"gp_dopri5_step_smem": ("step",)}),
     "svgd_phi": Family(
@@ -172,7 +175,7 @@ def smem_bytes(family: str, shape: Tuple[int, ...]) -> Dict[str, int]:
     csrc/ (sizeof of arrays of float and float2; MLPBuf, MLPFwdBuf,
     SpiralBuf and SpiralFwdBuf aligned to 16 B)."""
     f4 = 4
-    if family in ("gp_dopri5", "gp_rk4"):
+    if family in ("gp_dopri5", "gp_rk4", "gp_dopri5_step"):
         N, M = shape
         chains = 128 // 32 * (32 // N)          # GPPoint::kChains
 
@@ -181,11 +184,10 @@ def smem_bytes(family: str, shape: Tuple[int, ...]) -> Dict[str, int]:
             return 8 * ((M - kR) * 128 + (kR == M))
 
         sm = 8 * (M * chains + M)               # GPPoint::Smem: A, Z
+        if family == "gp_dopri5_step":
+            return {"step": sm}
         R = 8 if family == "gp_dopri5" else 12  # GPReplayPoint, GPRk4Point
         return {"fwd": sm, "bwd": sm + acc(R)}
-    if family == "gp_dopri5_step":
-        N, M = shape
-        return {"step": f4 * (2 * M * 64 + 2 * M)}      # GPDopri5::Smem
     if family in ("mlp_rk4", "mlp_dopri5"):
         N, H = shape
         h4 = _round_up(H, 4)

@@ -13,15 +13,18 @@ kernel `_make_whole_kernel`) for CUDA tensors, its plain version for CPU
 tensors.  Per-state tensors are (C, N, 2) and per-chain scalars (C,), all
 float32 inside the solve; time is float32 too.
 
-`gp_dopri5_solve` is the per-step solver: a host loop per output interval
-launches kernel K9 (`csrc/gp_dopri5_step.cu`, replacing the TPU kernel
-`_make_kernel`) until every chain has passed the output time, then
-evaluates the dense output there (`_interp_eval`).  Its step budget is
-collective, as in the JAX package; prefer `gp_dopri5_solve_whole`.
+`gp_dopri5_solve` is the per-step solver: one launch of kernel K9
+(`csrc/gp_dopri5_step.cu`, replacing the TPU kernel `_make_kernel` and
+the JAX loop around it) per output interval takes every chain to the
+output time and writes its dense output there.  The launches are issued
+at once, each capped on the device by the budget left after the one
+before, and the host reads their flags once a solve; only where the
+budget left a chain short of an output time with steps to spare does it
+run the solve again launch by launch.  Its step budget is collective, as
+in the JAX package; prefer `gp_dopri5_solve_whole`.
 """
 from __future__ import annotations
 
-from bisect import bisect_right
 from typing import NamedTuple
 
 import torch
@@ -242,7 +245,9 @@ class GPDopri5State(NamedTuple):
 
 def _interp_eval(state: GPDopri5State, t):
     """The dense-output quartic of each chain's last accepted step at the
-    time t: (C, N, 2), at x = (t - t0) / (t1 - t0), 0 where t1 == t0."""
+    time t: (C, N, 2), at x = (t - t0) / (t1 - t0), 0 where t1 == t0.  K9
+    evaluates it in the same order of operations (csrc/dopri5_kernels.cuh,
+    dense_output)."""
     return interp_evaluate(list(state.coef), _bc(state.t0), _bc(state.t1), t)
 
 
@@ -265,16 +270,19 @@ def _step_init(w, x0, ts, static, rtol, atol):
         nacc=torch.zeros(C, **i32), nrej=torch.zeros(C, **i32))
 
 
-def _step_plain(state, ts, k, rhs, steps, rtol, atol, safety, ifactor,
-                dfactor):
-    """Plain version of one launch of K9: up to `steps` masked steps of
-    every chain with t1 < ts[k].  Returns (state, pending, taken): the
-    least first output index m with ts[m] > t1 over the chains, and the
-    most steps any chain has taken."""
+def _interval_plain(state, ys, ts, k, cap, rhs, rtol, atol, safety,
+                    ifactor, dfactor):
+    """Plain version of one launch of K9 for output interval k: masked
+    lockstep steps of every chain with t1 < ts[k], at most `cap` of them,
+    then the dense output at ts[k] into ys[k].  Returns (state, short,
+    taken): whether a chain is still short of ts[k], and the most steps
+    any chain has taken."""
     y, f, t0, t1, dt, coef, nfe, nacc, nrej = state
     next_t = ts[k]
-    for _ in range(steps):
+    for _ in range(cap):
         active = t1 < next_t
+        if not bool(active.any()):
+            break
         kk, y1 = _rk_stages(rhs, y, f, dt)
         accept, _, dt_next, _ = _step_decision(kk, y, y1, dt, rtol, atol,
                                                safety, ifactor, dfactor)
@@ -291,49 +299,131 @@ def _step_plain(state, ts, k, rhs, steps, rtol, atol, safety, ifactor,
         nfe = nfe + 6 * active.int()
         nacc = nacc + take.int()
         nrej = nrej + (active & ~accept).int()
-    pending = int(torch.searchsorted(ts, t1, right=True).min())
     state = GPDopri5State(y, f, t0, t1, dt, coef, nfe, nacc, nrej)
-    return state, pending, int((nacc + nrej).max())
+    ys[k] = _interp_eval(state, next_t)
+    return state, bool((t1 < next_t).any()), int((nacc + nrej).max())
 
 
-def _step_launch(state, ts, k, lib, w, scalars, flags, steps, rtol, atol,
-                 safety, ifactor, dfactor):
-    """One launch of K9, updating `state` in place; returns (state,
-    pending, taken) read back from the kernel's flags (the launch's one
-    device-to-host read)."""
+def _intervals_plain(state, ys, ts, max_steps, steps_per_call, rhs, *ctrl):
+    """Plain version of K9's launches of all output intervals at once: one
+    `_interval_plain` per interval k, capped by the budget left after the
+    one before.  Returns (state, flags): flags[k] = (short, taken) of
+    interval k's launch, flags[0] = (0, 0)."""
+    flags, taken = [(0, 0)], 0
+    for k in range(1, ts.shape[0]):
+        state, short, taken = _interval_plain(
+            state, ys, ts, k, _cap(max_steps - taken, steps_per_call), rhs,
+            *ctrl)
+        flags.append((int(short), taken))
+    return state, flags
+
+
+def _intervals_launch(state, ys, ts, max_steps, steps_per_call, lib, w,
+                      scalars, flags, *ctrl):
+    """K9's launches of all output intervals at once (one C call, T - 1
+    launches, each reading its cap from the flags of the one before), and
+    the solve's one read of their flags: (state, flags) as
+    `_intervals_plain` returns them; `state` and ys updated in place."""
+    from . import _build
+    from .fused_adaptive import _stream
+
+    A, Z = w
+    dev, T = A.device, ts.shape[0]
+    with torch.cuda.device(dev):
+        status = lib.gp_dopri5_intervals(
+            A.data_ptr(), Z.data_ptr(), *scalars, ts.data_ptr(), T,
+            A.shape[0], min(max_steps, 2**31 - 1), steps_per_call, *ctrl,
+            *(x.data_ptr() for x in state), flags.data_ptr(), ys.data_ptr(),
+            _stream(dev))
+    _build.check(status, "gp_dopri5_intervals")
+    _build.launch_counts["gp_dopri5_step"] += T - 1
+    return state, [tuple(f) for f in flags.tolist()]
+
+
+def _interval_launch(state, ys, ts, k, cap, lib, w, scalars, flags, *ctrl):
+    """One launch of K9 for output interval k, updating `state` and ys[k]
+    in place; returns (state, short, taken) read back from the kernel's
+    flags (the launch's one device-to-host read)."""
     from . import _build
     from .fused_adaptive import _stream
 
     A, Z = w
     dev = A.device
     with torch.cuda.device(dev):
-        status = lib.gp_dopri5_step(
+        status = lib.gp_dopri5_interval(
             A.data_ptr(), Z.data_ptr(), *scalars, ts.data_ptr(), k,
-            ts.shape[0], A.shape[0], steps, rtol, atol, safety, ifactor,
-            dfactor, *(x.data_ptr() for x in state), flags.data_ptr(),
-            _stream(dev))
-    _build.check(status, "gp_dopri5_step")
+            A.shape[0], cap, *ctrl, *(x.data_ptr() for x in state),
+            flags.data_ptr(), ys.data_ptr(), _stream(dev))
+    _build.check(status, "gp_dopri5_interval")
     _build.launch_counts["gp_dopri5_step"] += 1
-    pending, taken = flags.tolist()
-    return state, pending, taken
+    short, taken = flags.tolist()
+    return state, bool(short), taken
 
 
-def _solve_steps(state, ts, max_steps, advance):
-    """The host loop of the per-step solver: per output interval k,
-    advance while a chain is short of ts[k] and no chain has used the
-    budget (collective), then evaluate the dense output at ts[k]."""
-    times = ts.tolist()
-    pending = bisect_right(times, times[0])   # every chain starts at ts[0]
+def _check_steps_per_call(steps_per_call):
+    if not 0 < steps_per_call < 2**31:
+        raise ValueError(f"steps_per_call must be a positive int32, got "
+                         f"{steps_per_call}")
+
+
+def _cap(left, steps_per_call):
+    """A launch's cap of iterations: the budget left, rounded up to a
+    multiple of steps_per_call (the JAX loop checks its budget once every
+    steps_per_call steps), 0 once it is spent; at most the largest such
+    multiple an int32 holds (K9 computes the same, interval_cap)."""
+    most = (2**31 - 1) // steps_per_call * steps_per_call
+    return min(max(0, -(-left // steps_per_call) * steps_per_call), most)
+
+
+def _relaunching(state, ys, ts, max_steps, steps_per_call, advance):
+    """The per-step solver launch by launch: one `advance(state, ys, k,
+    cap)` per output interval k, and another while a chain is short of
+    ts[k] and no chain has used the budget (collective).  The first i
+    iterations of an interval take chain c min(i, s_c) steps, s_c the
+    steps it needs there, so the batch stops where the JAX package's
+    lockstep while loop stops.  Returns the final state."""
     taken = 0
-    ys = [state.y.clone()]
-    for k in range(1, len(times)):
-        while pending <= k and taken < max_steps:
-            state, pending, taken = advance(state, k)
-        ys.append(_interp_eval(state, ts[k]))
+    for k in range(1, ts.shape[0]):
+        while True:
+            state, short, taken = advance(
+                state, ys, k, _cap(max_steps - taken, steps_per_call))
+            if not (short and taken < max_steps):
+                break
+    return state
+
+
+def _solve_steps(init, ts, max_steps, steps_per_call, intervals, advance):
+    """The host side of the per-step solver, shared by K9 and its plain
+    version.  `init()` gives a fresh (state, ys with row 0 set).  First
+    every output interval once, each capped by the budget left after the
+    one before (`intervals`); that is the relaunching loop's solve unless
+    an interval left a chain short with budget left, which the loop would
+    have launched again.  Then the solve runs once more, launch by launch
+    (`_relaunching` over `advance`)."""
+    state, ys = init()
+    state, flags = intervals(state, ys)
+    if any(short and taken < max_steps for short, taken in flags[1:]):
+        state, ys = init()
+        state = _relaunching(state, ys, ts, max_steps, steps_per_call,
+                             advance)
     stats = {"nfe": state.nfe, "n_accepted": state.nacc,
              "n_rejected": state.nrej,
              "reached_final_time": bool((state.t1 >= ts[-1]).all())}
-    return torch.stack(ys), stats
+    return ys, stats
+
+
+def _initial(w, x0, ts, static, rtol, atol):
+    """init() of `_solve_steps`: the state at ts[0] and the trajectory
+    buffer with x0 in row 0."""
+    def init():
+        with torch.no_grad():
+            state = _step_init(w, x0, ts, static, rtol, atol)
+        ys = torch.empty((ts.shape[0],) + tuple(state.y.shape),
+                         dtype=torch.float32, device=state.y.device)
+        ys[0] = state.y
+        return state, ys
+
+    return init
 
 
 def gp_dopri5_solve(A, x0, ts, static, rtol=1e-7, atol=1e-9, safety=0.9,
@@ -347,15 +437,18 @@ def gp_dopri5_solve(A, x0, ts, static, rtol=1e-7, atol=1e-9, safety=0.9,
     reached_final_time.  C must be a multiple of 128, as in the JAX
     package.
 
-    A host loop per output interval launches kernel K9 (CUDA tensors; one
-    small device-to-host read per launch decides the next) or runs its
-    plain version (CPU tensors), `steps_per_call` masked steps a launch,
-    while any chain is short of the output time; then the dense output is
-    evaluated there.  The budget `max_steps` is collective: once any chain
-    has taken that many steps, the whole batch stops for the interval
-    (see reached_final_time).  The whole-solve kernel
-    (`gp_dopri5_solve_whole`) takes the same steps with a per-chain budget
-    and no host loop; prefer it.
+    One launch of kernel K9 per output interval (CUDA tensors) or its
+    plain version (CPU tensors) steps every chain to the output time and
+    evaluates its dense output there.  The budget `max_steps` is
+    collective and checked once every `steps_per_call` steps, as in the
+    JAX package: once any chain has taken that many steps, the whole batch
+    stops (see reached_final_time), and the later output times extrapolate
+    each chain's last step.  The T - 1 launches are issued at once, with
+    one device-to-host read a solve; where the budget left a chain short
+    of an output time while another chain had steps to spare, the solve
+    runs again launch by launch, with a read after each.  The whole-solve
+    kernel (`gp_dopri5_solve_whole`) takes the same steps with a per-chain
+    budget and no host loop; prefer it.
     """
     if not A.is_cuda:
         if A.device.type != "cpu":
@@ -373,37 +466,44 @@ def gp_dopri5_solve(A, x0, ts, static, rtol=1e-7, atol=1e-9, safety=0.9,
     M, N, T = w[0].shape[1], x0.shape[0], ts.shape[0]
     _check_weights(field, w)
     _check_args(w[0].device, ts=(ts, (T,), torch.float32))
-    if not 0 < steps_per_call < 2**31:
-        raise ValueError(f"steps_per_call must be a positive int32, got "
-                         f"{steps_per_call}")
-    with torch.no_grad():
-        state = _step_init(w, x0, ts, static, rtol, atol)
+    _check_steps_per_call(steps_per_call)
     lib = _build.load_library("gp_dopri5_step", (N, M))
-    flags = torch.empty(2, dtype=torch.int32, device=ts.device)
+    flags = torch.empty((T, 2), dtype=torch.int32, device=ts.device)
+    ctrl = (rtol, atol, safety, ifactor, dfactor)
+    spc = int(steps_per_call)
 
-    def advance(state, k):
-        return _step_launch(state, ts, k, lib, w, field.scalars, flags,
-                            int(steps_per_call), rtol, atol, safety, ifactor,
-                            dfactor)
+    def intervals(state, ys):
+        return _intervals_launch(state, ys, ts, max_steps, spc, lib, w,
+                                 field.scalars, flags, *ctrl)
 
-    return _solve_steps(state, ts, max_steps, advance)
+    def advance(state, ys, k, cap):
+        return _interval_launch(state, ys, ts, k, cap, lib, w, field.scalars,
+                                flags[0], *ctrl)
+
+    return _solve_steps(_initial(w, x0, ts, static, rtol, atol), ts,
+                        max_steps, spc, intervals, advance)
 
 
 def gp_dopri5_solve_plain(A, x0, ts, static, rtol=1e-7, atol=1e-9,
                           safety=0.9, ifactor=10.0, dfactor=0.2,
                           max_steps=100_000, steps_per_call=1):
     """The plain PyTorch version of `gp_dopri5_solve`, on any device: the
-    same host loop over the plain version of K9's masked steps."""
+    same host side over the plain version of K9's output intervals."""
     from .fused_field import _prepare
     from .gp_field import gp_weights
 
+    _check_steps_per_call(steps_per_call)
     w, x0, ts = _prepare(gp_weights(A, static), x0, ts)
+    rhs = _make_rhs(*w, float(static.sf), float(static.ell))
+    ctrl = (rtol, atol, safety, ifactor, dfactor)
+    spc = int(steps_per_call)
+
+    def intervals(state, ys):
+        return _intervals_plain(state, ys, ts, max_steps, spc, rhs, *ctrl)
+
+    def advance(state, ys, k, cap):
+        return _interval_plain(state, ys, ts, k, cap, rhs, *ctrl)
+
     with torch.no_grad():
-        state = _step_init(w, x0, ts, static, rtol, atol)
-        rhs = _make_rhs(*w, float(static.sf), float(static.ell))
-
-        def advance(state, k):
-            return _step_plain(state, ts, k, rhs, int(steps_per_call), rtol,
-                               atol, safety, ifactor, dfactor)
-
-        return _solve_steps(state, ts, max_steps, advance)
+        return _solve_steps(_initial(w, x0, ts, static, rtol, atol), ts,
+                            max_steps, spc, intervals, advance)

@@ -6,12 +6,12 @@
 Builds the port's CUDA kernels from `bayesian_ode_tpu_torch/csrc/` (one
 nvcc per source, all started together), prints each kernel's registers and
 spills (and, for the kernels redesigned for the card, K6, MLP K2, K7, MLP
-K3, K4, K5, GP K3, the GP solves K1/K2, spiral K2 and K3, FHN K2 and K8,
-the warps an SM holds and the waves of their grid, the GP ones also at
-7x7 and 8x8 inducing grids), checks each library's reported shared
-memory against the shape check's arithmetic (`_build.smem_bytes`), and
-holds each kernel against its plain PyTorch version at the main paths'
-full shape (Van der Pol: 5 trajectories, T=60 output times to
+K3, K4, K5, GP K3, the GP solves K1/K2, K9, spiral K2 and K3, FHN K2 and
+K3 and K8, the warps an SM holds and the waves of their grid, the GP
+ones also at 7x7 and 8x8 inducing grids), checks each library's reported
+shared memory against the shape check's arithmetic (`_build.smem_bytes`),
+and holds each kernel against its plain PyTorch version at the main
+paths' full shape (Van der Pol: 5 trajectories, T=60 output times to
 t=6, 10,112 chains):
 
   - the GP-ODE posterior on a 6x6 inducing grid with dopri5 at
@@ -28,8 +28,10 @@ t=6, 10,112 chains):
     against its plain version and float64, with its column splits,
     registers, spills and warps an SM, and its time at 1,024 particles
     beside the matmul form's;
-  - the per-step GP dopri5 solver (K9) against the whole solve K1 (the
-    same steps on every chain) and against its plain version.
+  - the per-step GP dopri5 solver (K9, one launch per output interval)
+    against the whole solve K1 (the same steps on every chain) and against
+    its plain version, with its launches, host time and device time a
+    solve.
 
 It then drives each path through its public entry points,
 `experiments.vanderpol_gp.run_sampler` (engine="fused"): dopri5 GP under
@@ -56,8 +58,9 @@ share of the window).
 Exits non-zero on any failed phase, and when no CUDA device is available.
 Before the last two lines it prints its own seconds; the line before the
 last is a JSON object with each kernel's launches, error against its
-plain version, times and bound (and spiral K2's and FHN K2's registers,
-warps an SM and waves); the last line is
+plain version, times and bound (and the registers, warps an SM and waves
+of spiral K2, FHN K2 and K3 and K9, and K9's device time a solve); the
+last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -81,11 +84,12 @@ SVGD_WIDTH = 74                   # a GP particle: U (36 x 2) and logsn (2)
 # library and ptxas name: the MLP field's (csrc/mlp_field.cuh: K7 4 chains
 # a block, MLP K3 2, the forwards K6 and MLP K2 kFwdWarps), the GP field's
 # one thread a trajectory point (csrc/gp_field.cuh, GPPoint: 128 threads,
-# 6 chains a warp at N=5; the backward kernels K5 and K3, and the solves K1
-# and K2, and the rk4 forward K4) and the spiral's replay
-# (csrc/spiral_field.cuh: one warp a chain, 4 a block) and forward (the
-# same), the FitzHugh-Nagumo forward's one thread a trajectory point
-# (csrc/fhn_field.cuh, FHNPoint: 128 threads, 6 chains a warp at N=5);
+# 6 chains a warp at N=5; the backward kernels K5 and K3, the solves K1
+# and K2, the per-step solver K9 and the rk4 forward K4) and the spiral's
+# replay (csrc/spiral_field.cuh: one warp a chain, 4 a block) and forward
+# (the same), the FitzHugh-Nagumo forward's and replay's one thread a
+# trajectory point (csrc/fhn_field.cuh, FHNPoint: 128 threads, 6 chains a
+# warp at N=5);
 # K8's block holds 32 particle rows (csrc/svgd_phi.cu; its 96-feature
 # instance, the SVGD path's at 74 features), its waves counted over rows
 # times column splits
@@ -113,14 +117,20 @@ OCCUPANCY_BLOCKS = {
            ("fhn_dopri5", "FHNPoint", (128, 24)))
        for tableau in ("Dopri5", "Tsit5")
        for record in (" record", " no-record")},
+    ("fhn_dopri5", "dopri5_bwd FHNPoint Dopri5"): (128, 24),
+    ("fhn_dopri5", "dopri5_bwd FHNPoint Tsit5"): (128, 24),
+    ("gp_dopri5_step", "dopri5_step GPPoint Dopri5"): (128, 24),
     ("svgd_phi", "svgd_phi 96"): (128, 32)}
-# the forwards redesigned in the kernels line with their registers, warps
-# an SM and waves: {kernel: (library, ptxas name)}
+# the redesigned kernels whose row of the kernels line carries
+# their registers, warps an SM and waves: {kernel: (library, ptxas name)}
 LINE_OCCUPANCY = {
     "spiral_dopri5_fwd_record": (("spiral_dopri5", (5, SPIRAL_HIDDEN)),
                                  "dopri5_fwd SpiralDopri5Fwd Dopri5 record"),
     "fhn_dopri5_fwd_record": (("fhn_dopri5", (5,)),
-                              "dopri5_fwd FHNPoint Dopri5 record")}
+                              "dopri5_fwd FHNPoint Dopri5 record"),
+    "fhn_dopri5_bwd": (("fhn_dopri5", (5,)), "dopri5_bwd FHNPoint Dopri5"),
+    "gp_dopri5_step": (("gp_dopri5_step", (5, 36)),
+                       "dopri5_step GPPoint Dopri5")}
 # the wide shapes: the main path at a 7x7 inducing grid, the spiral at the
 # JAX package's N=9 case; and, for their occupancy alone, the GP kernels at
 # 7x7 and 8x8 grids
@@ -308,6 +318,54 @@ def cuda_ms(fn, reps, warmup=0):
 
 def max_rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
+
+
+class TimedLibrary:
+    """A kernel library whose calls are timed by CUDA events on the current
+    stream: each call's (start, end) is appended to `events`."""
+
+    def __init__(self, lib, events):
+        self.lib, self.events = lib, events
+
+    def __getattr__(self, name):
+        import torch
+
+        fn = getattr(self.lib, name)
+
+        def timed(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            status = fn(*args)
+            end.record()
+            self.events.append((start, end))
+            return status
+
+        return timed
+
+
+def k9_device_ms(solve, reps):
+    """Device milliseconds a solve of the per-step solver, the mean over
+    `reps` calls of solve(): CUDA events around each of its calls into K9's
+    library (one call issues every interval's launch, after a reset of the
+    flags; a launch-by-launch solve makes one call a launch), summed, with
+    any gap while the host enqueues the launches; the host's set-up and
+    reads are not counted."""
+    import torch
+
+    from bayesian_ode_tpu_torch.ops import _build
+
+    events = []
+    load = _build.load_library
+    _build.load_library = lambda family, shape: TimedLibrary(
+        load(family, shape), events)
+    try:
+        for _ in range(reps):
+            solve()
+    finally:
+        _build.load_library = load
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / reps
 
 
 def steady_ms(kern, p0, dev, steps=10):
@@ -1305,6 +1363,9 @@ def main() -> int:
     del X, S, phik, phip
 
     # ---- phase 15: K9, the per-step solver, against K1 and plain ----
+    # one launch per output interval (T - 1 while the budget does not
+    # bind); its host-clock time a solve, and its device time a solve by
+    # CUDA events around its calls into the library (k9_device_ms)
     from bayesian_ode_tpu_torch.ops.gp_dopri5 import (
         gp_dopri5_solve,
         gp_dopri5_solve_plain,
@@ -1315,8 +1376,8 @@ def main() -> int:
     torch.cuda.synchronize()
     delta = {k: v for k, v in _build.launch_counts.items() if v}
     launches9 = delta.get("gp_dopri5_step", 0)
-    check(set(delta) == {"gp_dopri5_step"},
-          f"K9's solve launched K9 and nothing else: {delta}")
+    check(delta == {"gp_dopri5_step": T - 1},
+          f"K9's solve launched K9 {T - 1} times and nothing else: {delta}")
     ys9p, st9p = gp_dopri5_solve_plain(A, x0, ts, s32, rtol=RTOL, atol=ATOL)
     torch.cuda.synchronize()
     same = all(torch.equal(st9[k], st_k[k])
@@ -1343,19 +1404,24 @@ def main() -> int:
         gp_dopri5_solve(A, x0, ts, s32, rtol=RTOL, atol=ATOL)
     torch.cuda.synchronize()
     ms9 = (time.perf_counter() - t0) / 5 * 1e3
+    dev9 = k9_device_ms(lambda: gp_dopri5_solve(A, x0, ts, s32, rtol=RTOL,
+                                                atol=ATOL), 5)
     t0 = time.perf_counter()
     gp_dopri5_solve_plain(A, x0, ts, s32, rtol=RTOL, atol=ATOL)
     torch.cuda.synchronize()
     ms9p = (time.perf_counter() - t0) * 1e3
     print(f"K9: {ms9:.3f} ms a solve of {N_CHAINS} chains (host loop and "
           f"its reads included; {N_CHAINS / ms9 * 1e3:.0f} solves/s), "
-          f"{ms9 / launches9:.4f} ms a launch, plain {ms9p:.1f} ms ({smi})")
+          f"{ms9 / launches9:.4f} ms a launch; device {dev9:.3f} ms a solve "
+          f"(CUDA events around its library calls); plain {ms9p:.1f} ms "
+          f"({smi})")
     counts["gp_dopri5_step"] = launches9
     # the same solve as K1, so the same bound (from these step counts)
     kernels["gp_dopri5_step"] = dict(
         source="bayesian_ode_tpu_torch/csrc/gp_dopri5_step.cu",
         replaces="bayesian_ode_tpu/ops/gp_dopri5.py:172",
-        max_abs_err=err9, ms=ms9, plain_ms=ms9p, bound_ms=b1, bound_by=by1)
+        max_abs_err=err9, ms=ms9, plain_ms=ms9p, bound_ms=b1, bound_by=by1,
+        device_ms=dev9)
     del ys9, ys9p
 
     # ---- phase 16: the main path at a 7x7 inducing grid ----
@@ -1464,6 +1530,7 @@ def main() -> int:
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": None,
+         **({"device_ms": k["device_ms"]} if "device_ms" in k else {}),
          **occupied.get(LINE_OCCUPANCY.get(name), {})}
         for name, k in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {

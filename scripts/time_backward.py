@@ -18,7 +18,12 @@ cannot take the shape, say) only this tree's kernels are timed.
 TSIT5, K3 over the GP field (`gp_dopri5_bwd`, the replay backward, at
 DOPRI5 and TSIT5), K4 (`gp_rk4_fwd`, the rk4 forward), K5
 (`gp_rk4_bwd`, the rk4 reverse sweep) and K9 (`gp_dopri5_step`, a whole
-solve of the per-step solver `gp_dopri5_solve`, its host loop included).  --field
+solve of the per-step solver `gp_dopri5_solve`, its host side included:
+every output interval launched at once and one read a solve, and again
+launch by launch with a read after each; a tree whose K9 takes one masked
+step a launch, before the kernel of one output interval a launch, runs
+under the host loop it was written for, kept here as
+`k9_one_step_a_launch`).  --field
 mlp: K6 (`mlp_rk4_fwd`), MLP K2 (`mlp_dopri5_fwd`, with and without
 records, each at DOPRI5 and TSIT5), K7 (`mlp_rk4_bwd`) and MLP K3
 (`mlp_dopri5_bwd`, DOPRI5 and TSIT5).  --field spiral: spiral K2
@@ -50,7 +55,9 @@ parent's (else its first differing component) and the largest max-rel of
 the weight cotangents to the parent's; for K6 and the GP, MLP, spiral and
 FHN solves, whether the trajectories (and the solves' counters, end times
 and records) are bit-equal to the parent's (K4 too, and K9's trajectories
-and counters), else the trajectories' max-rel, and each tree's mean NFE;
+and counters, with each tree's device time a solve: CUDA events around
+its launches, summed), else the trajectories' max-rel, and each tree's
+mean NFE;
 for MLP K2, this tree's bound (chip_smoke.adaptive_bounds from its step
 counts) and one plain solve's time; and the time by CUDA events (20
 launches after 10) in turns: parent, the other trees, this tree, and back
@@ -61,6 +68,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -101,8 +109,9 @@ def block_shape(csrc: Path, field: str):
     block (before it, four for K6 and K3's for K2); the spiral's four (one
     warp a chain); the FitzHugh-Nagumo forward's one point a thread
     (`struct FHNPoint` in fhn_field.cuh: 128 threads, 32 // N chains a
-    warp) or one chain a thread (64), and its backward's one chain a
-    thread."""
+    warp) or one chain a thread (64), and its backward's the same where it
+    is built on `FHNBwd`; and the GP per-step solver's (K9, "step") one
+    point a thread where gp_dopri5_step.cu takes `GPReplayPoint`."""
     if field == "gp":
         src = (csrc / "gp_field.cuh").read_text()
         threads = re.search(r"static constexpr int kThreads = (\d+);", src)
@@ -111,15 +120,18 @@ def block_shape(csrc: Path, field: str):
         per_point = "struct GPPoint" in src
         shape = point if per_point else (64, 64)
         rk4_fwd = "rk4_step<2>" in (csrc / "gp_rk4.cu").read_text()
+        step = "GPReplayPoint" in (csrc / "gp_dopri5_step.cu").read_text()
         return {"rk4": shape, "dopri5": shape,
                 "fwd": point if "norm_sums" in src else (64, 64),
-                "rk4_fwd": point if rk4_fwd else (64, 64)}
+                "rk4_fwd": point if rk4_fwd else (64, 64),
+                "step": point if step else (64, 64)}
     if field == "spiral":
         return {"dopri5": (128, 4), "fwd": (128, 4)}
     if field == "fhn":
-        point = "struct FHNPoint" in (csrc / "fhn_field.cuh").read_text()
-        return {"dopri5": (64, 64),
-                "fwd": (128, 128 // 32 * (32 // N)) if point else (64, 64)}
+        src = (csrc / "fhn_field.cuh").read_text()
+        point = (128, 128 // 32 * (32 // N))
+        return {"dopri5": point if "FHNBwd" in src else (64, 64),
+                "fwd": point if "struct FHNPoint" in src else (64, 64)}
     if field == "svgd":
         src = (csrc / "svgd_phi.cu").read_text()
         rows = int(re.search(r"constexpr int kRows = (\d+);", src).group(1))
@@ -181,6 +193,7 @@ def print_occupancy(label, family, shape, log, blocks):
                 "rk4_fwd" if name.endswith("rk4_fwd") else
                 "dopri5" if name.startswith("dopri5_bwd") else
                 "fwd" if name.startswith("dopri5_fwd") else
+                "step" if name.startswith("dopri5_step") else
                 "svgd" if name.startswith("svgd_phi")
                 and not name.endswith("combine") else None)
         if kind == "svgd":
@@ -233,14 +246,16 @@ def solve(lib, family, w, scalars, x0, f0, dt0, ts, record, method, store,
 def gp_kernels(dev, stream, grid=6):
     """{label: (kind, run(libs) -> outputs)} of the GP field's kernels, on
     chip_smoke.py's phase 1, 2 and 6 inputs: the solves K1 and K2 ("exact",
-    the outputs of `solve`), K4 and K9 ("exact": trajectories, and K9's
-    counters) and the backward kernels ("bwd", the x0 cotangent last)."""
+    the outputs of `solve`), K4 ("exact": trajectories), K9 ("k9": its
+    trajectories and counters, and its device time) and the backward
+    kernels ("bwd", the x0 cotangent last)."""
     import torch
 
     from bayesian_ode_tpu_torch.models import kernel_regression as kr
     from bayesian_ode_tpu_torch.models import make_dataset
     from bayesian_ode_tpu_torch.ops import _build
     from bayesian_ode_tpu_torch.ops import fused_adaptive as fa
+    from bayesian_ode_tpu_torch.ops import gp_dopri5 as tg
     from bayesian_ode_tpu_torch.ops import gp_rk4
     from bayesian_ode_tpu_torch.ops.gp_dopri5 import (
         _pack_initial,
@@ -298,16 +313,39 @@ def gp_kernels(dev, stream, grid=6):
             N_CHAINS, T, *scalars[:2], out.data_ptr(), stream), "gp_rk4_fwd")
         return (out,)
 
-    def k9(libs):
-        """gp_dopri5_solve's host loop over this tree's K9 or another's."""
-        load = _build.load_library
-        _build.load_library = lambda family, shape: libs[family]
-        try:
-            ys9, st = gp_dopri5_solve(A, x0, ts, static, rtol=rtol,
-                                      atol=atol)
-        finally:
-            _build.load_library = load
-        return ys9, st["nfe"], st["n_accepted"], st["n_rejected"]
+    def k9(libs, one_pass=True):
+        """A whole solve of the per-step solver over a tree's K9: (ys, nfe,
+        nacc, nrej, its device ms by CUDA events around each launch's C
+        call).  A tree with gp_dopri5_intervals: gp_dopri5_solve (every
+        interval launched at once, one read a solve), or with one_pass
+        False its launch-by-launch loop (a read after each launch)."""
+        events = []
+        lib = chip_smoke.TimedLibrary(libs["gp_dopri5_step"], events)
+        if not hasattr(lib.lib, "gp_dopri5_intervals"):
+            out = k9_one_step_a_launch(lib, A, Z, x0, ts, static, scalars,
+                                       stream)
+        elif one_pass:
+            load = _build.load_library
+            _build.load_library = lambda family, shape: lib
+            try:
+                ys9, st = gp_dopri5_solve(A, x0, ts, static, rtol=rtol,
+                                          atol=atol)
+            finally:
+                _build.load_library = load
+            out = ys9, st["nfe"], st["n_accepted"], st["n_rejected"]
+        else:
+            state, ys9 = tg._initial((A, Z), x0, ts, static, rtol, atol)()
+            flags = torch.empty(2, dtype=torch.int32, device=dev)
+            state = tg._relaunching(
+                state, ys9, ts, 100_000, 1,
+                lambda state, ys, k, cap: tg._interval_launch(
+                    state, ys, ts, k, cap, lib, (A, Z), scalars, flags,
+                    rtol, atol, 0.9, 10.0, 0.2))
+            out = ys9, state.nfe, state.nacc, state.nrej
+        torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in events)
+        K9_DEVICE_MS.setdefault(id(libs), []).append(ms)
+        return out + (ms,)
 
     def k5(libs):
         Abar = torch.empty_like(A)
@@ -330,7 +368,55 @@ def gp_kernels(dev, stream, grid=6):
             "K2 GP TSIT5": ("exact", lambda libs: fwd(libs, True, "tsit5")),
             "K3 GP DOPRI5": ("bwd", lambda libs: k3(libs, "dopri5")),
             "K3 GP TSIT5": ("bwd", lambda libs: k3(libs, "tsit5")),
-            "K4": ("exact", k4), "K5": ("bwd", k5), "K9": ("exact", k9)}
+            "K4": ("exact", k4), "K5": ("bwd", k5),
+            "K9": ("k9", k9),
+            "K9 launch by launch": ("k9",
+                                    lambda libs: k9(libs, one_pass=False))}
+
+
+# Each K9 solve's device ms, by the id of the libraries it ran on: main
+# prints the median of an entry's runs but the first (a library's first
+# run includes its kernels' loading) and clears it
+K9_DEVICE_MS = {}
+
+# The C signature of a K9 of one masked step a launch
+ONE_STEP_API = ([ctypes.c_void_p] * 2 + [ctypes.c_float] * 3
+                + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 11)
+
+
+def k9_one_step_a_launch(lib, A, Z, x0, ts, static, scalars, stream,
+                         max_steps=100_000):
+    """The per-step solver over a K9 of one masked step a launch (`lib`, a
+    chip_smoke.TimedLibrary), with the host loop that launched it: per
+    output interval, launches while a chain is short of ts[k] and no chain
+    has taken max_steps steps, each followed by a two-int read, then the
+    dense output at ts[k] on the host.  Returns (ys, nfe, nacc, nrej)."""
+    from bisect import bisect_right
+
+    import torch
+
+    from bayesian_ode_tpu_torch.ops import _build
+    from bayesian_ode_tpu_torch.ops import gp_dopri5 as tg
+
+    lib.lib.gp_dopri5_step.argtypes = ONE_STEP_API
+    lib.lib.gp_dopri5_step.restype = ctypes.c_int
+    rtol, atol = chip_smoke.RTOL, chip_smoke.ATOL
+    state = tg._step_init((A, Z), x0, ts, static, rtol, atol)
+    flags = torch.empty(2, dtype=torch.int32, device=A.device)
+    times = ts.tolist()
+    pending, taken = bisect_right(times, times[0]), 0
+    ys = [state.y.clone()]
+    for k in range(1, len(times)):
+        while pending <= k and taken < max_steps:
+            _build.check(lib.gp_dopri5_step(
+                A.data_ptr(), Z.data_ptr(), *scalars, ts.data_ptr(), k,
+                len(times), A.shape[0], 1, rtol, atol, 0.9, 10.0, 0.2,
+                *(x.data_ptr() for x in state), flags.data_ptr(), stream),
+                "gp_dopri5_step")
+            pending, taken = flags.tolist()
+        ys.append(tg._interp_eval(state, ts[k]))
+    return torch.stack(ys), state.nfe, state.nacc, state.nrej
 
 
 def mlp_kernels(dev, stream):
@@ -682,8 +768,14 @@ def compare_phi(out, base):
             f"{torch.equal(out[0], base[0])}")
 
 
+def compare_k9(out, base):
+    """K9's trajectories and counters against the parent's, bit for bit
+    (main prints the device times)."""
+    return compare_exact(out[:4], base[:4])
+
+
 COMPARE = {"bwd": compare_bwd, "exact": compare_exact,
-           "phi": compare_phi}
+           "phi": compare_phi, "k9": compare_k9}
 
 
 def main() -> int:
@@ -760,6 +852,13 @@ def main() -> int:
         for label in order:
             ms[label].append(chip_smoke.cuda_ms(lambda: run(libs[label]), 20,
                                                 warmup=10))
+        if kind == "k9":
+            med = {label: statistics.median(K9_DEVICE_MS[id(lib)][1:])
+                   for label, lib in libs.items()}
+            K9_DEVICE_MS.clear()
+            print(f"{name}: device ms a solve, median of the timed runs: "
+                  + "; ".join(f"{k} {v:.3f}" for k, v in med.items())
+                  + f" ({smi})")
         print(f"{name}: ms " + "; ".join(
             f"{label} {a:.3f} / {b:.3f}" for label, (a, b) in ms.items())
             + (f"; speed-up this tree "

@@ -209,12 +209,24 @@ def test_ptxas_summary_names_the_per_point_gp_replay():
     ("fhn_dopri5", "_ZN4bode25dopri5_fwd_kernel_boundedINS_8FHNPointILi5EE"
      "EENS_5Tsit5ELb0EEEvNT_4ArgsEPKfS7_S7_S7_iiNS_9SolveArgsENS_6FwdOutE",
      56, 0, "dopri5_fwd FHNPoint Tsit5 no-record"),
+    # FHN K3 (dopri5_bwd_kernel_bounded over FHNPoint<5>)
+    ("fhn_dopri5", "_ZN4bode25dopri5_bwd_kernel_boundedINS_8FHNPointILi5EE"
+     "EENS_6Dopri5EEEvNT_4ArgsENS4_5GradsEPKfS8_PKiS8_iiPf", 80, 0,
+     "dopri5_bwd FHNPoint Dopri5"),
+    ("fhn_dopri5", "_ZN4bode25dopri5_bwd_kernel_boundedINS_8FHNPointILi5EE"
+     "EENS_5Tsit5EEEvNT_4ArgsENS4_5GradsEPKfS8_PKiS8_iiPf", 80, 0,
+     "dopri5_bwd FHNPoint Tsit5"),
+    # K9 (dopri5_step_kernel over GPPoint<8>)
+    ("gp_dopri5_step", "_ZN4bode18dopri5_step_kernelINS_7GPPointILi8EEENS_"
+     "6Dopri5EEEvNT_4ArgsEPKfiiiNS_9SolveArgsENS_9StepStateEPf", 80, 0,
+     "dopri5_step GPPoint Dopri5"),
 ])
 def test_ptxas_summary_names_the_redesigned_solves_and_spiral_replay(
         family, mangled, regs, smem, name):
-    """The per-point GP solves (record and no-record), the MLP forwards,
-    the spiral's forward and replay and the FitzHugh-Nagumo forward parse
-    to the names chip_smoke.OCCUPANCY_BLOCKS keys."""
+    """The per-point GP solves (record and no-record) and per-step solver,
+    the MLP forwards, the spiral's forward and replay and the
+    FitzHugh-Nagumo forward and replay parse to the names
+    chip_smoke.OCCUPANCY_BLOCKS keys."""
     log = (f"ptxas info    : Compiling entry function '{mangled}' for "
            "'sm_90a'\n"
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
@@ -275,7 +287,7 @@ def test_ptxas_summary_names_the_per_point_rk4_forward():
     ("gp_rk4", (5, 64), "gp_rk4_bwd", 0, 66048),
     ("gp_dopri5", (5, 49), "dopri5_bwd GPPoint Dopri5", 0, 51784),
     ("gp_dopri5", (5, 49), "dopri5_fwd GPPoint Tsit5 record", 0, 9800),
-    ("gp_dopri5_step", (5, 36), "dopri5_step GPDopri5 Dopri5", 0, 18720),
+    ("gp_dopri5_step", (5, 36), "dopri5_step GPPoint Dopri5", 0, 7200),
     # static: ptxas's bytes
     ("mlp_rk4", (5, 32), "mlp_rk4_bwd", 39872, 39872),
     ("spiral_dopri5", (5, 50), "dopri5_fwd SpiralDopri5 Dopri5 record", 0,

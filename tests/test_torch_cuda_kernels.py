@@ -20,14 +20,16 @@ records), the PI controller, budget exhaustion, record overflow, a spiral
 of 50 hidden units (two per lane) and one of 20 under both tableaus, the
 SVGD direction (K8) at particle counts and widths that are not multiples
 of its tiles, on the clustered SVGD ensemble against float64 and bit for
-bit from call to call, and the per-step solver (K9) against the whole solve.  The
+bit from call to call, and the per-step solver (K9) against the whole solve
+and, with a budget that binds, against the JAX package's loop.  The
 wide shapes the JAX package takes: the GP kernels (K1-K5, K9) at 7x7 and
 8x8 inducing grids (their blocks' buffers in dynamic shared memory), the
 MLP kernels (K6, K7, MLP K2/K3) at N=9 and 16 trajectory points and the
 spiral's K2/K3 at N=9, H=6; the spread forwards (spiral K2 one state
-component a lane at N=5, 9 and 16, FHN K2 one trajectory point a thread
-at N=5 and one chain a thread at N=40) under both tableaus, with and
-without records, and the same bits from call to call; and each library's
+component a lane at N=5, 9 and 16, FHN K2 and K3 one trajectory point a
+thread at N=5 and 32 and one chain a thread at N=40) under both tableaus,
+with and without records, and the same bits from call to call; and each
+library's
 shared memory as built against the shape check's arithmetic.  All
 libraries are built at once, one nvcc per source, by the first fixture.
 Gates as the smoke's: dopri5 trajectories within 1e-4 * max|y| of the
@@ -55,6 +57,7 @@ from bayesian_ode_tpu_torch.ops.fhn_dopri5 import fhn_field
 from bayesian_ode_tpu_torch.ops.gp_dopri5 import (
     _pack_initial,
     gp_dopri5_solve,
+    gp_dopri5_solve_plain,
     gp_dopri5_solve_whole,
     gp_dopri5_solve_whole_plain,
 )
@@ -63,7 +66,7 @@ from bayesian_ode_tpu_torch.ops.gp_dopri5_grad import (
     gp_dopri5_trajectory_plain,
     make_fused_gp_potential_dopri5,
 )
-from bayesian_ode_tpu_torch.ops.gp_field import gp_field
+from bayesian_ode_tpu_torch.ops.gp_field import gp_field, gp_weights
 from bayesian_ode_tpu_torch.ops.mlp_dopri5 import mlp_field
 from bayesian_ode_tpu_torch.ops.spiral_dopri5 import spiral_field
 from bayesian_ode_tpu_torch.ops.svgd_phi import svgd_phi, svgd_phi_reference
@@ -89,7 +92,8 @@ LIBRARIES = [
     ("mlp_dopri5", (9, 32)), ("mlp_dopri5", (16, 32)),
     ("spiral_dopri5", (5, 50)), ("spiral_dopri5", (5, 20)),
     ("spiral_dopri5", (9, 6)), ("spiral_dopri5", (16, 50)),
-    ("fhn_dopri5", (5,)), ("fhn_dopri5", (40,)), ("svgd_phi", ()),
+    ("fhn_dopri5", (5,)), ("fhn_dopri5", (32,)), ("fhn_dopri5", (40,)),
+    ("svgd_phi", ()),
 ]
 
 
@@ -747,12 +751,13 @@ def test_spiral_kernels_at_nine_points(gp):
 
 
 # The forwards that spread a chain's state over its threads (spiral K2:
-# SpiralDopri5Fwd, one state component a lane; FHN K2: FHNPoint, one
-# trajectory point a thread, and FHNDopri5 past 32 points a chain):
+# SpiralDopri5Fwd, one state component a lane; FHN K2 and K3: FHNPoint, one
+# trajectory point a thread to N = 32, and FHNDopri5 past 32 points a
+# chain):
 # (field, N, H); the spiral at N = 9 on the JAX package's wide case (H = 6,
 # 6 output times to t = 1.2).
 SPREAD = [("spiral", 5, 50), ("spiral", 9, 6), ("spiral", 16, 50),
-          ("fhn", 5, None), ("fhn", 40, None)]
+          ("fhn", 5, None), ("fhn", 32, None), ("fhn", 40, None)]
 
 
 @pytest.mark.parametrize("method", ["dopri5", "tsit5"])
@@ -889,8 +894,8 @@ def test_svgd_phi_kernel_is_deterministic(gp, n, d):
 
 @pytest.mark.parametrize("grid", [7, 8])
 def test_per_step_solver_at_wide_grids(gp, grid):
-    """K9 (one chain a thread, its A and Z in dynamic shared memory) at
-    M = 49 and 64 against K1: the same steps on every chain."""
+    """K9 (one trajectory point a thread, its A and Z in dynamic shared
+    memory) at M = 49 and 64 against K1: the same steps on every chain."""
     A, Z, x0, _ = _gp_point_case(gp, 256, 5, 4, grid)
     static = _gp_grid(gp, grid)[0]
     ys1, st1 = gp_dopri5_solve_whole(A, x0, gp["ts"], static)
@@ -903,7 +908,39 @@ def test_per_step_solver_at_wide_grids(gp, grid):
     assert float((ys9 - ys1).abs().max()) <= 5e-6
 
 
+def _lockstep_on_the_card(A, x0, ts, static, max_steps, steps_per_call):
+    """The JAX package's loop over K9: per output interval, launches of at
+    most steps_per_call iterations while a chain is short of ts[k] and no
+    chain has used the budget (a launch after it is spent takes none and
+    writes the interval's dense output; the last launch's stands)."""
+    from bayesian_ode_tpu_torch.ops import gp_dopri5 as tg
+
+    field = gp_field(float(static.sf), float(static.ell))
+    w, x0, ts = ff._prepare(gp_weights(A, static), x0, ts)
+    state = tg._step_init(w, x0, ts, static, 1e-7, 1e-9)
+    lib = _build.load_library("gp_dopri5_step", (x0.shape[0], A.shape[1]))
+    flags = torch.empty(2, dtype=torch.int32, device=A.device)
+    ys = torch.empty((ts.shape[0],) + tuple(state.y.shape), device=A.device)
+    ys[0] = state.y
+    taken = 0
+    for k in range(1, ts.shape[0]):
+        while True:
+            cap = steps_per_call if taken < max_steps else 0
+            state, short, taken = tg._interval_launch(
+                state, ys, ts, k, cap, lib, w, field.scalars, flags, 1e-7,
+                1e-9, 0.9, 10.0, 0.2)
+            if not (short and taken < max_steps):
+                break
+    return ys, state
+
+
 def test_per_step_solver_takes_the_whole_solves_steps(gp):
+    """K9, one launch per output interval: T - 1 launches at the default
+    budget, K1's counters on every chain and its trajectories within 5e-6.
+    With a budget that binds (max_steps=12, checked every steps_per_call
+    iterations), the capped launches equal the JAX package's loop of
+    launches of steps_per_call iterations on the card bit for bit, and the
+    plain version's mean NFE within 1%."""
     s = gp["static"]
     gen = torch.Generator(device=gp["dev"]).manual_seed(4)
     U = gp["U"][:1] + 3e-3 * torch.randn((256, 36, 2), generator=gen,
@@ -914,13 +951,65 @@ def test_per_step_solver_takes_the_whole_solves_steps(gp):
     ys9, st9 = gp_dopri5_solve(A, gp["x0"], gp["ts"], s)
     torch.cuda.synchronize()
     launched = {k: v for k, v in _build.launch_counts.items() if v}
-    assert set(launched) == {"gp_dopri5_step"}, launched
+    assert launched == {"gp_dopri5_step": gp["ts"].shape[0] - 1}, launched
     assert st9["reached_final_time"]
     for k in ("nfe", "n_accepted", "n_rejected"):
         assert torch.equal(st9[k], st1[k]), k
     assert float((ys9 - ys1).abs().max()) <= 5e-6
     ys3, st3 = gp_dopri5_solve(A, gp["x0"], gp["ts"], s, steps_per_call=3)
     assert torch.equal(ys3, ys9) and torch.equal(st3["nfe"], st9["nfe"])
-    _, stb = gp_dopri5_solve(A, gp["x0"], gp["ts"], s, max_steps=12)
-    taken = stb["n_accepted"] + stb["n_rejected"]
-    assert not stb["reached_final_time"] and int(taken.max()) == 12
+    for steps in (1, 3):
+        ysb, stb = gp_dopri5_solve(A, gp["x0"], gp["ts"], s, max_steps=12,
+                                   steps_per_call=steps)
+        ysr, ref = _lockstep_on_the_card(A, gp["x0"], gp["ts"], s, 12,
+                                         steps)
+        _, stp = gp_dopri5_solve_plain(A.cpu(), gp["x0"].cpu(),
+                                       gp["ts"].cpu(), _static_cpu(s),
+                                       max_steps=12, steps_per_call=steps)
+        taken = stb["n_accepted"] + stb["n_rejected"]
+        assert not stb["reached_final_time"]
+        assert 12 <= int(taken.max()) < 12 + steps
+        assert torch.equal(ysb, ysr)
+        assert torch.equal(stb["nfe"], ref.nfe)
+        assert torch.equal(stb["n_accepted"], ref.nacc)
+        mk, mp = float(stb["nfe"].float().mean()), float(
+            stp["nfe"].float().mean())
+        assert abs(mk - mp) <= 0.01 * mp, (mk, mp)
+
+
+def test_per_step_solver_at_every_budget(gp):
+    """K9's solve (every interval launched once with its cap read on the
+    card, and launch by launch where that left a chain short with budget
+    left) against the JAX package's loop on the card, bit for bit, at
+    every budget of 1 to 40 steps with steps_per_call 1 and 3, on 256
+    chains of different speeds (A scaled by 0.5 to 3), so that the budget
+    binds on some chains while others have finished their interval; some
+    of these solves run launch by launch and some do not."""
+    s = gp["static"]
+    gen = torch.Generator(device=gp["dev"]).manual_seed(6)
+    U = gp["U"][:1] + 3e-3 * torch.randn((256, 36, 2), generator=gen,
+                                         device=gp["dev"])
+    scale = torch.linspace(0.5, 3.0, 256, device=gp["dev"])[
+        torch.randperm(256, generator=gen, device=gp["dev"])]
+    A = (scale[:, None, None] * torch.einsum("mk,ckd->cmd", s.KzzinvL,
+                                             U)).contiguous()
+    T = gp["ts"].shape[0]
+    launches = set()
+    for max_steps in range(1, 41):
+        for steps in (1, 3):
+            _build.reset_launch_counts()
+            ys, st = gp_dopri5_solve(A, gp["x0"], gp["ts"], s,
+                                     max_steps=max_steps,
+                                     steps_per_call=steps)
+            launches.add(_build.launch_counts["gp_dopri5_step"])
+            ysr, ref = _lockstep_on_the_card(A, gp["x0"], gp["ts"], s,
+                                             max_steps, steps)
+            assert torch.equal(ys, ysr), (max_steps, steps)
+            assert torch.equal(st["nfe"], ref.nfe), (max_steps, steps)
+            assert torch.equal(st["n_accepted"], ref.nacc)
+    assert T - 1 in launches and max(launches) > T - 1, launches
+
+
+def _static_cpu(s):
+    return kr.GPVectorFieldStatic(Z=s.Z.cpu(), KzzinvL=s.KzzinvL.cpu(),
+                                  Kzzinv=s.Kzzinv.cpu(), sf=s.sf, ell=s.ell)

@@ -45,7 +45,8 @@ ITEM = "ROADMAP queue 1 item 19"
 
 # (family, shape) past one limit each: GP N = 33; MLP and spiral N = 17;
 # MLP H = 33; a GP inducing grid whose block passes 232,448 B (15 x 15 for
-# K3 and K5: 267,208 and 263,112 B at N = 5; 22 x 22 for K9: 251,680 B);
+# K3 and K5: 267,208 and 263,112 B at N = 5; 35 x 35 for K9, which keeps
+# no cotangent columns: 245,000 B);
 # a spiral whose one warp's buffer passes 48 KB of static memory (H = 128
 # at N = 16: 58,368 B)
 PAST = [
@@ -59,7 +60,7 @@ PAST = [
     ("mlp_rk4", (5, 33), "H <= 32"),
     ("gp_dopri5", (5, 225), "232448 B"),
     ("gp_rk4", (5, 225), "232448 B"),
-    ("gp_dopri5_step", (5, 484), "232448 B"),
+    ("gp_dopri5_step", (5, 1225), "232448 B"),
     ("spiral_dopri5", (16, 128), "49152 B"),
 ]
 
@@ -77,7 +78,8 @@ TAKEN = [
     ("mlp_dopri5", (9, 32)), ("mlp_dopri5", (16, 32)),
     ("spiral_dopri5", (5, 50)), ("spiral_dopri5", (5, 20)),
     ("spiral_dopri5", (9, 6)), ("spiral_dopri5", (16, 50)),
-    ("fhn_dopri5", (5,)), ("fhn_dopri5", (40,)), ("svgd_phi", ()),
+    ("fhn_dopri5", (5,)), ("fhn_dopri5", (32,)), ("fhn_dopri5", (40,)),
+    ("svgd_phi", ()),
 ]
 
 
@@ -107,13 +109,14 @@ def test_load_library_raises_before_any_build(family, shape, limit):
 # What ptxas reported as each kernel's static shared memory on the H100 at
 # the main shape (N = 5, M = 36, MLP H = 32, spiral H = 50; PERF.md §6),
 # where the buffers were static: the arithmetic of the same structs.  The
-# GP rk4 forward (K4) now keeps GPPoint's buffers, the solves' 7,200 B,
+# GP rk4 forward (K4) and the per-step solver (K9) now keep GPPoint's
+# buffers, the solves' 7,200 B (K9's one chain a thread kept 18,720 B),
 # and the spiral's forward its 4 warps' gathered points (48 B each; it
 # had none while it kept the state on every lane).
 MAIN = [
     ("gp_dopri5", (5, 36), {"fwd": 7200, "bwd": 35872}),
     ("gp_rk4", (5, 36), {"fwd": 7200, "bwd": 31776}),
-    ("gp_dopri5_step", (5, 36), {"step": 18720}),
+    ("gp_dopri5_step", (5, 36), {"step": 7200}),
     ("mlp_rk4", (5, 32), {"fwd": 2752, "bwd": 39872}),
     ("mlp_dopri5", (5, 32), {"fwd": 2752, "bwd": 27904}),
     ("spiral_dopri5", (5, 50), {"fwd": 192, "bwd": 37376}),
