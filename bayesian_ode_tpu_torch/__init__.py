@@ -11,10 +11,18 @@ Ported so far: the Van der Pol GP-ODE posterior sampled with a whole
 adaptive dopri5 solve and its gradient per step (engine="fused",
 solver="dopri5", model="gp"), the same posterior and the MLP field with a
 fixed-grid rk4 solve and its gradient (solver="rk4", model="gp" or "nn"),
-under SGLD, pSGLD, cSGLD, MALA and AdamSGLD, all through
+the MLP, spiral and FitzHugh-Nagumo fields at dopri5 on the fused engine,
+and the generic engine (engine="generic": every model at dopri5, tsit5
+or rk4 over the batched continuous adjoint `odeint_adjoint`), under SGLD,
+pSGLD, aSGLD, cSGLD, MALA, AdamSGLD and SVGD, all through
 `experiments.vanderpol_gp.run_sampler`.  ROADMAP.md lists what is still
 to port.
 """
-from .ode import odeint, odeint_with_stats  # noqa: F401
+from .ode import (  # noqa: F401
+    odeint,
+    odeint_adjoint,
+    odeint_forward_sensitivity,
+    odeint_with_stats,
+)
 
 __version__ = "0.1.0"

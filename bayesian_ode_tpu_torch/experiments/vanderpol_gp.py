@@ -1,7 +1,10 @@
 """GP-ODE experiment driver of the port.
 
-Counterpart of `bayesian_ode_tpu/experiments/vanderpol_gp.py` for what the
-port runs so far: engine="fused" with
+Counterpart of `bayesian_ode_tpu/experiments/vanderpol_gp.py`.  Two
+engines, chosen as the JAX driver chooses them (config["engine"]):
+
+engine="fused", for the methods the JAX driver runs fused (of them the
+port has SGLD, pSGLD, cSGLD, MALA and AdamSGLD):
 
   - model="gp", solver="dopri5": the whole adaptive solve and its discrete
     adjoint (kernels K2/K3, with a K1 store_steps probe);
@@ -15,13 +18,19 @@ port runs so far: engine="fused" with
     only, as in the JAX driver (their K2/K3 instances, store_steps 128 by
     default);
 
-under the methods SGLD, pSGLD, cSGLD, MALA and AdamSGLD.  Every chain
-advances in one batch per sampler step: one fused forward and one fused
-backward over all chains.  The entry points run on the card unless the
-caller passes device="cpu".  The artifact layout follows the JAX driver:
-{output}/{method}/{id}{dir_name}/ with config.json, run.jsonl (summary),
-chain.npz and total_loss_arr.npy.  Every other model, solver, method or
-engine raises NotImplementedError naming the ROADMAP item that ports it.
+every other engine value, and every method the JAX driver does not run
+fused, takes the generic engine: each model's per-chain potential
+(`make_potential`) over the batched `odeint_adjoint` at solver dopri5,
+tsit5, rk4, euler or midpoint (`make_generic_potential`), under SGLD,
+pSGLD, aSGLD, cSGLD, MALA and AdamSGLD, or SVGD over its particles (K8
+for 4,096 particles or more on the card).
+
+Every chain advances in one batch per sampler step.  The entry points run
+on the card unless the caller passes device="cpu".  The artifact layout
+follows the JAX driver: {output}/{method}/{id}{dir_name}/ with
+config.json, run.jsonl (summary), chain.npz and total_loss_arr.npy.
+Every other method, solver or option raises NotImplementedError naming
+the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -35,6 +44,9 @@ import torch
 from .. import samplers
 from ..models import fhn_inference, mlp, spiral
 from ..models import kernel_regression as kr
+from ..models.kernel_regression import full_f32_matmul
+from ..ode.adjoint import odeint_adjoint
+from ..ode.odeint import _check_method
 from ..ops.fhn_dopri5 import make_fused_fhn_potential_dopri5
 from ..ops.gp_dopri5 import gp_dopri5_solve_whole
 from ..ops.gp_dopri5_grad import make_fused_gp_potential_dopri5
@@ -45,7 +57,7 @@ from ..ops.spiral_dopri5 import make_fused_spiral_potential_dopri5
 from ..samplers import schedules
 from ..utils.checkpoint import save_pytree
 from ..utils.logging import RunLogger
-from ..utils.pytree import tree_leaves, tree_map
+from ..utils.pytree import ravel_pytree, tree_leaves, tree_map
 
 
 def _out_dir(output: str, config: Dict) -> str:
@@ -69,10 +81,8 @@ def build_model(config: Dict, data: Dict):
     (-0.5, 0.5) layer list of sizes [2, H, H, 2]; for model="spiral" None
     and the N(0, 0.1) y^3-net weights of H hidden units; for model="fhn"
     None and theta at the classic truth.  Random draws come from a
-    generator seeded with config["seed"].
-
-    The generic (odeint-adjoint) potential the JAX driver also builds is
-    ROADMAP queue 1 item 11; the fused path never calls it."""
+    generator seeded with config["seed"].  `make_generic_potential` builds
+    the generic engine's batch potential over them."""
     model = config.get("model", "gp")
     gen = torch.Generator().manual_seed(config.get("seed", 0))
     if model == "nn":
@@ -99,11 +109,29 @@ def _poly_sched(config):
         alpha=config.get("lr_alpha", 1.0))
 
 
+# the methods the JAX driver runs on the fused engine, and those of them
+# the port has
+FUSED_METHODS = ("SGLD", "cSGLD", "pSGLD", "AdamSGLD", "aSGHMC", "acSGHMC",
+                 "SGRHMC", "MALA", "BAOAB", "HMC", "AdaptiveHMC", "NUTS",
+                 "AdaptiveNUTS", "PT", "Ensemble")
 METHODS = ("SGLD", "pSGLD", "cSGLD", "MALA", "AdamSGLD")
+GENERIC_METHODS = ("SGLD", "pSGLD", "aSGLD", "cSGLD", "MALA", "AdamSGLD")
+GENERIC_SOLVERS = ("dopri5", "tsit5", "rk4", "euler", "midpoint")
+# the JAX driver's other methods, by the ROADMAP queue 1 item that ports
+# them
+UNPORTED_METHODS = {"PT": 14, "Ensemble": 14, "HMC": 14, "AdaptiveHMC": 14,
+                    "NUTS": 14, "AdaptiveNUTS": 14, "SMC": 14, "MMALA": 14,
+                    "aSGHMC": 18, "acSGHMC": 18, "SGRHMC": 18, "BAOAB": 18}
 MODELS = ("gp", "nn", "spiral", "fhn")
 # the fused engine's record budget per model at dopri5: the JAX driver's
 # defaults (its MLP steps grow as chains move toward data-fitting fields)
 STORE_STEPS = {"gp": 128, "nn": 256, "spiral": 128, "fhn": 128}
+
+
+def is_fused(config: Dict) -> bool:
+    """Whether the JAX driver runs this config on its fused engine."""
+    return (config.get("engine") == "fused"
+            and config["method"] in FUSED_METHODS)
 
 
 def _check_supported(config: Dict, make_plots: bool) -> None:
@@ -111,38 +139,38 @@ def _check_supported(config: Dict, make_plots: bool) -> None:
         raise NotImplementedError(
             "plots are not ported (ROADMAP queue 1 item 6); pass "
             "make_plots=False / --no-plots")
-    if config.get("engine") != "fused":
-        raise NotImplementedError(
-            f"engine {config.get('engine')!r}: the port runs the fused "
-            "engine only (the generic engine needs the ODE core and adjoint "
-            "of ROADMAP queue 1 items 2 and 11)")
-    solver = config.get("solver", "rk4")
-    if solver not in ("dopri5", "rk4"):
-        raise NotImplementedError(
-            f"solver {solver!r}: the fused engine takes dopri5 and rk4, as "
-            "the JAX driver's; other solvers run on the generic engine "
-            "(ROADMAP queue 1 items 2 and 11)")
     model = config.get("model", "gp")
     if model not in MODELS:
         raise ValueError(f"unknown model {model!r}; expected 'gp', 'nn', "
                          "'spiral' or 'fhn'")
+    method = config["method"]
+    if method.startswith("HAMCMC"):
+        raise NotImplementedError(
+            f"method {method!r}: HAMCMC and L-BFGS are ROADMAP queue 1 "
+            "item 13")
+    if method in UNPORTED_METHODS:
+        raise NotImplementedError(
+            f"method {method!r} is not ported (ROADMAP queue 1 item "
+            f"{UNPORTED_METHODS[method]})")
+    if method != "SVGD" and method not in GENERIC_METHODS:
+        raise ValueError(f"unknown sampler method {method!r}")
+    if int(config.get("ckpt_every") or 0) > 0:
+        raise NotImplementedError(
+            "checkpointed sampling (ckpt_every) is ROADMAP queue 1 item 6")
+    solver = config.get("solver", "rk4")
+    if not is_fused(config):
+        if solver not in GENERIC_SOLVERS:
+            _check_method(solver)          # item 16, or unknown
+        return
+    if solver not in ("dopri5", "rk4"):
+        raise ValueError(
+            f"engine='fused' supports solver 'rk4' or 'dopri5' (got "
+            f"{solver!r}); use the generic engine for others")
     if model in ("spiral", "fhn") and solver != "dopri5":
         raise NotImplementedError(
             f"engine='fused' model={model!r} supports solver='dopri5' "
             f"only (got {solver!r}), as in the JAX driver: the field has no "
             "fixed-grid kernel")
-    if config["method"] == "SVGD":
-        raise NotImplementedError(
-            "method 'SVGD': the JAX driver runs SVGD over the generic "
-            "odeint-adjoint potential, which waits for ROADMAP queue 1 item "
-            "11; the sampler itself is samplers.svgd / svgd_batched")
-    if config["method"] not in METHODS:
-        raise NotImplementedError(
-            f"method {config['method']!r}: the port has {', '.join(METHODS)} "
-            "(ROADMAP queue 1 items 13, 14 and 18 port the others)")
-    if int(config.get("ckpt_every") or 0) > 0:
-        raise NotImplementedError(
-            "checkpointed sampling (ckpt_every) is ROADMAP queue 1 item 6")
 
 
 def _make_potential(config: Dict, data: Dict, static, device):
@@ -170,9 +198,10 @@ def _make_potential(config: Dict, data: Dict, static, device):
 
 
 def _make_kernel(config: Dict, pot_batch):
-    """Method dispatch of the JAX driver's fused branch."""
+    """Method dispatch of the JAX driver (its fused branch and
+    `make_sampler`), over the batched kernels: aSGLD is pSGLD's kernel."""
     method = config["method"]
-    if method == "pSGLD":
+    if method in ("pSGLD", "aSGLD"):
         return samplers.psgld_batched(pot_batch, _poly_sched(config),
                                       alpha=config["psgld_alpha"],
                                       lambda_=config["lambda_"])
@@ -208,19 +237,110 @@ def _probe_store_steps(config, static, pos0, data, device) -> None:
                            f"{worst} accepted steps of the worst start "
                            "position; raise config['store_steps']")
 
+def _make_solve(config: Dict):
+    """(solve, adaptive): the generic engine's solver dispatch, the JAX
+    driver's `_make_solve` over a chain batch.  solve(field, x0, ts,
+    params) integrates field(t (C,), y (C, N, 2)) with the batched
+    `odeint_adjoint` (gradients to x0, ts and the per-chain `params`).
+    Adaptive solvers take config rtol/atol (defaults 1e-7/1e-9), the
+    others the adjoint's defaults, as in the JAX driver."""
+    solver = config.get("solver", "rk4")
+    adaptive = solver in ("dopri5", "tsit5")
+    tol = ({"rtol": config.get("rtol", 1e-7),
+            "atol": config.get("atol", 1e-9)} if adaptive else {})
 
-def run_sampler(config: Dict, data: Dict, output: str,
-                make_plots: bool = True, device="cuda") -> Dict[str, Any]:
-    """Posterior sampling over a batch of chains on `device` (the card
-    unless the caller asks for the CPU).  The chain count is rounded up to
-    a multiple of 128, as the JAX driver rounds it for its fused kernels.
-    Returns the summary dict (also logged to run.jsonl)."""
-    _check_supported(config, make_plots)
-    out_dir = _out_dir(output, config)
-    with open(os.path.join(out_dir, "config.json"), "w") as f:
-        json.dump(config, f, indent=2, default=str)
+    def solve(field, x0, ts, params):
+        return odeint_adjoint(field, x0, ts, method=solver,
+                              adjoint_params=params, batched=True, **tol)
 
-    static, params0 = build_model(config, data)
+    return solve, adaptive
+
+
+def make_generic_potential(config: Dict, data: Dict, static, device,
+                           dtype=torch.float32):
+    """The generic engine's batch potential: params (leaves with a leading
+    chain axis C) -> (C,) potentials.
+
+    The JAX driver vmaps a per-chain potential whose solve is a while
+    loop; here the solve is batched instead.  The model's vector field
+    runs per chain through `torch.func.vmap`, one `odeint_adjoint` solves
+    every chain with its own step sizes, and each chain's potential is
+    the model's own `make_potential` (vmapped over the chains) on that
+    chain's trajectory, so it equals the per-chain definition chain by
+    chain.  `static` is the GP model's (None for the others); data and
+    parameters are taken in `dtype` on `device`."""
+    model = config.get("model", "gp")
+    solve, adaptive = _make_solve(config)
+    x0 = _as64(data["x0"]).to(device=device, dtype=dtype)
+    ts = _as64(data["t"]).to(device=device, dtype=dtype)
+    Y = _as64(data["Y"]).to(device=device, dtype=dtype)
+    reg = config.get("reg", 0.5)
+    if model == "gp":
+        static = kr.GPVectorFieldStatic(
+            Z=static.Z.to(device=device, dtype=dtype),
+            KzzinvL=static.KzzinvL.to(device=device, dtype=dtype),
+            Kzzinv=static.Kzzinv.to(device=device, dtype=dtype),
+            sf=static.sf, ell=static.ell)
+
+        def field_params(params):
+            return torch.matmul(static.KzzinvL, params["U"])
+
+        def field(A, t, y):
+            return kr.vector_field_fast(A, static, t, y)
+
+        def potential(odeint_fn):
+            return kr.make_potential(static, x0, ts, Y, odeint_fn)
+    else:
+        def field_params(params):
+            return params
+
+        field = {"nn": mlp.mlp_vector_field, "spiral": spiral.vector_field,
+                 "fhn": fhn_inference.vector_field}[model]
+        if model == "nn":
+            def potential(odeint_fn):
+                return mlp.make_potential(x0, ts, Y, odeint_fn, reg=reg)
+        elif model == "spiral":
+            def potential(odeint_fn):
+                return spiral.make_potential(x0, ts, Y, odeint_fn, reg=reg)
+        else:
+            noise = float(config.get("noise", data["noise"]))
+
+            def potential(odeint_fn):
+                return fhn_inference.make_potential(x0, ts, Y, odeint_fn,
+                                                    noise=noise)
+    batched_field = torch.func.vmap(field)
+
+    def per_chain(params, traj):
+        return potential(lambda f, x0_, ts_: traj)(params)
+
+    def potential_batch(params):
+        if adaptive and x0.is_cuda:
+            full_f32_matmul()
+        fp = field_params(params)
+        C = tree_leaves(fp)[0].shape[0]
+        traj = solve(lambda t, y: batched_field(fp, t, y),
+                     x0.expand((C,) + tuple(x0.shape)), ts,
+                     tuple(tree_leaves(fp)))
+        return torch.func.vmap(per_chain)(params, traj.movedim(1, 0))
+
+    return potential_batch
+
+
+def _start_positions(config: Dict, params0, n_chains: int, device, dtype):
+    """params0 broadcast over the chains plus N(0, jitter^2) per leaf from
+    a generator seeded with config["seed"]."""
+    jitter = config.get("jitter", 0.005)
+    gen0 = torch.Generator(device=device).manual_seed(config.get("seed", 0))
+    return tree_map(
+        lambda x: x.to(device=device, dtype=dtype)[None]
+        + jitter * torch.randn((n_chains,) + tuple(x.shape), generator=gen0,
+                               device=device, dtype=dtype),
+        params0)
+
+
+def _run_fused(config, data, static, params0, device):
+    """The fused engine: (positions, infos, n_chains), the chain count
+    rounded up to a multiple of 128 as the JAX driver rounds it."""
     n_chains = config.get("num_chains", 64)
     n_chains = ((n_chains + 127) // 128) * 128
     f32 = torch.float32
@@ -232,23 +352,83 @@ def run_sampler(config: Dict, data: Dict, output: str,
             sf=static.sf, ell=static.ell)
     kernel = _make_kernel(config,
                           _make_potential(config, data, static, device))
-
-    seed = config.get("seed", 0)
-    jitter = config.get("jitter", 0.005)
-    gen0 = torch.Generator(device=device).manual_seed(seed)
-    pos0 = tree_map(
-        lambda x: x.to(device=device, dtype=f32)[None]
-        + jitter * torch.randn((n_chains,) + tuple(x.shape), generator=gen0,
-                               device=device, dtype=f32),
-        params0)
+    pos0 = _start_positions(config, params0, n_chains, device, f32)
     if static is not None and config.get("solver", "rk4") == "dopri5":
         _probe_store_steps(config, static, pos0, data, device)
+    return _sample(config, kernel, pos0, device) + (n_chains,)
+
+
+def _sample(config, kernel, pos0, device):
+    """`sample_chain` from pos0 with a generator seeded config["seed"] + 1;
+    returns (positions, infos) as the sampler stacks them."""
     state = kernel.init(pos0)
-    total = config["num_samples"] // config["thinning"]
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    gen = torch.Generator(device=device).manual_seed(
+        config.get("seed", 0) + 1)
     _, positions, infos = samplers.sample_chain(
-        kernel, state, gen, num_samples=total, burn_in=config["burn_in"],
+        kernel, state, gen, num_samples=config["num_samples"]
+        // config["thinning"], burn_in=config["burn_in"],
         thin=config["thinning"])
+    return positions, infos
+
+
+def _run_generic(config, data, static, params0, device, dtype):
+    """The generic engine: the batched kernels over the generic batch
+    potential, every chain in one batch (the chain count is not rounded,
+    as on the JAX driver's generic engine)."""
+    n_chains = config.get("num_chains", 64)
+    pot = make_generic_potential(config, data, static, device, dtype)
+    kernel = _make_kernel(config, pot)
+    if config.get("guard_finite"):
+        # divergent chains freeze on their last finite state instead of
+        # poisoning the batch
+        kernel = samplers.guard_finite_batched(kernel, n_chains)
+    pos0 = _start_positions(config, params0, n_chains, device, dtype)
+    return _sample(config, kernel, pos0, device) + (n_chains,)
+
+
+def _run_svgd(config, data, static, params0, device, dtype):
+    """SVGD over a particle ensemble on the generic batch potential
+    (particles double as chains).  The per-step potential is the ensemble
+    mean, broadcast per particle, as in the JAX driver."""
+    n = config.get("num_chains", 64)
+    pot = make_generic_potential(config, data, static, device, dtype)
+    kernel = samplers.svgd_batched(pot,
+                                   step_size=config.get("lr", config["lr0"]))
+    pos0 = _start_positions(config, params0, n, device, dtype)
+    flat, infos = _sample(config, kernel, pos0, device)
+    # (samples, n, P) flat particles -> leaves (samples, n, ...)
+    unravel = ravel_pytree(tree_map(lambda x: x[0], pos0))[1]
+    positions = unravel(flat)
+    S = flat.shape[0]
+    infos = {"potential": infos["potential"][:, None].expand(S, n),
+             "accepted": torch.ones((S, n), dtype=torch.bool)}
+    return positions, infos, n
+
+
+def run_sampler(config: Dict, data: Dict, output: str,
+                make_plots: bool = True, device="cuda",
+                dtype=torch.float32) -> Dict[str, Any]:
+    """Posterior sampling over a batch of chains on `device` (the card
+    unless the caller asks for the CPU).  The fused engine runs in float32
+    with the chain count rounded up to a multiple of 128; the generic
+    engine and SVGD run in `dtype` (float64 on the CPU where the JAX
+    package runs under x64) with the chain count as given.  Returns the
+    summary dict (also logged to run.jsonl)."""
+    _check_supported(config, make_plots)
+    out_dir = _out_dir(output, config)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(config, f, indent=2, default=str)
+
+    static, params0 = build_model(config, data)
+    if is_fused(config):
+        positions, infos, n_chains = _run_fused(config, data, static,
+                                                params0, device)
+    elif config["method"] == "SVGD":
+        positions, infos, n_chains = _run_svgd(config, data, static,
+                                               params0, device, dtype)
+    else:
+        positions, infos, n_chains = _run_generic(config, data, static,
+                                                  params0, device, dtype)
 
     # (samples, C, ...) -> (C, samples, ...), the JAX driver's layout
     positions = tree_map(lambda x: x.transpose(0, 1), positions)

@@ -50,7 +50,10 @@ def make_potential(x0, ts, X, solve: Callable, noise: float = 0.1,
                    add_prior: bool = True):
     """Gaussian-likelihood posterior potential over one chain's theta:
     x0 (N, 2), ts (T,), X (N, T, 2) at known `noise`,
-    `solve(func, x0, ts)` -> (T, N, 2).  c must stay positive."""
+    `solve(func, x0, ts)` -> (T, N, 2).  c must stay positive.  The
+    observations are taken in float32, as the JAX package takes them
+    (a float64 trajectory promotes the residual)."""
+    X = torch.as_tensor(X).to(torch.float32)
     inv_two_noise_sq = 0.5 / float(noise) ** 2
 
     def potential(theta):

@@ -6,8 +6,8 @@ Linear(2, H)-Tanh-Linear(H, 2) applied to y^3, with N(0, 0.1) weights and
 zero biases (H = 50 in the demo and in the driver).  Parameters are a dict
 {'w1' (2, H), 'b1' (H,), 'w2' (H, 2), 'b2' (2,)}, with a leading chain axis
 on the fused path; `params_from_numpy` carries the JAX package's weights
-over.  The minibatch training helpers (`get_batch`, `make_loss`) are
-ROADMAP queue 1 item 11.
+over.  `get_batch` and `make_loss` are the demo's minibatch training
+helpers (random sub-trajectories, mean absolute error).
 """
 from __future__ import annotations
 
@@ -59,6 +59,30 @@ def make_potential(x0, ts, X, solve: Callable, reg: float = 0.5,
         return loss
 
     return potential
+
+
+def get_batch(generator: torch.Generator, true_y, t, batch_time: int = 10,
+              batch_size: int = 20):
+    """Random sub-trajectory minibatch: batch_size distinct start indices
+    s from `generator` (without replacement) and
+    (batch_y0 (B, 2), batch_t (batch_time,), batch_y (batch_time, B, 2))
+    with batch_y[i] = true_y[s + i]."""
+    n = true_y.shape[0] - batch_time
+    s = torch.randperm(n, generator=generator)[:batch_size].to(
+        true_y.device)
+    batch_y = torch.stack([true_y[s + i] for i in range(batch_time)])
+    return true_y[s], t[:batch_time], batch_y
+
+
+def make_loss(odeint_fn: Callable, batch_y0, batch_t, batch_y):
+    """mean |pred - batch| of the field at params, with
+    `odeint_fn(func, y0, t)` the solver (the demo's `odeint_adjoint`)."""
+    def loss(params):
+        pred = odeint_fn(lambda tt, y: vector_field(params, tt, y),
+                         batch_y0, batch_t)
+        return (pred - batch_y).abs().mean()
+
+    return loss
 
 
 def params_from_numpy(params, device="cpu", dtype=torch.float64):

@@ -1,8 +1,9 @@
 """Butcher tableaus of the Dormand-Prince and Tsitouras 5(4) pairs.
 
 Counterpart of `bayesian_ode_tpu/ode/tableaus.py` (DOPRI5 and TSIT5, the
-two pairs of the fused adaptive engine; the other pairs are ROADMAP queue 1
-item 2).  Coefficients are plain Python floats, copied as the JAX package
+two pairs of the fused adaptive engine and of the generic `odeint`; the
+other pairs are ROADMAP queue 1 item 16), and the Tsitouras dense-output
+weights `tsit5_interp_coeffs`.  Coefficients are plain Python floats, copied as the JAX package
 states them: multiplying a float32 tensor by one keeps float32, and
 float64 runs read full-precision constants.  `csrc/dopri5_common.cuh`
 holds the same two tableaus for the kernels.
@@ -121,3 +122,24 @@ TSIT5 = ButcherTableau(
     ],
     order=5,
 )
+
+
+def tsit5_interp_coeffs(theta):
+    """Dense-output weights b_i(theta) of the Tsitouras interpolant at
+    theta = (t - t0) / dt in [0, 1], combined as y0 + dt * sum_i b_i k_i
+    with the interval's true start y0 (the JAX package's correction of the
+    reference, which substitutes k[0] = f0 for y0)."""
+    t = theta
+    b1 = (-1.0530884977290216 * t * (t - 1.3299890189751412)
+          * (t * t - 1.4364028541716351 * t + 0.7139816917074209))
+    b2 = 0.1017 * t * t * (t * t - 2.1966568338249754 * t
+                           + 1.2949852507374631)
+    b3 = 2.490627285651252793 * t * t * (t * t - 2.38535645472061657 * t
+                                         + 1.57803468208092486)
+    b4 = (-16.54810288924490272 * (t - 1.21712927295533244)
+          * (t - 0.61620406037800089) * t * t)
+    b5 = (47.37952196281928122 * (t - 1.203071208372362603)
+          * (t - 0.658047292653547382) * t * t)
+    b6 = -34.87065786149660974 * (t - 1.2) * (t - 0.666666666666666667) * t * t
+    b7 = 2.5 * (t - 1.0) * (t - 0.6) * t * t
+    return [b1, b2, b3, b4, b5, b6, b7]

@@ -1,8 +1,7 @@
-"""Batched Langevin samplers: SGLD, pSGLD, cSGLD, Adam-SGLD and MALA.
+"""Langevin samplers: SGLD, pSGLD, aSGLD, cSGLD, Adam-SGLD and MALA.
 
-Counterpart of the `*_batched` kernels of
-`bayesian_ode_tpu/samplers/langevin.py` and its `psgld_preconditioner`
-(the per-chain kernels are ROADMAP queue 1 item 14).  Each takes the
+Counterpart of `bayesian_ode_tpu/samplers/langevin.py` but MMALA (ROADMAP
+queue 1 item 14).  The `*_batched` kernels take the
 batch-potential contract: `potential_batch(params)` maps a tree of
 tensors with a leading chain axis C to (C,) potentials in one fused
 forward and backward pass.  The state carries the potential and gradient
@@ -10,7 +9,10 @@ at the current position, so a step costs exactly one pass, and
 `info["potential"]` is the pre-step value (MALA: the post-step value).
 Positions are updated out of place: each step's position is kept by
 `sample_chain`.  Noise is drawn from the generator leaf by leaf; MALA then
-draws one uniform per chain.
+draws one uniform per chain.  The single-chain kernels (`sgld`, `psgld`,
+`asgld`, `csgld`, `mala`, `adam_sgld`) take a potential of one chain's
+position and are the batched kernels over a one-chain batch, their states
+the batched states without the chain axis.
 """
 from __future__ import annotations
 
@@ -51,9 +53,11 @@ class AdamSGLDState(NamedTuple):
     step: int
 
 
-def sgld_batched(potential_batch: Callable, step_size) -> TransitionKernel:
+def sgld_batched(potential_batch: Callable, step_size,
+                 add_noise: bool = True) -> TransitionKernel:
     """SGLD over a whole chain batch per step:
-    theta' = theta - lr * grad - sqrt(2 lr) * xi."""
+    theta' = theta - lr * grad - sqrt(2 lr) * xi (no xi with
+    add_noise=False, for deterministic equivalence tests)."""
     sched = schedules.resolve(step_size)
     vag = batch_value_and_grad(potential_batch)
 
@@ -63,10 +67,14 @@ def sgld_batched(potential_batch: Callable, step_size) -> TransitionKernel:
 
     def step(generator, state):
         lr = sched(state.step)
-        noise = tree_random_normal(generator, state.position)
-        scale = langevin_noise_scale(lr)
-        new_pos = tree_map(lambda p, g, n: p - lr * g - scale * n,
-                           state.position, state.grad, noise)
+        if add_noise:
+            noise = tree_random_normal(generator, state.position)
+            scale = langevin_noise_scale(lr)
+            new_pos = tree_map(lambda p, g, n: p - lr * g - scale * n,
+                               state.position, state.grad, noise)
+        else:
+            new_pos = tree_map(lambda p, g: p - lr * g, state.position,
+                               state.grad)
         u, g = vag(new_pos)
         info = {"potential": state.potential, "accepted": True,
                 "step_size": lr}
@@ -82,8 +90,8 @@ def _where_per_chain(accept, a, b):
             accept.reshape(accept.shape + (1,) * (x.dim() - 1)), x, y), a, b)
 
 
-def mala_batched(potential_batch: Callable, step_size,
-                 precond=None) -> TransitionKernel:
+def mala_batched(potential_batch: Callable, step_size, precond=None,
+                 add_noise: bool = True) -> TransitionKernel:
     """MALA over a whole chain batch per step: the SGLD proposal with a
     per-chain Metropolis-Hastings correction (asymmetric-proposal ratio,
     reference langevin.py:69-91), at the cost of one fused forward and
@@ -92,15 +100,19 @@ def mala_batched(potential_batch: Callable, step_size,
     `precond`: an optional FIXED diagonal metric G (a tree matching the
     position, leaves broadcastable), e.g. `psgld_preconditioner` of a
     pSGLD warm-up: proposal p - lr G g - sqrt(2 lr G) xi and the
-    G-weighted ratio |.|^2 / (4 lr G)."""
+    G-weighted ratio |.|^2 / (4 lr G).  add_noise=False takes the plain
+    gradient step with no correction (deterministic equivalence tests)."""
     sched = schedules.resolve(step_size)
     vag = batch_value_and_grad(potential_batch)
+    plain = sgld_batched(potential_batch, step_size, add_noise=False)
 
     def init(position):
         u, g = vag(position)
         return BatchLangevinState(position, u, g, 0)
 
     def step(generator, state):
+        if not add_noise:
+            return plain.step(generator, state)
         lr = sched(state.step)
         G = precond if precond is not None else tree_map(
             torch.ones_like, state.position)
@@ -265,3 +277,80 @@ def adam_sgld_batched(potential_batch: Callable, step_size,
         return AdamSGLDState(new_pos, u, g, m, v, t), info
 
     return TransitionKernel(init, step)
+
+
+# ---------------------------------------------------------------------------
+# single-chain kernels: the batched kernels over a one-chain batch
+# ---------------------------------------------------------------------------
+
+def _map_state(fn, state):
+    """fn over every tensor of a kernel state (Python counters kept)."""
+    def leaf(x):
+        return fn(x) if torch.is_tensor(x) else x
+
+    return type(state)(*(tree_map(leaf, f) for f in state))
+
+
+def _one_chain(make_batched: Callable, potential_fn: Callable, *args,
+               **kwargs) -> TransitionKernel:
+    def potential_batch(p):
+        return potential_fn(tree_map(lambda x: x[0], p)).reshape(1)
+
+    batched = make_batched(potential_batch, *args, **kwargs)
+
+    def init(position):
+        state = batched.init(tree_map(lambda x: x.unsqueeze(0), position))
+        return _map_state(lambda x: x[0], state)
+
+    def step(generator, state):
+        new, info = batched.step(
+            generator, _map_state(lambda x: x.unsqueeze(0), state))
+        info = {k: v[0] if torch.is_tensor(v) and v.dim() else v
+                for k, v in info.items()}
+        return _map_state(lambda x: x[0], new), info
+
+    return TransitionKernel(init, step)
+
+
+def sgld(potential_fn: Callable, step_size, add_noise: bool = True
+         ) -> TransitionKernel:
+    """SGLD (Welling & Teh 2011) of one chain: `sgld_batched`'s rule."""
+    return _one_chain(sgld_batched, potential_fn, step_size,
+                      add_noise=add_noise)
+
+
+def mala(potential_fn: Callable, step_size, add_noise: bool = True
+         ) -> TransitionKernel:
+    """MALA of one chain: `mala_batched`'s proposal and correction."""
+    return _one_chain(mala_batched, potential_fn, step_size,
+                      add_noise=add_noise)
+
+
+def psgld(potential_fn: Callable, step_size, alpha: float = 0.99,
+          lambda_: float = 1e-5, add_noise: bool = True) -> TransitionKernel:
+    """Preconditioned SGLD (Li et al. 2015) of one chain."""
+    return _one_chain(psgld_batched, potential_fn, step_size, alpha=alpha,
+                      lambda_=lambda_, add_noise=add_noise)
+
+
+def asgld(potential_fn: Callable, step_size, alpha: float = 0.99,
+          lambda_: float = 1e-5, add_noise: bool = True) -> TransitionKernel:
+    """The reference's aSGLD, whose update is pSGLD's: the same kernel
+    under its own name."""
+    return psgld(potential_fn, step_size, alpha, lambda_, add_noise)
+
+
+def csgld(potential_fn: Callable, lr0: float, num_cycles: int,
+          total_iters: int, beta: float = 0.25,
+          add_noise: bool = True) -> TransitionKernel:
+    """Cyclical SGLD (Zhang et al. 2020) of one chain."""
+    return _one_chain(csgld_batched, potential_fn, lr0, num_cycles,
+                      total_iters, beta=beta, add_noise=add_noise)
+
+
+def adam_sgld(potential_fn: Callable, step_size, beta1: float = 0.9,
+              beta2: float = 0.999, a: float = 1.0, lambda_: float = 1e-8
+              ) -> TransitionKernel:
+    """Adam-preconditioned SGLD of one chain."""
+    return _one_chain(adam_sgld_batched, potential_fn, step_size,
+                      beta1=beta1, beta2=beta2, a=a, lambda_=lambda_)

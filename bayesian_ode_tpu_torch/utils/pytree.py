@@ -1,11 +1,12 @@
 """Helpers over parameter trees of tensors.
 
 Counterpart of the part of `bayesian_ode_tpu/utils/pytree.py` the
-samplers need, with `ravel_pytree` (jax.flatten_util's, which that module
-re-exports) for the particle ensembles of SVGD.  A "tree" here is a
-tensor, or a dict, list or tuple of trees: the GP model's {"U", "logsn"}
-dict, the MLP's layer list [{"w", "b"}, ...].  Leaves are visited as
-`jax.tree` visits them: lists and tuples in order, dict keys sorted.
+samplers and the ODE solvers need, with `ravel_pytree` (jax.flatten_util's,
+which that module re-exports) for the particle ensembles of SVGD.  A
+"tree" here is a tensor, or a dict, list or tuple of trees: the GP
+model's {"U", "logsn"} dict, the MLP's layer list [{"w", "b"}, ...], the
+adjoint's augmented state (y, a_y, a_t, a_params).  Leaves are visited as `jax.tree` visits them: lists and
+tuples in order, dict keys sorted.
 """
 from __future__ import annotations
 
@@ -45,6 +46,16 @@ def tree_unflatten(like: Tree, leaves) -> Tree:
     """A tree shaped like `like` holding `leaves` in `tree_leaves` order."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), like)
+
+
+def tree_zeros_like(tree: Tree) -> Tree:
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_dot(a: Tree, b: Tree):
+    """Full inner product across all leaves (sum of elementwise
+    products)."""
+    return sum((x * y).sum() for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
 def ravel_pytree(tree: Tree):

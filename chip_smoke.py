@@ -55,6 +55,15 @@ torch.profiler (device
 time by kernel, the median's sort, the other kernels, the card's idle
 share of the window).
 
+Then the generic engine (`engine="generic"`, plain PyTorch over the
+batched continuous adjoint): its potentials and gradients in float64 at
+256 chains of the spiral and of the GP against autograd through the
+solver's step loop (phase 18); `run_sampler(engine="generic",
+model="spiral", method="pSGLD")` at 10,112 chains in float32, 2 + 3
+steps, each timed with its forward and backward NFE and the last partly
+profiled (phase 19); and SVGD through the driver on the GP generic
+potential at 4,096 particles, 5 steps with K8 at each (phase 20).
+
 Exits non-zero on any failed phase, and when no CUDA device is available.
 Before the last two lines it prints its own seconds; the line before the
 last is a JSON object with each kernel's launches, error against its
@@ -512,6 +521,250 @@ def occupancy(regs, smem, threads, chains, C, sms=132):
     `sms` SMs hold at once (a grid of 1.07 waves takes nearly two)."""
     warps = warps_per_sm(regs, smem, threads)
     return warps, -(-C // chains) / (warps // (threads // 32) * sms)
+
+
+# ---- the generic engine (phases 18-20) ----
+GENERIC_CHAINS_F64 = 256
+GENERIC_GATE = 1e3 * RTOL        # the adjoint against autograd, max-rel
+SVGD_DRIVER_PARTICLES = 4096
+SVGD_DRIVER_STEPS = 5
+
+
+def _per_chain_max_rel(got, want):
+    """max over chains of (max over a chain's entries of every leaf of
+    |got - want|) / (max over them of |want|)."""
+    import torch
+
+    from bayesian_ode_tpu_torch.utils.pytree import tree_leaves
+
+    diff = torch.stack([(a - b).abs().reshape(a.shape[0], -1).max(1).values
+                        for a, b in zip(tree_leaves(got),
+                                        tree_leaves(want))]).max(0).values
+    scale = torch.stack([b.abs().reshape(b.shape[0], -1).max(1).values
+                         for b in tree_leaves(want)]).max(0).values
+    return float((diff / scale).max())
+
+
+def generic_gradient_check(cfg, data, dev):
+    """Phase 18: the generic batch potential's values and gradients
+    through the continuous adjoint (`odeint_adjoint`), in float64 on the
+    card, against autograd through the same solver's step loop
+    (options={"mode": "bounded"}) on the same chains: the spiral (H=50)
+    and the GP (M=6) at 256 chains, dopri5 at rtol=1e-7 / atol=1e-9.
+    The two gradients are two discretisations of one derivative, each off
+    by the solve's global error, O(rtol) times the error growth of the
+    flow over t in [0, 6] (on the CPU at 4 chains they differ by 4e-8 on
+    the spiral and 1.9e-6 on the GP): the gate is 1e3 rtol = 1e-4."""
+    import torch
+
+    from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
+    from bayesian_ode_tpu_torch.ode import odeint
+    from bayesian_ode_tpu_torch.ode import adjoint as adj
+    from bayesian_ode_tpu_torch.samplers import batch_value_and_grad
+    from bayesian_ode_tpu_torch.utils.pytree import tree_map
+
+    def through_the_loop(f, y0, t, method, adjoint_params, batched, **tol):
+        return odeint(f, y0, t, method=method, options={"mode": "bounded"},
+                      batched=batched, **tol)
+
+    f64, C = torch.float64, GENERIC_CHAINS_F64
+    for model in ("spiral", "gp"):
+        c = dict(cfg, engine="generic", model=model, solver="dopri5",
+                 rtol=RTOL, atol=ATOL, hidden=SPIRAL_HIDDEN)
+        static, params0 = vg.build_model(c, data)
+        gen = torch.Generator(device=dev).manual_seed(18)
+        P = tree_map(lambda x: x.to(dev, f64)[None] + 0.005 * torch.randn(
+            (C,) + tuple(x.shape), generator=gen, device=dev, dtype=f64),
+            params0)
+        adj.nfe_counts.update(forward=0, backward=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u_a, g_a = batch_value_and_grad(
+            vg.make_generic_potential(c, data, static, dev, f64))(P)
+        torch.cuda.synchronize()
+        t_adj = time.perf_counter() - t0
+        nfe = dict(adj.nfe_counts)
+        saved = vg.odeint_adjoint
+        vg.odeint_adjoint = through_the_loop
+        try:
+            t0 = time.perf_counter()
+            u_b, g_b = batch_value_and_grad(
+                vg.make_generic_potential(c, data, static, dev, f64))(P)
+            torch.cuda.synchronize()
+            t_bp = time.perf_counter() - t0
+        finally:
+            vg.odeint_adjoint = saved
+        rel_u = float(((u_a - u_b).abs() / u_b.abs()).max())
+        rel_g = _per_chain_max_rel(g_a, g_b)
+        print(f"generic {model} float64, {C} chains: potential max-rel "
+              f"{rel_u:.3e}, gradient max-rel {rel_g:.3e} (adjoint against "
+              f"autograd through the loop; gate {GENERIC_GATE:.0e}); mean "
+              f"NFE forward {nfe['forward'] / C:.1f}, backward "
+              f"{nfe['backward'] / C:.1f}; {t_adj:.2f} s adjoint, "
+              f"{t_bp:.2f} s through the loop")
+        check(bool(torch.isfinite(u_a).all()), f"generic {model}: finite")
+        check(rel_u <= GENERIC_GATE, f"generic {model}: potentials agree")
+        check(rel_g <= GENERIC_GATE,
+              f"generic {model}: adjoint gradient within {GENERIC_GATE:.0e}")
+
+
+def generic_driver_path(cfg, data, dev):
+    """Phase 19: run_sampler(engine="generic", model="spiral",
+    solver="dopri5", method="pSGLD") at 10,112 chains in float32, 2
+    burn-in steps and 3 kept.  The generic path launches none of the
+    port's kernels.  Each sampler step is timed on the host, with the
+    forward and backward NFE a chain it took.  In the last step the
+    profiler (device activity) covers the forward solve and the first
+    interval of the backward solve, about 1/60 of the step's 3 x 10^5
+    launches (the whole step's trace takes a minute to read back): the
+    card's idle share of that window."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
+    from bayesian_ode_tpu_torch.ode import adjoint as adj
+    from bayesian_ode_tpu_torch.ops import _build
+
+    c = dict(cfg, engine="generic", model="spiral", solver="dopri5",
+             method="pSGLD", burn_in=2, num_samples=3, lr0=1e-5,
+             hidden=SPIRAL_HIDDEN, id="spiral_generic")
+    c.pop("store_steps", None)
+    total = c["burn_in"] + c["num_samples"]
+    steps, window = [], {}              # (host s, NFE); the profile
+    make_kernel, solve = vg._make_kernel, adj.solve_batched
+
+    def profiled_solve(*args, **kwargs):
+        """The forward solve and the first backward interval, profiled."""
+        n = window.setdefault("solves", 0) + 1
+        window["solves"] = n
+        if n == 1:
+            window["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            torch.cuda.synchronize()
+            window["prof"].start()
+            window["t0"] = time.perf_counter()
+        out = solve(*args, **kwargs)
+        if n == 2:
+            torch.cuda.synchronize()
+            window["s"] = time.perf_counter() - window["t0"]
+            window["prof"].stop()
+        return out
+
+    def timed_kernel(config, pot):
+        kern = make_kernel(config, pot)
+
+        def step(gen, state):
+            adj.nfe_counts.update(forward=0, backward=0)
+            if len(steps) == total - 1:
+                adj.solve_batched = profiled_solve
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = kern.step(gen, state)
+                torch.cuda.synchronize()
+            finally:
+                adj.solve_batched = solve
+            steps.append((time.perf_counter() - t0, dict(adj.nfe_counts)))
+            return out
+
+        return kern._replace(step=step)
+
+    vg._make_kernel = timed_kernel
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            summary = vg.run_sampler(c, data, out, make_plots=False,
+                                     device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            delta = {k: v for k, v in _build.launch_counts.items() if v}
+            pots = np.load(os.path.join(out, "pSGLD", "spiral_generic",
+                                        "total_loss_arr.npy"))
+            chain = np.load(os.path.join(out, "pSGLD", "spiral_generic",
+                                         "chain.npz"))
+            leaves = [chain[k] for k in chain.files if k.startswith("leaf_")]
+    finally:
+        vg._make_kernel = make_kernel
+    events = [ev for ev in window["prof"].key_averages()
+              if ev.device_type == DeviceType.CUDA]
+    busy = sum(ev.device_time_total for ev in events) / 1e6
+    launches = sum(ev.count for ev in events)
+    C = summary["num_chains"]
+    print(f"generic spiral pSGLD: {total} steps x {C} chains in {wall:.3f} "
+          f"s (set-up and the initial gradient included); launches of the "
+          f"port's kernels {delta}; summary {json.dumps(summary)}")
+    for i, (sec, nfe) in enumerate(steps):
+        print(f"generic spiral pSGLD step {i}: {sec:.3f} s on the host"
+              f"{' (profiled)' if i == total - 1 else ''}; mean NFE a chain "
+              f"forward {nfe['forward'] / C:.2f}, backward "
+              f"{nfe['backward'] / C:.2f}")
+    steady = [sec for sec, _ in steps[1:-1]]
+    print(f"generic spiral pSGLD steady: {sum(steady) / len(steady):.3f} s "
+          f"a step on the host (steps 1-{len(steady)}); profiled window "
+          f"(forward solve and the first backward interval of step "
+          f"{total - 1}): {window['s']:.3f} s, {launches} device launches, "
+          f"{busy * 1e3:.1f} ms busy, card idle "
+          f"{max(window['s'] - busy, 0.0) / window['s']:.1%}")
+    check(not delta, "generic spiral: no kernel of the port launched")
+    check(pots.shape == (N_CHAINS, c["num_samples"]),
+          "generic spiral: pots shape")
+    check(bool(np.isfinite(pots).all()), "generic spiral: finite potentials")
+    check(all(bool(np.isfinite(x).all()) for x in leaves),
+          "generic spiral: finite chains")
+
+
+def svgd_driver_path(cfg, data, dev):
+    """Phase 20: method="SVGD" through run_sampler on the GP generic
+    potential (rk4, float32) at 4,096 particles for 5 steps: K8 gives phi
+    at every step, the launch counters say so, and the ensemble's mean
+    potential falls.  Prints particle-steps/s, and K8's share of the run
+    from its time (CUDA events, 20 launches) on the final ensemble."""
+    import numpy as np
+    import torch
+
+    from bayesian_ode_tpu_torch.experiments import run_sampler
+    from bayesian_ode_tpu_torch.ops import _build
+    from bayesian_ode_tpu_torch.ops import svgd_phi as k8
+    from bayesian_ode_tpu_torch.samplers import stein
+
+    n = SVGD_DRIVER_PARTICLES
+    c = dict(cfg, engine="generic", model="gp", solver="rk4", method="SVGD",
+             num_chains=n, burn_in=0, num_samples=SVGD_DRIVER_STEPS,
+             lr=1e-5, id="svgd_generic")
+    with tempfile.TemporaryDirectory() as out:
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = run_sampler(c, data, out, make_plots=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        delta = {k: v for k, v in _build.launch_counts.items() if v}
+        pots = np.load(os.path.join(out, "SVGD", "svgd_generic",
+                                    "total_loss_arr.npy"))[0]
+        chain = np.load(os.path.join(out, "SVGD", "svgd_generic",
+                                     "chain.npz"))
+        X = torch.cat([torch.as_tensor(chain[k][:, -1]).reshape(n, -1)
+                       for k in chain.files if k.startswith("leaf_")],
+                      dim=1).to(dev)
+    S = torch.randn(X.shape, generator=torch.Generator(device=dev)
+                    .manual_seed(20), device=dev)
+    gamma = stein.rbf_bandwidth(X, None, 256)
+    ms = cuda_ms(lambda: k8.svgd_phi(X, S, gamma), 20, warmup=2)
+    print(f"SVGD through the driver, n={n}: {SVGD_DRIVER_STEPS} steps in "
+          f"{wall:.3f} s (set-up included) = "
+          f"{n * SVGD_DRIVER_STEPS / wall:.1f} particle-steps/s; launches "
+          f"{delta}; K8 {ms:.3f} ms a launch on the final ensemble, "
+          f"{SVGD_DRIVER_STEPS * ms / 1e3 / wall:.3%} of the run; mean "
+          f"potential by step {[round(float(p), 4) for p in pots]}; "
+          f"summary {json.dumps(summary)}")
+    check(delta == {"svgd_phi": SVGD_DRIVER_STEPS},
+          "SVGD through the driver: K8 launched at every step, no other "
+          "kernel of the port")
+    check(bool(np.isfinite(pots).all()), "SVGD through the driver: finite")
+    check(bool(np.all(np.diff(pots) < 0)),
+          "SVGD through the driver: the mean potential falls every step")
 
 
 def main() -> int:
@@ -1518,6 +1771,11 @@ def main() -> int:
     check(abs(mk - mp) <= 0.02 * mp, f"spiral N={Nw}: mean NFE within 2%")
     check(rel <= 1e-3, f"spiral N={Nw}: K3 within 1e-3 of the plain replay")
     del ysp, ysr, reck, wbk, wbp
+
+    # ---- phases 18-20: the generic engine ----
+    generic_gradient_check(cfg, data, dev)
+    generic_driver_path(cfg, data, dev)
+    svgd_driver_path(cfg, data, dev)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start "
           f"to the kernels line, build included ({smi})")

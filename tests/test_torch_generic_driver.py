@@ -1,0 +1,180 @@
+"""The generic engine through the port's driver (`run_sampler` with
+engine="generic", and method="SVGD") against the JAX driver, in float64
+on the CPU.
+
+Both drivers start every chain at the model's start point (jitter 0) and
+draw no noise: the Langevin noise is zeroed in both packages' samplers,
+and MALA's uniform is 0 in both, so every finite proposal is accepted.
+The steps are then deterministic, and the summary keys, the per-step
+potentials and the saved chains are held to the JAX driver's.  SVGD from
+one point is the mean-score flow.  Each unported method, solver and
+option raises NotImplementedError naming its ROADMAP item.
+"""
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bayesian_ode_tpu.experiments.vanderpol_gp import run_sampler as jrun
+from bayesian_ode_tpu.samplers import langevin as jlangevin
+from bayesian_ode_tpu_torch import samplers
+from bayesian_ode_tpu_torch.experiments.run import main as cli_main
+from bayesian_ode_tpu_torch.experiments.vanderpol_gp import run_sampler
+from bayesian_ode_tpu_torch.samplers import langevin as tlangevin
+from bayesian_ode_tpu_torch.utils.pytree import tree_map
+from torch_parity import GENERIC_CONFIG, generic_data
+
+
+@pytest.fixture(scope="module")
+def data():
+    return generic_data()
+
+
+@pytest.fixture
+def no_noise(monkeypatch):
+    monkeypatch.setattr(jlangevin, "tree_random_normal",
+                        lambda key, a: jax.tree.map(jnp.zeros_like, a))
+    monkeypatch.setattr(jax.random, "uniform",
+                        lambda key, *a, **k: jnp.zeros(()))
+    monkeypatch.setattr(tlangevin, "tree_random_normal",
+                        lambda gen, a: tree_map(torch.zeros_like, a))
+    monkeypatch.setattr(tlangevin.torch, "rand",
+                        lambda shape, **k: torch.zeros(shape, **{
+                            n: v for n, v in k.items()
+                            if n in ("dtype", "device")}))
+
+
+def _run_both(cfg, data, tmp_path):
+    got = run_sampler(cfg, data, str(tmp_path / "port"), make_plots=False,
+                      device="cpu", dtype=torch.float64)
+    want = jrun(cfg, data, str(tmp_path / "jax"), make_plots=False)
+    out = lambda root: (tmp_path / root / cfg["method"]  # noqa: E731
+                        / str(cfg["id"]))
+    return got, want, out("port"), out("jax")
+
+
+@pytest.mark.parametrize("method", ["SGLD", "pSGLD", "aSGLD", "cSGLD",
+                                    "MALA", "AdamSGLD"])
+def test_generic_methods_match_the_jax_driver(data, tmp_path, no_noise,
+                                              method):
+    cfg = dict(GENERIC_CONFIG, method=method, num_chains=3)
+    if method == "cSGLD":
+        cfg["lr0"] = 1e-6
+    got, want, port, jax_out = _run_both(cfg, data, tmp_path)
+    assert set(got) == set(want)
+    assert got["num_chains"] == 3                  # not rounded to 128
+    for key in ("min_potential", "median_potential", "acceptance"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-9)
+    np.testing.assert_allclose(np.load(port / "total_loss_arr.npy"),
+                               np.load(jax_out / "total_loss_arr.npy"),
+                               rtol=1e-9)
+    a, b = np.load(port / "chain.npz"), np.load(jax_out / "chain.npz")
+    assert str(a["__treedef__"]) == str(b["__treedef__"])
+    for k in ("leaf_0", "leaf_1"):
+        np.testing.assert_allclose(a[k], b[k], rtol=1e-9, atol=1e-12)
+
+
+def test_svgd_through_the_driver_matches_jax(data, tmp_path):
+    """method="SVGD" on the GP generic potential, particles from one point
+    (jitter 0): phi is then the mean score at every step, in both.  The
+    norm expansion leaves each package its own rounding (~1e-15 |x|^2) in
+    the zero distances, which the median bandwidth of a collapsed
+    ensemble (gamma = 1e8) scales to ~1e-7: the gate is 1e-6."""
+    cfg = dict(GENERIC_CONFIG, method="SVGD", num_chains=4, num_samples=3,
+               lr=1e-5)
+    got, want, port, jax_out = _run_both(cfg, data, tmp_path)
+    assert set(got) == set(want) and got["num_chains"] == 4
+    np.testing.assert_allclose(np.load(port / "total_loss_arr.npy"),
+                               np.load(jax_out / "total_loss_arr.npy"),
+                               rtol=1e-6)
+    a, b = np.load(port / "chain.npz"), np.load(jax_out / "chain.npz")
+    assert str(a["__treedef__"]) == str(b["__treedef__"])
+    assert a["leaf_0"].shape == b["leaf_0"].shape == (4, 3, 16, 2)
+    np.testing.assert_allclose(a["leaf_0"], b["leaf_0"], rtol=1e-6,
+                               atol=1e-9)
+
+
+def test_svgd_lowers_the_mean_potential(data, tmp_path):
+    """SVGD from a jittered ensemble on the CPU, where phi takes its
+    matmul form: the ensemble's mean potential falls step by step."""
+    cfg = dict(GENERIC_CONFIG, method="SVGD", num_chains=8, burn_in=0,
+               num_samples=4, lr=2e-4, jitter=0.005)
+    run_sampler(cfg, data, str(tmp_path), make_plots=False, device="cpu",
+                dtype=torch.float64)
+    pots = np.load(tmp_path / "SVGD" / "1" / "total_loss_arr.npy")[0]
+    assert np.all(np.diff(pots) < 0)
+
+
+def test_guard_finite_freezes_only_the_divergent_chain():
+    """guard_finite_batched: a chain whose step turns non-finite keeps its
+    last finite state; the others move on.  The driver's guard_finite key
+    wraps the generic engine's kernel in it."""
+    def pot(p):
+        x = p["x"]
+        return torch.where(x[:, 0] > 1.0, torch.nan, 0.5 * (x ** 2).sum(1))
+
+    kernel = samplers.guard_finite_batched(
+        samplers.sgld_batched(pot, -0.5, add_noise=False))
+    state = kernel.init({"x": torch.tensor([[0.5, 0.1], [0.9, 0.2]],
+                                           dtype=torch.float64)})
+    new, info = kernel.step(torch.Generator(), state)
+    assert info["finite"].tolist() == [True, False]
+    torch.testing.assert_close(new.position["x"][1],
+                               state.position["x"][1])
+    assert not torch.equal(new.position["x"][0], state.position["x"][0])
+
+
+def test_generic_driver_options(data, tmp_path):
+    cfg = dict(GENERIC_CONFIG, guard_finite=True, num_chains=2,
+               jitter=0.005)
+    s = run_sampler(cfg, data, str(tmp_path), make_plots=False,
+                    device="cpu", dtype=torch.float64)
+    assert s["num_chains"] == 2 and np.isfinite(s["min_potential"])
+    # the default engine is the generic one, as in the JAX driver
+    cfg.pop("engine")
+    s = run_sampler(dict(cfg, model="spiral", solver="dopri5"), data,
+                    str(tmp_path), make_plots=False, device="cpu",
+                    dtype=torch.float64)
+    assert np.isfinite(s["min_potential"])
+
+
+def test_unported_methods_solvers_and_options_raise(data, tmp_path):
+    def run(**kw):
+        run_sampler(dict(GENERIC_CONFIG, **kw), data, str(tmp_path),
+                    make_plots=False, device="cpu", dtype=torch.float64)
+
+    for method, item in (("PT", 14), ("Ensemble", 14), ("HMC", 14),
+                         ("AdaptiveHMC", 14), ("NUTS", 14), ("SMC", 14),
+                         ("MMALA", 14), ("HAMCMC1", 13), ("aSGHMC", 18),
+                         ("acSGHMC", 18), ("SGRHMC", 18), ("BAOAB", 18)):
+        with pytest.raises(NotImplementedError,
+                           match=f"queue 1 item {item}"):
+            run(method=method)
+    for solver in ("adams", "bosh3", "dopri8"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 16"):
+            run(solver=solver)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        run(ckpt_every=2)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        run_sampler(GENERIC_CONFIG, data, str(tmp_path), make_plots=True,
+                    device="cpu")
+    with pytest.raises(ValueError, match="unknown sampler method"):
+        run(method="Gibbs")
+    with pytest.raises(ValueError, match="unknown method"):
+        run(solver="rk45")
+
+
+def test_cli_passes_the_engine_through(tmp_path):
+    blob = {"output": str(tmp_path / "out"),
+            "data": {"ode": "vdp", "N": 3, "T": 6, "t_max": 1.5,
+                     "noise": 0.05, "x0_scale": 1.5, "seed": 0},
+            "configs": [dict(GENERIC_CONFIG, model="spiral", num_chains=3,
+                             num_samples=1)]}
+    (tmp_path / "2.json").write_text(json.dumps(blob))
+    cli_main(["--json-dir", str(tmp_path), "--id", "2", "--no-plots",
+              "--device", "cpu"])
+    out = tmp_path / "out" / "SGLD" / "1"
+    assert np.load(out / "total_loss_arr.npy").shape == (3, 1)

@@ -19,6 +19,12 @@ they differ only in where the quartic is evaluated).  Against the JAX
 per-step solver: two float32 solves at rtol=1e-7, held as every adaptive
 parity test of the port (`torch_parity.check_solve`: trajectories within
 1e-4 max|y|, step counts per chain within 3 and in mean within 0.25).
+
+The file runs torch on one intra-op thread (`one_thread`): its solves
+are thousands of small tensor operations, each of which 8 threads only
+slow down (17x under a loaded test run, where each worker process's
+threads compete for the same cores), and both sides of every bit-equal
+comparison then run under one setting.
 """
 from bisect import bisect_right
 
@@ -31,6 +37,14 @@ from bayesian_ode_tpu.ops.gp_dopri5 import gp_dopri5_solve as jsolve
 from bayesian_ode_tpu_torch.ops import _build
 from bayesian_ode_tpu_torch.ops import gp_dopri5 as tg
 from torch_parity import check_solve, gp_problem, to_np
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -151,11 +151,16 @@ def test_run_sampler_psgld_and_unported_options(problem, tmp_path):
     summary = run_sampler(cfg, data, str(tmp_path), make_plots=False,
                           device="cpu")
     assert np.isfinite(summary["min_potential"])
-    for bad in ({"engine": "generic"}, {"solver": "tsit5"},
-                {"method": "aSGHMC"}, {"method": "SVGD"}):
+    for bad in ({"engine": "generic", "method": "HMC"},
+                {"engine": "generic", "solver": "adams"},
+                {"method": "aSGHMC"}, {"method": "SVGD", "ckpt_every": 1}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_sampler(dict(cfg, **bad), data, str(tmp_path),
                         make_plots=False, device="cpu")
+    # the fused engine takes rk4 and dopri5, as the JAX driver's
+    with pytest.raises(ValueError, match="generic engine"):
+        run_sampler(dict(cfg, solver="tsit5"), data, str(tmp_path),
+                    make_plots=False, device="cpu")
     with pytest.raises(ValueError, match="unknown model"):
         run_sampler(dict(cfg, model="lv"), data, str(tmp_path),
                     make_plots=False, device="cpu")

@@ -138,6 +138,52 @@ def check_solve(ys_t, st_t, ys_j, st_j, traj_tol=1e-4):
         want["nfe"], 2 + 6 * (want["n_accepted"] + want["n_rejected"]))
 
 
+# ---- the generic engine's small problem: N=3 Van der Pol trajectories,
+# T=8 output times to t=2, and a driver config at H=8 hidden units and a
+# 4x4 inducing grid
+
+GENERIC_CONFIG = {
+    "method": "SGLD", "inf_type": "sampler", "id": 1, "M": 4, "sf": 1.0,
+    "ell": 0.75, "noise": 0.05, "burn_in": 1, "num_samples": 2,
+    "thinning": 1, "num_chains": 4, "lr0": 1e-5, "lr_gamma": 0.55,
+    "lr_t0": 100, "lr_alpha": 1.0, "psgld_alpha": 0.99, "lambda_": 1e-8,
+    "lr": 1e-6, "engine": "generic", "solver": "rk4", "model": "gp",
+    "hidden": 8, "seed": 0, "jitter": 0.0,
+}
+
+
+def generic_data(seed=3, N=3, T=8, t_max=2.0, noise=0.05):
+    """The dataset {x0, t, Y, noise} as numpy float64: x0 from a numpy
+    seed, the Van der Pol trajectories by the port's dopri5 at
+    rtol=1e-10, Y with numpy noise."""
+    from bayesian_ode_tpu_torch.models.dynamics import DYNAMICS
+    from bayesian_ode_tpu_torch.ode import odeint
+
+    rng = np.random.RandomState(seed)
+    x0 = 1.5 * rng.randn(N, 2)
+    t = np.linspace(0.0, t_max, T)
+    X = to_np(odeint(DYNAMICS["vdp"], torch.tensor(x0), torch.tensor(t),
+                     rtol=1e-10, atol=1e-12)).transpose(1, 0, 2)
+    return {"x0": x0, "t": t, "Y": X + noise * rng.randn(*X.shape),
+            "noise": noise}
+
+
+def check_solve64(ys_t, st_t, ys_j, st_j, traj_tol=1e-10):
+    """A float64 port solve against the JAX solver's on the same inputs:
+    the same steps on every system (nfe, accepted and rejected counts
+    equal) and trajectories within traj_tol * max|y| (both take the same
+    operations up to their order, so only rounding separates them)."""
+    ys_t, ys_j = to_np(ys_t), np.asarray(ys_j)
+    assert ys_t.shape == ys_j.shape and ys_t.dtype == np.float64
+    assert np.max(np.abs(ys_t - ys_j)) <= traj_tol * np.max(np.abs(ys_j))
+    for k in ("nfe", "n_accepted", "n_rejected"):
+        np.testing.assert_array_equal(to_np(st_t[k]).astype(np.int64),
+                                      np.asarray(st_j[k]).astype(np.int64),
+                                      err_msg=k)
+    np.testing.assert_array_equal(to_np(st_t["reached_final_time"]),
+                                  np.asarray(st_j["reached_final_time"]))
+
+
 def tree_max_rel(got, want):
     """max-rel of a parameter tree taken as one vector: the largest
     |got - want| over all leaves over the largest |want|, the
@@ -155,3 +201,44 @@ def tree_max_rel(got, want):
     assert len(pairs) == len(leaves(want))
     return (max(float(np.max(np.abs(a - b))) for a, b in pairs)
             / max(float(np.max(np.abs(b))) for _, b in pairs))
+
+
+def _tree_to_torch(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_to_torch(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to_torch(v) for v in tree)
+    return torch.tensor(np.asarray(tree))
+
+
+def check_generic_potential(data, model, solver, C=4):
+    """The generic engine's batch potential (`make_generic_potential`, in
+    float64) against the JAX driver's `vmap(value_and_grad(potential))`
+    of `build_model`'s per-chain potential, on C chains: the JAX start
+    point plus 0.02 N(0, 1) a chain from a numpy seed (the GP with the
+    JAX package's kernel quantities: Kzz^-1 of the 4x4 grid amplifies the
+    two packages' rounding of them).  Values to 1e-9 relative, each
+    chain's gradient within 1e-6 max-rel (the adjoint gate)."""
+    from bayesian_ode_tpu.experiments.vanderpol_gp import (
+        build_model as jbuild,
+    )
+    from bayesian_ode_tpu_torch.experiments import vanderpol_gp as tv
+    from bayesian_ode_tpu_torch.samplers import batch_value_and_grad
+
+    cfg = dict(GENERIC_CONFIG, model=model, solver=solver)
+    jstatic, params0, potential, _ = jbuild(cfg, data)
+    rng = np.random.RandomState(11)
+    P = jax.tree.map(
+        lambda x: np.asarray(x)[None] + 0.02 * rng.randn(C, *np.shape(x)),
+        params0)
+    u_j, g_j = jax.jit(jax.vmap(jax.value_and_grad(potential)))(
+        jax.tree.map(jnp.asarray, P))
+    static = None if model != "gp" else tkr.static_from_numpy(
+        jstatic.Z, jstatic.KzzinvL, jstatic.Kzzinv, jstatic.sf, jstatic.ell)
+    pot = tv.make_generic_potential(cfg, data, static, "cpu", torch.float64)
+    u, g = batch_value_and_grad(pot)(_tree_to_torch(P))
+    assert u.shape == (C,) and u.dtype == torch.float64
+    np.testing.assert_allclose(to_np(u), np.asarray(u_j), rtol=1e-9)
+    for c in range(C):
+        assert tree_max_rel(jax.tree.map(lambda x: x[c], g),
+                            jax.tree.map(lambda x: x[c], g_j)) <= 1e-6
