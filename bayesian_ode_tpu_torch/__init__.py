@@ -14,9 +14,11 @@ fixed-grid rk4 solve and its gradient (solver="rk4", model="gp" or "nn"),
 the MLP, spiral and FitzHugh-Nagumo fields at dopri5 on the fused engine,
 and the generic engine (engine="generic": every model at dopri5, tsit5
 or rk4 over the batched continuous adjoint `odeint_adjoint`), under SGLD,
-pSGLD, aSGLD, cSGLD, MALA, AdamSGLD and SVGD, all through
-`experiments.vanderpol_gp.run_sampler`.  ROADMAP.md lists what is still
-to port.
+pSGLD, aSGLD, cSGLD, MALA, AdamSGLD, the SG-HMC family (aSGHMC, acSGHMC,
+SGRHMC, BAOAB), HAMCMC (generic engine) and SVGD, all through
+`experiments.vanderpol_gp.run_sampler`; and the MAP fit by L-BFGS or the
+first-order optimizers (`experiments.vanderpol_gp.run_optim`).  ROADMAP.md
+lists what is still to port.
 """
 from .ode import (  # noqa: F401
     odeint,

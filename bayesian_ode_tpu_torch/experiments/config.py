@@ -1,6 +1,6 @@
 """Config defaults and loading (counterpart of
 `bayesian_ode_tpu/experiments/config.py`; grid generation is ROADMAP
-queue 1 item 16).  A config file {"output": ..., "data": {...},
+queue 1 item 6).  A config file {"output": ..., "data": {...},
 "configs": [{...}]} is selected by an integer id, {id}.json."""
 from __future__ import annotations
 

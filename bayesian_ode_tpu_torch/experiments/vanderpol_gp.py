@@ -4,7 +4,8 @@ Counterpart of `bayesian_ode_tpu/experiments/vanderpol_gp.py`.  Two
 engines, chosen as the JAX driver chooses them (config["engine"]):
 
 engine="fused", for the methods the JAX driver runs fused (of them the
-port has SGLD, pSGLD, cSGLD, MALA and AdamSGLD):
+port has SGLD, pSGLD, cSGLD, MALA, AdamSGLD, aSGHMC, acSGHMC, SGRHMC and
+BAOAB):
 
   - model="gp", solver="dopri5": the whole adaptive solve and its discrete
     adjoint (kernels K2/K3, with a K1 store_steps probe);
@@ -22,13 +23,20 @@ every other engine value, and every method the JAX driver does not run
 fused, takes the generic engine: each model's per-chain potential
 (`make_potential`) over the batched `odeint_adjoint` at solver dopri5,
 tsit5, rk4, euler or midpoint (`make_generic_potential`), under SGLD,
-pSGLD, aSGLD, cSGLD, MALA and AdamSGLD, or SVGD over its particles (K8
-for 4,096 particles or more on the card).
+pSGLD, aSGLD, cSGLD, MALA, AdamSGLD, the SG-HMC family and HAMCMC (variant
+by the method name's last digit, `hamcmc_batched` with every chain's own
+L-BFGS memory), or SVGD over its particles (K8 for 4,096 particles or more
+on the card).
+
+`run_optim` (inf_type="optim") fits the MAP by L-BFGS or one of the
+optax optimizers of the JAX driver, on the generic potential of one
+chain.
 
 Every chain advances in one batch per sampler step.  The entry points run
 on the card unless the caller passes device="cpu".  The artifact layout
 follows the JAX driver: {output}/{method}/{id}{dir_name}/ with
-config.json, run.jsonl (summary), chain.npz and total_loss_arr.npy.
+config.json, run.jsonl (summary), chain.npz (map_params.npz for
+run_optim) and total_loss_arr.npy.
 Every other method, solver or option raises NotImplementedError naming
 the ROADMAP item that ports it.
 """
@@ -54,10 +62,16 @@ from ..ops.gp_rk4 import make_fused_gp_potential
 from ..ops.mlp_dopri5 import make_fused_mlp_potential_dopri5
 from ..ops.mlp_rk4 import make_fused_mlp_potential
 from ..ops.spiral_dopri5 import make_fused_spiral_potential_dopri5
+from ..optim import lbfgs_minimize
 from ..samplers import schedules
 from ..utils.checkpoint import save_pytree
 from ..utils.logging import RunLogger
-from ..utils.pytree import ravel_pytree, tree_leaves, tree_map
+from ..utils.pytree import (
+    ravel_pytree,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 
 def _out_dir(output: str, config: Dict) -> str:
@@ -114,14 +128,15 @@ def _poly_sched(config):
 FUSED_METHODS = ("SGLD", "cSGLD", "pSGLD", "AdamSGLD", "aSGHMC", "acSGHMC",
                  "SGRHMC", "MALA", "BAOAB", "HMC", "AdaptiveHMC", "NUTS",
                  "AdaptiveNUTS", "PT", "Ensemble")
-METHODS = ("SGLD", "pSGLD", "cSGLD", "MALA", "AdamSGLD")
-GENERIC_METHODS = ("SGLD", "pSGLD", "aSGLD", "cSGLD", "MALA", "AdamSGLD")
+METHODS = ("SGLD", "pSGLD", "cSGLD", "MALA", "AdamSGLD", "aSGHMC",
+           "acSGHMC", "SGRHMC", "BAOAB")
+GENERIC_METHODS = ("SGLD", "pSGLD", "aSGLD", "cSGLD", "MALA", "AdamSGLD",
+                   "aSGHMC", "acSGHMC", "SGRHMC", "BAOAB")
 GENERIC_SOLVERS = ("dopri5", "tsit5", "rk4", "euler", "midpoint")
 # the JAX driver's other methods, by the ROADMAP queue 1 item that ports
 # them
 UNPORTED_METHODS = {"PT": 14, "Ensemble": 14, "HMC": 14, "AdaptiveHMC": 14,
-                    "NUTS": 14, "AdaptiveNUTS": 14, "SMC": 14, "MMALA": 14,
-                    "aSGHMC": 18, "acSGHMC": 18, "SGRHMC": 18, "BAOAB": 18}
+                    "NUTS": 14, "AdaptiveNUTS": 14, "SMC": 14, "MMALA": 14}
 MODELS = ("gp", "nn", "spiral", "fhn")
 # the fused engine's record budget per model at dopri5: the JAX driver's
 # defaults (its MLP steps grow as chains move toward data-fitting fields)
@@ -134,7 +149,7 @@ def is_fused(config: Dict) -> bool:
             and config["method"] in FUSED_METHODS)
 
 
-def _check_supported(config: Dict, make_plots: bool) -> None:
+def _check_model(config: Dict, make_plots: bool) -> None:
     if make_plots:
         raise NotImplementedError(
             "plots are not ported (ROADMAP queue 1 item 6); pass "
@@ -143,16 +158,18 @@ def _check_supported(config: Dict, make_plots: bool) -> None:
     if model not in MODELS:
         raise ValueError(f"unknown model {model!r}; expected 'gp', 'nn', "
                          "'spiral' or 'fhn'")
+
+
+def _check_supported(config: Dict, make_plots: bool) -> None:
+    _check_model(config, make_plots)
+    model = config.get("model", "gp")
     method = config["method"]
-    if method.startswith("HAMCMC"):
-        raise NotImplementedError(
-            f"method {method!r}: HAMCMC and L-BFGS are ROADMAP queue 1 "
-            "item 13")
     if method in UNPORTED_METHODS:
         raise NotImplementedError(
             f"method {method!r} is not ported (ROADMAP queue 1 item "
             f"{UNPORTED_METHODS[method]})")
-    if method != "SVGD" and method not in GENERIC_METHODS:
+    if (method != "SVGD" and method not in GENERIC_METHODS
+            and not method.startswith("HAMCMC")):
         raise ValueError(f"unknown sampler method {method!r}")
     if int(config.get("ckpt_every") or 0) > 0:
         raise NotImplementedError(
@@ -199,8 +216,10 @@ def _make_potential(config: Dict, data: Dict, static, device):
 
 def _make_kernel(config: Dict, pot_batch):
     """Method dispatch of the JAX driver (its fused branch and
-    `make_sampler`), over the batched kernels: aSGLD is pSGLD's kernel."""
+    `make_sampler`), over the batched kernels: aSGLD is pSGLD's kernel;
+    HAMCMC's variant is the method name's last digit (1 without one)."""
     method = config["method"]
+    total = config["burn_in"] + config["num_samples"]
     if method in ("pSGLD", "aSGLD"):
         return samplers.psgld_batched(pot_batch, _poly_sched(config),
                                       alpha=config["psgld_alpha"],
@@ -214,9 +233,35 @@ def _make_kernel(config: Dict, pot_batch):
     if method == "cSGLD":
         return samplers.csgld_batched(
             pot_batch, lr0=config["lr0"],
-            num_cycles=config.get("num_cycles", 4),
-            total_iters=config["burn_in"] + config["num_samples"],
+            num_cycles=config.get("num_cycles", 4), total_iters=total,
             beta=config.get("beta", 0.25))
+    if method == "aSGHMC":
+        return samplers.asghmc_batched(
+            pot_batch, config["lr"], burn_in_steps=config["burn_in"],
+            mom_decay=config.get("mom_decay", 5e-2),
+            lambda_=config["lambda_"])
+    if method == "acSGHMC":
+        return samplers.acsghmc_batched(
+            pot_batch, lr0=config["lr0"],
+            num_cycles=config.get("num_cycles", 4), total_iters=total,
+            burn_in_steps=config["burn_in"], beta=config.get("beta", 0.25),
+            mom_decay=config.get("mom_decay", 5e-2),
+            lambda_=config["lambda_"])
+    if method == "SGRHMC":
+        return samplers.sgrhmc_batched(
+            pot_batch, _poly_sched(config),
+            friction=config.get("friction", 0.1), lambda_=config["lambda_"])
+    if method == "BAOAB":
+        return samplers.baoab_batched(
+            pot_batch, config["lr"], friction=config.get("friction", 1.0),
+            burn_in_steps=config["burn_in"], lambda_=config["lambda_"])
+    if method.startswith("HAMCMC"):
+        return samplers.hamcmc_batched(
+            pot_batch, _poly_sched(config),
+            memory=config.get("memory", 5),
+            variant=int(method[-1]) if method[-1].isdigit() else 1,
+            trust_reg=config.get("trust_reg", 1.0),
+            H_gamma=config.get("H_gamma", 1.0))
     return samplers.sgld_batched(pot_batch, _poly_sched(config))
 
 
@@ -462,13 +507,123 @@ def run_sampler(config: Dict, data: Dict, output: str,
     return summary
 
 
+def _clip_by_global_norm(grads, max_norm):
+    """optax.clip_by_global_norm: g unchanged below max_norm, else
+    g / |g| * max_norm (torch's clip_grad_norm_ scales by
+    max_norm / (|g| + 1e-6) instead)."""
+    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    return [torch.where(norm < max_norm, g, g / norm * max_norm)
+            for g in grads]
+
+
+def _first_order(config: Dict, potential, x0, n_iters: int):
+    """The JAX driver's optax optimizers at lr/(1 + lr_decay step), step
+    from 0, on `potential` from x0: (final tree, (n_iters,) losses, each
+    taken before its update).  torch.optim computes optax's Adam, SGD
+    (with and without momentum or Nesterov) and Adadelta updates; optax's
+    RMSprop (eps inside the square root) and its global-norm clip are
+    written out here."""
+    method, lr0 = config["method"], config["lr"]
+    decay = config.get("lr_decay", 0.0)
+    leaves = [x.detach().clone() for x in tree_leaves(x0)]
+    x = tree_unflatten(x0, leaves)
+    clip, rms, opt = None, None, None
+    if method == "Adam":
+        opt = torch.optim.Adam(leaves, lr=lr0, betas=(0.9, 0.999), eps=1e-8)
+    elif "nag" in method:
+        clip = config.get("clip", 10.0)
+        opt = torch.optim.SGD(leaves, lr=lr0, momentum=0.5, nesterov=True)
+    elif "SGD" in method:
+        clip = config.get("clip", 10.0)
+        opt = torch.optim.SGD(leaves, lr=lr0,
+                              momentum=config.get("mom") or 0.0)
+    elif "RMSprop" in method:
+        alpha = config.get("rmsprop_alpha", 0.99)
+        rms = [torch.zeros_like(p) for p in leaves]
+    elif "Adadelta" in method:
+        opt = torch.optim.Adadelta(leaves, lr=lr0,
+                                   rho=config.get("adadelta_rho", 0.9),
+                                   eps=1e-6)
+    else:
+        raise ValueError(f"unknown optimizer method {method!r}")
+
+    vag = samplers.potential_and_grad(potential)
+    losses = []
+    for step in range(n_iters):
+        lr = lr0 / (1 + decay * step) if decay else lr0
+        value, grads = vag(x)
+        losses.append(value)
+        grads = tree_leaves(grads)
+        if clip is not None:
+            grads = _clip_by_global_norm(grads, clip)
+        if rms is not None:
+            with torch.no_grad():
+                for p, g, nu in zip(leaves, grads, rms):
+                    nu.copy_((1 - alpha) * g ** 2 + alpha * nu)
+                    p.add_(torch.rsqrt(nu + 1e-8) * g, alpha=-lr)
+            continue
+        for p, g in zip(leaves, grads):
+            p.grad = g
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+    return x, torch.stack(losses)
+
+
+def run_optim(config: Dict, data: Dict, output: str, make_plots: bool = True,
+              device="cuda", dtype=torch.float32) -> Dict[str, Any]:
+    """MAP optimization (the JAX driver's `run_optim`) on `device` in
+    `dtype`: the generic engine's potential of one chain from the model's
+    start point, minimized for config["num_iters"] iterations by L-BFGS
+    (method containing "LBFGS": `lbfgs_minimize` with config line_search,
+    default "armijo", history_size and lr; its loss trace is each
+    iteration's value after the move) or by Adam, nag, SGD, RMSprop or
+    Adadelta (`_first_order`, matched by name in that order).  Writes
+    total_loss_arr.npy, map_params.npz and the run.jsonl summary; returns
+    {"final_loss", "best_loss"}."""
+    _check_model(config, make_plots)
+    if config.get("solver", "rk4") not in GENERIC_SOLVERS:
+        _check_method(config.get("solver", "rk4"))  # item 16, or unknown
+    out_dir = _out_dir(output, config)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(config, f, indent=2, default=str)
+
+    static, params0 = build_model(config, data)
+    pot_batch = make_generic_potential(config, data, static, device, dtype)
+
+    def potential(p):
+        return pot_batch(tree_map(lambda x: x[None], p))[0]
+
+    x0 = tree_map(lambda x: x.to(device=device, dtype=dtype), params0)
+    method, n_iters = config["method"], config["num_iters"]
+    if "LBFGS" in method:
+        x, value, losses, _ = lbfgs_minimize(
+            potential, x0, max_iters=n_iters,
+            line_search=config.get("line_search", "armijo"),
+            history_size=config.get("history_size", 10), lr=config["lr"])
+    else:
+        x, losses = _first_order(config, potential, x0, n_iters)
+        value = losses[-1]
+    losses = losses.cpu().numpy()
+    result = {"final_loss": float(value), "best_loss": float(np.min(losses))}
+    np.save(os.path.join(out_dir, "total_loss_arr.npy"), losses)
+    with RunLogger(os.path.join(out_dir, "run.jsonl")) as logger:
+        logger.log({"event": "summary", "method": method, **result})
+    save_pytree(os.path.join(out_dir, "map_params.npz"), x)
+    return result
+
+
 def worker(config: Dict, data: Dict, output: str, make_plots: bool = True,
            device="cuda") -> Dict[str, Any]:
-    """Route by inf_type; the port runs the sampler only so far."""
+    """Route by inf_type, as the JAX driver's worker: "optim" to
+    `run_optim`, "vi" and "evidence" raise (ROADMAP queue 1 item 14),
+    anything else to `run_sampler`."""
     inf_type = config.get("inf_type", "sampler")
-    if inf_type != "sampler":
+    if inf_type == "optim":
+        return run_optim(config, data, output, make_plots=make_plots,
+                         device=device)
+    if inf_type in ("vi", "evidence"):
         raise NotImplementedError(
-            f"inf_type {inf_type!r}: ROADMAP queue 1 items 13 (optim) and "
-            "14 (vi, evidence)")
+            f"inf_type {inf_type!r}: ROADMAP queue 1 item 14")
     return run_sampler(config, data, output, make_plots=make_plots,
                        device=device)

@@ -168,7 +168,9 @@ def guard_finite_batched(kernel: TransitionKernel,
     commits only if every one of its float entries is finite, so one
     divergent chain does not freeze the batch; `info["finite"]` is the
     (C,) mask.  C comes from the position at `init`, or `n_chains`; float
-    leaves without that leading axis gate globally."""
+    leaves without that leading axis gate globally.  Every tensor with the
+    chain axis commits per chain (HAMCMC's pair masks with its pairs);
+    the shared host counters advance."""
     c_ref = [n_chains]
 
     def init(position):
@@ -190,12 +192,14 @@ def guard_finite_batched(kernel: TransitionKernel,
                 finite = finite & torch.isfinite(x).all()
 
         def commit(new, old):
-            if not torch.is_tensor(new) or not new.is_floating_point():
+            if not torch.is_tensor(new):
                 return new
             if new.dim() >= 1 and new.shape[0] == C:
                 return torch.where(
                     finite.reshape((C,) + (1,) * (new.dim() - 1)), new, old)
-            return torch.where(finite.all(), new, old)
+            if new.is_floating_point():
+                return torch.where(finite.all(), new, old)
+            return new
 
         out = type(new_state)(*(
             tree_map(commit, n, o) if n is not None else None

@@ -1,6 +1,6 @@
 """Saving parameter trees to .npz (counterpart of
 `bayesian_ode_tpu/utils/checkpoint.py::save_pytree`; loading is ROADMAP
-queue 1 item 16)."""
+queue 1 item 6)."""
 from __future__ import annotations
 
 import os

@@ -64,6 +64,17 @@ steps, each timed with its forward and backward NFE and the last partly
 profiled (phase 19); and SVGD through the driver on the GP generic
 potential at 4,096 particles, 5 steps with K8 at each (phase 20).
 
+Last, the SG-HMC family, HAMCMC and the MAP fit: aSGHMC, acSGHMC, SGRHMC
+and BAOAB through `run_sampler` on the main path at 10,112 chains and
+aSGHMC at GP rk4, each with its exact K1-K5 launch counts, and a steady
+aSGHMC step beside a steady SGLD step (phase 21); BASELINE config 4,
+HAMCMC1 through the driver at 2,048 chains on the generic GP rk4
+potential, then `hamcmc_batched` into its metric steps (under the
+driver's per-chain finite guard, the held chains counted) and its factor
+products against the dense BFGS oracle in float64 on the card (phase
+22); `run_optim` with L-BFGS (Armijo, 20 iterations) and Adam (50), the
+losses falling (phase 23).
+
 Exits non-zero on any failed phase, and when no CUDA device is available.
 Before the last two lines it prints its own seconds; the line before the
 last is a JSON object with each kernel's launches, error against its
@@ -765,6 +776,230 @@ def svgd_driver_path(cfg, data, dev):
     check(bool(np.isfinite(pots).all()), "SVGD through the driver: finite")
     check(bool(np.all(np.diff(pots) < 0)),
           "SVGD through the driver: the mean potential falls every step")
+
+
+# ---- the SG-HMC family, HAMCMC and run_optim (phases 21-23) ----
+SGHMC_METHODS = ("aSGHMC", "acSGHMC", "SGRHMC", "BAOAB")
+SGHMC_LR = 8e-3                  # the JAX bench's aSGHMC step (bench.py:343)
+HAMCMC_CHAINS = 2048             # the JAX bench's HAMCMC phase (bench.py:1524)
+HAMCMC_STEP = 2e-4               # its step size (bench.py:929)
+HAMCMC_MEMORY = 5
+
+
+def sghmc_driver_path(cfg, data, dev, smi, steps=(1, 3)):
+    """Phase 21: run_sampler(engine="fused") with aSGHMC, acSGHMC, SGRHMC
+    and BAOAB on the main path (GP dopri5, 10,112 chains, store_steps
+    128), then aSGHMC at GP rk4 (the JAX bench's phase), `steps` = (burn-in,
+    kept) each: K2 and K3 (rk4: K4 and K5) launch once a step plus the
+    initial gradient, K1 once (the store_steps probe), no other kernel;
+    the potentials stay finite.  Then one steady aSGHMC step beside one
+    steady SGLD step on the fused dopri5 potential."""
+    import numpy as np
+    import torch
+
+    from bayesian_ode_tpu_torch import samplers
+    from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
+    from bayesian_ode_tpu_torch.ops import _build
+    from bayesian_ode_tpu_torch.samplers import schedules
+
+    burn_in, samples = steps
+    total = burn_in + samples
+    runs = [(m, "dopri5") for m in SGHMC_METHODS] + [("aSGHMC", "rk4")]
+    paths = {"dopri5": {"gp_dopri5_fwd_record": total + 1,
+                        "gp_dopri5_bwd": total + 1,
+                        "gp_dopri5_solve_whole": 1},
+             "rk4": {"gp_rk4_fwd": total + 1, "gp_rk4_bwd": total + 1}}
+    with tempfile.TemporaryDirectory() as out:
+        for method, solver in runs:
+            c = dict(cfg, method=method, solver=solver, burn_in=burn_in,
+                     num_samples=samples, lr=SGHMC_LR, lr0=SGHMC_LR
+                     if method == "acSGHMC" else cfg["lr0"], mom_decay=0.05,
+                     lambda_=1e-5, id=f"{method}_{solver}")
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = vg.run_sampler(c, data, out, make_plots=False,
+                                     device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            delta = {k: v for k, v in _build.launch_counts.items() if v}
+            pots = np.load(os.path.join(out, method, c["id"],
+                                        "total_loss_arr.npy"))
+            print(f"{method} GP {solver} (fused): {total} steps x "
+                  f"{summary['num_chains']} chains in {wall:.3f} s (set-up "
+                  f"and probe included); launches {delta}; summary "
+                  f"{json.dumps(summary)}")
+            check(delta == paths[solver],
+                  f"{method} GP {solver}: launches {paths[solver]}")
+            check(pots.shape == (summary["num_chains"], samples),
+                  f"{method} GP {solver}: pots shape")
+            check(bool(np.isfinite(pots).all()),
+                  f"{method} GP {solver}: finite potentials")
+    static, params0 = vg.build_model(cfg, data)
+    f32 = torch.float32
+    s32 = static._replace(Z=static.Z.to(dev, f32),
+                          KzzinvL=static.KzzinvL.to(dev, f32),
+                          Kzzinv=static.Kzzinv.to(dev, f32))
+    pot = vg._make_potential(cfg, data, s32, dev)     # GP dopri5, fused
+    pos = vg._start_positions(cfg, params0, cfg["num_chains"], dev, f32)
+    sched = schedules.polynomial_decay(lr0=cfg["lr0"], gamma=0.55, t0=100)
+    for label, kern in (
+            ("SGLD", samplers.sgld_batched(pot, sched)),
+            ("aSGHMC", samplers.asghmc_batched(pot, SGHMC_LR,
+                                               burn_in_steps=1,
+                                               mom_decay=0.05))):
+        ms, state = steady_ms(kern, pos, dev)
+        check(bool(torch.isfinite(state.potential).all()),
+              f"{label}: finite potentials in the steady run")
+        print(f"GP dopri5 {label} steady: {ms:.3f} ms/step over 10 steps = "
+              f"{cfg['num_chains'] / ms * 1e3:.0f} chain-steps/s ({smi})")
+
+
+def hamcmc_path(cfg, data, dev, smi, chains=HAMCMC_CHAINS, extra=10):
+    """Phase 22: BASELINE config 4, HAMCMC on the GP posterior at the JAX
+    bench's 2,048 chains, step 2e-4 and memory 5.  First through the
+    driver (method="HAMCMC1", engine="generic", solver="rk4", float32, 1 +
+    3 steps: the driver's 111 warm-up steps, no kernel of the port); then
+    `hamcmc_batched` with warmup_extra=0 on the same generic potential for
+    K + `extra` steps, each timed: the last `extra` take the metric branch
+    and pairs accumulate.  That run goes through `guard_finite_batched`
+    (the driver's guard_finite): from the first metric steps, while the
+    gradients are still large, the metric's drift sends a few chains to
+    inf in both packages (the JAX package's vmapped `hamcmc` in float64
+    diverges on the same chains), and the guard holds each on its last
+    finite state; the frozen chains are counted each step.  Then, in
+    float64 on the card, the factor products of 4 chains' final buffers
+    against the dense BFGS oracle at the JAX test's gate (rtol 1e-8, atol
+    1e-8)."""
+    import numpy as np
+    import torch
+
+    from bayesian_ode_tpu_torch import samplers
+    from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
+    from bayesian_ode_tpu_torch.ops import _build
+
+    c = dict(cfg, method="HAMCMC1", engine="generic", solver="rk4",
+             num_chains=chains, burn_in=1, num_samples=3, lr0=HAMCMC_STEP,
+             lr_gamma=0.0, memory=HAMCMC_MEMORY, id="hamcmc")
+    with tempfile.TemporaryDirectory() as out:
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = vg.run_sampler(c, data, out, make_plots=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        delta = {k: v for k, v in _build.launch_counts.items() if v}
+        pots = np.load(os.path.join(out, "HAMCMC1", "hamcmc",
+                                    "total_loss_arr.npy"))
+    print(f"HAMCMC1 GP rk4 (generic) through the driver: 4 steps x {chains} "
+          f"chains in {wall:.3f} s (set-up and the initial gradient "
+          f"included); launches of the port's kernels {delta}; summary "
+          f"{json.dumps(summary)}")
+    check(not delta, "HAMCMC1: no kernel of the port launched")
+    check(pots.shape == (chains, 3) and bool(np.isfinite(pots).all()),
+          "HAMCMC1 through the driver: finite potentials")
+
+    f32 = torch.float32
+    static, params0 = vg.build_model(c, data)
+    kern = samplers.guard_finite_batched(samplers.hamcmc_batched(
+        vg.make_generic_potential(c, data, static, dev, f32), HAMCMC_STEP,
+        memory=HAMCMC_MEMORY, variant=1, warmup_extra=0), chains)
+    K = 2 * (HAMCMC_MEMORY + 1) - 1
+    state = kern.init(vg._start_positions(c, params0, chains, dev, f32))
+    gen = torch.Generator(device=dev).manual_seed(22)
+    secs, infos = [], []
+    for _ in range(K + extra):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, info = kern.step(gen, state)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        infos.append(info)
+    metric = [bool(i["using_metric"]) for i in infos]
+    pairs = float(state.pair_valid.sum(-1).float().mean())
+    by_step = [round(float(i["n_pairs"].float().mean()), 2) for i in infos]
+    frozen = [int((~i["finite"]).sum()) for i in infos]
+    finite = all(bool(torch.isfinite(x).all()) for x in (
+        state.potential, state.params_buf, state.grads_buf, state.s_buf,
+        state.y_buf, *state.position.values()))
+    print(f"HAMCMC1 hamcmc_batched, {chains} chains, warmup_extra=0: "
+          f"{K + extra} steps, metric from step {metric.index(True)}; "
+          f"{np.mean(secs[1:K]):.3f} s a warm-up step, "
+          f"{np.mean(secs[K:]):.3f} s a metric step "
+          f"({chains / np.mean(secs[K:]):.0f} chain-steps/s, {smi}); mean "
+          f"n_pairs by step {by_step}; chains the guard held by step "
+          f"{frozen}; potential median {float(state.potential.median()):.4f}"
+          f", max {float(state.potential.max()):.4e} after the last step, "
+          f"median {float(infos[K - 1]['potential'].median()):.4f} after "
+          f"the last warm-up step")
+    check(metric == [False] * K + [True] * extra,
+          "HAMCMC: the metric branch on exactly the last steps")
+    check(pairs > 0, "HAMCMC: curvature pairs accepted")
+    check(finite, "HAMCMC: finite potentials, positions and buffers")
+
+    f64 = torch.float64
+    s, y = state.s_buf[:4].to(f64), state.y_buf[:4].to(f64)
+    valid = state.pair_valid[:4]
+    g = state.grads_buf[:4, -1].to(f64)
+    n = torch.randn(g.shape, generator=gen, device=dev, dtype=f64)
+    Hg, Sn = samplers.hamcmc_products(s, y, valid, 1.0, g, n)
+    H = samplers.hamcmc_dense_oracle(s, y, valid, 1.0)
+    want = (H @ g[..., None])[..., 0]
+    S = torch.stack([samplers.hamcmc_products(
+        s, y, valid, 1.0, g, torch.eye(g.shape[1], device=dev, dtype=f64)[i]
+        .expand_as(g))[1] for i in range(g.shape[1])], dim=-1)
+    err_h = float(((Hg - want).abs() / (1e-8 + 1e-8 * want.abs())).max())
+    err_s = float(((S @ S.transpose(-1, -2) - H).abs()
+                   / (1e-8 + 1e-7 * H.abs())).max())
+    rel = float(((Hg - want).abs().max(-1).values
+                 / want.abs().max(-1).values).max())
+    print(f"HAMCMC products on the card, float64, 4 chains of "
+          f"{int(valid.sum(-1).min())}-{int(valid.sum(-1).max())} pairs: "
+          f"H g max-rel {rel:.3e} from the dense oracle; |H g - oracle| "
+          f"{err_h:.3e} of the gate (1e-8 + 1e-8 |oracle|), S S^T - H "
+          f"{err_s:.3e} of its gate (1e-8 + 1e-7 |H|)")
+    check(err_h <= 1.0, "HAMCMC: H g equals the dense oracle on the card")
+    check(err_s <= 1.0, "HAMCMC: S S^T equals the dense oracle on the card")
+
+
+def optim_path(cfg, data, dev):
+    """Phase 23: run_optim on the card (GP rk4, one chain, float32):
+    L-BFGS with the Armijo search for 20 iterations, then Adam for 50; the
+    final loss is finite and below the first, and L-BFGS's trace never
+    rises (a rejected move holds the value)."""
+    import numpy as np
+    import torch
+
+    from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
+    from bayesian_ode_tpu_torch.ops import _build
+
+    base = dict(cfg, inf_type="optim", engine="generic", solver="rk4",
+                id="optim")
+    runs = [dict(method="LBFGS", line_search="armijo", lr=1.0, num_iters=20),
+            dict(method="Adam", lr=1e-2, num_iters=50)]
+    with tempfile.TemporaryDirectory() as out:
+        for r in runs:
+            c = dict(base, **r)
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = vg.run_optim(c, data, out, make_plots=False, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            delta = {k: v for k, v in _build.launch_counts.items() if v}
+            losses = np.load(os.path.join(out, c["method"], "optim",
+                                          "total_loss_arr.npy"))
+            print(f"run_optim {c['method']}: {c['num_iters']} iterations in "
+                  f"{wall:.3f} s; launches of the port's kernels {delta}; "
+                  f"{json.dumps(result)}; losses "
+                  f"{[round(float(v), 3) for v in losses]}")
+            check(bool(np.isfinite(losses).all()),
+                  f"run_optim {c['method']}: finite losses")
+            check(losses[-1] < losses[0],
+                  f"run_optim {c['method']}: the loss falls")
+            if c["method"] == "LBFGS":
+                check(bool(np.all(np.diff(losses) <= 0)),
+                      "run_optim LBFGS: the trace never rises")
 
 
 def main() -> int:
@@ -1469,7 +1704,7 @@ def main() -> int:
     for label, kern, p0, *_ in steady:
         profile_steps(label, kern, p0, dev)
 
-    # ---- phase 13: SVGD on the GP posterior (BASELINE config 4) ----
+    # ---- phase 13: SVGD on the GP posterior (BASELINE config 5) ----
     # bench.py:211-233 and 782-868: the fused rk4 potential (K4/K5 give the
     # scores), particles at the gradient-matched start jittered by 0.005 on
     # U and logsn, AdaGrad at lr=1e-2, 50 steps; phi through K8 on "auto"
@@ -1776,6 +2011,13 @@ def main() -> int:
     generic_gradient_check(cfg, data, dev)
     generic_driver_path(cfg, data, dev)
     svgd_driver_path(cfg, data, dev)
+
+    # ---- phases 21-23: the SG-HMC family, HAMCMC and run_optim ----
+    t0 = time.perf_counter()
+    sghmc_driver_path(cfg, data, dev, smi)
+    hamcmc_path(cfg, data, dev, smi)
+    optim_path(cfg, data, dev)
+    print(f"phases 21-23: {time.perf_counter() - t0:.1f} s")
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start "
           f"to the kernels line, build included ({smi})")

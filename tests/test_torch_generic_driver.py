@@ -148,8 +148,7 @@ def test_unported_methods_solvers_and_options_raise(data, tmp_path):
 
     for method, item in (("PT", 14), ("Ensemble", 14), ("HMC", 14),
                          ("AdaptiveHMC", 14), ("NUTS", 14), ("SMC", 14),
-                         ("MMALA", 14), ("HAMCMC1", 13), ("aSGHMC", 18),
-                         ("acSGHMC", 18), ("SGRHMC", 18), ("BAOAB", 18)):
+                         ("MMALA", 14), ("AdaptiveNUTS", 14)):
         with pytest.raises(NotImplementedError,
                            match=f"queue 1 item {item}"):
             run(method=method)

@@ -153,7 +153,7 @@ def test_run_sampler_psgld_and_unported_options(problem, tmp_path):
     assert np.isfinite(summary["min_potential"])
     for bad in ({"engine": "generic", "method": "HMC"},
                 {"engine": "generic", "solver": "adams"},
-                {"method": "aSGHMC"}, {"method": "SVGD", "ckpt_every": 1}):
+                {"method": "NUTS"}, {"method": "SVGD", "ckpt_every": 1}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_sampler(dict(cfg, **bad), data, str(tmp_path),
                         make_plots=False, device="cpu")
