@@ -1,12 +1,14 @@
 """Experiment CLI of the port:
 
     python -m bayesian_ode_tpu_torch.experiments.run --json-dir DIR --id N \
-        --no-plots [--device cuda]
+        --no-plots [--device cuda] [--resume]
 
 A JSON config selected by integer id, as the JAX package's CLI; the
 config's "data" block {ode, N, T, t_max, noise, x0_scale, seed} regenerates
 the dataset with the port's own generator.  The run goes to the first CUDA
 card; with no card it stops with an error unless `--device cpu` is given.
+`--resume` continues each config's interrupted sampling run from its
+sampler_ckpt.npz (configs with ckpt_every > 0).
 """
 from __future__ import annotations
 
@@ -27,6 +29,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda; the CPU runs the "
                          "kernels' plain versions only when asked)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume an interrupted sampling run from its "
+                         "sampler_ckpt.npz (needs config ckpt_every > 0; "
+                         "the resumed chain equals an uninterrupted run)")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -41,6 +47,8 @@ def main(argv=None):
         t_max=dspec.get("t_max", 6.0), noise=dspec.get("noise", 0.05),
         x0_scale=dspec.get("x0_scale", 1.5))
     for cfg in blob["configs"]:
+        if args.resume:
+            cfg = dict(cfg, resume=True)
         print(worker(cfg, data, blob["output"],
                      make_plots=not args.no_plots, device=device))
 

@@ -3,9 +3,9 @@
 Counterpart of `bayesian_ode_tpu/experiments/vanderpol_gp.py`.  Two
 engines, chosen as the JAX driver chooses them (config["engine"]):
 
-engine="fused", for the methods the JAX driver runs fused (of them the
-port has SGLD, pSGLD, cSGLD, MALA, AdamSGLD, aSGHMC, acSGHMC, SGRHMC and
-BAOAB):
+engine="fused", for the methods the JAX driver runs fused (SGLD, pSGLD,
+cSGLD, MALA, AdamSGLD, aSGHMC, acSGHMC, SGRHMC, BAOAB, HMC, AdaptiveHMC,
+NUTS, AdaptiveNUTS, PT and Ensemble):
 
   - model="gp", solver="dopri5": the whole adaptive solve and its discrete
     adjoint (kernels K2/K3, with a K1 store_steps probe);
@@ -23,10 +23,17 @@ every other engine value, and every method the JAX driver does not run
 fused, takes the generic engine: each model's per-chain potential
 (`make_potential`) over the batched `odeint_adjoint` at solver dopri5,
 tsit5, rk4, euler or midpoint (`make_generic_potential`), under SGLD,
-pSGLD, aSGLD, cSGLD, MALA, AdamSGLD, the SG-HMC family and HAMCMC (variant
+pSGLD, aSGLD, cSGLD, MALA, AdamSGLD, the SG-HMC family, HAMCMC (variant
 by the method name's last digit, `hamcmc_batched` with every chain's own
-L-BFGS memory), or SVGD over its particles (K8 for 4,096 particles or more
-on the card).
+L-BFGS memory), HMC, AdaptiveHMC, NUTS and AdaptiveNUTS (the batched
+kernels, where the JAX driver vmaps the per-chain ones: the same steps
+chain by chain), PT and Ensemble, or SVGD over its particles (K8 for
+4,096 particles or more on the card).
+
+With config["ckpt_every"] > 0 the chain runs in segments of that many
+kept samples, each followed by an atomic checkpoint of the sampler state
+and the samples so far (`_sample_chain_checkpointed`); config["resume"]
+continues an interrupted run from it, to the same chain bit for bit.
 
 `run_optim` (inf_type="optim") fits the MAP by L-BFGS or one of the
 optax optimizers of the JAX driver, on the generic potential of one
@@ -37,8 +44,8 @@ on the card unless the caller passes device="cpu".  The artifact layout
 follows the JAX driver: {output}/{method}/{id}{dir_name}/ with
 config.json, run.jsonl (summary), chain.npz (map_params.npz for
 run_optim) and total_loss_arr.npy.
-Every other method, solver or option raises NotImplementedError naming
-the ROADMAP item that ports it.
+Every other method (SMC, MMALA), solver or option raises
+NotImplementedError naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -64,6 +71,7 @@ from ..ops.mlp_rk4 import make_fused_mlp_potential
 from ..ops.spiral_dopri5 import make_fused_spiral_potential_dopri5
 from ..optim import lbfgs_minimize
 from ..samplers import schedules
+from ..utils import checkpoint
 from ..utils.checkpoint import save_pytree
 from ..utils.logging import RunLogger
 from ..utils.pytree import (
@@ -123,20 +131,18 @@ def _poly_sched(config):
         alpha=config.get("lr_alpha", 1.0))
 
 
-# the methods the JAX driver runs on the fused engine, and those of them
-# the port has
+# the methods the JAX driver runs on the fused engine (all ported)
 FUSED_METHODS = ("SGLD", "cSGLD", "pSGLD", "AdamSGLD", "aSGHMC", "acSGHMC",
                  "SGRHMC", "MALA", "BAOAB", "HMC", "AdaptiveHMC", "NUTS",
                  "AdaptiveNUTS", "PT", "Ensemble")
-METHODS = ("SGLD", "pSGLD", "cSGLD", "MALA", "AdamSGLD", "aSGHMC",
-           "acSGHMC", "SGRHMC", "BAOAB")
+EXACT_METHODS = ("HMC", "AdaptiveHMC", "NUTS", "AdaptiveNUTS", "PT",
+                 "Ensemble")
 GENERIC_METHODS = ("SGLD", "pSGLD", "aSGLD", "cSGLD", "MALA", "AdamSGLD",
-                   "aSGHMC", "acSGHMC", "SGRHMC", "BAOAB")
+                   "aSGHMC", "acSGHMC", "SGRHMC", "BAOAB") + EXACT_METHODS
 GENERIC_SOLVERS = ("dopri5", "tsit5", "rk4", "euler", "midpoint")
 # the JAX driver's other methods, by the ROADMAP queue 1 item that ports
 # them
-UNPORTED_METHODS = {"PT": 14, "Ensemble": 14, "HMC": 14, "AdaptiveHMC": 14,
-                    "NUTS": 14, "AdaptiveNUTS": 14, "SMC": 14, "MMALA": 14}
+UNPORTED_METHODS = {"SMC": 14, "MMALA": 14}
 MODELS = ("gp", "nn", "spiral", "fhn")
 # the fused engine's record budget per model at dopri5: the JAX driver's
 # defaults (its MLP steps grow as chains move toward data-fitting fields)
@@ -171,9 +177,6 @@ def _check_supported(config: Dict, make_plots: bool) -> None:
     if (method != "SVGD" and method not in GENERIC_METHODS
             and not method.startswith("HAMCMC")):
         raise ValueError(f"unknown sampler method {method!r}")
-    if int(config.get("ckpt_every") or 0) > 0:
-        raise NotImplementedError(
-            "checkpointed sampling (ckpt_every) is ROADMAP queue 1 item 6")
     solver = config.get("solver", "rk4")
     if not is_fused(config):
         if solver not in GENERIC_SOLVERS:
@@ -217,7 +220,8 @@ def _make_potential(config: Dict, data: Dict, static, device):
 def _make_kernel(config: Dict, pot_batch):
     """Method dispatch of the JAX driver (its fused branch and
     `make_sampler`), over the batched kernels: aSGLD is pSGLD's kernel;
-    HAMCMC's variant is the method name's last digit (1 without one)."""
+    HAMCMC's variant is the method name's last digit (1 without one); the
+    adaptive methods adapt over the burn-in."""
     method = config["method"]
     total = config["burn_in"] + config["num_samples"]
     if method in ("pSGLD", "aSGLD"):
@@ -255,6 +259,39 @@ def _make_kernel(config: Dict, pot_batch):
         return samplers.baoab_batched(
             pot_batch, config["lr"], friction=config.get("friction", 1.0),
             burn_in_steps=config["burn_in"], lambda_=config["lambda_"])
+    if method == "HMC":
+        return samplers.hmc_batched(
+            pot_batch, config["lr"],
+            num_leapfrog=config.get("num_leapfrog", 10),
+            jitter=config.get("eps_jitter", 0.2))
+    if method == "AdaptiveHMC":
+        return samplers.adaptive_hmc_batched(
+            pot_batch, num_adapt=config["burn_in"], step_size=config["lr"],
+            num_leapfrog=config.get("num_leapfrog", 10),
+            target_accept=config.get("target_accept", 0.8),
+            jitter=config.get("eps_jitter", 0.2))
+    if method == "NUTS":
+        return samplers.nuts_batched(pot_batch, config["lr"],
+                                     max_depth=config.get("max_depth", 10))
+    if method == "AdaptiveNUTS":
+        return samplers.adaptive_nuts_batched(
+            pot_batch, num_adapt=config["burn_in"], step_size=config["lr"],
+            max_depth=config.get("max_depth", 10),
+            target_accept=config.get("target_accept", 0.8))
+    if method == "PT":
+        # the K-rung ladder multiplies the chain batch (K C rows, one
+        # forward and backward pass a step); the recorded positions are
+        # the cold batch's
+        return samplers.parallel_tempering_batched(
+            pot_batch, samplers.temperature_ladder(
+                config.get("num_replicas", 4), config.get("beta_min", 0.1)),
+            config["lr"], inner=config.get("pt_inner", "mala"),
+            swap_every=config.get("swap_every", 1),
+            num_leapfrog=config.get("num_leapfrog", 10))
+    if method == "Ensemble":
+        # gradient-free interacting walkers: the chains are the walkers
+        return samplers.stretch_move(pot_batch,
+                                     a=config.get("stretch_a", 2.0))
     if method.startswith("HAMCMC"):
         return samplers.hamcmc_batched(
             pot_batch, _poly_sched(config),
@@ -383,11 +420,13 @@ def _start_positions(config: Dict, params0, n_chains: int, device, dtype):
         params0)
 
 
-def _run_fused(config, data, static, params0, device):
+def _run_fused(config, data, static, params0, device, out_dir):
     """The fused engine: (positions, infos, n_chains), the chain count
-    rounded up to a multiple of 128 as the JAX driver rounds it."""
+    rounded up to a multiple of 128 as the JAX driver rounds it (of 256
+    for Ensemble, whose half-sweeps evaluate half the walkers)."""
+    mult = 256 if config["method"] == "Ensemble" else 128
     n_chains = config.get("num_chains", 64)
-    n_chains = ((n_chains + 127) // 128) * 128
+    n_chains = ((n_chains + mult - 1) // mult) * mult
     f32 = torch.float32
     if static is not None:
         static = kr.GPVectorFieldStatic(
@@ -400,27 +439,91 @@ def _run_fused(config, data, static, params0, device):
     pos0 = _start_positions(config, params0, n_chains, device, f32)
     if static is not None and config.get("solver", "rk4") == "dopri5":
         _probe_store_steps(config, static, pos0, data, device)
-    return _sample(config, kernel, pos0, device) + (n_chains,)
+    return _sample(config, kernel, pos0, device, out_dir) + (n_chains,)
 
 
-def _sample(config, kernel, pos0, device):
-    """`sample_chain` from pos0 with a generator seeded config["seed"] + 1;
-    returns (positions, infos) as the sampler stacks them."""
+def _sample(config, kernel, pos0, device, out_dir):
+    """`sample_chain` from pos0 with a generator seeded config["seed"] + 1,
+    or with config["ckpt_every"] > 0 `_sample_chain_checkpointed` into
+    out_dir/sampler_ckpt.npz; returns (positions, infos) as the sampler
+    stacks them."""
     state = kernel.init(pos0)
-    gen = torch.Generator(device=device).manual_seed(
-        config.get("seed", 0) + 1)
+    seed = config.get("seed", 0) + 1
+    total = config["num_samples"] // config["thinning"]
+    ckpt_every = int(config.get("ckpt_every") or 0)
+    if ckpt_every > 0:
+        _, positions, infos = _sample_chain_checkpointed(
+            kernel, state, seed, device, total, config["burn_in"],
+            config["thinning"], ckpt_every,
+            os.path.join(out_dir, "sampler_ckpt.npz"),
+            resume=bool(config.get("resume")))
+        return positions, infos
+    gen = torch.Generator(device=device).manual_seed(seed)
     _, positions, infos = samplers.sample_chain(
-        kernel, state, gen, num_samples=config["num_samples"]
-        // config["thinning"], burn_in=config["burn_in"],
+        kernel, state, gen, num_samples=total, burn_in=config["burn_in"],
         thin=config["thinning"])
     return positions, infos
 
 
-def _run_generic(config, data, static, params0, device, dtype):
+def _segment_generator(seed: int, segment: int, device) -> torch.Generator:
+    """The generator of one checkpoint segment, seeded from (seed,
+    segment) as the JAX driver folds the segment index into its key."""
+    words = np.random.SeedSequence([seed, segment]).generate_state(2)
+    return torch.Generator(device=device).manual_seed(
+        int(words[0]) << 32 | int(words[1]))
+
+
+def _sample_chain_checkpointed(kernel, state, seed, device, total, burn_in,
+                               thin, ckpt_every, ckpt_path, resume=False):
+    """Segmented `sample_chain` with an on-disk checkpoint after every
+    `ckpt_every` kept samples (the JAX driver's elastic resume of long
+    chains).
+
+    Segment i draws from `_segment_generator(seed, i)`, burn-in runs in
+    segment 0 only, and the checkpoint, written atomically after each
+    segment, holds the sampler state, the next segment's index and the
+    positions and infos so far.  A run killed mid-chain and resumed with
+    `resume=True` therefore gives exactly the chain of an uninterrupted
+    run of this function (which differs from one `sample_chain` call's
+    by construction: enable `ckpt_every` from the start of a run that
+    may need resuming).  Returns (state, positions, infos)."""
+    segs = [min(ckpt_every, total - s) for s in range(0, total, ckpt_every)]
+    start, positions, infos = 0, None, None
+    if resume and os.path.exists(ckpt_path):
+        # the template's structure: one kept sample's
+        _, pos_t, info_t = samplers.sample_chain(
+            kernel, state, _segment_generator(seed, 0, device), 1, 0, thin)
+        blob = checkpoint.load_pytree(ckpt_path, {
+            "state": state, "next_seg": 0, "positions": pos_t,
+            "infos": info_t})
+        state, start = blob["state"], int(blob["next_seg"])
+        positions, infos = blob["positions"], blob["infos"]
+
+    def cat(a, b):
+        return tree_map(lambda x, y: torch.cat([x, y], dim=0), a, b)
+
+    for i, n in enumerate(segs):
+        if i < start:
+            continue
+        state, pos_i, info_i = samplers.sample_chain(
+            kernel, state, _segment_generator(seed, i, device), n,
+            burn_in if i == 0 else 0, thin)
+        positions = pos_i if positions is None else cat(positions, pos_i)
+        infos = info_i if infos is None else cat(infos, info_i)
+        checkpoint.save_pytree(ckpt_path, {
+            "state": state, "next_seg": i + 1, "positions": positions,
+            "infos": infos})
+    return state, positions, infos
+
+
+def _run_generic(config, data, static, params0, device, dtype, out_dir):
     """The generic engine: the batched kernels over the generic batch
     potential, every chain in one batch (the chain count is not rounded,
-    as on the JAX driver's generic engine)."""
+    as on the JAX driver's generic engine, but for Ensemble's even
+    count)."""
     n_chains = config.get("num_chains", 64)
+    if config["method"] == "Ensemble":
+        n_chains += n_chains % 2
     pot = make_generic_potential(config, data, static, device, dtype)
     kernel = _make_kernel(config, pot)
     if config.get("guard_finite"):
@@ -428,10 +531,10 @@ def _run_generic(config, data, static, params0, device, dtype):
         # poisoning the batch
         kernel = samplers.guard_finite_batched(kernel, n_chains)
     pos0 = _start_positions(config, params0, n_chains, device, dtype)
-    return _sample(config, kernel, pos0, device) + (n_chains,)
+    return _sample(config, kernel, pos0, device, out_dir) + (n_chains,)
 
 
-def _run_svgd(config, data, static, params0, device, dtype):
+def _run_svgd(config, data, static, params0, device, dtype, out_dir):
     """SVGD over a particle ensemble on the generic batch potential
     (particles double as chains).  The per-step potential is the ensemble
     mean, broadcast per particle, as in the JAX driver."""
@@ -440,7 +543,7 @@ def _run_svgd(config, data, static, params0, device, dtype):
     kernel = samplers.svgd_batched(pot,
                                    step_size=config.get("lr", config["lr0"]))
     pos0 = _start_positions(config, params0, n, device, dtype)
-    flat, infos = _sample(config, kernel, pos0, device)
+    flat, infos = _sample(config, kernel, pos0, device, out_dir)
     # (samples, n, P) flat particles -> leaves (samples, n, ...)
     unravel = ravel_pytree(tree_map(lambda x: x[0], pos0))[1]
     positions = unravel(flat)
@@ -467,13 +570,15 @@ def run_sampler(config: Dict, data: Dict, output: str,
     static, params0 = build_model(config, data)
     if is_fused(config):
         positions, infos, n_chains = _run_fused(config, data, static,
-                                                params0, device)
+                                                params0, device, out_dir)
     elif config["method"] == "SVGD":
         positions, infos, n_chains = _run_svgd(config, data, static,
-                                               params0, device, dtype)
+                                               params0, device, dtype,
+                                               out_dir)
     else:
         positions, infos, n_chains = _run_generic(config, data, static,
-                                                  params0, device, dtype)
+                                                  params0, device, dtype,
+                                                  out_dir)
 
     # (samples, C, ...) -> (C, samples, ...), the JAX driver's layout
     positions = tree_map(lambda x: x.transpose(0, 1), positions)
@@ -500,6 +605,9 @@ def run_sampler(config: Dict, data: Dict, output: str,
         "acceptance": float(infos["accepted"].float().mean()),
         "ess_logsn": ess_logsn, "rhat_logsn": rhat_logsn,
     }
+    if "swap_accepted" in infos:
+        summary["swap_acceptance"] = float(
+            infos["swap_accepted"].float().mean())
     with RunLogger(os.path.join(out_dir, "run.jsonl")) as logger:
         logger.log(summary)
     save_pytree(os.path.join(out_dir, "chain.npz"), positions)

@@ -50,8 +50,15 @@ def _check_tableau(tableau) -> None:
         raise ValueError("tableau is not FSAL (c_sol != last beta row)")
 
 
+# the most steps a chain accepted in a recording forward since the last
+# reset (the check below reads it anyway): how close a run came to
+# store_steps
+record_high_water = {"steps": 0}
+
+
 def _check_records(nacc, store_steps) -> None:
     worst = int(nacc.max()) if nacc.numel() else 0
+    record_high_water["steps"] = max(record_high_water["steps"], worst)
     if worst > store_steps:
         raise RuntimeError(
             f"a chain accepted {worst} steps but store_steps={store_steps}: "

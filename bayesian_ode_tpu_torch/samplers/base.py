@@ -167,10 +167,14 @@ def guard_finite_batched(kernel: TransitionKernel,
     """`guard_finite` per chain for a batched kernel: a chain's new state
     commits only if every one of its float entries is finite, so one
     divergent chain does not freeze the batch; `info["finite"]` is the
-    (C,) mask.  C comes from the position at `init`, or `n_chains`; float
-    leaves without that leading axis gate globally.  Every tensor with the
-    chain axis commits per chain (HAMCMC's pair masks with its pairs);
-    the shared host counters advance."""
+    (C,) mask.  C comes from the position at `init`, or `n_chains`.  Every
+    tensor whose leading axis is a multiple k C of it holds k row-major
+    blocks of the chains (row r belongs to chain r mod C: the chain axis
+    itself, and parallel tempering's K C replica rows) and commits per
+    chain, all its rows together (HAMCMC's pair masks with its pairs, the
+    warmup's per-chain step sizes and masses with the positions); float
+    tensors without that axis gate globally, and the shared host counters
+    advance."""
     c_ref = [n_chains]
 
     def init(position):
@@ -184,19 +188,26 @@ def guard_finite_batched(kernel: TransitionKernel,
         C = c_ref[0] if c_ref[0] is not None else next(
             (x.shape[0] for x in leaves if x.dim() >= 1), 1)
         dev = leaves[0].device if leaves else None
+
+        def rows(x):
+            return x.dim() >= 1 and x.shape[0] > 0 and x.shape[0] % C == 0
+
         finite = torch.ones(C, dtype=torch.bool, device=dev)
         for x in leaves:
-            if x.dim() >= 1 and x.shape[0] == C:
-                finite = finite & torch.isfinite(x).reshape(C, -1).all(dim=1)
+            if rows(x):
+                finite = finite & torch.isfinite(x).reshape(
+                    x.shape[0] // C, C, -1).all(dim=2).all(dim=0)
             else:
                 finite = finite & torch.isfinite(x).all()
 
         def commit(new, old):
             if not torch.is_tensor(new):
                 return new
-            if new.dim() >= 1 and new.shape[0] == C:
+            if rows(new):
+                mask = finite.repeat(new.shape[0] // C)
                 return torch.where(
-                    finite.reshape((C,) + (1,) * (new.dim() - 1)), new, old)
+                    mask.reshape(mask.shape + (1,) * (new.dim() - 1)), new,
+                    old)
             if new.is_floating_point():
                 return torch.where(finite.all(), new, old)
             return new

@@ -1,5 +1,5 @@
-"""Chain diagnostics: ESS, split R-hat, acceptance rate and the kernel
-Stein discrepancy.
+"""Chain diagnostics: ESS (also per parameter), split R-hat, acceptance
+rate and the kernel Stein discrepancy.
 
 Counterpart of `bayesian_ode_tpu/samplers/diagnostics.py` (same
 definitions: FFT autocovariance, Stan's multi-chain rho with Geyer's
@@ -59,6 +59,13 @@ def acceptance_rate(infos) -> torch.Tensor:
     """Mean acceptance over the last axis of the stacked `accepted`
     flags of an info dict."""
     return infos["accepted"].to(torch.float32).mean(dim=-1)
+
+
+def ess_per_param(positions: torch.Tensor) -> torch.Tensor:
+    """ESS of each flattened parameter: positions (num_chains,
+    num_samples, P) -> (P,)."""
+    return torch.stack([ess(positions[:, :, i])
+                        for i in range(positions.shape[2])])
 
 
 def kernel_stein_discrepancy(samples: torch.Tensor, score_fn,

@@ -1,29 +1,40 @@
-"""The stochastic-gradient HMC family: adaptive SGHMC, its cyclical
-variant, preconditioned BAOAB and SGRHMC.
+"""Hamiltonian samplers: exact HMC and its Stan-style warmup-adaptive
+variant, and the stochastic-gradient HMC family (adaptive SGHMC, its
+cyclical variant, preconditioned BAOAB and SGRHMC).
 
-Counterpart of the SG-HMC part of `bayesian_ode_tpu/samplers/hamiltonian.py`
-(HMC, NUTS and the other exact samplers there are ROADMAP queue 1 item
-14).  Every update is elementwise, so the `*_batched` kernels over the
+Counterpart of `bayesian_ode_tpu/samplers/hamiltonian.py`.  Every
+update is elementwise or per chain, so the `*_batched` kernels over the
 batch-potential contract (`sgld_batched`'s) are exactly the per-chain
 kernels with the chains stacked on a leading axis; the per-chain kernels
-(`asghmc`, `acsghmc`, `baoab`, `sgrhmc`) are the batched ones over a
-one-chain batch.  The step counter is a host integer: the burn-in and the
-noise phase are chosen on the host, and the noise is drawn once a step
-(the JAX package computes both burn-in branches and selects).
-`info["potential"]` is the potential before the step, as in the JAX
-package.
+(`hmc`, `adaptive_hmc`, `asghmc`, ...) are the batched ones over a
+one-chain batch.  The step counter is a host integer: the burn-in, the
+noise phase and the warmup's phases are chosen on the host, and the
+noise is drawn once a step (the JAX package computes both burn-in
+branches and selects).  The SG-HMC family's `info["potential"]` is the
+potential before the step, as in the JAX package.
+
+Exact HMC draws its momenta with `tree_random_normal`, its step-size
+jitter and its Metropolis uniform with `torch.rand`, in that order.  The
+warmup's dual-averaging state is float32 whatever the position's dtype,
+as in the JAX package (`_adaptive_init`), and every step size is cast
+into the leaf's dtype where it meets a leaf (`_bcast_step`).
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from ..utils.pytree import tree_map, tree_random_normal
+from ..utils.pytree import (
+    tree_map,
+    tree_random_normal,
+    tree_sum_squares_per_chain,
+)
 from . import schedules
 from .base import TransitionKernel, batch_value_and_grad
-from .langevin import _one_chain
+from .langevin import _one_chain, _where_per_chain
 
 
 class SGHMCState(NamedTuple):
@@ -270,3 +281,318 @@ def sgrhmc(potential_fn: Callable, step_size, friction: float = 0.1,
     """SGRHMC of one chain."""
     return _one_chain(sgrhmc_batched, potential_fn, step_size,
                       friction=friction, beta=beta, lambda_=lambda_)
+
+
+class HMCState(NamedTuple):
+    position: Any
+    potential: torch.Tensor    # (C,)
+    grad: Any
+    step: int
+
+
+def _bcast_step(eps, leaf):
+    """A scalar or per-chain (C,) step broadcast over a leaf's axes, in
+    the leaf's dtype (a float32 position under a float64 step stays
+    float32).  A Python scalar comes back as the Python value of its
+    rounding to the leaf's dtype."""
+    if not torch.is_tensor(eps):
+        return float(torch.tensor(eps, dtype=leaf.dtype))
+    eps = eps.to(device=leaf.device, dtype=leaf.dtype)
+    if eps.dim() == 0:
+        return eps
+    return eps.reshape(eps.shape + (1,) * (leaf.dim() - eps.dim()))
+
+
+def _hmc_proposal(vag, q0, u0, g0, generator, eps0, jitter, G,
+                  num_leapfrog):
+    """One jittered-leapfrog HMC proposal from (q0, u0, g0), for every
+    chain of the batch: `num_leapfrog` calls of `vag`, the batch
+    value-and-grad.
+
+    Returns (q, u, g, log_alpha) with log_alpha = H0 - H1, H = U + p^T G
+    p / 2 and p ~ N(0, G^-1).  `eps0` is a scalar or per chain (C,); with
+    `jitter` j each chain draws eps ~ U[1 - j, 1 + j] eps0."""
+    noise = tree_random_normal(generator, q0)
+    if jitter:
+        u = torch.rand(u0.shape, generator=generator, dtype=u0.dtype,
+                       device=u0.device)
+        eps = eps0 * (1.0 + jitter * (2.0 * u - 1.0))
+    else:
+        eps = eps0
+
+    def e(leaf):
+        return _bcast_step(eps, leaf)
+
+    p0 = tree_map(lambda n, G_: n / torch.sqrt(G_), noise, G)
+    kin0 = 0.5 * tree_sum_squares_per_chain(tree_map(
+        lambda p, G_: torch.sqrt(G_) * p, p0, G))
+
+    # leapfrog: half kick, (L - 1) x (drift + kick), drift, half kick
+    p = tree_map(lambda p_, g_: p_ - 0.5 * e(p_) * g_, p0, g0)
+    q = tree_map(lambda q_, G_, p_: q_ + e(q_) * G_ * p_, q0, G, p)
+    u, g = vag(q)
+    for _ in range(num_leapfrog - 1):
+        p = tree_map(lambda p_, g_: p_ - e(p_) * g_, p, g)
+        q = tree_map(lambda q_, G_, p_: q_ + e(q_) * G_ * p_, q, G, p)
+        u, g = vag(q)
+    p = tree_map(lambda p_, g_: p_ - 0.5 * e(p_) * g_, p, g)
+
+    kin1 = 0.5 * tree_sum_squares_per_chain(tree_map(
+        lambda p_, G_: torch.sqrt(G_) * p_, p, G))
+    return q, u, g, (u0 + kin0) - (u + kin1)
+
+
+def _metropolis(generator, log_alpha):
+    """The per-chain accept mask: isfinite(log_alpha) & log u < log_alpha."""
+    uniform = torch.rand(log_alpha.shape, generator=generator,
+                         dtype=log_alpha.dtype, device=log_alpha.device)
+    return torch.isfinite(log_alpha) & (torch.log(uniform) < log_alpha)
+
+
+def _make_hmc(potential_batch, step_size, num_leapfrog, precond, jitter):
+    """Exact Hamiltonian Monte Carlo (Neal 2011): a full momentum refresh
+    each step, `num_leapfrog` leapfrog steps (the initial gradient cached
+    in the state) and a Metropolis correction on the Hamiltonian error,
+    so no step-size bias at any (eps, L).
+
+    `precond`: an optional FIXED diagonal inverse-mass G (a tree
+    matching the position, leaves broadcastable): p ~ N(0, G^-1),
+    kinetic energy p^T G p / 2, drift q += eps G p.  `jitter` j draws
+    eps ~ U[(1 - j) eps0, (1 + j) eps0] per chain and proposal, against
+    periodic-orbit resonance; the step is symmetric within a proposal,
+    so exactness is kept."""
+    sched = schedules.resolve(step_size)
+    vag = batch_value_and_grad(potential_batch)
+
+    def init(position):
+        u, g = vag(position)
+        return HMCState(position, u, g, 0)
+
+    def step(generator, state):
+        eps0 = sched(state.step)
+        G = precond if precond is not None else tree_map(
+            torch.ones_like, state.position)
+        q, u, g, log_alpha = _hmc_proposal(
+            vag, state.position, state.potential, state.grad, generator,
+            eps0, jitter, G, num_leapfrog)
+        accept = _metropolis(generator, log_alpha)
+        new_state = HMCState(
+            position=_where_per_chain(accept, q, state.position),
+            potential=torch.where(accept, u, state.potential),
+            grad=_where_per_chain(accept, g, state.grad),
+            step=state.step + 1)
+        info = {"potential": new_state.potential, "accepted": accept,
+                "step_size": eps0}
+        return new_state, info
+
+    return TransitionKernel(init, step)
+
+
+def hmc_batched(potential_batch: Callable, step_size,
+                num_leapfrog: int = 10, precond: Optional[Any] = None,
+                jitter: float = 0.0) -> TransitionKernel:
+    """Exact HMC over the batch-potential contract (`sgld_batched`):
+    `num_leapfrog` forward and backward passes of the whole batch a
+    proposal; per-chain momenta, Hamiltonian errors, jittered step sizes
+    and accept masks.  See `_make_hmc`."""
+    return _make_hmc(potential_batch, step_size, num_leapfrog, precond,
+                     jitter)
+
+
+def hmc(potential_fn: Callable, step_size, num_leapfrog: int = 10,
+        precond: Optional[Any] = None, jitter: float = 0.0
+        ) -> TransitionKernel:
+    """Exact HMC of one chain: `hmc_batched` over a one-chain batch."""
+    return _one_chain(hmc_batched, potential_fn, step_size,
+                      num_leapfrog=num_leapfrog, precond=precond,
+                      jitter=jitter)
+
+
+class AdaptiveHMCState(NamedTuple):
+    position: Any
+    potential: torch.Tensor    # (C,)
+    grad: Any
+    step: int
+    log_eps: torch.Tensor      # (C,) float32: the dual-averaging iterate
+    log_eps_avg: torch.Tensor  # (C,) float32: its average (the frozen value)
+    h_avg: torch.Tensor        # (C,) float32: running (target - accept)
+    mu: torch.Tensor           # (C,) float32: the shrinkage anchor
+    mean: Any                  # Welford position mean (phase 1)
+    m2: Any                    # Welford sum of squared deviations
+    mass_g: Any                # the diagonal inverse mass G
+
+
+# Stan's dual-averaging constants
+GAMMA, T0, KAPPA = 0.05, 10.0, 0.75
+F32 = torch.float32
+
+
+def _step_of(log_eps):
+    """exp of a float32 log step size (one function, so that a test can
+    hold the port's float32 rounding to another library's)."""
+    return torch.exp(log_eps)
+
+
+def _adaptive_init(vag, eps0, init_mass=None):
+    """The initial AdaptiveHMCState shared by adaptive HMC and NUTS.
+
+    `init_mass`: an optional diagonal inverse mass (a tree broadcastable
+    against the position) for warmup phase 1 instead of the identity.  On
+    stiff posteriors (the GP-ODE one) identity-mass leapfrogs diverge or
+    drive NUTS to max-depth trees; seeding with the pSGLD warm-up metric
+    (`psgld_preconditioner`) makes phase 1 productive.  The A/2 switch
+    still replaces it with the measured variance when `adapt_mass` is on
+    (Stan's init-metric semantics)."""
+    def init(position):
+        u, g = vag(position)
+        log_eps = torch.full(u.shape, math.log(eps0), dtype=F32,
+                             device=u.device)
+        if init_mass is None:
+            mass_g = tree_map(torch.ones_like, position)
+        else:
+            mass_g = tree_map(
+                lambda m, x: torch.as_tensor(m, dtype=x.dtype,
+                                             device=x.device)
+                .expand(x.shape).clone(), init_mass, position)
+        return AdaptiveHMCState(
+            position=position, potential=u, grad=g, step=0,
+            log_eps=log_eps, log_eps_avg=log_eps.clone(),
+            h_avg=torch.zeros_like(log_eps), mu=log_eps + math.log(10.0),
+            mean=tree_map(torch.zeros_like, position),
+            m2=tree_map(torch.zeros_like, position), mass_g=mass_g)
+
+    return init
+
+
+def _f32(x) -> float:
+    """The Python value of x rounded to float32."""
+    return float(np.float32(x))
+
+
+def _warmup_advance(state, position, a_prob, num_adapt, target_accept,
+                    adapt_mass):
+    """One step of the two-phase warmup shared by `adaptive_hmc` and
+    `nuts.adaptive_nuts`: the dual-averaging update of the log step size
+    driven by this transition's accept statistic `a_prob` ((C,) in
+    [0, 1]: the MH accept probability for HMC, the trajectory's mean
+    alpha for NUTS; the caller maps non-finite proposals to 0), the
+    Welford position variance over phase 1, and the A/2 switch (freeze
+    the diagonal inverse mass at the regularized variance, restart dual
+    averaging around the averaged step).  Returns the new (log_eps,
+    log_eps_avg, h_avg, mu, mean, m2, mass_g).
+
+    The step counter is a host integer, so the phase, the restart index
+    t and the switch are chosen here; t's functions are float32 host
+    scalars, as the JAX package's float32 scalars."""
+    half = num_adapt // 2
+    step = state.step
+    log_eps, log_eps_avg, h_avg = state.log_eps, state.log_eps_avg, \
+        state.h_avg
+    if step < num_adapt:
+        # dual averaging on target - accept_prob (t restarts at A/2)
+        t = np.float32((step if step < half else step - half) + 1.0)
+        tt0 = np.float32(t + np.float32(T0))
+        a_prob = a_prob.to(F32)
+        h_avg = (_f32(np.float32(1.0) - np.float32(1.0) / tt0) * h_avg
+                 + (target_accept - a_prob) / float(tt0))
+        log_eps = state.mu - _f32(np.sqrt(t) / np.float32(GAMMA)) * h_avg
+        eta = np.float32(t ** np.float32(-KAPPA))
+        log_eps_avg = (float(eta) * log_eps
+                       + _f32(np.float32(1.0) - eta) * state.log_eps_avg)
+
+    mean, m2 = state.mean, state.m2
+    if step < half:
+        # Welford over the phase-1 positions
+        n = float(step + 1)
+        mean = tree_map(lambda m, x: m + (x - m) / n, state.mean, position)
+        m2 = tree_map(lambda s, m_old, m_new, x: s + (x - m_old) * (x - m_new),
+                      state.m2, state.mean, mean, position)
+
+    mass_g, mu = state.mass_g, state.mu
+    if step + 1 == half:
+        # the A/2 switch: freeze the mass, restart dual averaging
+        if adapt_mass and half > 1:
+            cnt = np.float32(half)
+            shrink = _f32(cnt / (cnt + np.float32(5.0)))
+            floor = _f32(np.float32(1e-3)
+                         * (np.float32(5.0) / (cnt + np.float32(5.0))))
+            mass_g = tree_map(lambda s: shrink * (s / float(cnt - 1.0))
+                              + floor, m2)
+        mu = log_eps_avg + math.log(10.0)
+        h_avg = torch.zeros_like(h_avg)
+        log_eps = log_eps_avg
+    return log_eps, log_eps_avg, h_avg, mu, mean, m2, mass_g
+
+
+def _make_adaptive_hmc(potential_batch, eps0, num_adapt, target_accept,
+                       num_leapfrog, jitter, adapt_mass, init_mass=None):
+    """HMC with Stan-style warmup: a dual-averaging step size (Hoffman &
+    Gelman 2014, section 3.2) and a Welford diagonal inverse mass, both
+    FROZEN after `num_adapt` steps, so the chain after warmup is exactly
+    reversible; draws taken before step `num_adapt` are warmup (set
+    burn_in >= num_adapt).
+
+    Over the warmup window A = num_adapt: steps [0, A/2) adapt eps under
+    the initial mass while accumulating each chain's position variance;
+    at A/2 G freezes at the regularized variance (Stan's n/(n + 5)
+    shrinkage toward 1e-3) and dual averaging restarts around the
+    current eps; steps [A/2, A) adapt eps under the final mass; at A, eps
+    freezes at exp(log_eps_avg).  Each chain adapts its own (eps, G)."""
+    vag = batch_value_and_grad(potential_batch)
+    init = _adaptive_init(vag, eps0, init_mass)
+
+    def step(generator, state):
+        eps = _step_of(state.log_eps if state.step < num_adapt
+                       else state.log_eps_avg)
+        q, u, g, log_alpha = _hmc_proposal(
+            vag, state.position, state.potential, state.grad, generator,
+            eps, jitter, state.mass_g, num_leapfrog)
+        accept = _metropolis(generator, log_alpha)
+        position = _where_per_chain(accept, q, state.position)
+        potential = torch.where(accept, u, state.potential)
+        grad = _where_per_chain(accept, g, state.grad)
+
+        finite = torch.isfinite(log_alpha)
+        a_prob = torch.where(
+            finite, torch.exp(torch.clamp(log_alpha, max=0.0)),
+            torch.zeros_like(log_alpha))
+        (log_eps, log_eps_avg, h_avg, mu, mean, m2, mass_g) = \
+            _warmup_advance(state, position, a_prob, num_adapt,
+                            target_accept, adapt_mass)
+        new_state = AdaptiveHMCState(
+            position=position, potential=potential, grad=grad,
+            step=state.step + 1, log_eps=log_eps, log_eps_avg=log_eps_avg,
+            h_avg=h_avg, mu=mu, mean=mean, m2=m2, mass_g=mass_g)
+        info = {"potential": potential, "accepted": accept,
+                "step_size": _step_of(log_eps_avg)}
+        return new_state, info
+
+    return TransitionKernel(init, step)
+
+
+def adaptive_hmc_batched(potential_batch: Callable, num_adapt: int,
+                         step_size: float = 0.1, target_accept: float = 0.8,
+                         num_leapfrog: int = 10, jitter: float = 0.2,
+                         adapt_mass: bool = True,
+                         init_mass: Optional[Any] = None
+                         ) -> TransitionKernel:
+    """Warmup-adaptive exact HMC over the batch-potential contract: every
+    chain adapts its own step size and diagonal inverse mass from its own
+    warmup history.  `init_mass` seeds the warmup metric (on the stiff GP
+    posterior pass `psgld_preconditioner` of a pSGLD warm-up state).  See
+    `_make_adaptive_hmc`."""
+    return _make_adaptive_hmc(potential_batch, step_size, num_adapt,
+                              target_accept, num_leapfrog, jitter,
+                              adapt_mass, init_mass=init_mass)
+
+
+def adaptive_hmc(potential_fn: Callable, num_adapt: int,
+                 step_size: float = 0.1, target_accept: float = 0.8,
+                 num_leapfrog: int = 10, jitter: float = 0.2,
+                 adapt_mass: bool = True,
+                 init_mass: Optional[Any] = None) -> TransitionKernel:
+    """Warmup-adaptive exact HMC of one chain."""
+    return _one_chain(adaptive_hmc_batched, potential_fn, num_adapt,
+                      step_size=step_size, target_accept=target_accept,
+                      num_leapfrog=num_leapfrog, jitter=jitter,
+                      adapt_mass=adapt_mass, init_mass=init_mass)

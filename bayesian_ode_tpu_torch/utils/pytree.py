@@ -5,8 +5,10 @@ samplers and the ODE solvers need, with `ravel_pytree` (jax.flatten_util's,
 which that module re-exports) for the particle ensembles of SVGD.  A
 "tree" here is a tensor, or a dict, list or tuple of trees: the GP
 model's {"U", "logsn"} dict, the MLP's layer list [{"w", "b"}, ...], the
-adjoint's augmented state (y, a_y, a_t, a_params).  Leaves are visited as `jax.tree` visits them: lists and
-tuples in order, dict keys sorted.
+adjoint's augmented state (y, a_y, a_t, a_params), a sampler's state (a
+NamedTuple, whose Python counters are leaves too).  Leaves are visited as
+`jax.tree` visits them: lists, tuples and NamedTuples in order, dict keys
+sorted; None is an empty subtree.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ Tree = Any
 
 
 def _children(tree):
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [tree[k] for k in sorted(tree)]
     if isinstance(tree, (list, tuple)):
@@ -26,12 +30,16 @@ def _children(tree):
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, x, *(r[i] for r in rest))
-                          for i, x in enumerate(tree))
+        kids = (tree_map(fn, x, *(r[i] for r in rest))
+                for i, x in enumerate(tree))
+        return type(tree)(*kids) if hasattr(tree, "_fields") \
+            else type(tree)(kids)
     return fn(tree, *rest)
 
 
@@ -83,11 +91,16 @@ def treedef_str(tree: Tree) -> str:
     """The structure of `tree` as `str(jax.tree.structure(tree))` prints it,
     e.g. "PyTreeDef([{'b': *, 'w': *}])"."""
     def rec(t):
+        if t is None:
+            return "None"
         if isinstance(t, dict):
             return "{" + ", ".join(f"{k!r}: {rec(t[k])}"
                                    for k in sorted(t)) + "}"
         if isinstance(t, list):
             return "[" + ", ".join(rec(x) for x in t) + "]"
+        if hasattr(t, "_fields"):
+            return (f"CustomNode(namedtuple[{type(t).__name__}], ["
+                    + ", ".join(rec(x) for x in t) + "])")
         if isinstance(t, tuple):
             inner = ", ".join(rec(x) for x in t)
             return "(" + inner + ("," if len(t) == 1 else "") + ")"

@@ -75,6 +75,17 @@ products against the dense BFGS oracle in float64 on the card (phase
 22); `run_optim` with L-BFGS (Armijo, 20 iterations) and Adam (50), the
 losses falling (phase 23).
 
+Then the exact and population samplers: HMC (L=10), AdaptiveHMC (L=8),
+NUTS and AdaptiveNUTS (max_depth 4), PT (4 rungs, inner MALA, 40,448
+rows) and Ensemble (10,240 walkers) through `run_sampler` at GP rk4, each
+with the K4/K5 launches its sampler implies (phase 24); AdaptiveNUTS and
+AdaptiveHMC on the main path under the JAX bench's protocol (a
+pSGLD-warmed start, init_mass from `psgld_preconditioner`, eps0 = 0.02),
+the worst accepted steps a step against store_steps, and a steady
+leapfrog beside a steady SGLD step (phase 25); a fused Ensemble run
+killed at its third checkpoint save and resumed, bit-equal to the
+uninterrupted run (phase 26).
+
 Exits non-zero on any failed phase, and when no CUDA device is available.
 Before the last two lines it prints its own seconds; the line before the
 last is a JSON object with each kernel's launches, error against its
@@ -1000,6 +1011,309 @@ def optim_path(cfg, data, dev):
             if c["method"] == "LBFGS":
                 check(bool(np.all(np.diff(losses) <= 0)),
                       "run_optim LBFGS: the trace never rises")
+
+
+# ---- the exact and population samplers, checkpoints (phases 24-26) ----
+# (method, burn-in, kept, extra config): the adaptive methods adapt over
+# their burn-in; NUTS's depth is capped at 4 (15 leapfrogs a draw):
+# identity-mass warmup maxes out every tree on this posterior
+# (bench.py:371-375), and the driver's default stays 10
+EXACT_RUNS = (
+    ("HMC", 1, 3, dict(lr=1e-3, num_leapfrog=10)),
+    ("AdaptiveHMC", 4, 3, dict(lr=1e-3, num_leapfrog=8)),
+    ("NUTS", 1, 3, dict(lr=1e-3, max_depth=4)),
+    ("AdaptiveNUTS", 4, 3, dict(lr=1e-3, max_depth=4)),
+    ("PT", 1, 3, dict(lr=1e-6, num_replicas=4, pt_inner="mala")),
+    ("Ensemble", 1, 3, dict()))
+EXACT_WARM = 200        # pSGLD warm-up steps of phase 25 (bench.py: 2,000)
+EXACT_EPS0 = 0.02       # the bench's eps0 under the pSGLD metric
+# AdaptiveHMC's record budget in phase 25: its 4-step warmup overshoots
+# (dual averaging from mu = log(10 eps0) takes eps to about 0.29 at the
+# second step) and L=8 leapfrogs past the energy blow-up take some chains
+# where a solve accepts about 4,000 steps (my chip run 2 of PR 17); NUTS
+# stops a tree at its first divergent leaf and stays within 128
+EXACT_HMC_STORE = 8192
+
+
+def recording_kernels(vg, samplers, infos, secs):
+    """The driver's kernel dispatch, each step's info appended to `infos`
+    (sample_chain keeps no burn-in info) and its synchronised host
+    seconds to `secs`."""
+    import torch
+
+    real = vg._make_kernel
+
+    def make(config, pot):
+        kern = real(config, pot)
+
+        def step(generator, state):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, info = kern.step(generator, state)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            infos.append(info)
+            return state, info
+
+        return samplers.TransitionKernel(kern.init, step)
+
+    return make
+
+
+def implied_launches(method, infos, extra):
+    """(forward, backward) launches a run implies: one value-and-gradient
+    at init, then L a step (HMC), the batch's leapfrogs a step (NUTS: the
+    most any chain took, since every shallower doubling ran in full for
+    the deepest chain), one a step (PT, over its K C rows), or, forward
+    only, one at init and two a step (Ensemble's half-sweeps)."""
+    n = len(infos)
+    if method == "Ensemble":
+        return 1 + 2 * n, 0
+    if method in ("HMC", "AdaptiveHMC"):
+        k = 1 + extra["num_leapfrog"] * n
+    elif method in ("NUTS", "AdaptiveNUTS"):
+        k = 1 + sum(int(i["n_leapfrog"].max()) for i in infos)
+    else:
+        k = 1 + n
+    return k, k
+
+
+def nuts_stats(infos):
+    import torch
+
+    n_leap = torch.stack([i["n_leapfrog"] for i in infos]).float()
+    acc = torch.stack([i["accept_prob"] for i in infos]).float()
+    return (f"mean n_leapfrog {float(n_leap.mean()):.3f} (batch "
+            f"{[int(i['n_leapfrog'].max()) for i in infos]}), mean "
+            f"accept_prob {float(acc.mean()):.4f}, diverging "
+            f"{int(sum(int(i['diverging'].sum()) for i in infos))}")
+
+
+def exact_rk4_path(cfg, data, dev):
+    """Phase 24: run_sampler(engine="fused", solver="rk4") with HMC (L=10),
+    AdaptiveHMC (L=8), NUTS and AdaptiveNUTS (max_depth 4), PT (4 rungs,
+    inner MALA: 40,448 rows) and Ensemble (10,240 walkers) on the GP
+    posterior at 10,112 chains: K4 and K5 launch as often as each sampler
+    implies (`implied_launches`), no other kernel; every potential is
+    finite."""
+    import numpy as np
+    import torch
+
+    from bayesian_ode_tpu_torch import samplers
+    from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
+    from bayesian_ode_tpu_torch.ops import _build
+
+    real = vg._make_kernel
+    with tempfile.TemporaryDirectory() as out:
+        for method, burn_in, samples, extra in EXACT_RUNS:
+            c = dict(cfg, method=method, solver="rk4", burn_in=burn_in,
+                     num_samples=samples, id=f"{method}_rk4", **extra)
+            infos, secs = [], []
+            vg._make_kernel = recording_kernels(vg, samplers, infos, secs)
+            try:
+                _build.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                summary = vg.run_sampler(c, data, out, make_plots=False,
+                                         device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                vg._make_kernel = real
+            delta = {k: v for k, v in _build.launch_counts.items() if v}
+            fwd, bwd = implied_launches(method, infos, extra)
+            want = {"gp_rk4_fwd": fwd, **({"gp_rk4_bwd": bwd} if bwd else {})}
+            pots = np.load(os.path.join(out, method, c["id"],
+                                        "total_loss_arr.npy"))
+            stats = (nuts_stats(infos) if "NUTS" in method else
+                     f"swap acceptance {summary['swap_acceptance']:.4f}"
+                     if method == "PT" else
+                     f"acceptance {summary['acceptance']:.4f}")
+            print(f"{method} GP rk4 (fused): {burn_in} + {samples} steps x "
+                  f"{summary['num_chains']} chains in {wall:.3f} s (set-up "
+                  f"included), ms a step {[round(t * 1e3, 3) for t in secs]}"
+                  f"; launches {delta}, implied {want}; {stats}; summary "
+                  f"{json.dumps(summary)}")
+            check(delta == want, f"{method} GP rk4: launches {want}")
+            check(pots.shape == (summary["num_chains"], samples)
+                  and bool(np.isfinite(pots).all()),
+                  f"{method} GP rk4: finite potentials")
+            check(summary["num_chains"] == (
+                -(-N_CHAINS // 256) * 256 if method == "Ensemble"
+                else N_CHAINS), f"{method}: chain count")
+
+
+def exact_main_path(cfg, data, dev, smi, L=8, depth=4):
+    """Phase 25: AdaptiveHMC (L=8) and AdaptiveNUTS (max_depth 4) on the
+    main path (GP dopri5, 10,112 chains) under the JAX bench's protocol
+    (bench.py:383-405): `EXACT_WARM` pSGLD steps at lr=1e-3 warm the
+    start, `psgld_preconditioner` of that state seeds init_mass, eps0 =
+    0.02; 4 warmup steps, 3 kept.  AdaptiveNUTS runs at the main path's
+    store_steps (128), AdaptiveHMC at `EXACT_HMC_STORE` (the main path's
+    budget does not hold it: the record check raises, as it should).  The
+    store_steps probe (K1) runs once at the warmed start; K2 and K3
+    launch as the sampler implies; the worst accepted-step count of each
+    step's recording forwards is printed against store_steps.  Then a
+    steady leapfrog (a frozen AdaptiveHMC step over L, at the adapted
+    step size) beside a steady SGLD step."""
+    import torch
+
+    from bayesian_ode_tpu_torch import samplers
+    from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
+    from bayesian_ode_tpu_torch.ops import _build
+    from bayesian_ode_tpu_torch.ops import fused_adaptive as fa
+    from bayesian_ode_tpu_torch.samplers import schedules
+
+    warm_steps, eps0 = EXACT_WARM, EXACT_EPS0
+    f32 = torch.float32
+    static, params0 = vg.build_model(cfg, data)
+    s32 = static._replace(Z=static.Z.to(dev, f32),
+                          KzzinvL=static.KzzinvL.to(dev, f32),
+                          Kzzinv=static.Kzzinv.to(dev, f32))
+    pot = vg._make_potential(cfg, data, s32, dev)
+    pos = vg._start_positions(cfg, params0, cfg["num_chains"], dev, f32)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    warm = samplers.psgld_batched(pot, 1e-3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ws = warm.init(pos)
+    for _ in range(warm_steps):
+        ws, _ = warm.step(gen, ws)
+    torch.cuda.synchronize()
+    G = samplers.psgld_preconditioner(ws)
+    pos = ws.position
+    check(bool(torch.isfinite(ws.potential).all()), "pSGLD warm-up finite")
+    print(f"phase 25 warm-up: {warm_steps} pSGLD steps in "
+          f"{time.perf_counter() - t0:.3f} s, potential median "
+          f"{float(ws.potential.median()):.3f}; metric G median "
+          f"{float(G['U'].median()):.3e}")
+    burn_in, kept = 4, 3
+    hmc_cfg = dict(cfg, store_steps=EXACT_HMC_STORE)
+    kernels = (
+        ("AdaptiveNUTS", cfg, samplers.adaptive_nuts_batched(
+            pot, num_adapt=burn_in, step_size=eps0, max_depth=depth,
+            target_accept=0.8, init_mass=G), {}),
+        ("AdaptiveHMC", hmc_cfg, samplers.adaptive_hmc_batched(
+            vg._make_potential(hmc_cfg, data, s32, dev), num_adapt=burn_in,
+            step_size=eps0, num_leapfrog=L, target_accept=0.8, jitter=0.2,
+            init_mass=G), {"num_leapfrog": L}))
+    for method, c, kern, extra in kernels:
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vg._probe_store_steps(c, s32, pos, data, dev)
+        state = kern.init(pos)
+        infos, worst, secs = [], [], []
+        for _ in range(burn_in + kept):
+            fa.record_high_water["steps"] = 0
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, info = kern.step(gen, state)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            infos.append(info)
+            worst.append(fa.record_high_water["steps"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        delta = {k: v for k, v in _build.launch_counts.items() if v}
+        k = implied_launches(method, infos, extra)[0]
+        want = {"gp_dopri5_solve_whole": 1, "gp_dopri5_fwd_record": k,
+                "gp_dopri5_bwd": k}
+        pots = torch.stack([i["potential"] for i in infos])
+        steps = torch.stack([i["step_size"] for i in infos])
+        stats = nuts_stats(infos) if "NUTS" in method else (
+            "acceptance " + format(float(torch.stack(
+                [i["accepted"] for i in infos]).float().mean()), ".4f"))
+        print(f"{method} GP dopri5 (eps0 {eps0}): {burn_in} + {kept} "
+              f"steps x {cfg['num_chains']} chains in {wall:.3f} s, ms a "
+              f"step {[round(t * 1e3, 3) for t in secs]}; "
+              f"launches {delta}, implied {want}; worst accepted steps a "
+              f"step {worst} of store_steps {c['store_steps']} (the main "
+              f"path's: {cfg['store_steps']}); {stats}; step size median by "
+              f"step {[round(float(s.median()), 5) for s in steps]}; "
+              f"potential median {float(pots[-1].median()):.3f}")
+        check(delta == want, f"{method} GP dopri5: launches {want}")
+        check(bool(torch.isfinite(pots).all()),
+              f"{method} GP dopri5: finite potentials")
+    # a steady leapfrog: frozen AdaptiveHMC steps (past the warmup) over L
+    for _ in range(2):
+        state, _ = kern.step(gen, state)
+    fa.record_high_water["steps"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, _ = kern.step(gen, state)
+    torch.cuda.synchronize()
+    leap = (time.perf_counter() - t0) / 3 * 1e3 / L
+    sgld, _ = steady_ms(samplers.sgld_batched(
+        pot, schedules.polynomial_decay(lr0=cfg["lr0"], gamma=0.55,
+                                        t0=100)), pos, dev)
+    print(f"GP dopri5 steady: a leapfrog {leap:.3f} ms (AdaptiveHMC, 3 "
+          f"frozen steps of L={L} at step size median "
+          f"{float(state.log_eps_avg.exp().median()):.5f}, worst accepted "
+          f"steps {fa.record_high_water['steps']}), an SGLD step "
+          f"{sgld:.3f} ms ({smi})")
+
+
+class SimulatedKill(Exception):
+    """Raised by phase 26's dying checkpoint save."""
+
+
+def checkpoint_path(cfg, data, dev):
+    """Phase 26: a fused Ensemble run (GP rk4, 10,240 walkers, 1 + 7
+    steps) with ckpt_every=2, uninterrupted; the same run killed at its
+    third checkpoint save and resumed with resume=True: the resumed
+    chain, potentials and summary equal the uninterrupted run's bit for
+    bit."""
+    import numpy as np
+    import torch
+
+    from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
+    from bayesian_ode_tpu_torch.utils import checkpoint
+
+    c = dict(cfg, method="Ensemble", solver="rk4", burn_in=1, num_samples=7,
+             ckpt_every=2, id="ckpt")
+    real = checkpoint.save_pytree
+    calls = [0]
+
+    def dying_save(path, tree):
+        calls[0] += 1
+        if calls[0] >= 3:
+            raise SimulatedKill("the third checkpoint save")
+        real(path, tree)
+
+    with tempfile.TemporaryDirectory() as out:
+        a, b = os.path.join(out, "a"), os.path.join(out, "b")
+        t0 = time.perf_counter()
+        want = vg.run_sampler(c, data, a, make_plots=False, device=dev)
+        checkpoint.save_pytree = dying_save
+        try:
+            vg.run_sampler(c, data, b, make_plots=False, device=dev)
+            killed = False
+        except SimulatedKill:
+            killed = True
+        finally:
+            checkpoint.save_pytree = real
+        got = vg.run_sampler(dict(c, resume=True), data, b,
+                             make_plots=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        chain_a = np.load(os.path.join(a, "Ensemble", "ckpt", "chain.npz"))
+        chain_b = np.load(os.path.join(b, "Ensemble", "ckpt", "chain.npz"))
+        same = (sorted(chain_a.files) == sorted(chain_b.files) and all(
+            np.array_equal(chain_a[k], chain_b[k]) for k in chain_a.files))
+        pots_same = np.array_equal(
+            *(np.load(os.path.join(d, "Ensemble", "ckpt",
+                                   "total_loss_arr.npy")) for d in (a, b)))
+        shape = chain_a["leaf_0"].shape
+    print(f"Ensemble checkpointed (fused GP rk4, {want['num_chains']} "
+          f"walkers, ckpt_every 2, 1 + 7 steps): killed at the third save "
+          f"{killed}; resumed chain {shape} bit-equal {same}, potentials "
+          f"bit-equal {pots_same}, summary equal {got == want}; three runs "
+          f"in {wall:.3f} s")
+    check(killed, "phase 26: the run died at its third save")
+    check(same and pots_same and got == want,
+          "phase 26: the resumed chain equals the uninterrupted one")
 
 
 def main() -> int:
@@ -2018,6 +2332,13 @@ def main() -> int:
     hamcmc_path(cfg, data, dev, smi)
     optim_path(cfg, data, dev)
     print(f"phases 21-23: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phases 24-26: the exact samplers and checkpointed runs ----
+    t0 = time.perf_counter()
+    exact_rk4_path(cfg, data, dev)
+    exact_main_path(cfg, data, dev, smi)
+    checkpoint_path(cfg, data, dev)
+    print(f"phases 24-26: {time.perf_counter() - t0:.1f} s")
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start "
           f"to the kernels line, build included ({smi})")

@@ -1,0 +1,12 @@
+"""AdaptiveHMC (GP rk4: HMC's proposal and the warmup) through the
+port's driver on the fused engine against the JAX driver's, in float32 on
+the CPU (see `exact_fused.py` for the set-up and the gates)."""
+import pytest
+
+from exact_fused import check_fused_method
+
+
+@pytest.mark.parametrize("method,solver", [("AdaptiveHMC", "rk4")])
+def test_fused_driver_matches_the_jax_fused_driver(method, solver, tmp_path,
+                                                   monkeypatch):
+    check_fused_method(method, solver, tmp_path, monkeypatch)

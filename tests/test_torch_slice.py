@@ -151,9 +151,9 @@ def test_run_sampler_psgld_and_unported_options(problem, tmp_path):
     summary = run_sampler(cfg, data, str(tmp_path), make_plots=False,
                           device="cpu")
     assert np.isfinite(summary["min_potential"])
-    for bad in ({"engine": "generic", "method": "HMC"},
+    for bad in ({"engine": "generic", "method": "SMC"},
                 {"engine": "generic", "solver": "adams"},
-                {"method": "NUTS"}, {"method": "SVGD", "ckpt_every": 1}):
+                {"method": "MMALA"}, {"method": "SMC", "ckpt_every": 1}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_sampler(dict(cfg, **bad), data, str(tmp_path),
                         make_plots=False, device="cpu")
