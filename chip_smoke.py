@@ -1030,7 +1030,7 @@ EXACT_EPS0 = 0.02       # the bench's eps0 under the pSGLD metric
 # AdaptiveHMC's record budget in phase 25: its 4-step warmup overshoots
 # (dual averaging from mu = log(10 eps0) takes eps to about 0.29 at the
 # second step) and L=8 leapfrogs past the energy blow-up take some chains
-# where a solve accepts about 4,000 steps (my chip run 2 of PR 17); NUTS
+# where a solve accepts about 4,000 steps (measured on one H100); NUTS
 # stops a tree at its first divergent leaf and stays within 128
 EXACT_HMC_STORE = 8192
 
