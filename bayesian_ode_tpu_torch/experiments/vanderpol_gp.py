@@ -35,17 +35,34 @@ kept samples, each followed by an atomic checkpoint of the sampler state
 and the samples so far (`_sample_chain_checkpointed`); config["resume"]
 continues an interrupted run from it, to the same chain bit for bit.
 
+method="SMC" (model="gp" only) runs adaptive tempered SMC from prior
+draws on the normalized log-density split
+(`kernel_regression.make_log_density_parts`) over the generic engine's
+solve: the particles double as chains with one kept sample each, and
+log Z lands in the summary.
+
 `run_optim` (inf_type="optim") fits the MAP by L-BFGS or one of the
 optax optimizers of the JAX driver, on the generic potential of one
-chain.
+chain.  `run_vi` (inf_type="vi") fits ADVI (mean-field or full-rank) or
+the Laplace approximation on the generic batch potential and keeps
+draws from it; `run_evidence` (inf_type="evidence") estimates the GP
+model's log Z by TI and stepping stone, SMC, generalized stepping stone
+and Laplace (float64 on the run's device), with WAIC and PSIS-LOO from
+the SMC particles.
 
 Every chain advances in one batch per sampler step.  The entry points run
 on the card unless the caller passes device="cpu".  The artifact layout
 follows the JAX driver: {output}/{method}/{id}{dir_name}/ with
 config.json, run.jsonl (summary), chain.npz (map_params.npz for
-run_optim) and total_loss_arr.npy.
-Every other method (SMC, MMALA), solver or option raises
-NotImplementedError naming the ROADMAP item that ports it.
+run_optim) and total_loss_arr.npy (run_vi: variational.npz, and
+elbo_arr.npy for ADVI; run_evidence: evidence.json and no
+total_loss_arr.npy).
+method="MMALA" raises the TypeError the JAX driver hits (its metric's
+forward-mode Hessian cannot pass the adjoint's custom_vjp), and Laplace,
+whose Hessian differentiates the adjoint's backward solve, raises
+ValueError at the adaptive solvers, as in the JAX driver.  Unported
+solvers and options raise NotImplementedError naming the ROADMAP item
+that ports them.
 """
 from __future__ import annotations
 
@@ -87,6 +104,14 @@ def _out_dir(output: str, config: Dict) -> str:
                      str(config.get("id", 0)) + config.get("dir_name", ""))
     os.makedirs(d, exist_ok=True)
     return d
+
+
+def _write_config(output: str, config: Dict) -> str:
+    """The run's directory, with config.json written into it."""
+    out_dir = _out_dir(output, config)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(config, f, indent=2, default=str)
+    return out_dir
 
 
 def _as64(x) -> torch.Tensor:
@@ -140,9 +165,7 @@ EXACT_METHODS = ("HMC", "AdaptiveHMC", "NUTS", "AdaptiveNUTS", "PT",
 GENERIC_METHODS = ("SGLD", "pSGLD", "aSGLD", "cSGLD", "MALA", "AdamSGLD",
                    "aSGHMC", "acSGHMC", "SGRHMC", "BAOAB") + EXACT_METHODS
 GENERIC_SOLVERS = ("dopri5", "tsit5", "rk4", "euler", "midpoint")
-# the JAX driver's other methods, by the ROADMAP queue 1 item that ports
-# them
-UNPORTED_METHODS = {"SMC": 14, "MMALA": 14}
+ADAPTIVE_SOLVERS = ("dopri5", "tsit5")
 MODELS = ("gp", "nn", "spiral", "fhn")
 # the fused engine's record budget per model at dopri5: the JAX driver's
 # defaults (its MLP steps grow as chains move toward data-fitting fields)
@@ -166,21 +189,49 @@ def _check_model(config: Dict, make_plots: bool) -> None:
                          "'spiral' or 'fhn'")
 
 
+def _check_solver(config: Dict) -> None:
+    solver = config.get("solver", "rk4")
+    if solver not in GENERIC_SOLVERS:
+        _check_method(solver)              # item 16, or unknown
+
+
+def _check_second_order(config: Dict, what: str) -> None:
+    """The Laplace Hessian differentiates the continuous adjoint's backward
+    solve, which an adaptive solver's loop does not allow (ode/adjoint.py;
+    the JAX driver's jacrev of grad raises there)."""
+    solver = config.get("solver", "rk4")
+    if solver in ADAPTIVE_SOLVERS:
+        raise ValueError(
+            f"{what} needs a fixed-grid solver (got solver={solver!r}): its "
+            "Hessian differentiates the adjoint's backward solve, and the "
+            "JAX driver's jacrev of grad raises 'Reverse-mode "
+            "differentiation does not work for lax.while_loop' there")
+
+
 def _check_supported(config: Dict, make_plots: bool) -> None:
     _check_model(config, make_plots)
     model = config.get("model", "gp")
     method = config["method"]
-    if method in UNPORTED_METHODS:
-        raise NotImplementedError(
-            f"method {method!r} is not ported (ROADMAP queue 1 item "
-            f"{UNPORTED_METHODS[method]})")
+    if method == "MMALA":
+        raise TypeError(
+            "method 'MMALA' does not run in the JAX driver either: its "
+            "metric's jax.hessian is jacfwd of jacrev and raises \"can't "
+            "apply forward-mode autodiff (jvp) to a custom_vjp function\" "
+            "on the adjoint's custom_vjp; samplers.mmala_batched runs on "
+            "potentials with a reverse-over-reverse Hessian")
+    if method == "SMC":
+        if model != "gp":
+            raise ValueError("method='SMC' supports the GP model (the "
+                             "NN-architecture fields have no normalized "
+                             "log-density split)")
+        _check_solver(config)
+        return
     if (method != "SVGD" and method not in GENERIC_METHODS
             and not method.startswith("HAMCMC")):
         raise ValueError(f"unknown sampler method {method!r}")
     solver = config.get("solver", "rk4")
     if not is_fused(config):
-        if solver not in GENERIC_SOLVERS:
-            _check_method(solver)          # item 16, or unknown
+        _check_solver(config)
         return
     if solver not in ("dopri5", "rk4"):
         raise ValueError(
@@ -327,7 +378,7 @@ def _make_solve(config: Dict):
     Adaptive solvers take config rtol/atol (defaults 1e-7/1e-9), the
     others the adjoint's defaults, as in the JAX driver."""
     solver = config.get("solver", "rk4")
-    adaptive = solver in ("dopri5", "tsit5")
+    adaptive = solver in ADAPTIVE_SOLVERS
     tol = ({"rtol": config.get("rtol", 1e-7),
             "atol": config.get("atol", 1e-9)} if adaptive else {})
 
@@ -358,11 +409,7 @@ def make_generic_potential(config: Dict, data: Dict, static, device,
     Y = _as64(data["Y"]).to(device=device, dtype=dtype)
     reg = config.get("reg", 0.5)
     if model == "gp":
-        static = kr.GPVectorFieldStatic(
-            Z=static.Z.to(device=device, dtype=dtype),
-            KzzinvL=static.KzzinvL.to(device=device, dtype=dtype),
-            Kzzinv=static.Kzzinv.to(device=device, dtype=dtype),
-            sf=static.sf, ell=static.ell)
+        static = _static_on(static, device, dtype)
 
         def field_params(params):
             return torch.matmul(static.KzzinvL, params["U"])
@@ -408,6 +455,32 @@ def make_generic_potential(config: Dict, data: Dict, static, device,
     return potential_batch
 
 
+def _static_on(static, device, dtype):
+    """The GP static quantities in `dtype` on `device`."""
+    return kr.GPVectorFieldStatic(
+        Z=static.Z.to(device=device, dtype=dtype),
+        KzzinvL=static.KzzinvL.to(device=device, dtype=dtype),
+        Kzzinv=static.Kzzinv.to(device=device, dtype=dtype),
+        sf=static.sf, ell=static.ell)
+
+
+def make_gp_log_density_parts(config: Dict, data: Dict, static, device,
+                              dtype=torch.float32):
+    """The GP model's normalized log-density split on the generic engine's
+    solve (config solver, rtol, atol), in `dtype` on `device`, with the
+    config's logsn prior (logsn_mu, default log(noise); logsn_sd, default
+    1) as the JAX driver builds it for SMC and the evidence."""
+    solve, adaptive = _make_solve(config)
+    if adaptive and torch.device(device).type == "cuda":
+        full_f32_matmul()
+    return kr.make_log_density_parts(
+        _static_on(static, device, dtype), _as64(data["x0"]),
+        _as64(data["t"]), _as64(data["Y"]), solve,
+        logsn_mu=config.get("logsn_mu"),
+        logsn_sd=config.get("logsn_sd", 1.0),
+        noise=float(config.get("noise", data["noise"])))
+
+
 def _start_positions(config: Dict, params0, n_chains: int, device, dtype):
     """params0 broadcast over the chains plus N(0, jitter^2) per leaf from
     a generator seeded with config["seed"]."""
@@ -429,11 +502,7 @@ def _run_fused(config, data, static, params0, device, out_dir):
     n_chains = ((n_chains + mult - 1) // mult) * mult
     f32 = torch.float32
     if static is not None:
-        static = kr.GPVectorFieldStatic(
-            Z=static.Z.to(device=device, dtype=f32),
-            KzzinvL=static.KzzinvL.to(device=device, dtype=f32),
-            Kzzinv=static.Kzzinv.to(device=device, dtype=f32),
-            sf=static.sf, ell=static.ell)
+        static = _static_on(static, device, f32)
     kernel = _make_kernel(config,
                           _make_potential(config, data, static, device))
     pos0 = _start_positions(config, params0, n_chains, device, f32)
@@ -465,10 +534,11 @@ def _sample(config, kernel, pos0, device, out_dir):
     return positions, infos
 
 
-def _segment_generator(seed: int, segment: int, device) -> torch.Generator:
-    """The generator of one checkpoint segment, seeded from (seed,
-    segment) as the JAX driver folds the segment index into its key."""
-    words = np.random.SeedSequence([seed, segment]).generate_state(2)
+def _seeded_generator(seed: int, stream: int, device) -> torch.Generator:
+    """The generator of stream `stream` of `seed` (a checkpoint segment, or
+    one of run_vi's and run_evidence's streams), seeded from (seed,
+    stream) as the JAX driver folds an index into its key or splits it."""
+    words = np.random.SeedSequence([seed, stream]).generate_state(2)
     return torch.Generator(device=device).manual_seed(
         int(words[0]) << 32 | int(words[1]))
 
@@ -479,7 +549,7 @@ def _sample_chain_checkpointed(kernel, state, seed, device, total, burn_in,
     `ckpt_every` kept samples (the JAX driver's elastic resume of long
     chains).
 
-    Segment i draws from `_segment_generator(seed, i)`, burn-in runs in
+    Segment i draws from `_seeded_generator(seed, i)`, burn-in runs in
     segment 0 only, and the checkpoint, written atomically after each
     segment, holds the sampler state, the next segment's index and the
     positions and infos so far.  A run killed mid-chain and resumed with
@@ -492,7 +562,7 @@ def _sample_chain_checkpointed(kernel, state, seed, device, total, burn_in,
     if resume and os.path.exists(ckpt_path):
         # the template's structure: one kept sample's
         _, pos_t, info_t = samplers.sample_chain(
-            kernel, state, _segment_generator(seed, 0, device), 1, 0, thin)
+            kernel, state, _seeded_generator(seed, 0, device), 1, 0, thin)
         blob = checkpoint.load_pytree(ckpt_path, {
             "state": state, "next_seg": 0, "positions": pos_t,
             "infos": info_t})
@@ -506,7 +576,7 @@ def _sample_chain_checkpointed(kernel, state, seed, device, total, burn_in,
         if i < start:
             continue
         state, pos_i, info_i = samplers.sample_chain(
-            kernel, state, _segment_generator(seed, i, device), n,
+            kernel, state, _seeded_generator(seed, i, device), n,
             burn_in if i == 0 else 0, thin)
         positions = pos_i if positions is None else cat(positions, pos_i)
         infos = info_i if infos is None else cat(infos, info_i)
@@ -553,6 +623,31 @@ def _run_svgd(config, data, static, params0, device, dtype, out_dir):
     return positions, infos, n
 
 
+def _run_smc(config, data, static, device, dtype):
+    """Adaptive tempered SMC from prior draws (the JAX driver's SMC branch):
+    the particles double as chains, recorded as one kept sample each; the
+    potential is the normalized -(log_lik + log_prior); log Z rides in the
+    infos.  Prior draws come from a generator seeded config["seed"], the
+    SMC run from seed + 1."""
+    n = config.get("num_chains", 64)
+    parts = make_gp_log_density_parts(config, data, static, device, dtype)
+    seed = config.get("seed", 0)
+    particles0 = parts.sample_prior(
+        torch.Generator(device=device).manual_seed(seed), n)
+    res = samplers.smc(
+        torch.Generator(device=device).manual_seed(seed + 1), parts.log_lik,
+        parts.log_prior, particles0,
+        num_moves=config.get("smc_moves", 5),
+        target_ess=config.get("smc_target_ess", 0.5),
+        max_stages=config.get("smc_max_stages", 100))
+    with torch.no_grad():
+        pots = -(res.log_lik + parts.log_prior(res.particles))
+    infos = {"potential": pots[None], "accepted": torch.ones((1, n),
+                                                             dtype=torch.bool),
+             "log_z": res.log_z}
+    return tree_map(lambda x: x[None], res.particles), infos, n
+
+
 def run_sampler(config: Dict, data: Dict, output: str,
                 make_plots: bool = True, device="cuda",
                 dtype=torch.float32) -> Dict[str, Any]:
@@ -563,9 +658,7 @@ def run_sampler(config: Dict, data: Dict, output: str,
     package runs under x64) with the chain count as given.  Returns the
     summary dict (also logged to run.jsonl)."""
     _check_supported(config, make_plots)
-    out_dir = _out_dir(output, config)
-    with open(os.path.join(out_dir, "config.json"), "w") as f:
-        json.dump(config, f, indent=2, default=str)
+    out_dir = _write_config(output, config)
 
     static, params0 = build_model(config, data)
     if is_fused(config):
@@ -575,6 +668,9 @@ def run_sampler(config: Dict, data: Dict, output: str,
         positions, infos, n_chains = _run_svgd(config, data, static,
                                                params0, device, dtype,
                                                out_dir)
+    elif config["method"] == "SMC":
+        positions, infos, n_chains = _run_smc(config, data, static, device,
+                                              dtype)
     else:
         positions, infos, n_chains = _run_generic(config, data, static,
                                                   params0, device, dtype,
@@ -596,6 +692,8 @@ def run_sampler(config: Dict, data: Dict, output: str,
         rhat_logsn = [float(samplers.split_rhat(diag[:, :, d]))
                       for d in range(diag.shape[-1])]
     else:
+        # population methods (SMC) keep one sample a particle: chain
+        # autocorrelation diagnostics are undefined there
         ess_logsn = rhat_logsn = [float("nan")] * diag.shape[-1]
     summary = {
         "event": "summary", "method": config["method"],
@@ -608,6 +706,8 @@ def run_sampler(config: Dict, data: Dict, output: str,
     if "swap_accepted" in infos:
         summary["swap_acceptance"] = float(
             infos["swap_accepted"].float().mean())
+    if "log_z" in infos:
+        summary["log_z_smc"] = float(infos["log_z"])
     with RunLogger(os.path.join(out_dir, "run.jsonl")) as logger:
         logger.log(summary)
     save_pytree(os.path.join(out_dir, "chain.npz"), positions)
@@ -690,11 +790,8 @@ def run_optim(config: Dict, data: Dict, output: str, make_plots: bool = True,
     total_loss_arr.npy, map_params.npz and the run.jsonl summary; returns
     {"final_loss", "best_loss"}."""
     _check_model(config, make_plots)
-    if config.get("solver", "rk4") not in GENERIC_SOLVERS:
-        _check_method(config.get("solver", "rk4"))  # item 16, or unknown
-    out_dir = _out_dir(output, config)
-    with open(os.path.join(out_dir, "config.json"), "w") as f:
-        json.dump(config, f, indent=2, default=str)
+    _check_solver(config)
+    out_dir = _write_config(output, config)
 
     static, params0 = build_model(config, data)
     pot_batch = make_generic_potential(config, data, static, device, dtype)
@@ -721,17 +818,223 @@ def run_optim(config: Dict, data: Dict, output: str, make_plots: bool = True,
     return result
 
 
+def run_vi(config: Dict, data: Dict, output: str, make_plots: bool = True,
+           device="cuda", dtype=torch.float32) -> Dict[str, Any]:
+    """Posterior approximation without MCMC (the JAX driver's `run_vi`) on
+    the generic batch potential, in `dtype` on `device`: method "ADVI"
+    (config vi_family "meanfield" or "fullrank", num_iters steps of
+    elbo_samples draws, lr, init_scale, stl) or "Laplace" (L-BFGS for
+    num_iters iterations at lr, then the Hessian at the mode; fixed-grid
+    solvers only).  The fit and the draws take separate generators, seeded
+    from (seed, 0) and (seed, 1), as the JAX driver splits its key.
+    `chain.npz` holds num_samples draws as chains with one sample each;
+    variational.npz the fit; returns the run.jsonl summary."""
+    _check_model(config, make_plots)
+    _check_solver(config)
+    method = config["method"]
+    if method not in ("ADVI", "Laplace"):
+        raise ValueError(f"unknown vi method {method!r}; "
+                         "expected 'ADVI' or 'Laplace'")
+    if method == "Laplace":
+        _check_second_order(config, "method='Laplace'")
+    out_dir = _write_config(output, config)
+
+    static, params0 = build_model(config, data)
+    pot_batch = make_generic_potential(config, data, static, device, dtype)
+    x0 = tree_map(lambda x: x.to(device=device, dtype=dtype), params0)
+    n_draws = config.get("num_samples", 1000)
+    seed = config.get("seed", 0)
+    fit_gen = _seeded_generator(seed, 0, device)
+    draw_gen = _seeded_generator(seed, 1, device)
+    if method == "ADVI":
+        res = samplers.fit_advi(
+            fit_gen, None, x0, num_steps=config.get("num_iters", 2000),
+            sample_size=config.get("elbo_samples", 8),
+            family=config.get("vi_family", "meanfield"),
+            learning_rate=config.get("lr", 1e-2),
+            init_scale=config.get("init_scale", 0.1),
+            stl=bool(config.get("stl", False)), potential_batch=pot_batch)
+        draws = samplers.sample_advi(res, draw_gen, n_draws)
+        np.save(os.path.join(out_dir, "elbo_arr.npy"),
+                res.elbo_trace.cpu().numpy())
+        save_pytree(os.path.join(out_dir, "variational.npz"),
+                    {"mu": res.mu, "scale_tril": res.scale_tril})
+        fit_scalar = {"final_elbo": float(res.final_elbo)}
+    else:
+        res = samplers.laplace_approximation(
+            pot_batch, x0, max_iters=config.get("num_iters", 200),
+            lr=config.get("lr", 1.0))
+        draws = samplers.sample_laplace(res, draw_gen, n_draws)
+        save_pytree(os.path.join(out_dir, "variational.npz"),
+                    {"mu": res.mu, "prec_chol": res.prec_chol})
+        fit_scalar = {"log_evidence": float(res.log_evidence),
+                      "potential_at_mode": float(res.potential_at_mode),
+                      "hessian_pd": bool(res.hessian_pd)}
+
+    # draws as chains: (n_draws, ...) -> (chains, samples=1, ...)
+    positions = tree_map(lambda x: x[:, None], draws)
+    with torch.no_grad():
+        pots = pot_batch(draws)[:, None].cpu().numpy()
+    summary = {"event": "summary", "method": method, "num_draws": n_draws,
+               "min_potential": float(pots.min()),
+               "median_potential": float(np.median(pots)), **fit_scalar}
+    with RunLogger(os.path.join(out_dir, "run.jsonl")) as logger:
+        logger.log(summary)
+    save_pytree(os.path.join(out_dir, "chain.npz"), positions)
+    np.save(os.path.join(out_dir, "total_loss_arr.npy"), pots)
+    return summary
+
+
+def _tolist(x):
+    return x.detach().cpu().tolist()
+
+
+def run_evidence(config: Dict, data: Dict, output: str,
+                 make_plots: bool = True, device="cuda",
+                 dtype=torch.float32) -> Dict[str, Any]:
+    """Bayesian model comparison on the GP-ODE posterior (the JAX driver's
+    `run_evidence`; config model is not read, as there): log Z of the
+    normalized log-density split (`make_gp_log_density_parts`) by
+
+      1. TI and stepping stone over a power ladder (`log_evidence`:
+         num_rungs x num_chains rows from params0 jittered by `jitter`
+         0.05, burn_in warm-up steps adapting each rung's MALA step from
+         lr, then num_samples at thinning);
+      2. `smc_repeats` SMC runs of smc_particles prior draws (their mean
+         log Z, the repeats' spread as its SE);
+      3. generalized stepping stone from the last SMC population;
+      4. Laplace from the best SMC particle, in float64 on the run's own
+         device (laplace_iters, laplace_lr), with the static quantities
+         rebuilt in float64 (fixed-grid solvers only);
+      5. WAIC and PSIS-LOO from that population's pointwise log-liks;
+      6. `evidence_reliability`'s flags and rank_by.
+
+    The rest runs in `dtype` on `device`.  Each stage draws from its own
+    generator, seeded from (seed, stream).  Writes evidence.json (every
+    estimate, SE and diagnostic), config.json, run.jsonl (the summary)
+    and chain.npz (the SMC particles, one sample each); returns the
+    summary."""
+    _check_solver(config)
+    _check_second_order(config, "inf_type='evidence' (its Laplace stage)")
+    out_dir = _write_config(output, config)
+    seed = config.get("seed", 0)
+    static, params0 = build_model(dict(config, model="gp"), data)
+    parts = make_gp_log_density_parts(config, data, static, device, dtype)
+    gens = {name: _seeded_generator(seed, i, device) for i, name in
+            enumerate(("init", "ladder", "gss"))}
+
+    # --- TI + stepping stone over the power ladder
+    C = config.get("num_chains", 32)
+    jitter = config.get("jitter", 0.05)
+    pos0 = tree_map(
+        lambda x: x.to(device=device, dtype=dtype)[None] + jitter
+        * torch.randn((C,) + tuple(x.shape), generator=gens["init"],
+                      device=device, dtype=dtype), params0)
+    ladder = dict(num_rungs=config.get("num_rungs", 16),
+                  step_size=config.get("lr", 1e-3),
+                  num_warmup=config.get("burn_in", 500),
+                  num_samples=config.get("num_samples", 1000),
+                  thin=config.get("thinning", 1), adapt_step=True)
+    res = samplers.log_evidence(gens["ladder"], parts.log_lik,
+                                parts.log_prior, pos0, **ladder)
+
+    # --- adaptive tempered SMC: an independent estimate and the draws
+    n_particles = config.get("smc_particles", 1024)
+    n_repeats = config.get("smc_repeats", 2)
+    smc_logz, smc_res = [], None
+    for r in range(n_repeats):
+        particles0 = parts.sample_prior(
+            _seeded_generator(seed, 100 + r, device), n_particles)
+        smc_res = samplers.smc(
+            _seeded_generator(seed, 200 + r, device), parts.log_lik,
+            parts.log_prior, particles0,
+            num_moves=config.get("smc_moves", 5),
+            target_ess=config.get("smc_target_ess", 0.5),
+            max_stages=config.get("smc_max_stages", 100))
+        smc_logz.append(float(smc_res.log_z))
+    smc_mean = float(np.mean(smc_logz))
+    smc_se = (float(np.std(smc_logz, ddof=1) / np.sqrt(n_repeats))
+              if n_repeats > 1 else float("nan"))
+
+    # --- generalized stepping stone from a Gaussian fitted to the SMC
+    # particles: every rung in the data-fit regime, log Z absolute
+    gss = samplers.log_evidence_gss(gens["gss"], parts.log_lik,
+                                    parts.log_prior, smc_res.particles,
+                                    num_chains=C, **ladder)
+
+    # --- Laplace in float64 on this device from the best SMC particle
+    # (the gradient-matching start can sit behind exploding-trajectory
+    # cliffs): the Hessian's log-det needs eigenvalues below float32
+    # resolution of a ~1000-nat potential
+    f64 = torch.float64
+    parts64 = make_gp_log_density_parts(config, data, static, device, f64)
+    with torch.no_grad():
+        best = int(torch.argmax(smc_res.log_lik
+                                + parts.log_prior(smc_res.particles)))
+    init64 = tree_map(lambda l: l[best].to(f64), smc_res.particles)
+    lap = samplers.laplace_approximation(
+        parts64.potential, init64,
+        max_iters=config.get("laplace_iters", 200),
+        lr=config.get("laplace_lr", 1.0))
+
+    # --- predictive scores from the last SMC population
+    with torch.no_grad():
+        ll_matrix = parts.pointwise_log_lik(smc_res.particles)
+    w = samplers.waic(ll_matrix)
+    loo = samplers.psis_loo(ll_matrix)
+
+    summary = {
+        "event": "summary", "method": config["method"], "M": config["M"],
+        "log_z_ti": float(res.log_z_ti), "ti_se": float(res.ti_se),
+        "log_z_ss": float(res.log_z_ss), "ss_se": float(res.ss_se),
+        "log_z_gss": float(gss.log_z_ss), "gss_se": float(gss.ss_se),
+        "log_z_smc": smc_mean, "smc_se": smc_se,
+        "log_z_laplace": float(lap.log_evidence),
+        "laplace_hessian_pd": bool(lap.hessian_pd),
+        "waic_elpd": float(w.elpd), "waic_se": float(w.se),
+        "waic_p_eff": float(w.p_eff),
+        "loo_elpd": float(loo.elpd), "loo_se": float(loo.se),
+        "loo_max_khat": float(loo.pareto_k.max()),
+    }
+    rel = samplers.evidence_reliability(
+        log_z_ti=summary["log_z_ti"], log_z_ss=summary["log_z_ss"],
+        ss_se=summary["ss_se"], log_z_gss=summary["log_z_gss"],
+        gss_se=summary["gss_se"], log_z_smc=smc_mean, smc_se=smc_se,
+        log_z_laplace=summary["log_z_laplace"],
+        laplace_hessian_pd=bool(lap.hessian_pd),
+        waic_elpd=summary["waic_elpd"],
+        ladder_nonfinite=int(res.num_nonfinite),
+        gss_nonfinite=int(gss.num_nonfinite))
+    summary["estimator_reliability"] = rel["estimators"]
+    summary["rank_by"] = rel["rank_by"]
+    detail = dict(summary)
+    detail.update({
+        "smc_log_z_repeats": smc_logz,
+        "smc_num_stages": int(smc_res.num_stages),
+        "ladder_nonfinite_draws": int(res.num_nonfinite),
+        "gss_nonfinite_draws": int(gss.num_nonfinite),
+        "gss_accept": _tolist(gss.accept_rate),
+        "ladder_betas": _tolist(res.betas),
+        "ladder_accept": _tolist(res.accept_rate),
+        "ladder_steps": _tolist(res.step_sizes),
+        "mean_log_lik": _tolist(res.mean_log_lik),
+    })
+    with open(os.path.join(out_dir, "evidence.json"), "w") as f:
+        json.dump(detail, f, indent=2, default=str)
+    with RunLogger(os.path.join(out_dir, "run.jsonl")) as logger:
+        logger.log(summary)
+    save_pytree(os.path.join(out_dir, "chain.npz"),
+                tree_map(lambda x: x[:, None], smc_res.particles))
+    return summary
+
+
 def worker(config: Dict, data: Dict, output: str, make_plots: bool = True,
-           device="cuda") -> Dict[str, Any]:
+           device="cuda", dtype=torch.float32) -> Dict[str, Any]:
     """Route by inf_type, as the JAX driver's worker: "optim" to
-    `run_optim`, "vi" and "evidence" raise (ROADMAP queue 1 item 14),
-    anything else to `run_sampler`."""
-    inf_type = config.get("inf_type", "sampler")
-    if inf_type == "optim":
-        return run_optim(config, data, output, make_plots=make_plots,
-                         device=device)
-    if inf_type in ("vi", "evidence"):
-        raise NotImplementedError(
-            f"inf_type {inf_type!r}: ROADMAP queue 1 item 14")
-    return run_sampler(config, data, output, make_plots=make_plots,
-                       device=device)
+    `run_optim`, "vi" to `run_vi`, "evidence" to `run_evidence`, anything
+    else to `run_sampler`, each on `device` in `dtype`."""
+    route = {"optim": run_optim, "vi": run_vi,
+             "evidence": run_evidence}.get(config.get("inf_type"),
+                                           run_sampler)
+    return route(config, data, output, make_plots=make_plots, device=device,
+                 dtype=dtype)

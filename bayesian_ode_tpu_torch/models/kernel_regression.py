@@ -143,6 +143,99 @@ def make_potential(static: GPVectorFieldStatic, x0, t, Y,
     return potential
 
 
+class GPLogDensity(NamedTuple):
+    """Normalized log-density split of the GP-ODE model (counterpart of the
+    JAX package's `GPLogDensity`).  Every callable takes params with a
+    leading chain axis C, {'U': (C, M^2, D), 'logsn': (C, D)}, the
+    batch-potential contract: one batched solve a call."""
+    log_lik: Callable        # params -> (C,) normalized Gaussian loglik
+    log_prior: Callable      # params -> (C,) normalized log prior
+    pointwise_log_lik: Callable  # params -> (C, N*T) per-(traj, time) loglik
+    potential: Callable      # params -> (C,) -(log_lik + log_prior)
+    sample_prior: Callable   # (generator, n) -> {'U': (n,P,D), 'logsn': (n,D)}
+
+
+def make_log_density_parts(static: GPVectorFieldStatic, x0, t, Y,
+                           solve: Callable, *, logsn_mu: float = None,
+                           logsn_sd: float = 1.0,
+                           noise: float = 0.1) -> GPLogDensity:
+    """The normalized log-likelihood / log-prior split of the GP-ODE
+    posterior for the evidence estimators, SMC, Laplace and WAIC/PSIS-LOO
+    (the JAX package's `make_log_density_parts`):
+
+      log_lik(params) = sum_{n,t,d} log N(Y_ntd | xode_ntd, exp(logsn_d))
+      log_prior       = sum_d log N(U[:, d] | 0, Kzz)
+                      + sum_d log N(logsn_d | logsn_mu, logsn_sd^2)
+
+    with every normalizer kept (log Z absolute and comparable across M),
+    a proper Gaussian prior on logsn (logsn_mu defaults to log(noise)),
+    and the U prior's Kzz applied to the whitened U, as the potential
+    has it.  `pointwise_log_lik` groups by (trajectory, time): N*T points
+    a chain, the deletion unit of PSIS-LOO.
+
+    `solve(field, x0 (C, N, D), t, params)` integrates a chain batch with
+    field(t (C,), y (C, N, D)) and gradients to the per-chain `params`
+    (the driver's `_make_solve`); static, x0, t and Y set the device and
+    dtype.  Full float32 matmuls on the card are the caller's
+    (`full_f32_matmul`), where the JAX package passes
+    Precision.HIGHEST."""
+    dtype, dev = static.Z.dtype, static.Z.device
+    Y = torch.as_tensor(Y).to(device=dev, dtype=dtype)
+    x0 = torch.as_tensor(x0).to(device=dev, dtype=dtype)
+    t = torch.as_tensor(t).to(device=dev, dtype=dtype)
+    D = Y.shape[-1]
+    NT = Y.shape[0] * Y.shape[1]
+    P = static.Z.shape[0]
+    mu0 = float(np.log(noise)) if logsn_mu is None else float(logsn_mu)
+    sd0 = float(logsn_sd)
+    Kzz = rbf(static.Z, static.Z, static.sf, static.ell)
+    L = torch.linalg.cholesky(Kzz)
+    logdet_Kzz = 2.0 * torch.log(torch.diagonal(L)).sum()
+    log2pi = float(np.log(2.0 * np.pi))
+
+    def _solve(params):
+        A = torch.matmul(static.KzzinvL, params["U"])           # (C, P, D)
+        C = A.shape[0]
+        # the matmul form takes the chain axis as a batch axis
+        xode = solve(lambda tt, y: vector_field_fast(A, static, tt, y),
+                     x0.expand((C,) + tuple(x0.shape)), t, (A,))
+        return xode.permute(1, 2, 0, 3)                         # (C, N, T, D)
+
+    def pointwise_log_lik(params):
+        xode = _solve(params)
+        logsn = params["logsn"][:, None, None, :]
+        sn2 = torch.exp(logsn) ** 2
+        pt = -0.5 * (Y[None] - xode) ** 2 / sn2 - logsn - 0.5 * log2pi
+        return pt.sum(dim=-1).reshape(-1, NT)
+
+    def log_lik(params):
+        return pointwise_log_lik(params).sum(dim=-1)
+
+    def log_prior(params):
+        U = params["U"]
+        quad = torch.einsum("ckd,km,cmd->c", U, static.Kzzinv, U)
+        lp_u = -0.5 * quad - 0.5 * D * logdet_Kzz - 0.5 * P * D * log2pi
+        r = (params["logsn"] - mu0) / sd0
+        lp_sn = (-0.5 * (r * r).sum(dim=-1) - D * float(np.log(sd0))
+                 - 0.5 * D * log2pi)
+        return lp_u + lp_sn
+
+    def potential(params):
+        return -(log_lik(params) + log_prior(params))
+
+    def sample_prior(generator, n):
+        eps = torch.randn((n, P, D), generator=generator, dtype=dtype,
+                          device=dev)
+        U = torch.einsum("pq,nqd->npd", L, eps)     # columns ~ N(0, Kzz)
+        logsn = mu0 + sd0 * torch.randn((n, D), generator=generator,
+                                        dtype=dtype, device=dev)
+        return {"U": U, "logsn": logsn}
+
+    return GPLogDensity(log_lik=log_lik, log_prior=log_prior,
+                        pointwise_log_lik=pointwise_log_lik,
+                        potential=potential, sample_prior=sample_prior)
+
+
 def static_from_numpy(Z, KzzinvL, Kzzinv, sf, ell, device="cpu",
                       dtype=torch.float64) -> GPVectorFieldStatic:
     """The JAX package's static quantities (numpy arrays) as the port's."""

@@ -23,6 +23,16 @@ leaves of the backward solve unless adjoint_options={"norm": "seminorm"}
 gives them weight 0.  a_t is in the time dtype (float64); each leaf keeps
 its own dtype.
 
+Second order.  A backward pass with create_graph=True (a Hessian by
+reverse over reverse, as `jax.jacrev(jax.grad(...))` takes it through the
+JAX package's custom_vjp) differentiates the backward rule itself: the
+saved trajectory is recomputed from y0 and the parameters through this
+Function (so its own derivative is again the continuous adjoint, as the
+JAX residuals are the custom_vjp's outputs), and the backward solve runs
+with a graph through the fixed-grid solver's steps.  At an adaptive
+adjoint method this raises ValueError, where the JAX package's reverse
+pass through the backward solve's while loop raises.
+
 `nfe_counts` sums the RHS evaluations of every system in the forward and
 backward solves (read it, set it to 0, divide by the batch).
 """
@@ -34,8 +44,8 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..utils.pytree import tree_leaves, tree_map, tree_unflatten
-from .odeint import (as_times, check_real, reverse_time, solve_batched,
-                     unbatch)
+from .odeint import (ADAPTIVE, as_times, check_real, reverse_time,
+                     solve_batched, unbatch)
 
 nfe_counts = {"forward": 0, "backward": 0}
 
@@ -139,20 +149,68 @@ class _OdeintAdjoint(torch.autograd.Function):
         nfe_counts["forward"] += int(stats["nfe"].sum())
         ys = tuple(tree_leaves(ys))
         ctx.spec = spec
-        ctx.save_for_backward(ts, *ys)
+        ctx.save_for_backward(ts, *ys, *args[:n_y])
         return ys
 
     @staticmethod
     def backward(ctx, *grad_ys):
         spec = ctx.spec
-        ts, *ys = ctx.saved_tensors
+        n_y = len(tree_leaves(spec.like))
+        ts, *saved = ctx.saved_tensors
+        ys, y0 = saved[:n_y], saved[n_y:]
         grad_ys = [torch.zeros_like(y) if g is None else g
                    for g, y in zip(grad_ys, ys)]
-        with torch.no_grad():
-            return (None,) + _backward(spec, ts, ys, grad_ys)
+        if not torch.is_grad_enabled():
+            with torch.no_grad():
+                return (None,) + _backward(spec, ts, ys, grad_ys)
+        # a create_graph pass: differentiate the backward rule
+        if (spec.adjoint_method in ADAPTIVE
+                and spec.adjoint_options.get("mode", "while") != "bounded"):
+            raise ValueError(
+                "second-order derivatives through odeint_adjoint need a "
+                f"fixed-grid adjoint method (got {spec.adjoint_method!r}): "
+                "the backward solve's adaptive loop is not differentiated, "
+                "as the JAX package's reverse pass through its while loop "
+                "raises 'Reverse-mode differentiation does not work for "
+                "lax.while_loop'")
+        ys = _OdeintAdjoint.apply(spec, ts, *y0, *spec.params)
+        return (None,) + _backward(spec, ts, ys, grad_ys, create_graph=True)
 
 
-def _backward(spec, ts, ys, grad_ys):
+class _Reattach(torch.autograd.Function):
+    """outs, computed from detached copies `detached` of the tensors
+    `attached`, with their derivative through `attached` restored: the
+    backward sends each cotangent on into outs' own graph (the parameters
+    and the cotangent state) and, through outs' derivative in `detached`,
+    to `attached`."""
+
+    @staticmethod
+    def forward(ctx, graph, *args):
+        outs, detached = graph
+        ctx.graph = graph
+        ctx.n_att = len(detached)
+        return tuple(o.clone() for o in args[ctx.n_att:])
+
+    @staticmethod
+    def backward(ctx, *ws):
+        outs, detached = ctx.graph
+        live = [i for i, o in enumerate(outs) if o.requires_grad]
+        g = torch.autograd.grad(
+            [outs[i] for i in live], detached,
+            grad_outputs=[ws[i] for i in live], retain_graph=True,
+            allow_unused=True, create_graph=torch.is_grad_enabled()) \
+            if live else [None] * len(detached)
+        g = [torch.zeros_like(d) if x is None else x
+             for x, d in zip(g, detached)]
+        return (None, *g, *(w if o.requires_grad else None
+                            for w, o in zip(ws, outs)))
+
+
+def _backward(spec, ts, ys, grad_ys, create_graph=False):
+    """The adjoint sweep over the output intervals.  With create_graph the
+    cotangents it returns are differentiable in ys, grad_ys and the
+    parameters (the RHS VJPs keep their graph and the backward solve
+    runs under autograd)."""
     func, like = spec.func, spec.like
     T = ts.shape[0]
     B = ys[0].shape[1]
@@ -171,14 +229,24 @@ def _backward(spec, ts, ys, grad_ys):
             grads = torch.autograd.grad(
                 tree_leaves(f), [t_] + y_leaves + params,
                 grad_outputs=[-a for a in tree_leaves(a_y)],
-                allow_unused=True)
+                allow_unused=True, create_graph=create_graph)
         inputs = [t_] + y_leaves + params
         grads = [torch.zeros_like(x) if g is None else g
                  for g, x in zip(grads, inputs)]
+        outs = tree_leaves(f) + grads
+        if create_graph:
+            # the VJP's partials are taken at detached y (its graph runs
+            # back into the recomputed trajectory, hence the parameters);
+            # the derivative through y is restored here
+            outs = _Reattach.apply((outs, y_leaves), *tree_leaves(y), *outs)
+        else:
+            outs = [x.detach() for x in outs]
+        n_f = len(tree_leaves(f))
+        f, grads = tree_unflatten(f, outs[:n_f]), outs[n_f:]
         vjp_t = grads[0]
         vjp_y = tree_unflatten(y, grads[1:1 + len(y_leaves)])
         vjp_p = tuple(shaped(g) for g in grads[1 + len(y_leaves):])
-        return (tree_map(torch.Tensor.detach, f), vjp_y, vjp_t, vjp_p)
+        return (f, vjp_y, vjp_t, vjp_p)
 
     def reverse(s, aug):
         return tree_map(torch.neg, augmented(-s, aug))

@@ -1,7 +1,8 @@
-"""Langevin samplers: SGLD, pSGLD, aSGLD, cSGLD, Adam-SGLD and MALA.
+"""Langevin samplers: SGLD, pSGLD, aSGLD, cSGLD, Adam-SGLD, MALA and
+manifold MALA.
 
-Counterpart of `bayesian_ode_tpu/samplers/langevin.py` but MMALA (ROADMAP
-queue 1 item 14).  The `*_batched` kernels take the
+Counterpart of `bayesian_ode_tpu/samplers/langevin.py`.  The `*_batched`
+kernels take the
 batch-potential contract: `potential_batch(params)` maps a tree of
 tensors with a leading chain axis C to (C,) potentials in one fused
 forward and backward pass.  The state carries the potential and gradient
@@ -21,6 +22,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from ..utils.pytree import (
+    ravel_pytree,
+    tree_leaves,
     tree_map,
     tree_random_normal,
     tree_sum_squares_per_chain,
@@ -279,6 +282,109 @@ def adam_sgld_batched(potential_batch: Callable, step_size,
     return TransitionKernel(init, step)
 
 
+class MMALAState(NamedTuple):
+    position: Any
+    potential: torch.Tensor      # (C,)
+    grad: Any
+    metric: torch.Tensor         # (C, P, P) on the flattened parameters
+    inv_metric: torch.Tensor     # (C, P, P)
+    sqrtinv_metric: torch.Tensor  # (C, P, P)
+    logdet_metric: torch.Tensor  # (C,)
+    step: int
+
+
+def mmala_batched(potential_batch: Callable, step_size, metric_fn: Callable,
+                  add_noise: bool = True) -> TransitionKernel:
+    """Manifold MALA (Girolami & Calderhead; reference langevin.py:260-420)
+    over a whole chain batch, a metric for each chain.
+
+    `metric_fn(position) -> dict` gives 'Metric', 'invMetric' and
+    'sqrtinvMetric' (C, P, P) on each chain's flattened parameters (and
+    optionally 'log_det_sqrt' (C,)): a metric of `metrics.py` over the
+    batch potential.  Proposal theta' = theta - lr Minv g
+    - sqrt(2 lr) Msqinv xi, so q(theta' | theta) = N(theta - lr Minv g,
+    2 lr Minv); the Metropolis-Hastings ratio weights the quadratic forms
+    by the metric and keeps the 1/2 log det M terms (the JAX package's
+    fix of the reference's langevin.py:348-358).  Each chain accepts on
+    its own uniform; add_noise=False accepts every proposal, as the JAX
+    package's (deterministic equivalence tests)."""
+    sched = schedules.resolve(step_size)
+    vag = batch_value_and_grad(potential_batch)
+
+    def eval_metric(position):
+        m = metric_fn(position)
+        if "log_det_sqrt" in m:
+            logdet = 2.0 * m["log_det_sqrt"]
+        else:
+            logdet = torch.linalg.slogdet(m["Metric"])[1]
+        return m["Metric"], m["invMetric"], m["sqrtinvMetric"], logdet
+
+    def flat(tree):
+        return torch.cat([x.reshape(x.shape[0], -1)
+                          for x in tree_leaves(tree)], dim=1)
+
+    def init(position):
+        u, g = vag(position)
+        return MMALAState(position, u, g, *eval_metric(position), 0)
+
+    def step(generator, state):
+        lr = sched(state.step)
+        _, unravel = ravel_pytree(tree_map(lambda x: x[0], state.position))
+        theta, grad = flat(state.position), flat(state.grad)      # (C, P)
+
+        def mv(M, v):
+            return (M @ v[..., None])[..., 0]
+
+        xi = torch.randn(theta.shape, generator=generator,
+                         dtype=theta.dtype, device=theta.device)
+        theta_new = (theta - lr * mv(state.inv_metric, grad)
+                     - langevin_noise_scale(lr)
+                     * mv(state.sqrtinv_metric, xi))
+        proposal = unravel(theta_new)
+        u_new, g_new = vag(proposal)
+        grad_new = flat(g_new)
+        M_new, Minv_new, Msqinv_new, logdet_new = eval_metric(proposal)
+
+        if add_noise:
+            log_alpha = state.potential - u_new
+            # log q(theta | theta'): metric and drift at the proposal
+            rev = theta - theta_new + lr * mv(Minv_new, grad_new)
+            log_alpha = log_alpha + 0.5 * logdet_new - 1.0 / (4 * lr) \
+                * (rev * mv(M_new, rev)).sum(dim=-1)
+            # log q(theta' | theta): metric and drift at the current point
+            fwd = theta_new - theta + lr * mv(state.inv_metric, grad)
+            log_alpha = log_alpha - (
+                0.5 * state.logdet_metric - 1.0 / (4 * lr)
+                * (fwd * mv(state.metric, fwd)).sum(dim=-1))
+            uniform = torch.rand(log_alpha.shape, generator=generator,
+                                 dtype=log_alpha.dtype,
+                                 device=log_alpha.device)
+            accept = torch.isfinite(log_alpha) & (
+                torch.log(uniform) < log_alpha)
+        else:
+            accept = torch.ones(theta.shape[0], dtype=torch.bool,
+                                device=theta.device)
+
+        def pick(new, old):
+            return _where_per_chain(accept, new, old)
+
+        new_state = MMALAState(
+            position=pick(proposal, state.position),
+            potential=torch.where(accept, u_new, state.potential),
+            grad=pick(g_new, state.grad),
+            metric=pick(M_new, state.metric),
+            inv_metric=pick(Minv_new, state.inv_metric),
+            sqrtinv_metric=pick(Msqinv_new, state.sqrtinv_metric),
+            logdet_metric=torch.where(accept, logdet_new,
+                                      state.logdet_metric),
+            step=state.step + 1)
+        info = {"potential": new_state.potential, "accepted": accept,
+                "step_size": lr}
+        return new_state, info
+
+    return TransitionKernel(init, step)
+
+
 # ---------------------------------------------------------------------------
 # single-chain kernels: the batched kernels over a one-chain batch
 # ---------------------------------------------------------------------------
@@ -354,3 +460,17 @@ def adam_sgld(potential_fn: Callable, step_size, beta1: float = 0.9,
     """Adam-preconditioned SGLD of one chain."""
     return _one_chain(adam_sgld_batched, potential_fn, step_size,
                       beta1=beta1, beta2=beta2, a=a, lambda_=lambda_)
+
+
+def mmala(potential_fn: Callable, step_size, metric_fn: Callable,
+          add_noise: bool = True) -> TransitionKernel:
+    """Manifold MALA of one chain: `mmala_batched` over a batch of one.
+    `metric_fn(position)` gives one chain's (P, P) 'Metric', 'invMetric'
+    and 'sqrtinvMetric' (and optionally its 'log_det_sqrt'), as the JAX
+    package's `mmala` takes it."""
+    def batch_metric(position):
+        m = metric_fn(tree_map(lambda x: x[0], position))
+        return {k: torch.as_tensor(v).unsqueeze(0) for k, v in m.items()}
+
+    return _one_chain(mmala_batched, potential_fn, step_size, batch_metric,
+                      add_noise=add_noise)

@@ -86,6 +86,19 @@ leapfrog beside a steady SGLD step (phase 25); a fused Ensemble run
 killed at its third checkpoint save and resumed, bit-equal to the
 uninterrupted run (phase 26).
 
+Last, the remaining inference of the driver, on the main path's GP at rk4
+on the generic engine (no kernel of the port; step counts cut and each cut
+printed): SMC through `run_sampler` at 1,024 particles, 5 moves a stage
+(phase 27); `run_vi` with ADVI (mean-field, full-rank) and Laplace, and
+the Laplace Hessian from the best SMC particle in float64 (one double
+backward through the continuous adjoint) against the CPU's and central
+differences (phase 28); `run_evidence` through `worker` at 32 chains x 16
+rungs, 1,024 particles and 2 SMC repeats (phase 29); `mmala_batched` with
+the SoftAbs metric on a 74-dimensional correlated Gaussian over 1,024
+chains, its moments, and the driver's refusals of MMALA (TypeError) and
+of Laplace and the evidence at dopri5 (ValueError) before any solve
+(phase 30).
+
 Exits non-zero on any failed phase, and when no CUDA device is available.
 Before the last two lines it prints its own seconds; the line before the
 last is a JSON object with each kernel's launches, error against its
@@ -1316,6 +1329,431 @@ def checkpoint_path(cfg, data, dev):
           "phase 26: the resumed chain equals the uninterrupted one")
 
 
+# ---- SMC, run_vi, run_evidence and MMALA (phases 27-30) ----
+# the main path's GP at rk4 on the generic engine, float32 (the Laplace
+# stages in float64); each phase cuts step counts only, and prints each cut
+SMC_PARTICLES = 1024            # run_evidence's default smc_particles
+SMC_MOVES = 5
+# run_vi's default num_iters is 2,000 (ADVI) and 200 (Laplace); the
+# Laplace fit from the best SMC particle (run_evidence's start) takes
+# LAPLACE_ITERS of run_evidence's default 200 (150 reached a positive
+# definite Hessian in 184 s on one H100, 60 did not)
+ADVI_ITERS, VI_LAPLACE_ITERS, LAPLACE_ITERS = 10, 5, 20
+FD_DIRECTIONS, FD_EPS = 3, 1e-4  # central differences of the gradient
+# run_evidence at num_chains 32, num_rungs 16, 1,024 particles, 2 SMC
+# repeats; its cut step counts against the driver's defaults
+EVIDENCE_CUTS = {"burn_in": (10, 500), "num_samples": (10, 1000),
+                 "smc_moves": (1, 5), "laplace_iters": (10, 200)}
+MMALA_CHAINS, MMALA_DIM = 1024, SVGD_WIDTH
+MMALA_STEPS = (15, 5)           # burn-in, kept (a batched 74x74 float64
+MMALA_LR = 0.3                  # eigh a step, about 1 s on one H100)
+
+
+def timed_samplers(samplers, names, secs, results):
+    """Replace samplers.<name> for each name by a wrapper that appends the
+    call's synchronised host seconds to secs[name] and its result to
+    results[name]; returns a function that restores them."""
+    import torch
+
+    real = {n: getattr(samplers, n) for n in names}
+
+    def wrap(name):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            secs.setdefault(name, []).append(time.perf_counter() - t0)
+            results.setdefault(name, []).append(out)
+            return out
+        return timed
+
+    for n in names:
+        setattr(samplers, n, wrap(n))
+
+    def restore():
+        for n, f in real.items():
+            setattr(samplers, n, f)
+
+    return restore
+
+
+def vag_ms(vag, position, reps=3):
+    """Host milliseconds of a value-and-gradient, synchronised, after one
+    untimed call."""
+    import torch
+
+    vag(position)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        vag(position)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def smc_path(cfg, data, dev, smi):
+    """Phase 27: method="SMC" through run_sampler on the main path's GP
+    (M=6, N=5, T=60, noise 0.05) at rk4 on the generic engine in float32:
+    1,024 particles, smc_moves 5, the default max_stages (100).  Prints
+    the stages, log Z, the mean acceptance, ms a stage and ms a
+    value-and-gradient of the population; the last beta is 1, every
+    potential and particle finite, and no kernel of the port launches (the
+    generic engine).  Returns the final population and its
+    log-likelihoods."""
+    import numpy as np
+    import torch
+
+    from bayesian_ode_tpu_torch import samplers
+    from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
+    from bayesian_ode_tpu_torch.ops import _build
+
+    c = dict(cfg, method="SMC", engine="generic", solver="rk4",
+             num_chains=SMC_PARTICLES, smc_moves=SMC_MOVES, id="smc")
+    secs, results = {}, {}
+    restore = timed_samplers(samplers, ["smc"], secs, results)
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = vg.run_sampler(c, data, out, make_plots=False,
+                                     device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            delta = {k: v for k, v in _build.launch_counts.items() if v}
+            pots = np.load(os.path.join(out, "SMC", "smc",
+                                        "total_loss_arr.npy"))
+            chain = np.load(os.path.join(out, "SMC", "smc", "chain.npz"))
+            leaves = [chain[k] for k in chain.files if k.startswith("leaf_")]
+    finally:
+        restore()
+    res, smc_s = results["smc"][0], secs["smc"][0]
+    n = res.num_stages
+    static, _ = vg.build_model(c, data)
+    parts = vg.make_gp_log_density_parts(c, data, static, dev)
+    ms = vag_ms(samplers.batch_value_and_grad(parts.potential),
+                res.particles)
+    betas = res.betas[:n].tolist()
+    print(f"SMC through run_sampler (GP rk4, generic, float32, "
+          f"{SMC_PARTICLES} particles, {SMC_MOVES} MALA moves a stage): "
+          f"{n} stages, log Z {float(res.log_z):.4f}, mean acceptance "
+          f"{float(res.accept_rate[:n].mean()):.4f}, {smc_s:.3f} s "
+          f"({smc_s / n * 1e3:.1f} ms a stage), a value-and-gradient of "
+          f"the population {ms:.1f} ms; run {wall:.3f} s with set-up; "
+          f"launches of the port's kernels {delta}; betas "
+          f"{[float(f'{b:.4g}') for b in betas]}; summary "
+          f"{json.dumps(summary)} ({smi})")
+    check(betas[-1] == 1.0, "SMC: the last beta is 1")
+    check(np.isfinite(summary["log_z_smc"]), "SMC: finite log Z")
+    check(pots.shape == (SMC_PARTICLES, 1)
+          and bool(np.isfinite(pots).all()), "SMC: finite potentials")
+    check(all(bool(np.isfinite(x).all()) for x in leaves),
+          "SMC: finite particles")
+    check(not delta, "SMC: no kernel of the port launched")
+    return res, parts
+
+
+def vi_path(cfg, data, dev, smi, smc_res, parts):
+    """Phase 28: run_vi on the main path's GP at rk4 (generic engine):
+    ADVI mean-field and full-rank in float32 at `ADVI_ITERS` steps, then
+    Laplace in float64 at `VI_LAPLACE_ITERS` L-BFGS iterations from the
+    gradient-matched start; each run finite where the fit is, and no
+    kernel of the port launched.  Then the Laplace fit from the best
+    particle of phase 27's population (as run_evidence starts it) at
+    `LAPLACE_ITERS`, in float64 on the card: its Hessian (one double
+    backward over a 74-row batch through the continuous adjoint, as the
+    JAX package's jacrev of grad) equals the same computation on the CPU
+    (held to the JAX package by the CPU tests) to 1e-10 relative.  It is
+    not the Jacobian of the computed gradient, nor symmetric: its
+    derivative of the saved trajectory is the continuous adjoint's, not
+    the solve's (so in the JAX package too: 2e-5 to 5e-4 from central
+    differences of its own gradient on the CPU's tiny GP, asymmetry
+    1.9e-5); central differences of the card's gradients along random
+    directions and the asymmetry are printed and held within 5e-3.
+    Whether the Hessian is positive definite is printed with its
+    symmetric part's eigenvalue range: the fit does not reach the mode in
+    this budget."""
+    import numpy as np
+    import torch
+
+    from bayesian_ode_tpu_torch import samplers
+    from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
+    from bayesian_ode_tpu_torch.ops import _build
+    from bayesian_ode_tpu_torch.utils.pytree import (ravel_pytree,
+                                                     tree_leaves)
+
+    base = dict(cfg, inf_type="vi", engine="generic", solver="rk4", id="vi")
+    f64 = torch.float64
+    runs = [dict(method="ADVI", vi_family="meanfield", num_iters=ADVI_ITERS,
+                 lr=1e-2),
+            dict(method="ADVI", vi_family="fullrank", num_iters=ADVI_ITERS,
+                 lr=1e-2),
+            dict(method="Laplace", num_iters=VI_LAPLACE_ITERS, lr=1.0)]
+    print(f"run_vi cuts: ADVI num_iters {ADVI_ITERS} (default 2,000), "
+          f"Laplace num_iters {VI_LAPLACE_ITERS} (default 200); the fit "
+          f"from the best SMC particle {LAPLACE_ITERS} (default 200)")
+    with tempfile.TemporaryDirectory() as out:
+        for r in runs:
+            c = dict(base, **r)
+            dtype = f64 if r["method"] == "Laplace" else torch.float32
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = vg.run_vi(c, data, out, make_plots=False, device=dev,
+                                dtype=dtype)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            delta = {k: v for k, v in _build.launch_counts.items() if v}
+            d = os.path.join(out, r["method"], "vi")
+            chain = np.load(os.path.join(d, "chain.npz"))
+            leaves = [chain[k] for k in chain.files if k.startswith("leaf_")]
+            trace = (np.load(os.path.join(d, "elbo_arr.npy"))
+                     if r["method"] == "ADVI" else None)
+            print(f"run_vi {r['method']} {r.get('vi_family', '')} "
+                  f"({dtype}): {wall:.3f} s, {wall / r['num_iters'] * 1e3:.1f}"
+                  f" ms an iteration; launches {delta}; summary "
+                  f"{json.dumps(summary)}"
+                  + (f"; ELBO by step {[round(float(v), 2) for v in trace]}"
+                     if trace is not None else "") + f" ({smi})")
+            check(not delta, f"run_vi {r['method']}: no kernel launched")
+            if r["method"] == "ADVI":
+                check(np.isfinite(summary["final_elbo"])
+                      and all(bool(np.isfinite(x).all()) for x in leaves),
+                      f"run_vi ADVI {r['vi_family']}: finite fit and draws")
+            else:
+                check(np.isfinite(summary["potential_at_mode"]),
+                      "run_vi Laplace: finite potential at the terminus")
+
+    # the Laplace fit from the best SMC particle, float64 on the card
+    c = dict(base, method="Laplace")
+    static, _ = vg.build_model(c, data)
+    pot = vg.make_generic_potential(c, data, static, dev, f64)
+    with torch.no_grad():
+        best = int(torch.argmax(smc_res.log_lik
+                                + parts.log_prior(smc_res.particles)))
+    init = {k: v[best].to(f64) for k, v in smc_res.particles.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lap = samplers.laplace_approximation(pot, init, LAPLACE_ITERS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    mode = {k: v[None] for k, v in lap.mode.items()}
+    t0 = time.perf_counter()
+    H = samplers.flat_hessian(pot, mode)[0]
+    torch.cuda.synchronize()
+    hess_s = time.perf_counter() - t0
+    H_cpu = samplers.flat_hessian(
+        vg.make_generic_potential(c, data, static, "cpu", f64),
+        {k: v.cpu() for k, v in mode.items()})[0]
+    scale = float(H.abs().max())
+    cpu_rel = float((H.cpu() - H_cpu).abs().max()) / scale
+    asym = float((H - H.T).abs().max()) / scale
+    eig = torch.linalg.eigvalsh(0.5 * (H + H.T))
+    flat, unravel = ravel_pytree(lap.mode)
+    vag = samplers.batch_value_and_grad(pot)
+    gen = torch.Generator(device=dev).manual_seed(28)
+    fd = []
+    for _ in range(FD_DIRECTIONS):
+        v = torch.randn(flat.shape, generator=gen, device=dev, dtype=f64)
+        v = v / v.norm()
+        _, g = vag(unravel(torch.stack([flat + FD_EPS * v,
+                                        flat - FD_EPS * v])))
+        g = torch.cat([x.reshape(2, -1) for x in tree_leaves(g)], dim=1)
+        Hv = H @ v
+        fd.append(float(((g[0] - g[1]) / (2 * FD_EPS) - Hv).norm()
+                        / Hv.norm()))
+    print(f"Laplace from the best SMC particle (float64 on the card, "
+          f"{LAPLACE_ITERS} L-BFGS iterations, {fit_s:.3f} s): potential at "
+          f"the mode {float(lap.potential_at_mode):.4f}, log Z "
+          f"{float(lap.log_evidence):.4f}, hessian_pd "
+          f"{bool(lap.hessian_pd)}; Hessian {tuple(H.shape)} by one double "
+          f"backward in {hess_s:.3f} s: against the CPU's {cpu_rel:.3e}, "
+          f"asymmetry {asym:.3e} of its largest entry ({scale:.4g}), its "
+          f"symmetric part's eigenvalues {float(eig[0]):.4g} to "
+          f"{float(eig[-1]):.4g}, central differences (eps {FD_EPS}) along "
+          f"{FD_DIRECTIONS} random directions rel {[f'{e:.2e}' for e in fd]}"
+          f" ({smi})")
+    check(cpu_rel <= 1e-10, "Laplace: the card's Hessian equals the CPU's")
+    check(asym <= 5e-3 and max(fd) <= 5e-3, "Laplace: the Hessian within "
+          "the adjoint's discretisation (5e-3) of symmetric and of central "
+          "differences of the card's gradients")
+    check(np.isfinite(float(lap.potential_at_mode)),
+          "Laplace: a finite potential at the terminus")
+
+
+def evidence_path(cfg, data, dev, smi):
+    """Phase 29: inf_type="evidence" through worker on the main path's GP
+    at rk4: num_chains 32, num_rungs 16, 1,024 particles, smc_repeats 2,
+    with `EVIDENCE_CUTS`' step counts.  Prints every log Z with its SE,
+    rank_by, the WAIC and PSIS-LOO numbers and the wall seconds of each
+    estimator; the SMC and GSS estimates are finite, both SMC runs reach
+    beta 1, the artifacts are written, and no kernel of the port
+    launches."""
+    import numpy as np
+    import torch
+
+    from bayesian_ode_tpu_torch import samplers
+    from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
+    from bayesian_ode_tpu_torch.ops import _build
+
+    c = dict(cfg, inf_type="evidence", method="Evidence", engine="generic",
+             solver="rk4", num_chains=32, num_rungs=16,
+             smc_particles=SMC_PARTICLES, smc_repeats=2, lr=1e-3,
+             id="evidence", **{k: v for k, (v, _) in EVIDENCE_CUTS.items()})
+    print("run_evidence cuts: " + ", ".join(
+        f"{k} {v} (default {d})" for k, (v, d) in EVIDENCE_CUTS.items()))
+    names = ["log_evidence", "smc", "log_evidence_gss",
+             "laplace_approximation", "waic", "psis_loo"]
+    secs, results = {}, {}
+    restore = timed_samplers(samplers, names, secs, results)
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = vg.worker(c, data, out, make_plots=False, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            delta = {k: v for k, v in _build.launch_counts.items() if v}
+            d = os.path.join(out, "Evidence", "evidence")
+            written = sorted(os.listdir(d))
+            detail = json.load(open(os.path.join(d, "evidence.json")))
+    finally:
+        restore()
+    stages = [r.num_stages for r in results["smc"]]
+    last_betas = [float(r.betas[r.num_stages - 1]) for r in results["smc"]]
+    print(f"run_evidence through worker ({wall:.3f} s; launches {delta}): "
+          + ", ".join(f"log Z {k} {s['log_z_' + k]:.4f} +- "
+                      f"{s[k + '_se']:.4f}" for k in ("ti", "ss", "gss",
+                                                      "smc"))
+          + f", log Z laplace {s['log_z_laplace']:.4f} (hessian_pd "
+          f"{s['laplace_hessian_pd']}); rank_by {s['rank_by']}; WAIC elpd "
+          f"{s['waic_elpd']:.4f} +- {s['waic_se']:.4f} (p_eff "
+          f"{s['waic_p_eff']:.4f}), LOO elpd {s['loo_elpd']:.4f} +- "
+          f"{s['loo_se']:.4f} (max khat {s['loo_max_khat']:.4f}); SMC "
+          f"stages {stages}, repeats {detail['smc_log_z_repeats']}; "
+          f"ladder acceptance {[round(a, 3) for a in detail['ladder_accept']]}"
+          f"; seconds "
+          + ", ".join(f"{k} {sum(v):.3f}" for k, v in secs.items())
+          + f"; flags {json.dumps(s['estimator_reliability'])} ({smi})")
+    check(np.isfinite(s["log_z_smc"]) and np.isfinite(s["log_z_gss"]),
+          "run_evidence: finite SMC and GSS log Z")
+    check(all(b == 1.0 for b in last_betas),
+          "run_evidence: both SMC runs reach beta 1")
+    check(bool(s["rank_by"]), "run_evidence: an estimator to rank by")
+    check(set(written) >= {"config.json", "run.jsonl", "evidence.json",
+                           "chain.npz"}, "run_evidence: artifacts")
+    check(not delta, "run_evidence: no kernel of the port launched")
+
+
+def mmala_path(cfg, data, dev, smi):
+    """Phase 30: `mmala_batched` with `softabs_metric` (coefficient 1e3) on a
+    74-dimensional correlated Gaussian over 1,024 chains in float64 on the
+    card, from an overdispersed start (2x the target's scale): after
+    `MMALA_STEPS` the chains' final positions hold the target's means,
+    variances and correlations within 5 Monte-Carlo standard errors of
+    1,024 draws.  Then the driver's MMALA (TypeError), Laplace and
+    run_evidence at dopri5 (ValueError) raise before any model, potential
+    or solve is built."""
+    import torch
+
+    from bayesian_ode_tpu_torch import samplers
+    from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
+    from bayesian_ode_tpu_torch.ode import adjoint as adj
+    from bayesian_ode_tpu_torch.ops import _build
+
+    f64, C, D = torch.float64, MMALA_CHAINS, MMALA_DIM
+    gen = torch.Generator(device=dev).manual_seed(30)
+    Q, _ = torch.linalg.qr(torch.randn((D, D), generator=gen, device=dev,
+                                       dtype=f64))
+    lam = torch.linspace(0.3, 3.0, D, device=dev, dtype=f64) ** 2
+    cov = (Q * lam) @ Q.T
+    prec = (Q / lam) @ Q.T
+    chol = torch.linalg.cholesky(cov)
+
+    def pot(p):
+        return 0.5 * torch.einsum("ci,ij,cj->c", p["x"], prec, p["x"])
+
+    kern = samplers.mmala_batched(pot, MMALA_LR,
+                                  samplers.softabs_metric(pot, 1e3))
+    x0 = {"x": 2.0 * torch.randn((C, D), generator=gen, device=dev,
+                                 dtype=f64) @ chol.T}
+    burn, kept = MMALA_STEPS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, pos, infos = samplers.sample_chain(kern, kern.init(x0), gen, kept,
+                                          burn_in=burn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    x = pos["x"][-1]                                     # (C, D)
+    sd = torch.sqrt(torch.diagonal(cov))
+    z_mean = float((x.mean(0) / (sd / C ** 0.5)).abs().max())
+    var_ratio = x.var(0) / torch.diagonal(cov)
+    var_z = float(((var_ratio - 1) / (2.0 / (C - 1)) ** 0.5).abs().max())
+    corr = torch.corrcoef(x.T)
+    corr_err = float((corr - cov / torch.outer(sd, sd)).abs().max())
+    acc = float(infos["accepted"].float().mean())
+    print(f"mmala_batched, softabs metric, {D}-dim correlated Gaussian "
+          f"(eigenvalues 0.09-9), {C} chains, float64, lr {MMALA_LR}: "
+          f"{burn} + {kept} steps in {wall:.3f} s "
+          f"({wall / (burn + kept) * 1e3:.1f} ms a step), acceptance "
+          f"{acc:.4f}; final positions: max |mean| "
+          f"{z_mean:.3f} standard errors, max variance-ratio error "
+          f"{var_z:.3f} standard errors, max correlation error "
+          f"{corr_err:.4f} (5 SE: {5 / C ** 0.5:.4f}) ({smi})")
+    check(z_mean < 5.0, "MMALA: means within 5 standard errors")
+    check(var_z < 5.0, "MMALA: variances within 5 standard errors")
+    check(corr_err < 5.0 / C ** 0.5,
+          "MMALA: correlations within 5 standard errors")
+    check(acc > 0.3, "MMALA: acceptance above 0.3")
+
+    # the driver's refusals come before any model, potential or solve
+    built = []
+    real = {n: getattr(vg, n) for n in ("build_model",
+                                        "make_generic_potential",
+                                        "make_gp_log_density_parts")}
+    real_solve = adj.solve_batched
+
+    def counting(name, fn):
+        def f(*a, **k):
+            built.append(name)
+            return fn(*a, **k)
+        return f
+
+    for n, fn in real.items():
+        setattr(vg, n, counting(n, fn))
+    adj.solve_batched = counting("solve", real_solve)
+    refused = []
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            _build.reset_launch_counts()
+            for c, err in ((dict(cfg, method="MMALA", engine="generic",
+                                 solver="rk4"), TypeError),
+                           (dict(cfg, inf_type="vi", method="Laplace",
+                                 engine="generic", solver="dopri5"),
+                            ValueError),
+                           (dict(cfg, inf_type="evidence",
+                                 method="Evidence", engine="generic",
+                                 solver="dopri5"), ValueError)):
+                try:
+                    vg.worker(c, data, out, make_plots=False, device=dev)
+                except err as e:
+                    refused.append(f"{c['method']}: {type(e).__name__}: "
+                                   f"{str(e)[:90]}...")
+            delta = {k: v for k, v in _build.launch_counts.items() if v}
+    finally:
+        for n, fn in real.items():
+            setattr(vg, n, fn)
+        adj.solve_batched = real_solve
+    print(f"driver refusals: {refused}; built before them {built}; "
+          f"launches {delta}")
+    check(len(refused) == 3, "MMALA (TypeError), Laplace and evidence at "
+          "dopri5 (ValueError) refused by the driver")
+    check(not built and not delta,
+          "the refusals come before any model, potential or solve")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2339,6 +2777,19 @@ def main() -> int:
     exact_main_path(cfg, data, dev, smi)
     checkpoint_path(cfg, data, dev)
     print(f"phases 24-26: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phases 27-30: SMC, run_vi, run_evidence and MMALA ----
+    t0 = time.perf_counter()
+    smc_res, parts = smc_path(cfg, data, dev, smi)
+    t1 = time.perf_counter()
+    vi_path(cfg, data, dev, smi, smc_res, parts)
+    t2 = time.perf_counter()
+    evidence_path(cfg, data, dev, smi)
+    t3 = time.perf_counter()
+    mmala_path(cfg, data, dev, smi)
+    t4 = time.perf_counter()
+    print(f"phases 27-30: {t4 - t0:.1f} s (27 {t1 - t0:.1f}, 28 "
+          f"{t2 - t1:.1f}, 29 {t3 - t2:.1f}, 30 {t4 - t3:.1f}) ({smi})")
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start "
           f"to the kernels line, build included ({smi})")

@@ -10,6 +10,9 @@ the port draws it.  With `chain_constant`, torch's draws with a leading
 chain axis repeat one chain's draw on every chain: the port's batched
 kernels then draw what the JAX package's per-chain kernels draw under
 vmap (a draw that ignores its key is the same on every chain).
+The JAX package's SMC keys each particle's move draws by its index;
+`patch_jax_smc_rows` makes them the whole population's fixed draws, as
+the port draws them.
 """
 from __future__ import annotations
 
@@ -89,3 +92,23 @@ def patch_torch(monkeypatch, chain_constant: bool = False) -> None:
     monkeypatch.setattr(torch, "randn", randn)
     monkeypatch.setattr(torch, "rand", rand)
     monkeypatch.setattr(torch, "randint", randint)
+
+
+
+def patch_jax_smc_rows(monkeypatch) -> None:
+    """The JAX package's SMC move draws, keyed per particle by its index
+    (`_rowwise_normal`, `_rowwise_uniform`), as fixed draws of the whole
+    population's shape: what the port's batch-shaped draws give."""
+    import importlib
+
+    jsmc = importlib.import_module("bayesian_ode_tpu.samplers.smc")
+
+    def rowwise_normal(key, position, gidx):
+        return jax.tree.map(
+            lambda x: jnp.asarray(fixed_normal(x.shape), x.dtype), position)
+
+    def rowwise_uniform(key, gidx, dtype):
+        return jnp.asarray(fixed_uniform(gidx.shape), dtype)
+
+    monkeypatch.setattr(jsmc, "_rowwise_normal", rowwise_normal)
+    monkeypatch.setattr(jsmc, "_rowwise_uniform", rowwise_uniform)

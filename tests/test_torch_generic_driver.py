@@ -146,10 +146,16 @@ def test_unported_methods_solvers_and_options_raise(data, tmp_path):
         run_sampler(dict(GENERIC_CONFIG, **kw), data, str(tmp_path),
                     make_plots=False, device="cpu", dtype=torch.float64)
 
-    for method, item in (("SMC", 14), ("MMALA", 14)):
-        with pytest.raises(NotImplementedError,
-                           match=f"queue 1 item {item}"):
-            run(method=method)
+    # MMALA raises the JAX driver's TypeError; SMC runs (GP model only)
+    with pytest.raises(TypeError, match="custom_vjp"):
+        run(method="MMALA")
+    s = run_sampler(dict(GENERIC_CONFIG, method="SMC", num_chains=8,
+                         smc_moves=1, smc_max_stages=2), data,
+                    str(tmp_path), make_plots=False, device="cpu",
+                    dtype=torch.float64)
+    assert np.isfinite(s["log_z_smc"])
+    with pytest.raises(ValueError, match="GP model"):
+        run(method="SMC", model="spiral")
     for solver in ("adams", "bosh3", "dopri8"):
         with pytest.raises(NotImplementedError, match="queue 1 item 16"):
             run(solver=solver)

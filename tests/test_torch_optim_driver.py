@@ -164,10 +164,19 @@ def test_worker_routes_optim_and_raises_for_vi(data, tmp_path):
     # float64: equal to float32 rounding
     np.testing.assert_allclose(got["final_loss"], want["final_loss"],
                                rtol=1e-5)
-    for inf_type in ("vi", "evidence"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-            tv.worker(dict(cfg, inf_type=inf_type), data, str(tmp_path),
-                      make_plots=False, device="cpu")
+    # "vi" and "evidence" route to run_vi and run_evidence (their parity
+    # with the JAX driver: test_torch_vi_driver.py,
+    # test_torch_evidence_driver.py)
+    vi = tv.worker(dict(cfg, inf_type="vi", method="ADVI", num_iters=2,
+                        elbo_samples=2, num_samples=3), data,
+                   str(tmp_path), make_plots=False, device="cpu")
+    assert np.isfinite(vi["final_elbo"]) and vi["num_draws"] == 3
+    ev = tv.worker(dict(cfg, inf_type="evidence", method="Evidence",
+                        num_rungs=2, num_chains=2, burn_in=1, num_samples=2,
+                        smc_particles=25, smc_repeats=1, smc_moves=1,
+                        smc_max_stages=2, laplace_iters=1), data,
+                   str(tmp_path), make_plots=False, device="cpu")
+    assert ev["rank_by"] and np.isfinite(ev["log_z_smc"])
 
 
 def test_cli_runs_optim_configs(tmp_path):

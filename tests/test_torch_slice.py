@@ -151,12 +151,19 @@ def test_run_sampler_psgld_and_unported_options(problem, tmp_path):
     summary = run_sampler(cfg, data, str(tmp_path), make_plots=False,
                           device="cpu")
     assert np.isfinite(summary["min_potential"])
-    for bad in ({"engine": "generic", "method": "SMC"},
-                {"engine": "generic", "solver": "adams"},
-                {"method": "MMALA"}, {"method": "SMC", "ckpt_every": 1}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_sampler(dict(cfg, **bad), data, str(tmp_path),
-                        make_plots=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_sampler(dict(cfg, engine="generic", solver="adams"), data,
+                    str(tmp_path), make_plots=False, device="cpu")
+    with pytest.raises(TypeError, match="custom_vjp"):
+        run_sampler(dict(cfg, method="MMALA"), data, str(tmp_path),
+                    make_plots=False, device="cpu")
+    # SMC runs on the generic engine's solve whatever `engine` says, and
+    # takes no checkpoints, as in the JAX driver
+    for extra in ({"engine": "generic"}, {"ckpt_every": 1}):
+        s = run_sampler(dict(cfg, method="SMC", num_chains=8, smc_moves=1,
+                             smc_max_stages=2, **extra), data,
+                        str(tmp_path), make_plots=False, device="cpu")
+        assert s["num_chains"] == 8 and np.isfinite(s["log_z_smc"])
     # the fused engine takes rk4 and dopri5, as the JAX driver's
     with pytest.raises(ValueError, match="generic engine"):
         run_sampler(dict(cfg, solver="tsit5"), data, str(tmp_path),
