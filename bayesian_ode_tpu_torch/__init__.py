@@ -12,17 +12,27 @@ adaptive dopri5 solve and its gradient per step (engine="fused",
 solver="dopri5", model="gp"), the same posterior and the MLP field with a
 fixed-grid rk4 solve and its gradient (solver="rk4", model="gp" or "nn"),
 the MLP, spiral and FitzHugh-Nagumo fields at dopri5 on the fused engine,
-and the generic engine (engine="generic": every model at dopri5, tsit5
-or rk4 over the batched continuous adjoint `odeint_adjoint`), under SGLD,
-pSGLD, aSGLD, cSGLD, MALA, AdamSGLD, the SG-HMC family (aSGHMC, acSGHMC,
-SGRHMC, BAOAB), HAMCMC (generic engine) and SVGD, all through
-`experiments.vanderpol_gp.run_sampler`; and the MAP fit by L-BFGS or the
-first-order optimizers (`experiments.vanderpol_gp.run_optim`).  ROADMAP.md
-lists what is still to port.
+and the generic engine (engine="generic": every model at any solver of
+`SOLVERS` over the batched continuous adjoint `odeint_adjoint`), under
+SGLD, pSGLD, aSGLD, cSGLD, MALA, AdamSGLD, the SG-HMC family (aSGHMC,
+acSGHMC, SGRHMC, BAOAB), HAMCMC (generic engine), HMC, NUTS, PT,
+Ensemble, SMC and SVGD, all through `experiments.vanderpol_gp.run_sampler`;
+the MAP fit (`run_optim`), ADVI and Laplace (`run_vi`) and the evidence
+estimators (`run_evidence`).  The ODE core has every solver of the JAX
+package's registry (`SOLVERS`: the explicit pairs, the implicit sdirk4
+and trbdf2, the variable-order adams, the fixed-grid, symplectic and
+fixed Adams methods), complex states, the adaptive options, dense output
+(`odeint_dense`) and events (`odeint_event`).  ROADMAP.md lists what is
+still to port.
 """
 from .ode import (  # noqa: F401
+    SOLVERS,
+    DenseSolution,
     odeint,
     odeint_adjoint,
+    odeint_dense,
+    odeint_event,
+    odeint_event_with_stats,
     odeint_forward_sensitivity,
     odeint_with_stats,
 )

@@ -21,8 +21,10 @@ NUTS, AdaptiveNUTS, PT and Ensemble):
 
 every other engine value, and every method the JAX driver does not run
 fused, takes the generic engine: each model's per-chain potential
-(`make_potential`) over the batched `odeint_adjoint` at solver dopri5,
-tsit5, rk4, euler or midpoint (`make_generic_potential`), under SGLD,
+(`make_potential`) over the batched `odeint_adjoint` at any solver of
+`ode.SOLVERS` (`make_generic_potential`; dopri5, tsit5 and adams take
+config rtol/atol, the others the adjoint's defaults, as in the JAX
+driver), under SGLD,
 pSGLD, aSGLD, cSGLD, MALA, AdamSGLD, the SG-HMC family, HAMCMC (variant
 by the method name's last digit, `hamcmc_batched` with every chain's own
 L-BFGS memory), HMC, AdaptiveHMC, NUTS and AdaptiveNUTS (the batched
@@ -60,9 +62,9 @@ total_loss_arr.npy).
 method="MMALA" raises the TypeError the JAX driver hits (its metric's
 forward-mode Hessian cannot pass the adjoint's custom_vjp), and Laplace,
 whose Hessian differentiates the adjoint's backward solve, raises
-ValueError at the adaptive solvers, as in the JAX driver.  Unported
-solvers and options raise NotImplementedError naming the ROADMAP item
-that ports them.
+ValueError at the solvers with an accept/reject loop (and fixed_adams,
+whose corrector loops), as in the JAX driver.  The plots raise
+NotImplementedError naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -77,8 +79,8 @@ from .. import samplers
 from ..models import fhn_inference, mlp, spiral
 from ..models import kernel_regression as kr
 from ..models.kernel_regression import full_f32_matmul
-from ..ode.adjoint import odeint_adjoint
-from ..ode.odeint import _check_method
+from ..ode.adjoint import _LOOPED, odeint_adjoint
+from ..ode.odeint import SOLVERS, check_method
 from ..ops.fhn_dopri5 import make_fused_fhn_potential_dopri5
 from ..ops.gp_dopri5 import gp_dopri5_solve_whole
 from ..ops.gp_dopri5_grad import make_fused_gp_potential_dopri5
@@ -164,8 +166,9 @@ EXACT_METHODS = ("HMC", "AdaptiveHMC", "NUTS", "AdaptiveNUTS", "PT",
                  "Ensemble")
 GENERIC_METHODS = ("SGLD", "pSGLD", "aSGLD", "cSGLD", "MALA", "AdamSGLD",
                    "aSGHMC", "acSGHMC", "SGRHMC", "BAOAB") + EXACT_METHODS
-GENERIC_SOLVERS = ("dopri5", "tsit5", "rk4", "euler", "midpoint")
-ADAPTIVE_SOLVERS = ("dopri5", "tsit5")
+GENERIC_SOLVERS = tuple(SOLVERS)
+# the solvers that take config rtol/atol (the JAX driver's `_make_solve`)
+ADAPTIVE_SOLVERS = ("dopri5", "tsit5", "adams")
 MODELS = ("gp", "nn", "spiral", "fhn")
 # the fused engine's record budget per model at dopri5: the JAX driver's
 # defaults (its MLP steps grow as chains move toward data-fitting fields)
@@ -190,9 +193,7 @@ def _check_model(config: Dict, make_plots: bool) -> None:
 
 
 def _check_solver(config: Dict) -> None:
-    solver = config.get("solver", "rk4")
-    if solver not in GENERIC_SOLVERS:
-        _check_method(solver)              # item 16, or unknown
+    check_method(config.get("solver", "rk4"))
 
 
 def _check_second_order(config: Dict, what: str) -> None:
@@ -200,7 +201,7 @@ def _check_second_order(config: Dict, what: str) -> None:
     solve, which an adaptive solver's loop does not allow (ode/adjoint.py;
     the JAX driver's jacrev of grad raises there)."""
     solver = config.get("solver", "rk4")
-    if solver in ADAPTIVE_SOLVERS:
+    if solver in _LOOPED:
         raise ValueError(
             f"{what} needs a fixed-grid solver (got solver={solver!r}): its "
             "Hessian differentiates the adjoint's backward solve, and the "
@@ -442,9 +443,7 @@ def make_generic_potential(config: Dict, data: Dict, static, device,
     def per_chain(params, traj):
         return potential(lambda f, x0_, ts_: traj)(params)
 
-    def potential_batch(params):
-        if adaptive and x0.is_cuda:
-            full_f32_matmul()
+    def on_stream(params):
         fp = field_params(params)
         C = tree_leaves(fp)[0].shape[0]
         traj = solve(lambda t, y: batched_field(fp, t, y),
@@ -452,7 +451,33 @@ def make_generic_potential(config: Dict, data: Dict, static, device,
                      tuple(tree_leaves(fp)))
         return torch.func.vmap(per_chain)(params, traj.movedim(1, 0))
 
+    def potential_batch(params):
+        if not x0.is_cuda:
+            return on_stream(params)
+        if adaptive:
+            full_f32_matmul()
+        return _on_own_stream(on_stream, params, x0.device)
+
     return potential_batch
+
+
+def _on_own_stream(fn, params, device):
+    """fn(params) queued on a CUDA stream of its own (one of torch's pooled
+    streams), where the caller is on the default one; its backward runs
+    there too (autograd runs a node on its forward's stream), so the
+    adaptive loops of the adjoint's forward and backward solves can
+    replay their steps as CUDA graphs (`ode.cuda_graph`).  The caller's
+    stream waits for the result."""
+    caller = torch.cuda.current_stream(device)
+    if caller != torch.cuda.default_stream(device):
+        return fn(params)
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(caller)
+    with torch.cuda.stream(stream):
+        out = fn(params)
+    caller.wait_stream(stream)
+    out.record_stream(caller)
+    return out
 
 
 def _static_on(static, device, dtype):

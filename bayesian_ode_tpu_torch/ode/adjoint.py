@@ -33,6 +33,11 @@ with a graph through the fixed-grid solver's steps.  At an adaptive
 adjoint method this raises ValueError, where the JAX package's reverse
 pass through the backward solve's while loop raises.
 
+Every method of `odeint.SOLVERS` serves as the forward and the adjoint
+method.  Complex states are solved view-as-real (`odeint.complex_to_real`),
+so their cotangents are torch's for `torch.view_as_real`; the JAX
+package's adjoint rejects them.
+
 `nfe_counts` sums the RHS evaluations of every system in the forward and
 backward solves (read it, set it to 0, divide by the batch).
 """
@@ -44,8 +49,13 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..utils.pytree import tree_leaves, tree_map, tree_unflatten
-from .odeint import (ADAPTIVE, as_times, check_real, reverse_time,
-                     solve_batched, unbatch)
+from .odeint import (ADAPTIVE_METHODS, as_times, check_method,
+                     complex_to_real, reverse_time, solve_batched, unbatch)
+
+# the adjoint methods whose backward solve has a data-dependent loop: a
+# create_graph pass through them raises, as the JAX package's reverse pass
+# through a while loop does (the fixed Adams corrector's included)
+_LOOPED = ADAPTIVE_METHODS + ("fixed_adams",)
 
 nfe_counts = {"forward": 0, "backward": 0}
 
@@ -79,10 +89,12 @@ def odeint_adjoint(func: Callable, y0, t, rtol: float = 1e-6,
         raise ValueError("cannot supply `options` without specifying "
                          "`method`")
     method = method or "dopri5"
-    check_real(y0)
+    check_method(method)
+    check_method(adjoint_method or method)
     params = _params_of(func, adjoint_params)
+    func, y0, unpack = complex_to_real(func, y0)
     dev = tree_leaves(y0)[0].device
-    ts = as_times(t, dev)
+    ts = as_times(t, dev, batched)
     # decreasing time: negate outside the Function, so the ts cotangent
     # picks up the sign through autograd
     func, ts = reverse_time(func, ts)
@@ -110,7 +122,7 @@ def odeint_adjoint(func: Callable, y0, t, rtol: float = 1e-6,
         ys = tree_unflatten(y0, out)
     if not batched:
         ys = tree_map(lambda l: l[:, 0], ys)
-    return ys
+    return unpack(ys)
 
 
 @dataclasses.dataclass
@@ -164,8 +176,10 @@ class _OdeintAdjoint(torch.autograd.Function):
             with torch.no_grad():
                 return (None,) + _backward(spec, ts, ys, grad_ys)
         # a create_graph pass: differentiate the backward rule
-        if (spec.adjoint_method in ADAPTIVE
-                and spec.adjoint_options.get("mode", "while") != "bounded"):
+        if (spec.adjoint_method in _LOOPED
+                and (spec.adjoint_method == "fixed_adams"
+                     or spec.adjoint_options.get("mode", "while")
+                     != "bounded")):
             raise ValueError(
                 "second-order derivatives through odeint_adjoint need a "
                 f"fixed-grid adjoint method (got {spec.adjoint_method!r}): "
@@ -282,8 +296,10 @@ def _backward(spec, ts, ys, grad_ys, create_graph=False):
         a_y = tree_map(lambda a, g: a + g[i - 1], a_y,
                        tree_unflatten(like, grad_ys))
     # the ts cotangent [a_t, dL/dt_1, ..., dL/dt_{T-1}], summed over the
-    # systems that share ts
-    t_vjps = torch.stack([a_t] + dLd_ts[::-1], dim=1).sum(dim=0)
+    # systems that share ts (per system where each has its own)
+    t_vjps = torch.stack([a_t] + dLd_ts[::-1], dim=0)
+    if ts.dim() == 1:
+        t_vjps = t_vjps.sum(dim=1)
     p_grads = [None] * len(spec.params)
     for j, i in enumerate(wanted):
         g = a_p[j]

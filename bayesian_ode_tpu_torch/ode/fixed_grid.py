@@ -1,4 +1,5 @@
-"""Fixed-grid solvers (euler / midpoint / rk4) as a loop over the grid.
+"""Fixed-grid solvers (euler / midpoint / rk4 and the symplectic steppers
+of `symplectic.py`) as a loop over the grid.
 
 Counterpart of `bayesian_ode_tpu/ode/fixed_grid.py`.  The grid is the
 output times, or with `step_size` a uniform grid from t[0] clamped to end
@@ -18,6 +19,7 @@ import torch
 
 from ..utils.pytree import tree_map
 from .runge_kutta import rk4_alt_step
+from .symplectic import SYMPLECTIC_STEP_FUNCS
 
 
 def euler_step(func, t, dt, y):
@@ -38,6 +40,7 @@ STEP_FUNCS = {
     "euler": euler_step,
     "midpoint": midpoint_step,
     "rk4": rk4_step_fn,
+    **SYMPLECTIC_STEP_FUNCS,
 }
 
 

@@ -1,4 +1,4 @@
-"""Public `odeint` for the port: dopri5, tsit5 and the fixed-grid methods.
+"""Public `odeint` for the port: every solver of the JAX package's registry.
 
 Counterpart of `bayesian_ode_tpu/ode/odeint.py`:
 
@@ -7,17 +7,31 @@ Counterpart of `bayesian_ode_tpu/ode/odeint.py`:
 
 `func(t, y)` sees one system; y0 is a tensor or a tree of tensors (dict,
 list, tuple), and ys stacks the solution on a new leading time axis.  `t`
-is strictly monotonic: decreasing times integrate s = -t forward with the
-negated field (the reference's reversal trick).  With `batched=True` the
-leading axis of every leaf of y0 holds independent systems, each with its
-own step size under the adaptive methods, and `func(t (B,), y)` sees the
-whole batch.  Time runs in float64 whatever the state dtype, as the JAX
-package keeps it under x64.
+is monotonic: decreasing times integrate s = -t forward with the negated
+field (the reference's reversal trick; options={"reverse": bool} pins the
+direction).  With `batched=True` the leading axis of every leaf of y0
+holds independent systems, each with its own step size, order, Newton
+iterations and history, as the JAX package's vmap of the per-system
+solve; `func(t (B,), y)` sees the whole batch, and the adaptive methods
+also take per-system times t of shape (T, B).  Time runs in float64
+whatever the state dtype, as the JAX package keeps it under x64.  Complex
+leaves are solved as real ones with a trailing [Re, Im] axis
+(`complex_to_real`).
 
-Methods: "dopri5" and "tsit5" (adaptive, the options of
-`adaptive.AdaptiveConfig`), "euler", "midpoint" and "rk4" (fixed grid, the
-options `step_size` and `compensated`).  The JAX package's other solvers
-and options raise NotImplementedError naming the ROADMAP item that ports
+`SOLVERS` maps each method name to its batched solver:
+  - adaptive RK: "dopri5", "tsit5", "dopri8", "bosh3", "fehlberg2",
+    "adaptive_heun" (the options of `adaptive.AdaptiveConfig`, and
+    `interp` for another dense output);
+  - implicit: "sdirk4", "trbdf2" (`ode/dirk.py`; also newton_iters,
+    newton_kappa, error_filter);
+  - variable-order Adams: "adams" (`ode/vcabm.py`; max_order, safety,
+    ifactor, dfactor, max_num_steps, mode, max_steps_per_interval);
+  - fixed grid: "euler", "midpoint", "rk4" and the symplectic
+    "symplectic_euler", "leapfrog", "verlet", "yoshida4" (step_size,
+    compensated), "explicit_adams" and "fixed_adams"
+    (`ode/fixed_adams.py`; step_size, max_order, max_iters, and rtol/atol
+    of the corrector).
+Options a method does not read are ignored, as the JAX package ignores
 them.
 """
 from __future__ import annotations
@@ -26,107 +40,176 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from ..utils.pytree import tree_leaves, tree_map
+from ..utils.pytree import tree_leaves, tree_map, tree_unflatten
+from . import fixed_adams as _fixed_adams
+from . import vcabm as _vcabm
 from .adaptive import AdaptiveConfig, integrate_adaptive
-from .fixed_grid import STEP_FUNCS, integrate_fixed_grid
-from .tableaus import DOPRI5, TSIT5
+from .fixed_grid import integrate_fixed_grid
+from .tableaus import ADAPTIVE_HEUN, BOSH3, DOPRI5, DOPRI8, FEHLBERG2, TSIT5
 
-ADAPTIVE = {"dopri5": (DOPRI5, "quartic"), "tsit5": (TSIT5, "stages")}
-_ADAPTIVE_OPTIONS = ("first_step", "safety", "ifactor", "dfactor",
-                     "max_num_steps", "mode", "ulp_floor", "controller",
-                     "norm_weights")
-_FIXED_OPTIONS = ("step_size", "compensated")
-# the JAX package's other solvers (ROADMAP queue 1 item 16)
-_UNPORTED_METHODS = ("adams", "bosh3", "dopri8", "fehlberg2",
-                     "adaptive_heun", "sdirk4", "trbdf2", "explicit_adams",
-                     "fixed_adams", "symplectic_euler", "leapfrog", "verlet",
-                     "yoshida4")
-# the JAX package's other adaptive options, by the ROADMAP item that ports
-# them: the Kahan-compensated adaptive carry, the bounded mode's
-# per-interval cap and other dense outputs (2); the implicit solvers'
-# Newton and error-filter settings (16)
-_UNPORTED_OPTIONS = {"compensated": 2, "max_steps_per_interval": 2,
-                     "interp": 2, "newton_iters": 16, "newton_kappa": 16,
-                     "error_filter": 16}
+ADAPTIVE_OPTION_KEYS = (
+    "first_step", "safety", "ifactor", "dfactor", "max_num_steps", "mode",
+    "max_steps_per_interval", "compensated", "ulp_floor", "controller",
+    "newton_iters", "newton_kappa", "error_filter", "norm_weights",
+)
 
 
-def _check_method(method: str) -> None:
-    if method in _UNPORTED_METHODS:
-        raise NotImplementedError(
-            f"method {method!r}: the port has dopri5, tsit5, euler, "
-            "midpoint and rk4 (ROADMAP queue 1 item 16 ports the others)")
-    if method not in ADAPTIVE and method not in STEP_FUNCS:
+def adaptive_config(rtol, atol, options: Dict[str, Any]) -> AdaptiveConfig:
+    return AdaptiveConfig(rtol=float(rtol), atol=float(atol),
+                          **{k: options[k] for k in ADAPTIVE_OPTION_KEYS
+                             if k in options})
+
+
+def _solve_adaptive(tableau, interp_kind):
+    def solve(func, y0, ts, rtol, atol, options):
+        cfg = adaptive_config(rtol, atol, options)
+        kind = options.get("interp", interp_kind)
+        if kind == "quartic" and tableau.c_mid is None:
+            raise ValueError(
+                "options={'interp': 'quartic'} needs a tableau with c_mid "
+                "midpoint weights")
+        return integrate_adaptive(func, y0, ts, cfg, tableau, kind)
+
+    return solve
+
+
+def _solve_dirk(method):
+    def solve(func, y0, ts, rtol, atol, options):
+        from .dirk import DIRK_TABLEAUS, dirk_step
+
+        cfg = adaptive_config(rtol, atol, options)
+        if cfg.compensated:
+            raise ValueError(
+                "options={'compensated': True} is not supported by the "
+                "implicit (DIRK) methods: y1 comes from Newton stage "
+                "solves, not an explicit increment commit")
+        return integrate_adaptive(func, y0, ts, cfg, DIRK_TABLEAUS[method],
+                                  "hermite", step_impl=dirk_step)
+
+    return solve
+
+
+def _shared_times(ts, method):
+    if ts.dim() != 1:
+        raise ValueError(f"method {method!r} steps on one grid for the "
+                         "whole batch: t must be 1-D")
+    return ts
+
+
+def _solve_fixed(method):
+    def solve(func, y0, ts, rtol, atol, options):
+        ts = _shared_times(ts, method)
+        B = tree_leaves(y0)[0].shape[0]
+        ys, st = integrate_fixed_grid(
+            lambda tt, yy: func(tt.expand(B), yy), y0, ts, method,
+            options.get("step_size"), options.get("compensated", False))
+        dev = ts.device
+        stats = {"nfe": torch.full((B,), st["nfe"], device=dev),
+                 "n_accepted": torch.full((B,), st["n_accepted"],
+                                          device=dev),
+                 "n_rejected": torch.zeros(B, dtype=torch.int64, device=dev),
+                 "reached_final_time": torch.ones(B, dtype=torch.bool,
+                                                  device=dev)}
+        return ys, stats
+
+    return solve
+
+
+def _solve_fixed_adams(implicit):
+    def solve(func, y0, ts, rtol, atol, options):
+        return _fixed_adams.integrate_abm(
+            func, y0, _shared_times(ts, "fixed_adams"),
+            rtol=options.get("rtol", rtol), atol=options.get("atol", atol),
+            implicit=implicit, max_iters=options.get("max_iters", 4),
+            max_order=options.get("max_order", 12),
+            step_size=options.get("step_size"))
+
+    return solve
+
+
+def _solve_vcabm(func, y0, ts, rtol, atol, options):
+    return _vcabm.integrate_vcabm(
+        func, y0, ts, rtol=rtol, atol=atol,
+        max_order=options.get("max_order", 12),
+        safety=options.get("safety", 0.9),
+        ifactor=options.get("ifactor", 10.0),
+        dfactor=options.get("dfactor", 0.2),
+        max_num_steps=options.get("max_num_steps", 2**20),
+        mode=options.get("mode", "while"),
+        max_steps_per_interval=options.get("max_steps_per_interval", 256))
+
+
+# the JAX package's registry (and the reference's names); each solver
+# takes (func(t (B,), y), y0, ts (T,) or (T, B), rtol, atol, options) and
+# returns (ys (T, B, ...), per-system stats)
+SOLVERS: Dict[str, Callable] = {
+    "dopri5": _solve_adaptive(DOPRI5, "quartic"),
+    "tsit5": _solve_adaptive(TSIT5, "stages"),
+    # DOP853: composite 8(5,3) error and the 7th-order dense output (3 more
+    # RHS evaluations a step); options={"interp": "quartic"} is the cheap
+    # 4th-order fit
+    "dopri8": _solve_adaptive(DOPRI8, "dop853"),
+    "bosh3": _solve_adaptive(BOSH3, "hermite"),
+    "fehlberg2": _solve_adaptive(FEHLBERG2, "hermite"),
+    "adaptive_heun": _solve_adaptive(ADAPTIVE_HEUN, "hermite"),
+    "euler": _solve_fixed("euler"),
+    "midpoint": _solve_fixed("midpoint"),
+    "rk4": _solve_fixed("rk4"),
+    # separable Hamiltonian systems, state (q, p) (ode/symplectic.py)
+    "symplectic_euler": _solve_fixed("symplectic_euler"),
+    "leapfrog": _solve_fixed("leapfrog"),
+    "verlet": _solve_fixed("verlet"),
+    "yoshida4": _solve_fixed("yoshida4"),
+    "explicit_adams": _solve_fixed_adams(implicit=False),
+    "fixed_adams": _solve_fixed_adams(implicit=True),
+    "adams": _solve_vcabm,
+    "sdirk4": _solve_dirk("sdirk4"),
+    "trbdf2": _solve_dirk("trbdf2"),
+}
+# the methods with an accept/reject loop (no fixed grid)
+ADAPTIVE_METHODS = ("dopri5", "tsit5", "dopri8", "bosh3", "fehlberg2",
+                    "adaptive_heun", "adams", "sdirk4", "trbdf2")
+
+
+def check_method(method: str) -> None:
+    if method not in SOLVERS:
         raise ValueError(f"unknown method {method!r}; available: "
-                         f"{sorted(set(ADAPTIVE) | set(STEP_FUNCS))}")
-
-
-def _config(method: str, rtol, atol, options: Dict[str, Any]):
-    """The adaptive solver's `AdaptiveConfig` from `options`, or the fixed
-    grid's keyword options; unported options raise."""
-    options = dict(options)
-    interp = options.get("interp")
-    if interp is not None and method in ADAPTIVE \
-            and interp == ADAPTIVE[method][1]:
-        options.pop("interp")
-    for key in options:
-        if key in _UNPORTED_OPTIONS and not (
-                key == "compensated" and method in STEP_FUNCS):
-            raise NotImplementedError(
-                f"option {key!r} is not ported (ROADMAP queue 1 item "
-                f"{_UNPORTED_OPTIONS[key]})")
-    allowed = _ADAPTIVE_OPTIONS if method in ADAPTIVE else _FIXED_OPTIONS
-    extra = set(options) - set(allowed)
-    if extra:
-        raise NotImplementedError(
-            f"options {sorted(extra)} are not ported for {method} (ROADMAP "
-            "queue 1 item 2)")
-    if method in ADAPTIVE:
-        return AdaptiveConfig(rtol=float(rtol), atol=float(atol), **options)
-    return options
+                         f"{sorted(SOLVERS)}")
 
 
 def solve_batched(func: Callable, y0, ts: torch.Tensor, rtol, atol,
                   method: str, options: Dict[str, Any]):
     """Solve a batch (every leaf of y0 with a leading system axis B) at the
-    increasing float64 times ts (T,), T >= 2.  func(t (B,), y) -> tree.
-    Returns (ys, stats) with per-system stats."""
-    _check_method(method)
-    cfg = _config(method, rtol, atol, options)
-    B = tree_leaves(y0)[0].shape[0]
-    if method in ADAPTIVE:
-        tableau, interp = ADAPTIVE[method]
-        return integrate_adaptive(func, y0, ts, cfg, tableau, interp)
-    ys, st = integrate_fixed_grid(lambda tt, yy: func(tt.expand(B), yy), y0,
-                                  ts, method, **cfg)
-    dev = ts.device
-    stats = {"nfe": torch.full((B,), st["nfe"], device=dev),
-             "n_accepted": torch.full((B,), st["n_accepted"], device=dev),
-             "n_rejected": torch.zeros(B, dtype=torch.int64, device=dev),
-             "reached_final_time": torch.ones(B, dtype=torch.bool,
-                                              device=dev)}
-    return ys, stats
+    increasing float64 times ts (T,) or (T, B), T >= 2.  func(t (B,), y)
+    -> tree.  Returns (ys, stats) with per-system stats."""
+    check_method(method)
+    return SOLVERS[method](func, y0, ts, rtol, atol, dict(options))
 
 
-def as_times(t, device) -> torch.Tensor:
-    """t as a 1-D float64 tensor on `device` (autograd kept)."""
+def as_times(t, device, batched: bool = False) -> torch.Tensor:
+    """t as a float64 tensor on `device` (autograd kept): 1-D, or (T, B)
+    per-system times in a batch."""
     ts = t if torch.is_tensor(t) else torch.as_tensor(t)
     ts = ts.to(device=device, dtype=torch.float64)
-    if ts.dim() != 1:
+    if ts.dim() != 1 and not (batched and ts.dim() == 2):
         raise ValueError(f"t must be 1-D, got shape {tuple(ts.shape)}")
     return ts
 
 
-def reverse_time(func: Callable, ts: torch.Tensor):
-    """(func, ts) canonicalised to increasing time: where t decreases,
-    s = -t with dy/ds = -f(-s, y)."""
+def reverse_time(func: Callable, ts: torch.Tensor,
+                 reverse: Optional[bool] = None):
+    """(func, ts) canonicalised to increasing time: where t decreases (or
+    `reverse` says so), s = -t with dy/ds = -f(-s, y)."""
     if ts.shape[0] < 2:
         return func, ts
-    if bool(ts[1] < ts[0]):
+    if reverse is None:
+        reverse = bool((ts[1] < ts[0]).any())
+    if reverse:
         base = func
         func = lambda s, y: tree_map(torch.neg, base(-s, y))  # noqa: E731
         ts = -ts
-    if not bool((ts[1:] > ts[:-1]).all()):
-        raise ValueError("t must be strictly monotonic")
+    if not bool((ts[1:] >= ts[:-1]).all()):
+        raise ValueError("t must be monotonic")
     return func, ts
 
 
@@ -139,10 +222,31 @@ def unbatch(func: Callable, y0):
     return batched, tree_map(lambda l: l.unsqueeze(0), y0)
 
 
-def check_real(y0) -> None:
-    if any(torch.is_complex(l) for l in tree_leaves(y0)):
-        raise NotImplementedError(
-            "complex states are not ported (ROADMAP queue 1 item 2)")
+def complex_to_real(func: Callable, y0):
+    """View-as-real transform of complex state leaves: each complex leaf z
+    becomes the real leaf view_as_real(z), [Re z, Im z] on a new trailing
+    axis (the JAX package's stack([Re, Im], -1)), and func is wrapped to
+    convert in and out, so every solver and its error control see real
+    components.  Returns (func, y0, unpack), unpack mapping a solution
+    tree back to complex leaves; a no-op where no leaf is complex."""
+    is_cplx = [torch.is_complex(l) for l in tree_leaves(y0)]
+    if not any(is_cplx):
+        return func, y0, lambda ys: ys
+
+    def pack(tree):
+        return tree_unflatten(y0, [
+            torch.view_as_real(l) if c else l
+            for l, c in zip(tree_leaves(tree), is_cplx)])
+
+    def unpack(tree):
+        return tree_unflatten(y0, [
+            torch.view_as_complex(l.contiguous()) if c else l
+            for l, c in zip(tree_leaves(tree), is_cplx)])
+
+    def wrapped(t, y_real):
+        return pack(func(t, unpack(y_real)))
+
+    return wrapped, pack(y0), unpack
 
 
 def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
@@ -151,17 +255,17 @@ def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
                       batched: bool = False):
     """Like `odeint` but also returns the solver statistics nfe,
     n_accepted, n_rejected and reached_final_time (per system when
-    batched)."""
+    batched; the fixed Adams methods add corrector_fails)."""
     if options is not None and method is None:
         raise ValueError("cannot supply `options` without specifying "
                          "`method`")
     method = method or "dopri5"
     options = dict(options or {})
-    _check_method(method)
-    check_real(y0)
+    check_method(method)
+    func, y0, unpack = complex_to_real(func, y0)
     dev = tree_leaves(y0)[0].device
-    ts = as_times(t, dev)
-    func, ts = reverse_time(func, ts)
+    ts = as_times(t, dev, batched)
+    func, ts = reverse_time(func, ts, options.pop("reverse", None))
     if not batched:
         func, y0 = unbatch(func, y0)
     B = tree_leaves(y0)[0].shape[0]
@@ -176,7 +280,7 @@ def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
     if not batched:
         ys = tree_map(lambda l: l[:, 0], ys)
         stats = {k: v[0] for k, v in stats.items()}
-    return ys, stats
+    return unpack(ys), stats
 
 
 def odeint(func: Callable, y0, t, rtol: float = 1e-7, atol: float = 1e-9,

@@ -1,7 +1,8 @@
 """One explicit Runge-Kutta step over a Butcher tableau, batched.
 
-Counterpart of `bayesian_ode_tpu/ode/runge_kutta.py` for the FSAL pairs
-(dopri5, tsit5) and the fixed-grid RK4 steps.  States are trees of tensors
+Counterpart of `bayesian_ode_tpu/ode/runge_kutta.py`: the embedded pairs
+(FSAL or not, with DOP853's second error row) and the fixed-grid RK4
+steps.  States are trees of tensors
 (`utils/pytree.py`) whose leaves carry a leading batch axis; `t0` and `dt`
 are (B,) in the time dtype and are cast to each leaf's dtype for the stage
 arithmetic, as the JAX package does.
@@ -26,7 +27,9 @@ class AdaptiveState(NamedTuple):
     interp_coeff: dense output of [t0, t1]: the quartic's 5 coefficient
                   trees (dopri5), or (y0, the 7 stage trees) (tsit5).
     nfe, n_accepted, n_rejected: (B,) counters.
-    comp:         Kahan compensation (not ported: always None).
+    comp:         Kahan compensation tree (the low bits lost when the step
+                  increment was added to y1); None unless
+                  AdaptiveConfig.compensated.
     err_prev:     (B,) sqrt error ratio of the last accepted step (the PI
                   controller's memory); None under the "i" controller.
     """
@@ -52,6 +55,11 @@ def _bcast(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return x.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
+def _mask(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A (B,) bool mask shaped (B, 1, ...) against `like`, as a view."""
+    return mask.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
 def weighted_stage_sum(dt, weights, k: List[Any]):
     """dt * sum_i weights[i] * k[i] over stage trees, skipping zero
     weights."""
@@ -62,8 +70,12 @@ def weighted_stage_sum(dt, weights, k: List[Any]):
 
 def runge_kutta_step(func: Callable, y0, f0, t0, dt,
                      tableau: ButcherTableau):
-    """Returns (y1, f1, y1_error, k), k the stage derivatives with
-    f(t1, y1) last (FSAL)."""
+    """Returns (y1, f1, y1_error, y1_error_alt, k), k the stage derivatives
+    with f(t1, y1) last.  y1_error_alt is the second error estimate of a
+    composite tableau (DOPRI8), else None.  A non-FSAL tableau combines y1
+    from c_sol and evaluates f(t1, y1) fresh (tableau.nfe_per_step counts
+    it); the error combination zips c_error against the s + 1 stages, so
+    that extra slope never enters it."""
     k = [f0]
     yi = y0
     for alpha_i, beta_i in zip(tableau.alpha, tableau.beta):
@@ -72,7 +84,17 @@ def runge_kutta_step(func: Callable, y0, f0, t0, dt,
             * sum(b * k_ for b, k_ in zip(beta_i, ks) if b != 0), y0, *k)
         k.append(func(t0 + alpha_i * dt, yi))
     y1_error = weighted_stage_sum(dt, tableau.c_error, k)
-    return yi, k[-1], y1_error, k
+    y1_error_alt = (None if tableau.c_error_alt is None
+                    else weighted_stage_sum(dt, tableau.c_error_alt, k))
+    if tableau.is_fsal:
+        y1 = yi
+    else:
+        y1 = tree_map(
+            lambda y, *ks: y + _bcast(dt, y)
+            * sum(c * k_ for c, k_ in zip(tableau.c_sol, ks) if c != 0),
+            y0, *k)
+        k.append(func(t0 + dt, y1))
+    return y1, k[-1], y1_error, y1_error_alt, k
 
 
 def rk4_step(func: Callable, t, dt, y, k1=None):

@@ -27,7 +27,10 @@ def error_ratio(y1_error, rtol, atol, y0, y1, ulp_floor: float = 32.0,
     leaf's own dtype times the state magnitude (below that floor the error
     estimate is rounding noise of the stage combination, and resolving it
     would collapse the step size in float32: the JAX package measured
-    ~170x NFE inflation at rtol=1e-7 without it).  Each leaf's ratio is
+    ~170x NFE inflation at rtol=1e-7 without it).  The adaptive solvers
+    pass 32 ulps, or 4 with the Kahan-compensated carry
+    (AdaptiveConfig.compensated), which removes the accumulated rounding
+    of the state itself.  Each leaf's ratio is
     scaled by its weight in `norm_weights` (a tree of Python floats shaped
     like the state; 0.0 removes a leaf from error control, as the adjoint
     seminorm does), and the ratio is the max over leaves.  A single-tensor
@@ -54,13 +57,17 @@ def error_ratio(y1_error, rtol, atol, y0, y1, ulp_floor: float = 32.0,
 def optimal_step_size(last_step, ratio, safety=0.9, ifactor=10.0,
                       dfactor=0.2, order=5):
     """dt' = dt / clip(sqrt(r)^(1/order) / safety, 1/ifactor, 1/dfactor),
-    with dfactor disabled when r < 1, and dt * ifactor when r == 0."""
+    with dfactor disabled when r < 1, and dt * ifactor when r == 0.
+    `order` is a Python number or a (B,) tensor (the variable-order Adams
+    method's per-system order)."""
     r = ratio.to(last_step.dtype)
     dfac = torch.where(r < 1.0, torch.ones_like(r), torch.full_like(r, dfactor))
     err = torch.sqrt(torch.clamp_min(r, torch.finfo(last_step.dtype).tiny))
+    exponent = (1.0 / order.to(r.dtype) if torch.is_tensor(order)
+                else 1.0 / order)
     factor = torch.maximum(
         torch.full_like(r, 1.0 / ifactor),
-        torch.minimum(err ** (1.0 / order) / safety, 1.0 / dfac),
+        torch.minimum(err ** exponent / safety, 1.0 / dfac),
     )
     return torch.where(r == 0.0, last_step * ifactor, last_step / factor)
 

@@ -87,6 +87,23 @@ def ravel_pytree(tree: Tree):
     return flat, unravel
 
 
+def ravel_batch(tree: Tree):
+    """(flat (B, P), unravel) of a tree whose leaves carry a leading batch
+    axis B: each system's leaves raveled as `ravel_pytree` ravels one, and
+    the inverse (a (B, P) batch back to the tree)."""
+    leaves = tree_leaves(tree)
+    B = leaves[0].shape[0]
+    shapes = [tuple(x.shape[1:]) for x in leaves]
+    sizes = [x[0].numel() for x in leaves]
+
+    def unravel(v):
+        parts = torch.split(v, sizes, dim=1)
+        return tree_unflatten(tree, [p.reshape((v.shape[0],) + s)
+                                     for p, s in zip(parts, shapes)])
+
+    return torch.cat([x.reshape(B, -1) for x in leaves], dim=1), unravel
+
+
 def treedef_str(tree: Tree) -> str:
     """The structure of `tree` as `str(jax.tree.structure(tree))` prints it,
     e.g. "PyTreeDef([{'b': *, 'w': *}])"."""

@@ -72,7 +72,7 @@ HAMCMC1 through the driver at 2,048 chains on the generic GP rk4
 potential, then `hamcmc_batched` into its metric steps (under the
 driver's per-chain finite guard, the held chains counted) and its factor
 products against the dense BFGS oracle in float64 on the card (phase
-22); `run_optim` with L-BFGS (Armijo, 20 iterations) and Adam (50), the
+22); `run_optim` with L-BFGS (Armijo, 10 iterations) and Adam (20), the
 losses falling (phase 23).
 
 Then the exact and population samplers: HMC (L=10), AdaptiveHMC (L=8),
@@ -88,7 +88,7 @@ uninterrupted run (phase 26).
 
 Last, the remaining inference of the driver, on the main path's GP at rk4
 on the generic engine (no kernel of the port; step counts cut and each cut
-printed): SMC through `run_sampler` at 1,024 particles, 5 moves a stage
+printed): SMC through `run_sampler` at 1,024 particles, 2 moves a stage
 (phase 27); `run_vi` with ADVI (mean-field, full-rank) and Laplace, and
 the Laplace Hessian from the best SMC particle in float64 (one double
 backward through the continuous adjoint) against the CPU's and central
@@ -98,6 +98,19 @@ the SoftAbs metric on a 74-dimensional correlated Gaussian over 1,024
 chains, its moments, and the driver's refusals of MMALA (TypeError) and
 of Laplace and the evidence at dopri5 (ValueError) before any solve
 (phase 30).
+
+Then the rest of the ODE core, plain torch in float64: each method past
+dopri5, tsit5 and the fixed-grid euler, midpoint and rk4 over 10,112
+systems against the CPU on 64 of them (Van der Pol, the slowest methods
+over a shorter span; the symplectic ones on pendulums for 10^4 steps,
+their energy error bounded) with the seconds, mean NFE and device
+launches of a solve (phase 31);
+`run_sampler(engine="generic", model="gp", solver="adams")` at 10,112
+chains, 2 steps or 1 if the first takes over 60 s, and the float64 adams
+adjoint gradient at 256 chains against autograd through a tight dopri5
+loop (phase 32); `odeint_dense` at 1,000 query times against `odeint`,
+and `odeint_event` with the event time's gradient against the CPU (phase
+33).
 
 Exits non-zero on any failed phase, and when no CUDA device is available.
 Before the last two lines it prints its own seconds; the line before the
@@ -988,7 +1001,7 @@ def hamcmc_path(cfg, data, dev, smi, chains=HAMCMC_CHAINS, extra=10):
 
 def optim_path(cfg, data, dev):
     """Phase 23: run_optim on the card (GP rk4, one chain, float32):
-    L-BFGS with the Armijo search for 20 iterations, then Adam for 50; the
+    L-BFGS with the Armijo search for 10 iterations, then Adam for 20; the
     final loss is finite and below the first, and L-BFGS's trace never
     rises (a rejected move holds the value)."""
     import numpy as np
@@ -999,8 +1012,8 @@ def optim_path(cfg, data, dev):
 
     base = dict(cfg, inf_type="optim", engine="generic", solver="rk4",
                 id="optim")
-    runs = [dict(method="LBFGS", line_search="armijo", lr=1.0, num_iters=20),
-            dict(method="Adam", lr=1e-2, num_iters=50)]
+    runs = [dict(method="LBFGS", line_search="armijo", lr=1.0, num_iters=10),
+            dict(method="Adam", lr=1e-2, num_iters=20)]
     with tempfile.TemporaryDirectory() as out:
         for r in runs:
             c = dict(base, **r)
@@ -1333,17 +1346,17 @@ def checkpoint_path(cfg, data, dev):
 # the main path's GP at rk4 on the generic engine, float32 (the Laplace
 # stages in float64); each phase cuts step counts only, and prints each cut
 SMC_PARTICLES = 1024            # run_evidence's default smc_particles
-SMC_MOVES = 5
+SMC_MOVES = 2                   # run_sampler's default smc_moves is 5
 # run_vi's default num_iters is 2,000 (ADVI) and 200 (Laplace); the
 # Laplace fit from the best SMC particle (run_evidence's start) takes
 # LAPLACE_ITERS of run_evidence's default 200 (150 reached a positive
 # definite Hessian in 184 s on one H100, 60 did not)
-ADVI_ITERS, VI_LAPLACE_ITERS, LAPLACE_ITERS = 10, 5, 20
+ADVI_ITERS, VI_LAPLACE_ITERS, LAPLACE_ITERS = 10, 2, 20
 FD_DIRECTIONS, FD_EPS = 3, 1e-4  # central differences of the gradient
 # run_evidence at num_chains 32, num_rungs 16, 1,024 particles, 2 SMC
 # repeats; its cut step counts against the driver's defaults
 EVIDENCE_CUTS = {"burn_in": (10, 500), "num_samples": (10, 1000),
-                 "smc_moves": (1, 5), "laplace_iters": (10, 200)}
+                 "smc_moves": (1, 5), "laplace_iters": (3, 200)}
 MMALA_CHAINS, MMALA_DIM = 1024, SVGD_WIDTH
 MMALA_STEPS = (15, 5)           # burn-in, kept (a batched 74x74 float64
 MMALA_LR = 0.3                  # eigh a step, about 1 s on one H100)
@@ -1395,7 +1408,8 @@ def vag_ms(vag, position, reps=3):
 def smc_path(cfg, data, dev, smi):
     """Phase 27: method="SMC" through run_sampler on the main path's GP
     (M=6, N=5, T=60, noise 0.05) at rk4 on the generic engine in float32:
-    1,024 particles, smc_moves 5, the default max_stages (100).  Prints
+    1,024 particles, smc_moves `SMC_MOVES` (the default 5 cut to 2), the
+    default max_stages (100).  Prints
     the stages, log Z, the mean acceptance, ms a stage and ms a
     value-and-gradient of the population; the last beta is 1, every
     potential and particle finite, and no kernel of the port launches (the
@@ -1752,6 +1766,539 @@ def mmala_path(cfg, data, dev, smi):
           "dopri5 (ValueError) refused by the driver")
     check(not built and not delta,
           "the refusals come before any model, potential or solve")
+
+
+# ---- the rest of the ODE core (phases 31-33) ----
+# phase 31: each method of the ODE core past dopri5, tsit5 and euler,
+# midpoint and rk4, at the main path's width on Van der Pol (the adaptive and fixed-Adams
+# methods) or the pendulum (the symplectic steppers), float64 on the card
+# against the CPU on the first BATTERY_CPU systems.  The fixed Adams
+# methods run on a 0.01 grid at orders up to 6 (corrector) and 4
+# (predictor only): Adams-Bashforth past them diverges on these states.
+# Every adaptive solve takes a step budget above its need (adaptive_heun's
+# slowest system takes 35,142 steps), so that no system can hold the
+# batch's lockstep for the default 2^20; adams 5,000 (its slowest system
+# that reaches t = 6 takes 1,200): one of these 10,112 systems, x(0) =
+# (-0.17, 0.09), leaves the limit cycle under adams (x = -42 at 4,000
+# steps, still short of t = 6), as under the JAX package's adams.
+BUDGET = {"max_num_steps": 100_000}
+BATTERY = (("adams", {"max_num_steps": 2_000}), ("dopri8", BUDGET),
+           ("bosh3", BUDGET), ("fehlberg2", BUDGET),
+           ("adaptive_heun", BUDGET), ("sdirk4", BUDGET), ("trbdf2", BUDGET),
+           ("explicit_adams", {"step_size": 0.01, "max_order": 4}),
+           ("fixed_adams", {"step_size": 0.01, "max_order": 6}))
+# the horizon a method's solve is cut to, where the full span costs more
+# than a few seconds on the card: adaptive_heun's 2nd-order steps at rtol
+# 1e-7 take 35,674 loop iterations to t = 6 (117 s on one H100), trbdf2
+# 19.5 s, fehlberg2 9.6 s, sdirk4 8.1 s and bosh3 4.7 s to t = 6
+BATTERY_T_CUT = {"adaptive_heun": 0.5, "trbdf2": 3.0, "fehlberg2": 3.0,
+                 "sdirk4": 3.0, "bosh3": 3.0}
+# a system farther than this from the origin has left Van der Pol's limit
+# cycle (|x| <= 2.1): only such a system may stop short of t = 6
+DIVERGED = 10.0
+SYMPLECTIC = (("symplectic_euler", 0.11), ("leapfrog", 6e-3),
+              ("verlet", 6e-3), ("yoshida4", 2e-5))
+BATTERY_CPU = 64
+BATTERY_T, BATTERY_T_MAX = 60, 6.0
+SYMPLECTIC_STEPS, SYMPLECTIC_H = 10_000, 0.1
+PROFILED_STEPS = 20
+# phase 32's profiled window: the first EAGER_STEPS (16) iterations of a
+# loop run eagerly, the rest replay its CUDA graph
+ADAMS_PROFILED_STEPS = 100
+# phase 32: the float64 adams adjoint against autograd through a tight
+# dopri5 loop, the JAX package's relative strictness (5e-2 on gradients of
+# about 40, tests/test_gradients.py::test_adjoint_adams_vs_direct_dopri5)
+ADAMS_GATE = 5e-2 / 40
+ADAMS_STEP_CUT_S = 60.0
+# phase 33; the horizon of the event search: the slowest of the phase's
+# systems (x_1(0) = 7.42, 5 standard deviations out) first crosses at 26.2
+DENSE_QUERIES = 1000
+EVENT_T_MAX = 40.0
+
+
+def _profiled(fn):
+    """(device kernels, device-busy s, wall s) of `fn` under the profiler,
+    context-managed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA]
+    return (sum(ev.count for ev in events),
+            sum(ev.device_time_total for ev in events) / 1e6, wall)
+
+
+def _battery_states():
+    """Phase 31's initial states on the CPU, float64, from the seed: Van
+    der Pol's y0 (N_CHAINS, 2), 1.5 N(0, 1), then the pendulums' q0
+    (N_CHAINS, 1), uniform in [-1.5, 1.5]."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(31)
+    y0 = 1.5 * torch.randn(N_CHAINS, 2, generator=gen, dtype=torch.float64)
+    q0 = (torch.rand(N_CHAINS, 1, generator=gen, dtype=torch.float64) * 3.0
+          - 1.5)
+    return y0, q0
+
+
+def _pendulum(t, y):
+    import torch
+
+    return y[1], -torch.sin(y[0])
+
+
+def battery_on_cpu(method, options, ts, perturb=False):
+    """One of phase 31's CPU solves at the output times ts (the card's,
+    copied), on the first BATTERY_CPU systems of `_battery_states()`: Van
+    der Pol (y0 moved by 1e-15 relative with `perturb`), or the pendulums
+    at a symplectic method.  Run in a child process beside the card's
+    solves; returns (ys, stats)."""
+    import torch
+
+    from bayesian_ode_tpu_torch.models.dynamics import vdp
+    from bayesian_ode_tpu_torch.ode import odeint_with_stats
+
+    torch.set_num_threads(1)
+    y0, q0 = (x[:BATTERY_CPU] for x in _battery_states())
+    if method in dict(SYMPLECTIC):
+        return odeint_with_stats(_pendulum, (q0, torch.zeros_like(q0)), ts,
+                                 method=method, options=options,
+                                 batched=True)
+    return odeint_with_stats(vdp, y0 * (1 + 1e-15) if perturb else y0, ts,
+                             rtol=RTOL, atol=ATOL, method=method,
+                             options=options, batched=True)
+
+
+def solver_battery(dev, smi):
+    """Phase 31: every method of the ODE core past dopri5, tsit5 and the
+    fixed-grid euler, midpoint and rk4, batched over the main
+    path's 10,112 systems in float64 on the card: the 9 non-symplectic
+    methods on Van der Pol (`models.dynamics.vdp`, initial states 1.5
+    N(0, 1) from the seed, T = 60 output times to t = 6 or to the
+    method's `BATTERY_T_CUT`, rtol 1e-7 / atol 1e-9; a step budget a
+    system, `BATTERY`), the 4 symplectic ones on pendulums (q0 uniform in
+    [-1.5, 1.5], p0 = 0) for 10^4 steps of 0.1.  The timed solve runs
+    without autograd on a side stream, so adams replays one CUDA graph a
+    step.  The first 64 systems run again on the CPU: per system the same
+    nfe, accepted and rejected steps, and trajectories within 1e-10
+    max|y|; the symplectic energy error stays
+    within the JAX package's bound for |q0| <= 1.5 and does not grow from
+    the first half of the run to the second.  Prints per method the
+    seconds a solve, the mean NFE, and the device kernels a solve (the
+    profiler's count over the first 20 loop iterations, scaled by the
+    loop iterations of the whole solve: the batch's largest step
+    count).  The CPU solves run in a child process while the card's
+    run."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    f64 = torch.float64
+    y0, q0 = _battery_states()
+    ts = {m: torch.linspace(0.0, BATTERY_T_CUT.get(m, BATTERY_T_MAX),
+                            BATTERY_T, dtype=f64, device=dev)
+          for m, _ in BATTERY}
+    ts_s = torch.linspace(0.0, SYMPLECTIC_STEPS * SYMPLECTIC_H, 201,
+                          dtype=f64, device=dev)
+    jobs = [(m, o, ts[m], False) for m, o in BATTERY]
+    jobs.insert(1, ("adams", dict(BATTERY)["adams"], ts["adams"], True))
+    jobs += [(m, {"step_size": SYMPLECTIC_H}, ts_s, False)
+             for m, _ in SYMPLECTIC]
+    pool = ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu = {m + "+" * p: pool.submit(battery_on_cpu, m, o, t.cpu(), p)
+               for m, o, t, p in jobs}
+        _solver_battery(dev, smi, y0.to(dev), q0, ts, ts_s, cpu)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _solver_battery(dev, smi, y0, q0, ts_of, ts_s, cpu):
+    """Phase 31's card solves at the output times ts_of[method] (ts_s for
+    the pendulums), each held to its CPU solve `cpu[method]` (futures of
+    `battery_on_cpu`; "adams+" the perturbed one)."""
+    import torch
+
+    from bayesian_ode_tpu_torch.models.dynamics import vdp
+    from bayesian_ode_tpu_torch.ode import odeint_with_stats
+
+    side = torch.cuda.Stream()
+
+    def solve(method, options, y, t, grad=True):
+        # the timed solve (grad=False) runs without autograd on a side
+        # stream, where adams replays a CUDA graph a step; the profiled one
+        # counts the eager loop's launches
+        stream = torch.cuda.current_stream() if grad else side
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.set_grad_enabled(grad), torch.cuda.stream(stream):
+            out = odeint_with_stats(vdp, y, t, rtol=RTOL, atol=ATOL,
+                                    method=method, options=options,
+                                    batched=True)
+        torch.cuda.synchronize()
+        return out
+
+    rows = []
+    for method, options in BATTERY:
+        ts = ts_of[method]
+        t0 = time.perf_counter()
+        ys, st = solve(method, options, y0, ts, grad=False)
+        sec = time.perf_counter() - t0
+        steps = int((st["n_accepted"] + st["n_rejected"]).max())
+        # a profiled solve of at most PROFILED_STEPS iterations (the first
+        # output interval's ten grid steps on the fixed grids)
+        t_first = ts[:2]
+        short = dict(options or {}, max_num_steps=PROFILED_STEPS)
+        first = odeint_with_stats(vdp, y0, t_first, rtol=RTOL, atol=ATOL,
+                                  method=method, options=short,
+                                  batched=True)[1]
+        first_steps = max(int((first["n_accepted"]
+                               + first["n_rejected"]).max()), 1)
+        launched = _profiled(lambda: solve(method, short, y0, t_first))[0]
+        per_step = launched / first_steps
+        ys_c, st_c = cpu[method].result()
+        scale = float(ys_c.abs().max())
+        err = float((ys[:, :BATTERY_CPU].cpu() - ys_c).abs().max())
+        same = {k: int((st[k][:BATTERY_CPU].cpu() != st_c[k]).sum())
+                for k in ("nfe", "n_accepted", "n_rejected")}
+        # adams amplifies rounding about 10^6 times (its divided
+        # differences): held within 10x of the CPU solve's own move under a
+        # 1e-15 relative move of y0, and to the CPU's steps wherever that
+        # move leaves them (tests/test_torch_vcabm.py holds the JAX package
+        # to the port the same way)
+        bar, moved = 1e-10 * scale, 0
+        if method == "adams":
+            ys_p, st_p = cpu["adams+"].result()
+            bar = max(bar, 10 * float((ys_p - ys_c).abs().max()))
+            moved = int((st_p["nfe"] != st_c["nfe"]).sum())
+        nfe = float(st["nfe"].double().mean())
+        rows.append((method, sec, nfe))
+        print(f"phase 31 {method}{'' if options is None else ' ' + json.dumps(options)}: "
+              f"{N_CHAINS} systems to t = {float(ts[-1]):g} in {sec:.3f} s a "
+              f"solve, mean NFE "
+              f"{nfe:.1f} (max {int(st['nfe'].max())}), {steps} loop "
+              f"iterations, {launched} device launches over "
+              f"{first_steps} iterations of the first interval = "
+              f"{per_step:.1f} an iteration, about {per_step * steps:.0f} a "
+              f"solve; reached "
+              f"{int(st['reached_final_time'].sum())}/{N_CHAINS}"
+              + (f", corrector fails mean "
+                 f"{float(st['corrector_fails'].double().mean()):.3f}"
+                 if "corrector_fails" in st else "")
+              + f"; CPU on {BATTERY_CPU}: max|dy| {err:.3e} (max|y| "
+              f"{scale:.4f}, bar {bar:.3e}), systems whose counts differ "
+              f"{same}"
+              + (f", systems whose CPU counts a 1e-15 move of y0 changes "
+                 f"{moved}" if method == "adams" else ""))
+        check(bool(torch.isfinite(ys).all()), f"phase 31 {method}: finite")
+        short = ~st["reached_final_time"]
+        check(bool((ys[-1][short].abs().amax(dim=-1) > DIVERGED).all()),
+              f"phase 31 {method}: every system reaches t = {float(ts[-1]):g} "
+              "or has left the limit cycle")
+        check(moved > 0 or not any(same.values()),
+              f"phase 31 {method}: the CPU's steps on every system")
+        check(err <= bar, f"phase 31 {method}: within {bar:.1e} of the CPU")
+
+    y0s = (q0.to(dev), torch.zeros_like(q0).to(dev))
+    pendulum = _pendulum
+
+    def energy(q, p):
+        return p ** 2 / 2 - torch.cos(q)
+
+    for method, bound in SYMPLECTIC:
+        opts = {"step_size": SYMPLECTIC_H}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (qs, ps), st = odeint_with_stats(pendulum, y0s, ts_s, method=method,
+                                         options=opts, batched=True)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launched = _profiled(lambda: odeint_with_stats(
+            pendulum, y0s, ts_s[:2], method=method,
+            options={"step_size": float(ts_s[1])}, batched=True))[0]
+        drift = (energy(qs, ps) - energy(qs[:1], ps[:1])).abs()[..., 0]
+        half = drift.shape[0] // 2
+        d1, d2 = float(drift[:half].max()), float(drift[half:].max())
+        (qc, pc), _ = cpu[method].result()
+        err = max(float((qs[:, :BATTERY_CPU].cpu() - qc).abs().max()),
+                  float((ps[:, :BATTERY_CPU].cpu() - pc).abs().max()))
+        scale = max(float(qc.abs().max()), float(pc.abs().max()))
+        rows.append((method, sec, float(st["nfe"].double().mean())))
+        print(f"phase 31 {method}: {N_CHAINS} pendulums, "
+              f"{SYMPLECTIC_STEPS} steps of {SYMPLECTIC_H} in {sec:.3f} s, "
+              f"NFE {int(st['nfe'][0])}, {launched} device launches over "
+              f"the first output interval's {SYMPLECTIC_STEPS // 200} "
+              f"steps; energy error max {d1:.3e} (first half), {d2:.3e} "
+              f"(second half), bound {bound:.0e}; CPU on {BATTERY_CPU}: "
+              f"max|dy| {err:.3e} (max|y| {scale:.4f})")
+        check(bool(torch.isfinite(qs).all() and torch.isfinite(ps).all()),
+              f"phase 31 {method}: finite")
+        check(max(d1, d2) < bound, f"phase 31 {method}: energy bounded")
+        check(d2 <= 2 * d1, f"phase 31 {method}: energy error not growing")
+        check(err <= 1e-10 * scale,
+              f"phase 31 {method}: within 1e-10 max|y| of the CPU")
+    print(f"phase 31: {sum(r[1] for r in rows):.1f} s of card solves "
+          f"({smi})")
+
+
+class _CutSteps(Exception):
+    """Raised by phase 32's timed step after a first step past its
+    limit: the run stops at 1 step."""
+
+    def __init__(self, state):
+        super().__init__("first step past the limit")
+        self.state = state
+
+
+def adams_driver_path(cfg, data, dev, smi):
+    """Phase 32: run_sampler(engine="generic", model="gp", solver="adams",
+    method="SGLD") at the main path's 10,112 chains (N = 5, T = 60, M = 6;
+    float32, config rtol/atol as the JAX driver gives adams), 2 steps, or
+    1 if the first takes over 60 s.  Prints each step's seconds on the
+    host with its forward and backward NFE a chain, the port's kernel
+    launches (none: no K1-K9 on the generic path), and the card's idle
+    share over ADAMS_PROFILED_STEPS iterations of the first step's first
+    backward interval (16 eager, then graph replays), solved once more
+    under the profiler (its seconds counted in the step's).  Then, at 256 chains
+    in float64, the adams adjoint gradient of the GP potential against
+    autograd through a tight dopri5 loop
+    (mode "bounded", rtol 1e-9 / atol 1e-11), gated at the JAX package's
+    relative strictness (5e-2 on gradients of about 40)."""
+    import numpy as np
+    import torch
+
+    from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
+    from bayesian_ode_tpu_torch.ode import adjoint as adj
+    from bayesian_ode_tpu_torch.ode import odeint
+    from bayesian_ode_tpu_torch.ops import _build
+    from bayesian_ode_tpu_torch.samplers import batch_value_and_grad
+    from bayesian_ode_tpu_torch.utils.pytree import tree_leaves, tree_map
+
+    c = dict(cfg, engine="generic", model="gp", solver="adams",
+             method="SGLD", burn_in=0, num_samples=2, id="gp_adams")
+    c.pop("store_steps", None)
+    steps, window = [], {}
+    make_kernel, solve = vg._make_kernel, adj.solve_batched
+
+    def profiled_solve(*args, **kwargs):
+        """The first backward interval's solve, after ADAMS_PROFILED_STEPS
+        iterations of it under the profiler."""
+        n = window.setdefault("solves", 0) + 1
+        window["solves"] = n
+        if n == 2:
+            short = dict(args[6], max_num_steps=ADAMS_PROFILED_STEPS)
+            window["launches"], window["busy"], window["s"] = _profiled(
+                lambda: solve(*args[:6], short))
+        return solve(*args, **kwargs)
+
+    def timed_kernel(config, pot):
+        kern = make_kernel(config, pot)
+
+        def step(gen, state):
+            adj.nfe_counts.update(forward=0, backward=0)
+            first = not steps
+            if first:
+                adj.solve_batched = profiled_solve
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = kern.step(gen, state)
+                torch.cuda.synchronize()
+            finally:
+                adj.solve_batched = solve
+            steps.append((time.perf_counter() - t0, dict(adj.nfe_counts),
+                          first))
+            if len(steps) == 1 and steps[0][0] > ADAMS_STEP_CUT_S:
+                raise _CutSteps(out[0])
+            return out
+
+        return kern._replace(step=step)
+
+    vg._make_kernel = timed_kernel
+    cut, pots, leaves = False, None, None
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                summary = vg.run_sampler(c, data, out, make_plots=False,
+                                         device=dev)
+                d = os.path.join(out, "SGLD", c["id"])
+                pots = np.load(os.path.join(d, "total_loss_arr.npy"))
+                chain = np.load(os.path.join(d, "chain.npz"))
+                leaves = [chain[k] for k in chain.files
+                          if k.startswith("leaf_")]
+            except _CutSteps as e:
+                cut, summary = True, None
+                leaves = [x.detach().cpu().numpy()
+                          for x in tree_leaves(e.state.position)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            delta = {k: v for k, v in _build.launch_counts.items() if v}
+    finally:
+        vg._make_kernel = make_kernel
+    C = N_CHAINS
+    for i, (sec, nfe, prof) in enumerate(steps):
+        print(f"phase 32 adams SGLD step {i}: {sec:.3f} s on the host"
+              f"{' (profiled)' if prof else ''}; mean NFE a chain forward "
+              f"{nfe['forward'] / C:.2f}, backward {nfe['backward'] / C:.2f}")
+    if "s" in window:
+        print(f"phase 32 profiled window ({ADAMS_PROFILED_STEPS} iterations "
+              f"of the first backward interval of the first step, 16 eager "
+              f"and the rest replays of its CUDA graph, solved again under "
+              f"the profiler): {window['s']:.3f} s, "
+              f"{window['launches']} device launches, "
+              f"{window['busy'] * 1e3:.1f} ms busy, card idle "
+              f"{max(window['s'] - window['busy'], 0.0) / window['s']:.1%}")
+    print(f"phase 32 adams SGLD: {len(steps)} step(s) x {C} chains in "
+          f"{wall:.3f} s (set-up and the initial gradient included)"
+          f"{'; cut to 1 step (the first took over 60 s)' if cut else ''}; "
+          f"launches of the port's kernels {delta}; summary "
+          f"{json.dumps(summary)} ({smi})")
+    check(not delta, "phase 32: no kernel of the port launched")
+    check(all(bool(np.isfinite(x).all()) for x in leaves),
+          "phase 32: finite chains")
+    if pots is not None:
+        check(pots.shape == (N_CHAINS, c["num_samples"]),
+              "phase 32: pots shape")
+        check(bool(np.isfinite(pots).all()), "phase 32: finite potentials")
+
+    # the float64 adams adjoint against autograd through a dopri5 loop
+    f64, Cg = torch.float64, GENERIC_CHAINS_F64
+    cg = dict(c, rtol=RTOL, atol=ATOL)
+    static, params0 = vg.build_model(cg, data)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    P = tree_map(lambda x: x.to(dev, f64)[None] + 0.005 * torch.randn(
+        (Cg,) + tuple(x.shape), generator=gen, device=dev, dtype=f64),
+        params0)
+
+    def through_the_loop(f, y0, t, method, adjoint_params, batched, **tol):
+        return odeint(f, y0, t, method="dopri5", rtol=1e-9, atol=1e-11,
+                      options={"mode": "bounded"}, batched=batched)
+
+    adj.nfe_counts.update(forward=0, backward=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u_a, g_a = batch_value_and_grad(
+        vg.make_generic_potential(cg, data, static, dev, f64))(P)
+    torch.cuda.synchronize()
+    t_adj = time.perf_counter() - t0
+    nfe = dict(adj.nfe_counts)
+    saved = vg.odeint_adjoint
+    vg.odeint_adjoint = through_the_loop
+    try:
+        t0 = time.perf_counter()
+        u_b, g_b = batch_value_and_grad(
+            vg.make_generic_potential(cg, data, static, dev, f64))(P)
+        torch.cuda.synchronize()
+        t_bp = time.perf_counter() - t0
+    finally:
+        vg.odeint_adjoint = saved
+    rel_u = float(((u_a - u_b).abs() / u_b.abs()).max())
+    rel_g = _per_chain_max_rel(g_a, g_b)
+    gmax = max(float(x.abs().max()) for x in tree_leaves(g_b))
+    print(f"phase 32 adams adjoint float64, {Cg} chains: potential max-rel "
+          f"{rel_u:.3e}, gradient max-rel {rel_g:.3e} (against autograd "
+          f"through dopri5 at rtol 1e-9; gate {ADAMS_GATE:.2e}, the "
+          f"gradients' max {gmax:.3e}); mean NFE forward "
+          f"{nfe['forward'] / Cg:.1f}, backward {nfe['backward'] / Cg:.1f}; "
+          f"{t_adj:.2f} s adjoint, {t_bp:.2f} s through the loop")
+    check(bool(torch.isfinite(u_a).all()), "phase 32 adjoint: finite")
+    check(rel_g <= ADAMS_GATE,
+          f"phase 32: adams adjoint gradient within {ADAMS_GATE:.2e}")
+
+
+def dense_event_path(dev, smi):
+    """Phase 33: `odeint_dense` of the 10,112 Van der Pol systems of phase
+    31 (dopri5, rtol 1e-7 / atol 1e-9, float64) evaluated at 1,000 query
+    times against `odeint` at the same times; and `odeint_event` for the
+    first zero of x_1 of each system (batched, dopri5, autograd through
+    the bounded re-solve) with the gradient of each event time in y0,
+    against the CPU on the first 64 systems."""
+    import torch
+
+    from bayesian_ode_tpu_torch.models.dynamics import vdp
+    from bayesian_ode_tpu_torch.ode import (odeint, odeint_dense,
+                                            odeint_event_with_stats)
+    from bayesian_ode_tpu_torch.utils.pytree import tree_leaves
+
+    f64 = torch.float64
+    gen = torch.Generator(device="cpu").manual_seed(31)
+    y0 = (1.5 * torch.randn(N_CHAINS, 2, generator=gen, dtype=f64)).to(dev)
+    tq = torch.linspace(0.0, BATTERY_T_MAX, DENSE_QUERIES, dtype=f64,
+                        device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol, st = odeint_dense(vdp, y0, 0.0, BATTERY_T_MAX, rtol=RTOL, atol=ATOL,
+                           batched=True)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    buf = sum(x.numel() * x.element_size()
+              for x in [sol.ts] + tree_leaves(sol.coeffs))
+    t0 = time.perf_counter()
+    yd = sol(tq)
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    ys = odeint(vdp, y0, tq, rtol=RTOL, atol=ATOL, batched=True)
+    scale = float(ys.abs().max())
+    err = float((yd - ys).abs().max())
+    print(f"phase 33 odeint_dense: {N_CHAINS} systems solved in "
+          f"{t_solve:.3f} s (largest accepted count "
+          f"{int(st['n_accepted'].max())} of 512 slots), buffers "
+          f"{buf / 2 ** 20:.1f} MiB, {DENSE_QUERIES} queries evaluated in "
+          f"{t_eval:.3f} s, peak allocation {peak / 2 ** 20:.1f} MiB; "
+          f"max|dense - odeint| {err:.3e} (max|y| {scale:.4f})")
+    check(bool(st["reached_final_time"].all()),
+          "phase 33: the dense solve reaches t = 6 on every system")
+    check(err <= 1e-10 * scale, "phase 33: dense output equals odeint's")
+    del sol, yd, ys
+
+    def event(t, y):
+        return y[:, 0]
+
+    def run(y, device):
+        y = y.detach().clone().requires_grad_(True)
+        et, ys, st = odeint_event_with_stats(
+            vdp, y, 0.0, event_fn=event, rtol=RTOL, atol=ATOL,
+            options={"mode": "bounded"}, t_max=EVENT_T_MAX, batched=True)
+        g, = torch.autograd.grad(torch.nan_to_num(et).sum(), y)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return et.detach(), ys.detach(), st, g
+
+    t0 = time.perf_counter()
+    et, yse, ste, g = run(y0, dev)
+    t_event = time.perf_counter() - t0
+    et_c, yse_c, ste_c, g_c = run(y0[:BATTERY_CPU].cpu(), "cpu")
+    found = ste["event_found"]
+    d_t = float((et[:BATTERY_CPU].cpu() - et_c).abs().max())
+    d_y = float((yse[:, :BATTERY_CPU].cpu() - yse_c).abs().max())
+    d_g = float(((g[:BATTERY_CPU].cpu() - g_c).abs().max())
+                / g_c.abs().max())
+    print(f"phase 33 odeint_event: first zero of x_1 on {N_CHAINS} systems "
+          f"in {t_event:.3f} s with its gradient in y0 (found on "
+          f"{int(found.sum())}, mean time {float(et[found].mean()):.4f}, "
+          f"mean march NFE {float(ste['nfe'].double().mean()):.1f}); CPU "
+          f"on {BATTERY_CPU}: max|d t*| {d_t:.3e}, max|d y*| {d_y:.3e}, "
+          f"gradient max-rel {d_g:.3e} ({smi})")
+    check(bool(found.all()), "phase 33: every system finds its event")
+    check(bool(torch.isfinite(g).all()), "phase 33: finite gradients")
+    check(bool((ste["nfe"][:BATTERY_CPU].cpu() == ste_c["nfe"]).all()),
+          "phase 33: the CPU's march on every system")
+    check(d_t <= 1e-10 and d_y <= 1e-10,
+          "phase 33: event times and states within 1e-10 of the CPU")
+    check(d_g <= 1e-8, "phase 33: event-time gradients within 1e-8")
 
 
 def main() -> int:
@@ -2758,6 +3305,19 @@ def main() -> int:
     check(abs(mk - mp) <= 0.02 * mp, f"spiral N={Nw}: mean NFE within 2%")
     check(rel <= 1e-3, f"spiral N={Nw}: K3 within 1e-3 of the plain replay")
     del ysp, ysr, reck, wbk, wbp
+
+    # ---- phases 31-33: the rest of the ODE core (run here, before phase
+    # 19: after phase 19's profiler window a new profiler segfaulted on
+    # the card) ----
+    t0 = time.perf_counter()
+    solver_battery(dev, smi)
+    t1 = time.perf_counter()
+    adams_driver_path(cfg, data, dev, smi)
+    t2 = time.perf_counter()
+    dense_event_path(dev, smi)
+    t3 = time.perf_counter()
+    print(f"phases 31-33: {t3 - t0:.1f} s (31 {t1 - t0:.1f}, 32 "
+          f"{t2 - t1:.1f}, 33 {t3 - t2:.1f}) ({smi})")
 
     # ---- phases 18-20: the generic engine ----
     generic_gradient_check(cfg, data, dev)

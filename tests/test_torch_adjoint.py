@@ -154,11 +154,42 @@ def test_adjoint_raises():
                        adjoint_params=p, batched=True)
     with pytest.raises(ValueError, match="without specifying"):
         odeint_adjoint(tfield(p), y0, t, options={"safety": 0.8})
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        odeint_adjoint(lambda t, y: -y, y0.to(torch.complex128), t)
-    with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-        odeint_adjoint(tfield(p), y0, t, method="adams", adjoint_params=p)
+    # complex states: the adjoint of the view-as-real solve
+    z0 = torch.tensor([1.0 + 0.5j, -0.3 + 0.2j], dtype=torch.complex128,
+                      requires_grad=True)
+    zs = odeint_adjoint(lambda t, y: (1j - 0.1) * y, z0, t)
+    assert zs.dtype == torch.complex128 and zs.shape == (len(TS), 2)
+    zs.abs().pow(2).sum().backward()
+    # |z(t)|^2 = exp(-0.2 t) |z0|^2, so d/d z0 = 2 z0 sum_t exp(-0.2 t)
+    want = 2 * z0.detach() * np.exp(-0.2 * TS).sum()
+    torch.testing.assert_close(z0.grad, want, rtol=1e-6, atol=0)
+    # adams, forward and adjoint, against the JAX adjoint's gradients
+    ys = odeint_adjoint(tfield(p), y0, t, method="adams", adjoint_params=p,
+                        **TOL)
+    (ys * torch.tensor(W)).sum().backward()
+    (jp, _, _) = jax_grads(TS, method="adams")
+    for a, b in zip(p, jp):
+        assert max_rel(a.grad, b) <= 1e-5
     ys = odeint_adjoint(tfield(p), y0, t, adjoint_params=p,
                         adjoint_options={"norm": "l2"})
     with pytest.raises(ValueError, match="unknown adjoint norm"):
         ys.sum().backward()
+
+
+@pytest.mark.parametrize("method", ["adams", "bosh3", "dopri8", "sdirk4",
+                                    "fixed_adams"])
+def test_second_order_raises_at_looped_methods(method):
+    """A create_graph backward differentiates the backward solve: at a
+    method with an accept/reject loop (or fixed_adams' corrector loop) it
+    raises, as the JAX package's reverse pass through a while loop does;
+    the driver refuses Laplace there before any solve."""
+    from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
+
+    p = torch.tensor([0.7], dtype=torch.float64, requires_grad=True)
+    ys = odeint_adjoint(lambda t, y: -p * y, torch.ones(1,
+                        dtype=torch.float64), torch.tensor([0.0, 0.5, 1.0]),
+                        method=method, adjoint_params=(p,))
+    with pytest.raises(ValueError, match="fixed-grid adjoint method"):
+        torch.autograd.grad(ys.sum(), p, create_graph=True)
+    with pytest.raises(ValueError, match="fixed-grid solver"):
+        vg._check_second_order({"solver": method}, "method='Laplace'")

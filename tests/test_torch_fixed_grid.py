@@ -50,11 +50,21 @@ def test_fixed_grid_batched_systems_match_one_by_one():
 
 
 def test_unported_methods_and_options_raise():
-    x0, t = torch.zeros(2, dtype=torch.float64), torch.linspace(0, 1, 3)
+    """Every method of the JAX registry runs (adams among them), and an
+    option the method does not read is ignored, as the JAX package's
+    solvers ignore it; an unknown method still raises."""
+    x0, t = torch.tensor([1.5, -0.5], dtype=torch.float64), \
+        torch.linspace(0, 1, 3, dtype=torch.float64)
     f = TDYNAMICS["vdp"]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
-        odeint(f, x0, t, method="adams")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        odeint(f, x0, t, method="rk4", options={"perturb": True})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        odeint(f, x0, t, method="dopri5", options={"step_size": 0.1})
+    ys_j = jodeint_stats(JDYNAMICS["vdp"], jnp.asarray(to_np(x0)),
+                         jnp.asarray(to_np(t)), method="adams")[0]
+    np.testing.assert_allclose(to_np(odeint(f, x0, t, method="adams")),
+                               np.asarray(ys_j), rtol=1e-8, atol=1e-10)
+    torch.testing.assert_close(
+        odeint(f, x0, t, method="rk4", options={"perturb": True}),
+        odeint(f, x0, t, method="rk4"), rtol=0, atol=0)
+    torch.testing.assert_close(
+        odeint(f, x0, t, method="dopri5", options={"step_size": 0.1}),
+        odeint(f, x0, t, method="dopri5"), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="unknown method"):
+        odeint(f, x0, t, method="rk45")

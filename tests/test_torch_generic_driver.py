@@ -7,8 +7,9 @@ draw no noise: the Langevin noise is zeroed in both packages' samplers,
 and MALA's uniform is 0 in both, so every finite proposal is accepted.
 The steps are then deterministic, and the summary keys, the per-step
 potentials and the saved chains are held to the JAX driver's.  SVGD from
-one point is the mean-score flow.  Each unported method, solver and
-option raises NotImplementedError naming its ROADMAP item.
+one point is the mean-score flow.  Every solver of the registry runs
+(adams held to the JAX driver); the plots raise NotImplementedError
+naming their ROADMAP item.
 """
 import json
 
@@ -75,6 +76,25 @@ def test_generic_methods_match_the_jax_driver(data, tmp_path, no_noise,
     assert str(a["__treedef__"]) == str(b["__treedef__"])
     for k in ("leaf_0", "leaf_1"):
         np.testing.assert_allclose(a[k], b[k], rtol=1e-9, atol=1e-12)
+
+
+def test_generic_adams_matches_the_jax_driver(data, tmp_path, no_noise):
+    """solver="adams" on the generic engine (config rtol/atol, as the JAX
+    driver's adaptive solvers take them; 1e-5 / 1e-7 here): one SGLD step
+    of 3 chains with
+    the noise zeroed, the potentials and the chain against the JAX
+    driver's.  VCABM amplifies the two packages' rounding of the field
+    (test_torch_vcabm.py), so the gate is 1e-7 relative."""
+    cfg = dict(GENERIC_CONFIG, method="SGLD", solver="adams", num_chains=3,
+               burn_in=0, num_samples=1, rtol=1e-5, atol=1e-7)
+    got, want, port, jax_out = _run_both(cfg, data, tmp_path)
+    assert set(got) == set(want) and got["num_chains"] == 3
+    np.testing.assert_allclose(np.load(port / "total_loss_arr.npy"),
+                               np.load(jax_out / "total_loss_arr.npy"),
+                               rtol=1e-7)
+    a, b = np.load(port / "chain.npz"), np.load(jax_out / "chain.npz")
+    for k in ("leaf_0", "leaf_1"):
+        np.testing.assert_allclose(a[k], b[k], rtol=1e-7, atol=1e-12)
 
 
 def test_svgd_through_the_driver_matches_jax(data, tmp_path):
@@ -156,9 +176,13 @@ def test_unported_methods_solvers_and_options_raise(data, tmp_path):
     assert np.isfinite(s["log_z_smc"])
     with pytest.raises(ValueError, match="GP model"):
         run(method="SMC", model="spiral")
-    for solver in ("adams", "bosh3", "dopri8"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-            run(solver=solver)
+    # every registry solver passes vanderpol_gp's config checks (adams
+    # runs through it in test_generic_adams_matches_the_jax_driver, the solvers
+    # themselves against JAX in their own files)
+    from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
+
+    for solver in ("adams", "bosh3", "dopri8", "sdirk4", "fixed_adams"):
+        vg._check_supported(dict(GENERIC_CONFIG, solver=solver), False)
     with pytest.raises(NotImplementedError, match="item 6"):
         run_sampler(GENERIC_CONFIG, data, str(tmp_path), make_plots=True,
                     device="cpu")

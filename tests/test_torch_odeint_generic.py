@@ -240,23 +240,41 @@ def test_bounded_mode_gradient_matches_jax():
 
 
 def test_unported_solvers_and_options_raise():
-    y0, t = torch.zeros(2, dtype=torch.float64), torch.linspace(0, 1, 3)
+    """Every name of the JAX registry and every adaptive option is ported:
+    none raises, and the errors left are the JAX package's."""
+    y0 = torch.tensor([1.0, -0.5], dtype=torch.float64)
+    t = torch.linspace(0, 1, 3, dtype=torch.float64)
     f = lambda t, y: -y   # noqa: E731
-    for method in ("adams", "bosh3", "dopri8", "fehlberg2", "adaptive_heun",
-                   "sdirk4", "trbdf2"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-            odeint(f, y0, t, method=method)
-    for opt, item in (({"compensated": True}, 2),
-                      ({"max_steps_per_interval": 64}, 2),
-                      ({"interp": "hermite"}, 2),
-                      ({"newton_iters": 3}, 16), ({"error_filter": "raw"}, 16)):
-        with pytest.raises(NotImplementedError,
-                           match=f"queue 1 item {item}"):
-            odeint(f, y0, t, method="dopri5", options=opt)
-    # the tableau's own dense output is accepted
+    from bayesian_ode_tpu.ode import SOLVERS as JSOLVERS
+    from bayesian_ode_tpu_torch.ode import SOLVERS
+
+    assert sorted(SOLVERS) == sorted(JSOLVERS)
+    for method in SOLVERS:
+        if method in ("symplectic_euler", "leapfrog", "verlet", "yoshida4"):
+            out = odeint(lambda t, y: (y[1], -y[0]), (y0, y0), t,
+                         method=method)
+        else:
+            out = odeint(f, y0, t, method=method)
+        assert all(bool(torch.isfinite(x).all()) for x in
+                   (out if isinstance(out, tuple) else (out,)))
+    for opt in ({"compensated": True}, {"max_steps_per_interval": 64,
+                                        "mode": "bounded"},
+                {"interp": "hermite"}, {"newton_iters": 3},
+                {"error_filter": "raw"}, {"reverse": False}):
+        ys = odeint(f, y0, t, method="dopri5", options=opt)
+        np.testing.assert_allclose(to_np(ys[-1]), to_np(y0) * np.exp(-1.0),
+                                   rtol=1e-6)
     odeint(f, y0, t, method="tsit5", options={"interp": "stages"})
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        odeint(f, torch.zeros(2, dtype=torch.complex128), t)
+    zs = odeint(lambda t, y: 1j * y, torch.ones(2, dtype=torch.complex128),
+                t)
+    np.testing.assert_allclose(to_np(zs[-1]), np.exp(1j) * np.ones(2),
+                               rtol=1e-6)
+    with pytest.raises(ValueError, match="c_mid"):
+        odeint(f, y0, t, method="bosh3", options={"interp": "quartic"})
+    with pytest.raises(ValueError, match="compensated"):
+        odeint(f, y0, t, method="sdirk4", options={"compensated": True})
+    with pytest.raises(ValueError, match="error_filter"):
+        odeint(f, y0, t, method="sdirk4", options={"error_filter": "l2"})
     with pytest.raises(ValueError, match="unknown method"):
         odeint(f, y0, t, method="rk45")
     with pytest.raises(ValueError, match="without specifying"):

@@ -151,9 +151,19 @@ def test_run_sampler_psgld_and_unported_options(problem, tmp_path):
     summary = run_sampler(cfg, data, str(tmp_path), make_plots=False,
                           device="cpu")
     assert np.isfinite(summary["min_potential"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_sampler(dict(cfg, engine="generic", solver="adams"), data,
-                    str(tmp_path), make_plots=False, device="cpu")
+    # the generic engine takes adams (its solves against JAX in
+    # test_torch_vcabm.py, through the driver in test_torch_generic_driver.py):
+    # here its potential at 2 chains, forward only
+    from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
+
+    c = dict(cfg, engine="generic", solver="adams", rtol=1e-5, atol=1e-7)
+    vg._check_supported(c, make_plots=False)
+    static, p0 = vg.build_model(c, data)
+    pot = vg.make_generic_potential(c, data, static, "cpu", torch.float64)
+    with torch.no_grad():
+        u = pot({k: v.double()[None].repeat((2,) + (1,) * v.dim())
+                 for k, v in p0.items()})
+    assert u.shape == (2,) and bool(torch.isfinite(u).all())
     with pytest.raises(TypeError, match="custom_vjp"):
         run_sampler(dict(cfg, method="MMALA"), data, str(tmp_path),
                     make_plots=False, device="cpu")

@@ -11,6 +11,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from bayesian_ode_tpu.models import kernel_regression as jkr
@@ -242,3 +243,62 @@ def check_generic_potential(data, model, solver, C=4):
     for c in range(C):
         assert tree_max_rel(jax.tree.map(lambda x: x[c], g),
                             jax.tree.map(lambda x: x[c], g_j)) <= 1e-6
+
+
+# ---- the solver battery's small problem: B=4 Van der Pol systems, one
+# stiffness mu a system, from a numpy seed; both packages in float64
+
+VDP_Y0 = 1.5 * np.random.RandomState(1).randn(4, 2)
+VDP_MU = np.array([0.5, 1.0, 2.0, 3.0])
+VDP_TS = np.linspace(0.0, 3.0, 9)
+
+
+def jvdp(t, y, mu):
+    return jnp.stack([y[1], mu * (1 - y[0] ** 2) * y[1] - y[0]])
+
+
+def tvdp(t, y, mu=VDP_MU):
+    mu = torch.as_tensor(mu, dtype=y.dtype)
+    return torch.stack([y[:, 1], mu * (1 - y[:, 0] ** 2) * y[:, 1]
+                        - y[:, 0]], dim=1)
+
+
+def vdp_both(method, options=None, ts=VDP_TS, rtol=1e-7, atol=1e-9,
+             y0=VDP_Y0, mu=VDP_MU, dtype=np.float64):
+    """(port ys (B, T, 2), port stats, JAX ys, JAX stats): the port's
+    batched solve against the JAX solver vmapped over the systems."""
+    from bayesian_ode_tpu.ode import odeint_with_stats as jstats
+    from bayesian_ode_tpu_torch.ode import odeint_with_stats
+
+    def one(y, m):
+        return jstats(lambda t, yy: jvdp(t, yy, m), y, jnp.asarray(ts),
+                      rtol=rtol, atol=atol, method=method, options=options)
+
+    ys_j, st_j = jax.vmap(one)(jnp.asarray(y0.astype(dtype)),
+                               jnp.asarray(mu.astype(dtype)))
+    ys, st = odeint_with_stats(lambda t, y: tvdp(t, y, mu),
+                               torch.tensor(y0.astype(dtype)),
+                               torch.tensor(ts), rtol=rtol, atol=atol,
+                               method=method, options=options, batched=True)
+    return ys.transpose(0, 1), st, ys_j, st_j
+
+
+def check_counts32(st_t, st_j, steps=3):
+    """Two float32 solves' per-system counts: accepted and rejected within
+    `steps` of each other on every system (error ratios that land within
+    their rounding of 1 flip a step)."""
+    for k in ("n_accepted", "n_rejected"):
+        d = np.abs(to_np(st_t[k]).astype(np.int64)
+                   - np.asarray(st_j[k]).astype(np.int64))
+        assert d.max() <= steps, (k, d)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for the module: the solver loops run thousands of
+    small operations, which eight intra-op threads a worker make several
+    times slower under the suite's six workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
