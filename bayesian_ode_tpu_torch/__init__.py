@@ -22,9 +22,14 @@ estimators (`run_evidence`).  The ODE core has every solver of the JAX
 package's registry (`SOLVERS`: the explicit pairs, the implicit sdirk4
 and trbdf2, the variable-order adams, the fixed-grid, symplectic and
 fixed Adams methods), complex states, the adaptive options, dense output
-(`odeint_dense`) and events (`odeint_event`).  ROADMAP.md lists what is
-still to port.
+(`odeint_dense`) and events (`odeint_event`).  The SDE stack (`sde`:
+`sdeint`, the reversible-Heun adjoint `sdeint_adjoint`, the
+Euler-Maruyama and NPSDE potentials), the latent-ODE, latent-SDE and CNF
+models, the toy densities and experiment (`experiments.toy`), and the
+driver's plots and config helpers are ported too.  ROADMAP.md lists what
+is still to port.
 """
+from . import sde  # noqa: F401
 from .ode import (  # noqa: F401
     SOLVERS,
     DenseSolution,
@@ -36,5 +41,6 @@ from .ode import (  # noqa: F401
     odeint_forward_sensitivity,
     odeint_with_stats,
 )
+from .sde import sdeint, sdeint_adjoint  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,12 +1,14 @@
 """Experiment CLI of the port:
 
     python -m bayesian_ode_tpu_torch.experiments.run --json-dir DIR --id N \
-        --no-plots [--device cuda] [--resume]
+        [--experiment vanderpol|toy] [--no-plots] [--device cuda] [--resume]
 
 A JSON config selected by integer id, as the JAX package's CLI; the
 config's "data" block {ode, N, T, t_max, noise, x0_scale, seed} regenerates
-the dataset with the port's own generator.  The run goes to the first CUDA
-card; with no card it stops with an error unless `--device cpu` is given.
+the dataset with the port's own generator.  `--experiment toy` runs each
+config's toy-density sampler (`experiments.toy.run_toy`) instead.  The
+run goes to the first CUDA card; with no card it stops with an error
+unless `--device cpu` is given.
 `--resume` continues each config's interrupted sampling run from its
 sampler_ckpt.npz (configs with ckpt_every > 0).
 """
@@ -18,6 +20,7 @@ import torch
 
 from ..models import make_dataset
 from .config import load_config
+from .toy import run_toy
 from .vanderpol_gp import worker
 
 
@@ -25,6 +28,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--json-dir", required=True)
     ap.add_argument("--id", required=True, type=int)
+    ap.add_argument("--experiment", default="vanderpol",
+                    choices=["vanderpol", "toy"])
     ap.add_argument("--no-plots", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda; the CPU runs the "
@@ -40,6 +45,11 @@ def main(argv=None):
                  "--device cpu to run the plain versions on the CPU")
 
     blob = load_config(args.json_dir, args.id)
+    if args.experiment == "toy":
+        for cfg in blob["configs"]:
+            print(run_toy(cfg, blob["output"], make_plots=not args.no_plots,
+                          device=device))
+        return
     dspec = blob.get("data", {})
     data = make_dataset(
         seed=dspec.get("seed", 0), ode=dspec.get("ode", "vdp"),

@@ -63,8 +63,16 @@ method="MMALA" raises the TypeError the JAX driver hits (its metric's
 forward-mode Hessian cannot pass the adjoint's custom_vjp), and Laplace,
 whose Hessian differentiates the adjoint's backward solve, raises
 ValueError at the solvers with an accept/reject loop (and fixed_adams,
-whose corrector loops), as in the JAX driver.  The plots raise
-NotImplementedError naming the ROADMAP item that ports them.
+whose corrector loops), as in the JAX driver.
+
+With make_plots=True (the default) each run also writes the JAX driver's
+PDF files: run_sampler and run_vi post.pdf and phase_mode.pdf, and for
+the GP model predictive_bands.pdf and logsn_hist.pdf; run_optim
+post.pdf, post_log.pdf, phase_map.pdf and trajectories.pdf.  Their
+numbers come from `sampler_plot_numbers` and `optim_plot_numbers` (on the
+run's device, in float64); matplotlib is imported only to draw them, with
+the Agg backend, and its ImportError reaches the caller where it is not
+installed, as in the JAX driver.
 """
 from __future__ import annotations
 
@@ -76,10 +84,11 @@ import numpy as np
 import torch
 
 from .. import samplers
-from ..models import fhn_inference, mlp, spiral
+from ..models import DYNAMICS, fhn_inference, mlp, spiral
 from ..models import kernel_regression as kr
 from ..models.kernel_regression import full_f32_matmul
 from ..ode.adjoint import _LOOPED, odeint_adjoint
+from ..ode import odeint
 from ..ode.odeint import SOLVERS, check_method
 from ..ops.fhn_dopri5 import make_fused_fhn_potential_dopri5
 from ..ops.gp_dopri5 import gp_dopri5_solve_whole
@@ -181,11 +190,7 @@ def is_fused(config: Dict) -> bool:
             and config["method"] in FUSED_METHODS)
 
 
-def _check_model(config: Dict, make_plots: bool) -> None:
-    if make_plots:
-        raise NotImplementedError(
-            "plots are not ported (ROADMAP queue 1 item 6); pass "
-            "make_plots=False / --no-plots")
+def _check_model(config: Dict) -> None:
     model = config.get("model", "gp")
     if model not in MODELS:
         raise ValueError(f"unknown model {model!r}; expected 'gp', 'nn', "
@@ -209,8 +214,8 @@ def _check_second_order(config: Dict, what: str) -> None:
             "differentiation does not work for lax.while_loop' there")
 
 
-def _check_supported(config: Dict, make_plots: bool) -> None:
-    _check_model(config, make_plots)
+def _check_supported(config: Dict) -> None:
+    _check_model(config)
     model = config.get("model", "gp")
     method = config["method"]
     if method == "MMALA":
@@ -673,6 +678,210 @@ def _run_smc(config, data, static, device, dtype):
     return tree_map(lambda x: x[None], res.particles), infos, n
 
 
+# ---- the plots (the JAX driver's _plots_sampler_nn, _plots_sampler and
+# _plots_optim): their numbers on the run's device, then matplotlib ----
+
+GRID_POINTS = 15        # the phase plots' quiver grid, 15 x 15
+BAND_DRAWS = 64         # chain draws re-solved for the predictive bands
+
+
+def _field_of(config: Dict, static, device, dtype):
+    """(field(params, t, y), label) of the configured model."""
+    model = config.get("model", "gp")
+    if model == "fhn":
+        return fhn_inference.vector_field, "FHN theta"
+    if model == "spiral":
+        return spiral.vector_field, "spiral y^3-net"
+    if model == "nn":
+        return mlp.mlp_vector_field, "MLP"
+    st = _static_on(static, device, dtype)
+    return (lambda p, t, y: kr.vector_field(p, st, t, y)), "GP"
+
+
+def _field_on_grid(field, params, data, device, dtype):
+    """The field at params on a 15 x 15 grid over the data's range padded
+    by 0.5: (gx, gy, field (225, 2)) as numpy."""
+    Y = _as64(data["Y"]).numpy().reshape(-1, 2)
+    lo, hi = Y.min(0) - 0.5, Y.max(0) + 0.5
+    gx, gy = np.meshgrid(np.linspace(lo[0], hi[0], GRID_POINTS),
+                         np.linspace(lo[1], hi[1], GRID_POINTS))
+    pts = torch.as_tensor(np.stack([gx.ravel(), gy.ravel()], 1),
+                          device=device, dtype=dtype)
+    with torch.no_grad():
+        f = field(params, 0.0, pts)
+    return gx, gy, f.cpu().numpy()
+
+
+def _params_on(params, device, dtype):
+    return tree_map(lambda x: torch.as_tensor(x).to(device=device,
+                                                    dtype=dtype), params)
+
+
+def sampler_plot_numbers(config: Dict, data: Dict, static, positions, pots,
+                         device="cuda") -> Dict:
+    """The numbers the sampler plots draw, as numpy, computed in float64 on
+    `device`: the posterior mode (the lowest of pots (C, S) over the
+    positions (C, S, ...)), its field on the 15 x 15 grid ("grid_x",
+    "grid_y", "field"), and for the GP model the posterior predictive
+    bands: BAND_DRAWS chain draws picked by `RandomState(0)`, each solved
+    by rk4 on 80 times to t=14 from 3 starts drawn by that RandomState
+    ("band_t", "band_x0", "band_mean", "band_std": mean and standard
+    deviation over the draws, (80, 3, 2)), beside the true dynamics' dopri5
+    solve from those starts ("truth")."""
+    dtype = torch.float64
+    ci, si = np.unravel_index(np.argmin(pots), pots.shape)
+    mode = _params_on(tree_map(lambda x: x[ci, si], positions), device,
+                      dtype)
+    field, _ = _field_of(config, static, device, dtype)
+    gx, gy, f = _field_on_grid(field, mode, data, device, dtype)
+    out = {"grid_x": gx, "grid_y": gy, "field": f}
+    if static is None:
+        return out
+    st = _static_on(static, device, dtype)
+    rng = np.random.RandomState(0)
+    x0 = 2.0 * 1.0 * rng.uniform(size=(3, 2)) - 1.0
+    t = np.linspace(0.0, 14.0, 80)
+    n_draws = min(BAND_DRAWS, pots.size)
+    U_all = torch.as_tensor(positions["U"])
+    flat_U = U_all.reshape((-1,) + tuple(U_all.shape[2:]))
+    idx = rng.choice(flat_U.shape[0], n_draws, replace=False)
+    U = flat_U[torch.as_tensor(idx, device=flat_U.device)].to(device=device,
+                                                              dtype=dtype)
+    A = torch.matmul(st.KzzinvL, U)                       # (n, M, D)
+    x0_t = torch.as_tensor(x0, device=device, dtype=dtype)
+    t_t = torch.as_tensor(t, device=device, dtype=dtype)
+    with torch.no_grad():
+        # rk4 on the output times: the draws ride one state, each its own
+        sols = odeint(lambda tt, X: kr.vector_field_fast(A, st, tt, X),
+                      x0_t.expand((n_draws,) + x0.shape), t_t,
+                      method="rk4")                       # (T, n, 3, 2)
+        ode_fn = DYNAMICS[str(data.get("ODE", "vdp")).lower()]
+        truth = odeint(ode_fn, x0_t, t_t, method="dopri5")
+    sols = sols.movedim(1, 0).cpu().numpy()
+    out.update(band_t=t, band_x0=x0, band_mean=sols.mean(0),
+               band_std=sols.std(0), truth=truth.cpu().numpy())
+    return out
+
+
+def optim_plot_numbers(config: Dict, data: Dict, static, params,
+                       device="cuda") -> Dict:
+    """The numbers the MAP plots draw, as numpy, in float64 on `device`:
+    the fitted field on the 15 x 15 grid ("grid_x", "grid_y", "field") and
+    the fitted trajectories, rk4 on the observation times from the data's
+    x0 ("fit", (T, N, 2)).  The JAX driver's `_plots_optim` reads the GP's
+    static quantities for every model (and fails on the others); here each
+    model draws its own field."""
+    dtype = torch.float64
+    params = _params_on(params, device, dtype)
+    field, _ = _field_of(config, static, device, dtype)
+    gx, gy, f = _field_on_grid(field, params, data, device, dtype)
+    x0 = _as64(data["x0"]).to(device=device, dtype=dtype)
+    t = _as64(data["t"]).to(device=device, dtype=dtype)
+    if static is not None:
+        st = _static_on(static, device, dtype)
+        A = kr.precompute_weights(params, st)
+        rhs = lambda tt, X: kr.vector_field_fast(A, st, tt, X)  # noqa: E731
+    else:
+        rhs = lambda tt, X: field(params, tt, X)  # noqa: E731
+    with torch.no_grad():
+        fit = odeint(rhs, x0, t, method="rk4")
+    return {"grid_x": gx, "grid_y": gy, "field": f,
+            "fit": fit.cpu().numpy()}
+
+
+def _pyplot():
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def _plot_phase(plt, path, numbers, data, title):
+    gx, f = numbers["grid_x"], numbers["field"]
+    fig, ax = plt.subplots(figsize=(6, 5))
+    ax.quiver(gx, numbers["grid_y"], f[:, 0].reshape(gx.shape),
+              f[:, 1].reshape(gx.shape), alpha=0.6)
+    for traj in _as64(data["Y"]).numpy():
+        ax.plot(traj[:, 0], traj[:, 1], ".", ms=2)
+    ax.set_title(title)
+    fig.savefig(path)
+    plt.close(fig)
+
+
+def _plot_losses(plt, path, losses, xlabel, ylabel, yscale="linear"):
+    fig, ax = plt.subplots()
+    ax.plot(losses)
+    ax.set_xlabel(xlabel)
+    ax.set_ylabel(ylabel)
+    ax.set_yscale(yscale)
+    fig.savefig(path)
+    plt.close(fig)
+
+
+def _plots_sampler(out_dir, config, data, static, positions, pots, device):
+    """Loss curve, posterior-mode phase plot with the learned field's
+    quiver and, for the GP model, the predictive mean +/- 5 sigma bands and
+    the logsn histogram (the JAX driver's `_plots_sampler_nn` and
+    `_plots_sampler`, gp.py:383-507)."""
+    numbers = sampler_plot_numbers(config, data, static, positions, pots,
+                                   device)
+    plt = _pyplot()
+    _plot_losses(plt, os.path.join(out_dir, "post.pdf"),
+                 np.median(pots, axis=0), "Kept sample",
+                 "Negative log posterior (median over chains)")
+    if static is None:
+        _, label = _field_of(config, None, device, torch.float64)
+        title = f"posterior mode {label} field ({config['method']})"
+    else:
+        title = f"posterior mode field ({config['method']})"
+    _plot_phase(plt, os.path.join(out_dir, "phase_mode.pdf"), numbers, data,
+                title)
+    if static is None:
+        return
+    tn, mean, std = (numbers["band_t"], numbers["band_mean"],
+                     numbers["band_std"])
+    fig, axes = plt.subplots(ncols=3, figsize=(15, 3))
+    for i in range(3):
+        axes[i].plot(tn, numbers["truth"][:, i, 0], "-", color="r",
+                     label="Position(real)")
+        axes[i].fill_between(tn, mean[:, i, 0] - 5 * std[:, i, 0],
+                             mean[:, i, 0] + 5 * std[:, i, 0], alpha=0.3)
+        axes[i].plot(tn, mean[:, i, 0], "--", label="Position(mean)")
+        axes[i].legend(fontsize=6)
+    fig.savefig(os.path.join(out_dir, "predictive_bands.pdf"))
+    plt.close(fig)
+    fig, ax = plt.subplots()
+    ax.hist(torch.as_tensor(positions["logsn"]).cpu().numpy().reshape(-1, 2),
+            bins=30, label=["logsn_x", "logsn_y"])
+    ax.legend()
+    fig.savefig(os.path.join(out_dir, "logsn_hist.pdf"))
+    plt.close(fig)
+
+
+def _plots_optim(out_dir, config, data, static, params, losses, device):
+    """MAP-run files (gp.py:200-287): loss curves (linear and log), the
+    phase plot with the fitted field's quiver, fitted against observed
+    trajectories."""
+    numbers = optim_plot_numbers(config, data, static, params, device)
+    plt = _pyplot()
+    for name, yscale in [("post", "linear"), ("post_log", "log")]:
+        _plot_losses(plt, os.path.join(out_dir, f"{name}.pdf"), losses,
+                     "Iteration", "Negative log posterior", yscale)
+    _plot_phase(plt, os.path.join(out_dir, "phase_map.pdf"), numbers, data,
+                f"MAP field ({config['method']})")
+    fit, tn = numbers["fit"], _as64(data["t"]).numpy()
+    Y = _as64(data["Y"]).numpy()
+    fig, axes = plt.subplots(ncols=min(3, fit.shape[1]), figsize=(12, 3))
+    for i, ax in enumerate(np.atleast_1d(axes)):
+        ax.plot(tn, Y[i, :, 0], ".", ms=3, label="obs x")
+        ax.plot(tn, fit[:, i, 0], "-", label="fit x")
+        ax.legend(fontsize=6)
+    fig.savefig(os.path.join(out_dir, "trajectories.pdf"))
+    plt.close(fig)
+
+
 def run_sampler(config: Dict, data: Dict, output: str,
                 make_plots: bool = True, device="cuda",
                 dtype=torch.float32) -> Dict[str, Any]:
@@ -682,7 +891,7 @@ def run_sampler(config: Dict, data: Dict, output: str,
     engine and SVGD run in `dtype` (float64 on the CPU where the JAX
     package runs under x64) with the chain count as given.  Returns the
     summary dict (also logged to run.jsonl)."""
-    _check_supported(config, make_plots)
+    _check_supported(config)
     out_dir = _write_config(output, config)
 
     static, params0 = build_model(config, data)
@@ -737,6 +946,9 @@ def run_sampler(config: Dict, data: Dict, output: str,
         logger.log(summary)
     save_pytree(os.path.join(out_dir, "chain.npz"), positions)
     np.save(os.path.join(out_dir, "total_loss_arr.npy"), pots)
+    if make_plots:
+        _plots_sampler(out_dir, config, data, static, positions, pots,
+                       device)
     return summary
 
 
@@ -814,7 +1026,7 @@ def run_optim(config: Dict, data: Dict, output: str, make_plots: bool = True,
     Adadelta (`_first_order`, matched by name in that order).  Writes
     total_loss_arr.npy, map_params.npz and the run.jsonl summary; returns
     {"final_loss", "best_loss"}."""
-    _check_model(config, make_plots)
+    _check_model(config)
     _check_solver(config)
     out_dir = _write_config(output, config)
 
@@ -840,6 +1052,8 @@ def run_optim(config: Dict, data: Dict, output: str, make_plots: bool = True,
     with RunLogger(os.path.join(out_dir, "run.jsonl")) as logger:
         logger.log({"event": "summary", "method": method, **result})
     save_pytree(os.path.join(out_dir, "map_params.npz"), x)
+    if make_plots:
+        _plots_optim(out_dir, config, data, static, x, losses, device)
     return result
 
 
@@ -854,7 +1068,7 @@ def run_vi(config: Dict, data: Dict, output: str, make_plots: bool = True,
     from (seed, 0) and (seed, 1), as the JAX driver splits its key.
     `chain.npz` holds num_samples draws as chains with one sample each;
     variational.npz the fit; returns the run.jsonl summary."""
-    _check_model(config, make_plots)
+    _check_model(config)
     _check_solver(config)
     method = config["method"]
     if method not in ("ADVI", "Laplace"):
@@ -907,6 +1121,9 @@ def run_vi(config: Dict, data: Dict, output: str, make_plots: bool = True,
         logger.log(summary)
     save_pytree(os.path.join(out_dir, "chain.npz"), positions)
     np.save(os.path.join(out_dir, "total_loss_arr.npy"), pots)
+    if make_plots:
+        _plots_sampler(out_dir, config, data, static, positions, pots,
+                       device)
     return summary
 
 

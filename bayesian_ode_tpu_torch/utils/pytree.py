@@ -138,3 +138,55 @@ def tree_sum_squares_per_chain(tree: Tree) -> torch.Tensor:
     leading chain axis, then summed across leaves.  Returns (C,)."""
     return sum(x.reshape(x.shape[0], -1).pow(2).sum(dim=1)
                for x in tree_leaves(tree))
+
+
+def tree_add(a: Tree, b: Tree) -> Tree:
+    return tree_map(lambda x, y: x + y, a, b)
+
+
+def tree_sub(a: Tree, b: Tree) -> Tree:
+    return tree_map(lambda x, y: x - y, a, b)
+
+
+def tree_scale(c, a: Tree) -> Tree:
+    return tree_map(lambda x: c * x, a)
+
+
+def tree_axpy(c, x: Tree, y: Tree) -> Tree:
+    """y + c * x, leafwise."""
+    return tree_map(lambda x_, y_: y_ + c * x_, x, y)
+
+
+def tree_where(pred, a: Tree, b: Tree) -> Tree:
+    """Leafwise `where` with a scalar (or broadcastable) predicate."""
+    return tree_map(lambda x, y: torch.where(pred, x, y), a, b)
+
+
+def tree_sum_squares(a: Tree):
+    return sum((x * x).sum() for x in tree_leaves(a))
+
+
+def tree_size(a: Tree) -> int:
+    """Total element count of a tree."""
+    return sum(x.numel() for x in tree_leaves(a))
+
+
+def safe_sqrt(x):
+    """sqrt with zero (not infinite) slope at x == 0, so norms of
+    exactly-zero residuals don't poison derivatives (double-where trick)."""
+    nonzero = x > 0
+    return torch.where(nonzero, torch.sqrt(torch.where(nonzero, x, 1.0)),
+                       0.0)
+
+
+def tree_rms_norm(a: Tree):
+    """RMS norm over all leaves: ||x||_2 / sqrt(numel)."""
+    return safe_sqrt(tree_sum_squares(a) / tree_size(a))
+
+
+def tree_stack_scalar_weighted(weights, trees):
+    """sum_i weights[i] * trees[i] for a list of same-structure trees."""
+    out = tree_scale(weights[0], trees[0])
+    for w, t in zip(weights[1:], trees[1:]):
+        out = tree_axpy(w, t, out)
+    return out

@@ -112,6 +112,19 @@ loop (phase 32); `odeint_dense` at 1,000 query times against `odeint`,
 and `odeint_event` with the event time's gradient against the CPU (phase
 33).
 
+Then the SDE stack and the neural ODE/SDE models, plain torch, at the
+JAX bench's widths with step counts cut (each cut printed): the NPSDE
+posterior (GP drift, constant diffusion) on Van der Pol paths made by the
+port's `sdeint` under pSGLD at 10,112 chains, its batched potential and
+gradient against the per-chain one in float64 and against the CPU,
+`sdeint` at each method against the CPU, and `sdeint_adjoint`'s gradient
+against autograd through `sdeint` with each one's peak memory at 1,000
+and 10,000 steps (phase 34); the CNF at 4,096 points trained 60 Adam
+iterations and its exact-trace log-density against the CPU (phase 35);
+the latent SDE at B=32, T=50 trained 40 Adam iterations, its -ELBO
+against the CPU, `run_toy` on the banana and the driver's plot numbers
+against the CPU (phase 36).
+
 Exits non-zero on any failed phase, and when no CUDA device is available.
 Before the last two lines it prints its own seconds; the line before the
 last is a JSON object with each kernel's launches, error against its
@@ -123,6 +136,7 @@ last line is
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2301,6 +2315,410 @@ def dense_event_path(dev, smi):
     check(d_g <= 1e-8, "phase 33: event-time gradients within 1e-8")
 
 
+# ---- the SDE stack, the CNF and the latent SDE (phases 34-36) ----
+# the JAX bench's NPSDE, CNF and latent-SDE phases (bench.py:292-340,
+# 483-529, 531-570) at its widths; only step counts are cut, each printed
+NPSDE_STEPS = (20, 200)         # warm-up, timed pSGLD steps (the bench's
+#                                 --burn-in 400 and --samples 400)
+NPSDE_SIGMA, NPSDE_SUBSTEPS = 0.1, 10
+SDE_PATHS = 256                 # paths of the card-against-CPU sdeint check
+ADJOINT_STEPS = (1_000, 10_000)  # path lengths of the memory comparison
+ADJOINT_BATCH, ADJOINT_HIDDEN = 64, 64
+CNF_POINTS, CNF_HIDDEN, CNF_GRID, CNF_ITERS = 4096, (64, 64), 10, 60
+CNF_CHECK_POINTS = 256
+LATENT_B, LATENT_T, LATENT_DIM, LATENT_ITERS = 32, 50, 4, 40
+TOY_STEPS = (50, 250)           # MALA burn-in, kept on the banana (4 chains)
+
+
+def _vdp_sde_data(dev, dtype, gen):
+    """The JAX bench's NPSDE data by the port's sdeint: Van der Pol drift,
+    diffusion 0.1, 5 paths from 1.5 N(0, 1), ts = linspace(0, 6, 60),
+    10 substeps; Y (5, 60, 2)."""
+    import torch
+
+    from bayesian_ode_tpu_torch.models.dynamics import vdp
+    from bayesian_ode_tpu_torch.sde import sdeint
+
+    ts = torch.linspace(0.0, 6.0, 60, dtype=torch.float64)
+    y0 = 1.5 * torch.randn((5, 2), generator=gen, device=dev, dtype=dtype)
+    ys = sdeint(vdp, lambda t, y: torch.full_like(y, NPSDE_SIGMA), y0, ts,
+                gen, options={"substeps": NPSDE_SUBSTEPS})
+    return ts, ys.movedim(0, 1)
+
+
+def npsde_path(static, U0, dev, smi):
+    """Phase 34: the NPSDE posterior (GP drift on the main path's 6x6
+    grid, constant diffusion) under pSGLD at lr 2e-3 over 10,112 chains in
+    float32 (`sde.make_gp_sde_potential_batched`, one (N, 36) x
+    (36, 2 C) product a step), its value and gradient on 8 chains against
+    the per-chain potential in float64 on the card and against the CPU;
+    `sdeint` at each method, the card against the CPU on the same
+    increments in float64; and `sdeint_adjoint`'s gradient against
+    autograd through `sdeint` with each one's peak memory at 1,000 and
+    10,000 steps."""
+    import numpy as np
+    import torch
+
+    from bayesian_ode_tpu_torch import samplers, sde
+    from bayesian_ode_tpu_torch.models import kernel_regression as kr
+
+    f32, f64 = torch.float32, torch.float64
+    gen = torch.Generator(device=dev).manual_seed(34)
+    ts, Y = _vdp_sde_data(dev, f32, gen)
+    C = N_CHAINS
+    s32 = kr.static_from_numpy(static.Z, static.KzzinvL, static.Kzzinv,
+                               static.sf, static.ell, device=dev, dtype=f32)
+    pot = sde.make_gp_sde_potential_batched(s32, ts, Y)
+    pos0 = {"U": U0.to(dev, f32)[None] + 0.005 * torch.randn(
+                (C, 36, 2), generator=gen, device=dev, dtype=f32),
+            "logsd": float(np.log(NPSDE_SIGMA)) + 0.005 * torch.randn(
+                (C, 2), generator=gen, device=dev, dtype=f32)}
+    kern = samplers.psgld_batched(pot, 2e-3)
+    warm, steps = NPSDE_STEPS
+    state, _, _ = samplers.sample_chain(kern, kern.init(pos0), gen, 1,
+                                        burn_in=warm - 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, pos, infos = samplers.sample_chain(kern, state, gen, steps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    pots = infos["potential"]
+    logsd = pos["logsd"][-1].mean(0).tolist()
+    print(f"phase 34 NPSDE pSGLD: {C} chains, {steps} steps after {warm} "
+          f"(the JAX bench: 400 after 400) in {secs:.3f} s, "
+          f"{C * steps / secs:.0f} chain-steps/s; mean potential "
+          f"{float(pots[0].mean()):.2f} -> {float(pots[-1].mean()):.2f}, "
+          f"mean logsd ({logsd[0]:.4f}, {logsd[1]:.4f}) ({smi})")
+    check(bool(torch.isfinite(pots).all()), "phase 34: finite potentials")
+
+    # 8 chains: float32 batched, float64 batched and per chain, the CPU
+    P = {k: v[:8].detach() for k, v in state.position.items()}
+
+    def value_grad(fn, p, dtype, device):
+        p = {k: v.to(device, dtype).requires_grad_(True) for k, v in p.items()}
+        u = fn(p)
+        g = torch.autograd.grad(u.sum(), [p["U"], p["logsd"]])
+        return u.detach(), g
+
+    s64 = kr.static_from_numpy(static.Z, static.KzzinvL, static.Kzzinv,
+                               static.sf, static.ell, device=dev, dtype=f64)
+    scpu = kr.static_from_numpy(static.Z, static.KzzinvL, static.Kzzinv,
+                                static.sf, static.ell)
+    Y64 = Y.to(f64)
+    u32, g32 = value_grad(pot, P, f32, dev)
+    u64, g64 = value_grad(sde.make_gp_sde_potential_batched(s64, ts, Y64),
+                          P, f64, dev)
+    one = sde.make_gp_sde_potential(s64, ts, Y64)
+    per = [value_grad(lambda p: one({k: v[0] for k, v in p.items()}),
+                      {k: v[c:c + 1] for k, v in P.items()}, f64, dev)
+           for c in range(8)]
+    u1 = torch.stack([u for u, _ in per])
+    g1 = [torch.cat([g[i] for _, g in per]) for i in range(2)]
+    ucpu, gcpu = value_grad(
+        sde.make_gp_sde_potential_batched(scpu, ts, Y64.cpu()), P, f64,
+        "cpu")
+    rel = {"f32": max(max_rel(u32.double(), u64),
+                      *(max_rel(a.double(), b) for a, b in zip(g32, g64))),
+           "per-chain": max(max_rel(u64, u1),
+                            *(max_rel(a, b) for a, b in zip(g64, g1))),
+           "cpu": max(max_rel(u64.cpu(), ucpu),
+                      *(max_rel(a.cpu(), b) for a, b in zip(g64, gcpu)))}
+    print(f"phase 34 NPSDE potential on 8 chains, value and gradient "
+          f"max-rel: float32 batched against float64 {rel['f32']:.3e}; "
+          f"float64 batched against per-chain {rel['per-chain']:.3e}, "
+          f"against the CPU {rel['cpu']:.3e}")
+    check(rel["per-chain"] <= 1e-12 and rel["cpu"] <= 1e-12,
+          "phase 34: the float64 batched potential equals the per-chain "
+          "one and the CPU's")
+    check(rel["f32"] <= 1e-4, "phase 34: float32 within 1e-4 of float64")
+
+    # sdeint at each method, card against CPU on the same increments, on
+    # a damped rotation through tanh (reversible Heun's parasitic mode
+    # grows on Van der Pol's stiff stretches, in the JAX package too)
+    y0 = 1.5 * torch.randn((SDE_PATHS, 2), generator=gen, device=dev,
+                           dtype=f64)
+    n_steps = (ts.shape[0] - 1) * NPSDE_SUBSTEPS
+    sqrt_dt = float(np.sqrt(6.0 / 59 / NPSDE_SUBSTEPS))
+    rot = torch.tensor([[-0.5, 1.0], [-1.0, -0.5]], dtype=f64)
+
+    def field(t, y):
+        return torch.tanh(y) @ rot.to(y.device).T
+
+    def diag(t, y):
+        return NPSDE_SIGMA * (1.0 + 0.1 * y * y)
+
+    G = torch.tensor([[0.1, 0.05, 0.0], [0.0, 0.1, 0.05]], dtype=f64)
+
+    def general(t, y):
+        return G.to(y.device) * (1.0 + 0.1 * y[..., :, None] ** 2)
+
+    for method, noise in (("euler_maruyama", "diagonal"),
+                          ("milstein", "diagonal"), ("heun", "diagonal"),
+                          ("reversible_heun", "diagonal"),
+                          ("euler_maruyama", "general"),
+                          ("heun", "general")):
+        m = 2 if noise == "diagonal" else 3
+        dW = sqrt_dt * torch.randn((n_steps, SDE_PATHS, m), generator=gen,
+                                   device=dev, dtype=f64)
+        g = diag if noise == "diagonal" else general
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ys = sde.sdeint(field, g, y0, ts, None, method=method,
+                        noise_type=noise, options={"substeps": NPSDE_SUBSTEPS,
+                                                   "dW": dW})
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        yc = sde.sdeint(field, g, y0.cpu(), ts, None, method=method,
+                        noise_type=noise, options={"substeps": NPSDE_SUBSTEPS,
+                                                   "dW": dW.cpu()})
+        err = float((ys.cpu() - yc).abs().max() / yc.abs().max())
+        print(f"phase 34 sdeint {method} ({noise}): {SDE_PATHS} paths, "
+              f"{n_steps} steps in {secs:.3f} s; max-rel to the CPU "
+              f"{err:.3e}")
+        check(bool(torch.isfinite(ys).all()) and err <= 1e-10,
+              f"phase 34: sdeint {method} ({noise}) equals the CPU's")
+
+    # the reversible adjoint: gradient and peak memory against autograd
+    gw = torch.Generator(device="cpu").manual_seed(35)
+    H = ADJOINT_HIDDEN
+    W1 = (torch.randn((2, H), generator=gw, dtype=f64) / 2).to(dev)
+    W2 = (torch.randn((H, 2), generator=gw, dtype=f64) / H).to(dev)
+    b1 = torch.zeros(H, dtype=f64, device=dev)
+    logsd = torch.full((2,), -2.0, dtype=f64, device=dev)
+    params = [p.requires_grad_(True) for p in (W1, W2, b1, logsd)]
+
+    def drift(t, y):
+        return torch.tanh(y @ W1 + b1) @ W2 - 0.1 * y
+
+    def diffusion(t, y):
+        return torch.exp(logsd) * torch.cos(y)
+
+    yA = torch.randn((ADJOINT_BATCH, 2), generator=gw, dtype=f64).to(dev)
+    results = {}
+    for n in ADJOINT_STEPS:
+        ts_a = np.linspace(0.0, 1.0, 11)
+        dW = (float(np.sqrt(1.0 / n)) * torch.randn(
+            (n, ADJOINT_BATCH, 2), generator=gw, dtype=f64)).to(dev)
+        opts = {"substeps": n // 10, "dW": dW}
+        for name in ("adjoint", "autograd"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            if name == "adjoint":
+                ys = sde.sdeint_adjoint(drift, diffusion, yA, ts_a, None,
+                                        options=opts, adjoint_params=params)
+            else:
+                ys = sde.sdeint(drift, diffusion, yA, ts_a, None,
+                                method="reversible_heun", options=opts)
+            grads = torch.autograd.grad((ys ** 2).sum(), params)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            results[name, n] = (grads, peak)
+            print(f"phase 34 {name}: {n} steps of {ADJOINT_BATCH} paths "
+                  f"(hidden {H}), gradient in {secs:.2f} s, peak memory "
+                  f"{peak / 2 ** 20:.1f} MiB above the inputs")
+            del ys, grads
+        rel = max(max_rel(a, b) for a, b in zip(results["adjoint", n][0],
+                                                results["autograd", n][0]))
+        print(f"phase 34 sdeint_adjoint at {n} steps: gradient max-rel "
+              f"{rel:.3e} to autograd through sdeint")
+        check(rel <= 1e-9, f"phase 34: adjoint gradient at {n} steps")
+    lo, hi = ADJOINT_STEPS
+    p_adj = (results["adjoint", lo][1], results["adjoint", hi][1])
+    p_ag = (results["autograd", lo][1], results["autograd", hi][1])
+    check(p_adj[1] <= 1.5 * p_adj[0] + 2 ** 20,
+          "phase 34: the adjoint's peak memory stays flat in path length")
+    check(p_ag[1] >= 5 * p_ag[0],
+          "phase 34: autograd's peak memory grows with path length")
+
+
+def cnf_path(dev, smi):
+    """Phase 35: the JAX bench's CNF (bench.py:483-529): 4,096 points of a
+    shifted correlated Gaussian, the time-concat tanh MLP at hidden
+    (64, 64), rk4 over 10 steps, the Hutchinson trace, Adam at 5e-3 for 60
+    iterations in float32; then the exact-trace `cnf_log_prob` of the
+    trained flow on 256 points in float64, the card against the CPU."""
+    from functools import partial
+
+    import torch
+
+    from bayesian_ode_tpu_torch import odeint
+    from bayesian_ode_tpu_torch.models import cnf
+    from bayesian_ode_tpu_torch.utils.pytree import tree_leaves, tree_map
+
+    f32, f64 = torch.float32, torch.float64
+    gen = torch.Generator(device=dev).manual_seed(35)
+    chol = torch.tensor([[1.0, 0.0], [0.8, 0.6]], device=dev, dtype=f32)
+    x = torch.randn((CNF_POINTS, 2), generator=gen, device=dev,
+                    dtype=f32) @ chol.T + torch.tensor([1.5, -1.0],
+                                                       device=dev, dtype=f32)
+    ofn = partial(odeint, method="rk4", options={"step_size": 1.0 / CNF_GRID})
+    nll = cnf.make_nll(x, odeint_fn=ofn, trace="hutchinson", generator=gen)
+    params = cnf.init_cnf_mlp(gen, dim=2, hidden=CNF_HIDDEN, dtype=f32,
+                              device=dev)
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    opt = torch.optim.Adam(leaves, lr=5e-3)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(CNF_ITERS):
+        if i == 1:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        opt.zero_grad()
+        loss = nll(params)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    losses = torch.stack(losses).tolist()
+    print(f"phase 35 CNF: {CNF_POINTS} points, hidden {CNF_HIDDEN}, rk4 "
+          f"{CNF_GRID} steps, Hutchinson, Adam 5e-3: {CNF_ITERS} iterations "
+          f"(the JAX bench's 60), the first {t1 - t0:.3f} s, then "
+          f"{(CNF_ITERS - 1) / (t2 - t1):.2f} iterations/s; NLL "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (drop "
+          f"{losses[0] - losses[-1]:.4f}) ({smi})")
+    check(all(map(math.isfinite, losses)), "phase 35: finite NLL")
+    check(losses[-1] < losses[0], "phase 35: the NLL falls")
+
+    p64 = tree_map(lambda v: v.detach().to(f64), params)
+    xs = x[:CNF_CHECK_POINTS].to(f64)
+
+    def log_prob(p, pts):
+        return cnf.cnf_log_prob(lambda t, z: cnf.cnf_field(p, t, z), pts,
+                                odeint_fn=ofn, trace="exact")
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        lp = log_prob(p64, xs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        lpc = log_prob(tree_map(lambda v: v.cpu(), p64), xs.cpu())
+    err = max_rel(lp.cpu(), lpc)
+    print(f"phase 35 exact-trace cnf_log_prob, {CNF_CHECK_POINTS} points in "
+          f"float64: {secs:.3f} s, mean {float(lp.mean()):.4f}, max-rel to "
+          f"the CPU {err:.3e}")
+    check(err <= 1e-10, "phase 35: exact-trace log_prob equals the CPU's")
+
+
+def latent_sde_path(cfg, data, static, U0, dev, smi):
+    """Phase 36: the JAX bench's latent SDE (bench.py:531-570): B = 32
+    noisy sinusoids of T = 50 times on [0, 2], latent 4 (context 16,
+    hidden 32, GRU 32), 2 substeps, Adam at 1e-2 for 40 iterations in
+    float32, fresh noise each iteration; the -ELBO on one draw, the card
+    against the CPU in float64; `run_toy` on the banana (MALA, 4 chains);
+    and the driver's plot numbers (`sampler_plot_numbers`) of a GP chain
+    batch, the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from bayesian_ode_tpu_torch.experiments import toy
+    from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
+    from bayesian_ode_tpu_torch.models import latent_sde
+    from bayesian_ode_tpu_torch.sde.sdeint import _host_grid, _increments
+    from bayesian_ode_tpu_torch.utils.pytree import tree_leaves, tree_map
+
+    f32, f64 = torch.float32, torch.float64
+    gen = torch.Generator(device=dev).manual_seed(36)
+    ts = torch.linspace(0.0, 2.0, LATENT_T, dtype=f64)
+    phase = 2 * np.pi * torch.rand((LATENT_B, 1), generator=gen, device=dev,
+                                   dtype=f32)
+    arg = 2.0 * ts.to(dev, f32)[None, :] + phase
+    xs = torch.stack([torch.sin(arg), torch.cos(arg)], dim=-1)
+    xs = xs + 0.05 * torch.randn(xs.shape, generator=gen, device=dev,
+                                 dtype=f32)
+    params = latent_sde.init_params(gen, latent_dim=LATENT_DIM, obs_dim=2,
+                                    dtype=f32, device=dev)
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    loss = latent_sde.make_loss(ts, xs, substeps=2)
+    opt = torch.optim.Adam(leaves, lr=1e-2)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LATENT_ITERS):
+        if i == 1:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        opt.zero_grad()
+        val = loss(params, gen)
+        val.backward()
+        opt.step()
+        losses.append(val.detach())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    losses = torch.stack(losses).tolist()
+    print(f"phase 36 latent SDE: B={LATENT_B}, T={LATENT_T}, latent "
+          f"{LATENT_DIM}, 2 substeps, Adam 1e-2: {LATENT_ITERS} iterations "
+          f"(the JAX bench's 40), the first {t1 - t0:.3f} s, then "
+          f"{(LATENT_ITERS - 1) / (t2 - t1):.2f} iterations/s; -ELBO "
+          f"{losses[0]:.2f} -> {losses[-1]:.2f}, mean of the first and last "
+          f"10 {np.mean(losses[:10]):.2f} -> {np.mean(losses[-10:]):.2f} "
+          f"({smi})")
+    check(all(map(math.isfinite, losses)), "phase 36: finite -ELBO")
+    check(np.mean(losses[-10:]) < np.mean(losses[:10]),
+          "phase 36: the -ELBO falls")
+
+    # one draw, card against CPU in float64
+    p64 = tree_map(lambda v: v.detach().to(f64), params)
+    xs64 = xs.to(f64)
+    grid, _ = _host_grid(ts, 2)
+    meta = {"kl": torch.empty((LATENT_B,), dtype=f64, device="meta"),
+            "z": torch.empty((LATENT_B, LATENT_DIM), dtype=f64,
+                             device="meta")}
+    dW = _increments(meta, None, gen, grid, dev, "phase 36")
+    eps = torch.randn((LATENT_B, LATENT_DIM), generator=gen, device=dev,
+                      dtype=f64)
+    with torch.no_grad():
+        v_card = latent_sde._elbo(ts, xs64, 0.1, 2, 1.0)(p64, eps, dW)
+        v_cpu = latent_sde._elbo(ts, xs64.cpu(), 0.1, 2, 1.0)(
+            tree_map(lambda v: v.cpu(), p64), eps.cpu(),
+            tree_map(lambda v: v.cpu(), dW))
+    err = abs(float(v_card) - float(v_cpu)) / abs(float(v_cpu))
+    print(f"phase 36 latent-SDE -ELBO in float64 on one draw: "
+          f"{float(v_card):.6f}, relative to the CPU {err:.3e}")
+    check(err <= 1e-10, "phase 36: the -ELBO equals the CPU's")
+
+    # run_toy on the banana
+    burn, kept = TOY_STEPS
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        res = toy.run_toy({"method": "MALA", "lr": 1e-2, "burn_in": burn,
+                           "num_samples": kept, "num_chains": 4, "id": 0},
+                          out, dists=("banana",), make_plots=False,
+                          device=dev)
+    r = res["banana"]
+    print(f"phase 36 run_toy banana: MALA, 4 chains, {kept} kept after "
+          f"{burn} in {time.perf_counter() - t0:.2f} s; mean "
+          f"({r['mean'][0]:.3f}, {r['mean'][1]:.3f}), acceptance "
+          f"{r['acceptance']:.3f}, ESS of x {r['ess_x']:.1f}")
+    check(0.0 < r["acceptance"] <= 1.0
+          and all(map(math.isfinite, r["mean"] + r["weighted_mean"])),
+        "phase 36: run_toy finite, acceptance in (0, 1]")
+
+    # the driver's plot numbers of a GP chain batch, card against CPU
+    rng = np.random.RandomState(36)
+    positions = {"U": torch.tensor(U0.numpy()[None, None]
+                                   + 0.01 * rng.randn(8, 4, 36, 2)),
+                 "logsn": torch.tensor(np.log(0.05) + 0.01
+                                       * rng.randn(8, 4, 2))}
+    pots = rng.rand(8, 4)
+    t0 = time.perf_counter()
+    got = vg.sampler_plot_numbers(cfg, data, static, tree_map(
+        lambda v: v.to(dev), positions), pots, device=dev)
+    secs = time.perf_counter() - t0
+    want = vg.sampler_plot_numbers(cfg, data, static, positions, pots,
+                                   device="cpu")
+    err = max(float(np.max(np.abs(got[k] - want[k]))
+                    / np.max(np.abs(want[k]))) for k in want)
+    print(f"phase 36 sampler_plot_numbers (GP, 32 draws): {secs:.3f} s on "
+          f"the card, max-rel to the CPU {err:.3e} over {sorted(want)}")
+    check(set(got) == set(want) and err <= 1e-10,
+          "phase 36: the plot numbers equal the CPU's")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3350,6 +3768,17 @@ def main() -> int:
     t4 = time.perf_counter()
     print(f"phases 27-30: {t4 - t0:.1f} s (27 {t1 - t0:.1f}, 28 "
           f"{t2 - t1:.1f}, 29 {t3 - t2:.1f}, 30 {t4 - t3:.1f}) ({smi})")
+
+    # ---- phases 34-36: the SDE stack, the CNF, the latent SDE ----
+    t0 = time.perf_counter()
+    npsde_path(static, U0, dev, smi)
+    t1 = time.perf_counter()
+    cnf_path(dev, smi)
+    t2 = time.perf_counter()
+    latent_sde_path(cfg, data, static, U0, dev, smi)
+    t3 = time.perf_counter()
+    print(f"phases 34-36: {t3 - t0:.1f} s (34 {t1 - t0:.1f}, 35 "
+          f"{t2 - t1:.1f}, 36 {t3 - t2:.1f}) ({smi})")
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start "
           f"to the kernels line, build included ({smi})")

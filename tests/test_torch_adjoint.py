@@ -15,7 +15,7 @@ import torch
 from bayesian_ode_tpu import odeint_adjoint as jadjoint
 from bayesian_ode_tpu_torch.ode import odeint, odeint_adjoint
 from bayesian_ode_tpu_torch.ode import adjoint as tadjoint
-from torch_parity import max_rel
+from torch_parity import max_rel, one_torch_thread  # noqa: F401
 
 H = 8
 RNG = np.random.RandomState(0)

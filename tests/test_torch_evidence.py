@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import fixed_draws
+from torch_parity import one_torch_thread  # noqa: F401
 
 jev = importlib.import_module("bayesian_ode_tpu.samplers.evidence")
 tev = importlib.import_module("bayesian_ode_tpu_torch.samplers.evidence")

@@ -29,7 +29,11 @@ from bayesian_ode_tpu.experiments.vanderpol_gp import run_sampler as jrun
 from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
 from bayesian_ode_tpu_torch.experiments.run import main as cli_main
 from bayesian_ode_tpu_torch.experiments.vanderpol_gp import run_sampler
-from torch_parity import GENERIC_CONFIG, generic_data
+from torch_parity import (  # noqa: F401
+    GENERIC_CONFIG,
+    generic_data,
+    one_torch_thread,
+)
 
 tham = importlib.import_module("bayesian_ode_tpu_torch.samplers.hamiltonian")
 tnuts = importlib.import_module("bayesian_ode_tpu_torch.samplers.nuts")

@@ -4,6 +4,7 @@ the CPU (see `exact_fused.py` for the set-up and the gates)."""
 import pytest
 
 from exact_fused import check_fused_method
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("method,solver", [("AdaptiveHMC", "rk4")])

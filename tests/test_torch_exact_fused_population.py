@@ -4,6 +4,7 @@ fused engine against the JAX driver's, in float32 on the CPU (see
 import pytest
 
 from exact_fused import check_fused_method
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("method,solver", [("Ensemble", "rk4")])

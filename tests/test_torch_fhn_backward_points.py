@@ -28,12 +28,13 @@ from bayesian_ode_tpu.ops import fhn_dopri5 as jf
 from bayesian_ode_tpu_torch.ops import fused_adaptive as fa
 from bayesian_ode_tpu_torch.ops import fused_field as ff
 from bayesian_ode_tpu_torch.ops.fhn_dopri5 import fhn_field
-from torch_parity import (
+from torch_parity import (  # noqa: F401
     FIELD_T,
     FIELD_X0,
     fhn_theta,
     field_outputs,
     max_rel,
+    one_torch_thread,
     tree_max_rel,
 )
 

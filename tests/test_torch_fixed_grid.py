@@ -10,7 +10,7 @@ from bayesian_ode_tpu.models.dynamics import DYNAMICS as JDYNAMICS
 from bayesian_ode_tpu.ode.odeint import odeint_with_stats as jodeint_stats
 from bayesian_ode_tpu_torch import odeint, odeint_with_stats
 from bayesian_ode_tpu_torch.models.dynamics import DYNAMICS as TDYNAMICS
-from torch_parity import to_np
+from torch_parity import one_torch_thread, to_np  # noqa: F401
 
 
 def _both(method, options=None, T=25, t_max=3.0):

@@ -41,7 +41,12 @@ from bayesian_ode_tpu_torch.ops import fused_field as ff
 from bayesian_ode_tpu_torch.ops.fhn_dopri5 import fhn_field
 from bayesian_ode_tpu_torch.ops.gp_dopri5 import _rk_stages, _step_decision
 from bayesian_ode_tpu_torch.ops.spiral_dopri5 import spiral_field
-from torch_parity import fhn_theta, max_rel, spiral_params
+from torch_parity import (  # noqa: F401
+    fhn_theta,
+    max_rel,
+    one_torch_thread,
+    spiral_params,
+)
 
 C = 64
 F32 = np.float32

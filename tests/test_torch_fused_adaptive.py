@@ -22,7 +22,12 @@ from bayesian_ode_tpu_torch.ops.gp_dopri5_grad import (
     gp_dopri5_trajectory_plain,
 )
 from bayesian_ode_tpu_torch.ops.gp_field import gp_field
-from torch_parity import gp_problem, max_rel, to_np
+from torch_parity import (  # noqa: F401
+    gp_problem,
+    max_rel,
+    one_torch_thread,
+    to_np,
+)
 
 
 @pytest.fixture(scope="module")

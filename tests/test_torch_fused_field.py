@@ -35,7 +35,12 @@ from bayesian_ode_tpu_torch.ops.gp_field import (
     gp_field_trajectory,
     gp_weights,
 )
-from torch_parity import check_solve, gp_problem, max_rel
+from torch_parity import (  # noqa: F401
+    check_solve,
+    gp_problem,
+    max_rel,
+    one_torch_thread,
+)
 
 TOL = {"rtol": 1e-5, "atol": 1e-7}
 

@@ -8,8 +8,12 @@ and MALA's uniform is 0 in both, so every finite proposal is accepted.
 The steps are then deterministic, and the summary keys, the per-step
 potentials and the saved chains are held to the JAX driver's.  SVGD from
 one point is the mean-score flow.  Every solver of the registry runs
-(adams held to the JAX driver); the plots raise NotImplementedError
-naming their ROADMAP item.
+(adams held to the JAX driver).  The plots: make_plots=True writes the JAX
+driver's PDF files, and the numbers they draw (`sampler_plot_numbers`:
+the mode's field on the 15 x 15 grid, the 64-draw rk4 predictive bands,
+the dopri5 truth) are within 1e-10 of the same numbers computed by the
+JAX package's functions as its `_plots_sampler` and `_plots_sampler_nn`
+compute them.  The config helpers write what the JAX package's write.
 """
 import json
 
@@ -26,7 +30,11 @@ from bayesian_ode_tpu_torch.experiments.run import main as cli_main
 from bayesian_ode_tpu_torch.experiments.vanderpol_gp import run_sampler
 from bayesian_ode_tpu_torch.samplers import langevin as tlangevin
 from bayesian_ode_tpu_torch.utils.pytree import tree_map
-from torch_parity import GENERIC_CONFIG, generic_data
+from torch_parity import (  # noqa: F401
+    GENERIC_CONFIG,
+    generic_data,
+    one_torch_thread,
+)
 
 
 @pytest.fixture(scope="module")
@@ -182,10 +190,12 @@ def test_unported_methods_solvers_and_options_raise(data, tmp_path):
     from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
 
     for solver in ("adams", "bosh3", "dopri8", "sdirk4", "fixed_adams"):
-        vg._check_supported(dict(GENERIC_CONFIG, solver=solver), False)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        run_sampler(GENERIC_CONFIG, data, str(tmp_path), make_plots=True,
-                    device="cpu")
+        vg._check_supported(dict(GENERIC_CONFIG, solver=solver))
+    # make_plots=True (the default) writes the JAX driver's files
+    plots = tmp_path / "plots"
+    run_sampler(GENERIC_CONFIG, data, str(plots), device="cpu")
+    for name in ("post", "phase_mode", "predictive_bands", "logsn_hist"):
+        assert (plots / "SGLD" / "1" / f"{name}.pdf").stat().st_size > 0
     with pytest.raises(ValueError, match="unknown sampler method"):
         run(method="Gibbs")
     with pytest.raises(ValueError, match="unknown method"):
@@ -203,3 +213,91 @@ def test_cli_passes_the_engine_through(tmp_path):
               "--device", "cpu"])
     out = tmp_path / "out" / "SGLD" / "1"
     assert np.load(out / "total_loss_arr.npy").shape == (3, 1)
+
+
+def _jax_sampler_numbers(cfg, data, positions, pots):
+    """The numbers the JAX driver's `_plots_sampler` (GP) or
+    `_plots_sampler_nn` (MLP) draws, computed by its own functions."""
+    from bayesian_ode_tpu import odeint as jodeint
+    from bayesian_ode_tpu.experiments.vanderpol_gp import build_model as jb
+    from bayesian_ode_tpu.models import DYNAMICS as JDYN
+    from bayesian_ode_tpu.models import kernel_regression as jkr
+    from bayesian_ode_tpu.models import mlp as jmlp
+
+    jstatic = jb(cfg, data)[0]
+    ci, si = np.unravel_index(np.argmin(pots), pots.shape)
+    mode = jax.tree.map(lambda x: jnp.asarray(x[ci, si]), positions)
+    lo = np.asarray(data["Y"]).reshape(-1, 2).min(0) - 0.5
+    hi = np.asarray(data["Y"]).reshape(-1, 2).max(0) + 0.5
+    gx, gy = np.meshgrid(np.linspace(lo[0], hi[0], 15),
+                         np.linspace(lo[1], hi[1], 15))
+    pts = jnp.asarray(np.stack([gx.ravel(), gy.ravel()], 1))
+    if jstatic is None:
+        return {"field": np.asarray(jmlp.mlp_vector_field(mode, 0.0, pts))}
+    out = {"field": np.asarray(jkr.vector_field(mode, jstatic, 0.0, pts))}
+    rng = np.random.RandomState(0)
+    x0_ = jnp.asarray(2.0 * 1.0 * rng.uniform(size=(3, 2)) - 1.0)
+    t_ = jnp.linspace(0.0, 14.0, 80)
+    flat_U = positions["U"].reshape(-1, *positions["U"].shape[2:])
+    idx = rng.choice(flat_U.shape[0], min(64, pots.size), replace=False)
+
+    def solve_draw(U):
+        A = jstatic.KzzinvL @ U
+        return jodeint(lambda tt, X: jkr.vector_field_fast(A, jstatic, tt, X),
+                       x0_, t_, method="rk4")
+
+    sols = np.asarray(jax.vmap(solve_draw)(jnp.asarray(flat_U[idx])))
+    out.update(band_mean=sols.mean(0), band_std=sols.std(0),
+               truth=np.asarray(jodeint(JDYN["vdp"], x0_, t_,
+                                        method="dopri5")),
+               band_x0=np.asarray(x0_), band_t=np.asarray(t_))
+    return out
+
+
+@pytest.mark.parametrize("model", ["gp", "nn"])
+def test_sampler_plot_numbers_match_jax(data, model):
+    from bayesian_ode_tpu.experiments.vanderpol_gp import build_model as jb
+    from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
+    from bayesian_ode_tpu_torch.models import kernel_regression as tkr
+
+    cfg = dict(GENERIC_CONFIG, model=model)
+    jstatic, params0 = jb(cfg, data)[:2]
+    rng = np.random.RandomState(4)
+    positions = jax.tree.map(lambda x: np.asarray(x)[None, None]
+                             + 0.01 * rng.randn(3, 4, *np.shape(x)),
+                             params0)
+    pots = rng.rand(3, 4)
+    static = None if jstatic is None else tkr.static_from_numpy(
+        jstatic.Z, jstatic.KzzinvL, jstatic.Kzzinv, jstatic.sf, jstatic.ell)
+    got = vg.sampler_plot_numbers(
+        cfg, data, static, tree_map(torch.tensor, positions), pots,
+        device="cpu")
+    want = _jax_sampler_numbers(cfg, data, positions, pots)
+    assert set(got) == set(want) | {"grid_x", "grid_y"}
+    assert got["field"].shape == (225, 2)
+    for k, w in want.items():
+        assert np.max(np.abs(got[k] - w)) <= 1e-10 * np.max(np.abs(w)), k
+
+
+def test_config_helpers_match_jax(tmp_path):
+    from bayesian_ode_tpu.experiments import config as jconfig
+    from bayesian_ode_tpu_torch.experiments import config as tconfig
+
+    assert tconfig.SENSIBLE_PARAMS == jconfig.SENSIBLE_PARAMS
+    assert tconfig.DEFAULT_VALUES == jconfig.DEFAULT_VALUES
+    cfg = dict(GENERIC_CONFIG, lr_decay=0.1, history_size=7)
+    assert tconfig.dir_name_for(cfg) == jconfig.dir_name_for(cfg)
+    grid = {"lr": [1e-3, 1e-4], "M": [4, 5], "engine": ["fused"]}
+    got = tconfig.expand_grid("pSGLD", grid, defaults={"num_chains": 8})
+    assert got == jconfig.expand_grid("pSGLD", grid,
+                                      defaults={"num_chains": 8})
+    assert len(got) == 4 and got[0]["dir_name"].startswith("_M4")
+    n = tconfig.write_configs(got, str(tmp_path / "port"), "out",
+                              data={"N": 3}, start_id=3)
+    jconfig.write_configs(got, str(tmp_path / "jax"), "out", data={"N": 3},
+                          start_id=3)
+    assert n == 4
+    for i in range(3, 7):
+        a = (tmp_path / "port" / f"{i}.json").read_text()
+        assert a == (tmp_path / "jax" / f"{i}.json").read_text()
+        assert tconfig.load_config(str(tmp_path / "port"), i) == json.loads(a)

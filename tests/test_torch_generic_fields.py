@@ -6,7 +6,11 @@ theta model, at dopri5, tsit5 and rk4 (the GP and MLP models are in
 """
 import pytest
 
-from torch_parity import check_generic_potential, generic_data
+from torch_parity import (  # noqa: F401
+    check_generic_potential,
+    generic_data,
+    one_torch_thread,
+)
 
 
 @pytest.fixture(scope="module")

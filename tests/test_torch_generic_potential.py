@@ -17,10 +17,11 @@ from bayesian_ode_tpu_torch.experiments import vanderpol_gp as tv
 from bayesian_ode_tpu_torch.models import kernel_regression as tkr
 from bayesian_ode_tpu_torch.samplers import batch_value_and_grad
 from bayesian_ode_tpu_torch.utils.pytree import tree_leaves
-from torch_parity import (
+from torch_parity import (  # noqa: F401
     GENERIC_CONFIG,
     check_generic_potential,
     generic_data,
+    one_torch_thread,
     tree_max_rel,
 )
 

@@ -25,7 +25,7 @@ from bayesian_ode_tpu_torch.ops import fused_adaptive as fa
 from bayesian_ode_tpu_torch.ops import gp_rk4 as tg
 from bayesian_ode_tpu_torch.ops.gp_dopri5 import _pack_initial
 from bayesian_ode_tpu_torch.ops.gp_field import gp_field
-from torch_parity import gp_problem, max_rel
+from torch_parity import gp_problem, max_rel, one_torch_thread  # noqa: F401
 
 f64 = torch.float64
 

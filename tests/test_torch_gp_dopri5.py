@@ -21,7 +21,7 @@ import torch
 
 from bayesian_ode_tpu.ops import gp_dopri5 as jg
 from bayesian_ode_tpu_torch.ops import gp_dopri5 as tg
-from torch_parity import gp_problem, to_np
+from torch_parity import gp_problem, one_torch_thread, to_np  # noqa: F401
 
 
 @pytest.fixture(scope="module")

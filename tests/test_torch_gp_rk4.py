@@ -21,7 +21,12 @@ from bayesian_ode_tpu.ops.gp_rk4 import (
     make_fused_gp_potential as jmake_potential,
 )
 from bayesian_ode_tpu_torch.ops import gp_rk4 as tg
-from torch_parity import gp_problem, max_rel, to_np
+from torch_parity import (  # noqa: F401
+    gp_problem,
+    max_rel,
+    one_torch_thread,
+    to_np,
+)
 
 
 @pytest.fixture(scope="module")

@@ -25,7 +25,11 @@ from bayesian_ode_tpu import samplers as jsamplers
 from bayesian_ode_tpu.experiments.vanderpol_gp import run_sampler as jrun
 from bayesian_ode_tpu_torch import samplers
 from bayesian_ode_tpu_torch.experiments.vanderpol_gp import run_sampler
-from torch_parity import GENERIC_CONFIG, generic_data
+from torch_parity import (  # noqa: F401
+    GENERIC_CONFIG,
+    generic_data,
+    one_torch_thread,
+)
 
 # the modules (each package's `samplers.hamcmc` name is the kernel)
 jh = importlib.import_module("bayesian_ode_tpu.samplers.hamcmc")

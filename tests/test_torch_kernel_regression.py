@@ -9,6 +9,7 @@ import torch
 from bayesian_ode_tpu.models import kernel_regression as jkr
 from bayesian_ode_tpu.models import make_dataset
 from bayesian_ode_tpu_torch.models import kernel_regression as tkr
+from torch_parity import one_torch_thread  # noqa: F401
 
 TOL = 1e-10        # float64, same formulas: rounding-level agreement
 

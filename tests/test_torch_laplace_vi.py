@@ -28,7 +28,11 @@ from bayesian_ode_tpu.experiments import vanderpol_gp as jvg
 from bayesian_ode_tpu.utils.pytree import ravel_pytree as jravel
 from bayesian_ode_tpu_torch import samplers as tsamplers
 from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
-from torch_parity import GENERIC_CONFIG, generic_data
+from torch_parity import (  # noqa: F401
+    GENERIC_CONFIG,
+    generic_data,
+    one_torch_thread,
+)
 
 F64 = torch.float64
 tvi = importlib.import_module("bayesian_ode_tpu_torch.samplers.vi")

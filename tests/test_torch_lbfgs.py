@@ -20,6 +20,7 @@ import torch
 
 from bayesian_ode_tpu import optim as joptim
 from bayesian_ode_tpu_torch import optim as toptim
+from torch_parity import one_torch_thread  # noqa: F401
 
 F64 = torch.float64
 

@@ -28,13 +28,14 @@ from bayesian_ode_tpu_torch.ops import mlp_dopri5 as tm
 from bayesian_ode_tpu_torch.ops.fused_field import (
     fused_dopri5_trajectory_plain,
 )
-from torch_parity import (
+from torch_parity import (  # noqa: F401
     FIELD_T,
     FIELD_X0,
     check_solve,
     field_outputs,
     max_rel,
     mlp_params,
+    one_torch_thread,
     to_np,
     tree_max_rel,
 )

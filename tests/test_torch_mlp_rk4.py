@@ -25,7 +25,12 @@ from bayesian_ode_tpu.ops.mlp_rk4 import mlp_rk4_trajectory as jtrajectory
 from bayesian_ode_tpu_torch import odeint as todeint
 from bayesian_ode_tpu_torch.models import mlp as tmlp
 from bayesian_ode_tpu_torch.ops import mlp_rk4 as tm
-from torch_parity import gp_problem, max_rel, to_np
+from torch_parity import (  # noqa: F401
+    gp_problem,
+    max_rel,
+    one_torch_thread,
+    to_np,
+)
 
 C = 128
 

@@ -20,6 +20,7 @@ import torch
 import fixed_draws
 from bayesian_ode_tpu import samplers as jsamplers
 from bayesian_ode_tpu_torch import samplers as tsamplers
+from torch_parity import one_torch_thread  # noqa: F401
 
 F64 = torch.float64
 COV = np.asarray([[1.0, 0.6], [0.6, 0.8]])

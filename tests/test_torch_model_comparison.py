@@ -14,6 +14,7 @@ import torch
 
 from bayesian_ode_tpu.samplers import model_comparison as jmc
 from bayesian_ode_tpu_torch.samplers import model_comparison as tmc
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 def ll_matrix(S=200, N=30, seed=0, heavy=True):

@@ -25,6 +25,7 @@ import torch
 import fixed_draws
 from bayesian_ode_tpu import samplers as jsamplers
 from bayesian_ode_tpu_torch import samplers
+from torch_parity import one_torch_thread  # noqa: F401
 
 jnuts = importlib.import_module("bayesian_ode_tpu.samplers.nuts")
 jbase = importlib.import_module("bayesian_ode_tpu.samplers.base")

@@ -21,7 +21,7 @@ from bayesian_ode_tpu.ode.tableaus import TSIT5 as JTSIT5
 from bayesian_ode_tpu_torch.ode import adaptive as tad
 from bayesian_ode_tpu_torch.ode import odeint, odeint_with_stats
 from bayesian_ode_tpu_torch.ode.tableaus import DOPRI5, TSIT5
-from torch_parity import check_solve64, to_np
+from torch_parity import check_solve64, one_torch_thread, to_np  # noqa: F401
 
 B = 4
 Y0 = 1.5 * np.random.RandomState(1).randn(B, 2)

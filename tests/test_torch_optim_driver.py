@@ -10,7 +10,10 @@ both packages up to rounding (measured about 1e-14; L-BFGS with the
 Wolfe search 1e-11).  torch.optim computes optax's Adam, SGD and
 Adadelta; optax's RMSprop (eps inside the square root) and its clip
 (g / |g| * max_norm, unchanged below max_norm) are the port's own lines,
-held here against optax directly too.
+held here against optax directly too.  make_plots=True writes the JAX
+driver's MAP plots, and the numbers they draw (`optim_plot_numbers`: the
+fitted field on the 15 x 15 grid, the rk4 fit at the observation times)
+are within 1e-10 of the same numbers from the JAX package's functions.
 """
 import json
 
@@ -24,7 +27,11 @@ from bayesian_ode_tpu.experiments.vanderpol_gp import run_optim as jrun_optim
 from bayesian_ode_tpu.experiments.vanderpol_gp import worker as jworker
 from bayesian_ode_tpu_torch.experiments import vanderpol_gp as tv
 from bayesian_ode_tpu_torch.experiments.run import main as cli_main
-from torch_parity import GENERIC_CONFIG, generic_data
+from torch_parity import (  # noqa: F401
+    GENERIC_CONFIG,
+    generic_data,
+    one_torch_thread,
+)
 
 OPTIM_CONFIG = dict(GENERIC_CONFIG, inf_type="optim", num_iters=12)
 
@@ -141,9 +148,12 @@ def test_run_optim_options_and_errors(data, tmp_path):
         tv.run_optim(dict(OPTIM_CONFIG, method="LBFGS", lr=1.0,
                           line_search="strong"), data, str(tmp_path),
                      make_plots=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tv.run_optim(dict(OPTIM_CONFIG, method="Adam", lr=1e-3), data,
-                     str(tmp_path), device="cpu")
+    # make_plots=True (the default) writes the JAX driver's MAP plots
+    tv.run_optim(dict(OPTIM_CONFIG, method="Adam", lr=1e-3, num_iters=3),
+                 data, str(tmp_path / "plots"), device="cpu")
+    for name in ("post", "post_log", "phase_map", "trajectories"):
+        assert (tmp_path / "plots" / "Adam" / "1"
+                / f"{name}.pdf").stat().st_size > 0
     out = tv.run_optim(dict(OPTIM_CONFIG, method="Adam", lr=1e-3,
                             solver="adams", num_iters=2, rtol=1e-5,
                             atol=1e-7), data,
@@ -196,3 +206,38 @@ def test_cli_runs_optim_configs(tmp_path):
         losses = np.load(out / "total_loss_arr.npy")
         assert losses.shape == (3,) and np.isfinite(losses).all()
         assert (out / "map_params.npz").exists()
+
+
+def test_optim_plot_numbers_match_jax(data):
+    import jax
+
+    from bayesian_ode_tpu import odeint as jodeint
+    from bayesian_ode_tpu.experiments.vanderpol_gp import build_model as jb
+    from bayesian_ode_tpu.models import kernel_regression as jkr
+    from bayesian_ode_tpu_torch.models import kernel_regression as tkr
+
+    jstatic, params0 = jb(OPTIM_CONFIG, data)[:2]
+    rng = np.random.RandomState(6)
+    params = {k: np.asarray(v) + 0.01 * rng.randn(*np.shape(v))
+              for k, v in params0.items()}
+    static = tkr.static_from_numpy(jstatic.Z, jstatic.KzzinvL,
+                                   jstatic.Kzzinv, jstatic.sf, jstatic.ell)
+    got = tv.optim_plot_numbers(OPTIM_CONFIG, data, static,
+                                {k: torch.tensor(v)
+                                 for k, v in params.items()}, device="cpu")
+    jp = jax.tree.map(jnp.asarray, params)
+    lo = np.asarray(data["Y"]).reshape(-1, 2).min(0) - 0.5
+    hi = np.asarray(data["Y"]).reshape(-1, 2).max(0) + 0.5
+    gx, gy = np.meshgrid(np.linspace(lo[0], hi[0], 15),
+                         np.linspace(lo[1], hi[1], 15))
+    pts = jnp.asarray(np.stack([gx.ravel(), gy.ravel()], 1))
+    A = jkr.precompute_weights(jp, jstatic)
+    want = {"field": np.asarray(jkr.vector_field(jp, jstatic, 0.0, pts)),
+            "fit": np.asarray(jodeint(
+                lambda tt, X: jkr.vector_field_fast(A, jstatic, tt, X),
+                jnp.asarray(data["x0"]), jnp.asarray(data["t"]),
+                method="rk4")),
+            "grid_x": gx, "grid_y": gy}
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert np.max(np.abs(got[k] - w)) <= 1e-10 * np.max(np.abs(w)), k

@@ -21,6 +21,7 @@ from bayesian_ode_tpu.samplers.diagnostics import (
 from bayesian_ode_tpu_torch import samplers as tsamplers
 from bayesian_ode_tpu_torch.samplers import schedules as tsched
 from bayesian_ode_tpu_torch.utils.pytree import tree_random_normal
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 def test_schedules_match_jax():

@@ -20,7 +20,7 @@ from bayesian_ode_tpu_torch.ode import (
     odeint_adjoint,
     odeint_forward_sensitivity,
 )
-from torch_parity import max_rel, to_np
+from torch_parity import max_rel, one_torch_thread, to_np  # noqa: F401
 
 H = 8
 TOL = {"rtol": 1e-7, "atol": 1e-9}

@@ -28,7 +28,12 @@ from bayesian_ode_tpu.experiments.vanderpol_gp import run_sampler as jrun
 from bayesian_ode_tpu_torch import samplers
 from bayesian_ode_tpu_torch.experiments.vanderpol_gp import run_sampler
 from bayesian_ode_tpu_torch.utils.pytree import tree_map
-from torch_parity import GENERIC_CONFIG, generic_data, gp_problem
+from torch_parity import (  # noqa: F401
+    GENERIC_CONFIG,
+    generic_data,
+    gp_problem,
+    one_torch_thread,
+)
 
 jham = importlib.import_module("bayesian_ode_tpu.samplers.hamiltonian")
 tham = importlib.import_module("bayesian_ode_tpu_torch.samplers.hamiltonian")

@@ -39,7 +39,12 @@ from bayesian_ode_tpu_torch.ops.gp_dopri5_grad import (
     make_fused_gp_potential_dopri5,
 )
 from bayesian_ode_tpu_torch.ops.gp_field import gp_field
-from torch_parity import gp_problem, max_rel, to_np
+from torch_parity import (  # noqa: F401
+    gp_problem,
+    max_rel,
+    one_torch_thread,
+    to_np,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -157,7 +162,7 @@ def test_run_sampler_psgld_and_unported_options(problem, tmp_path):
     from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
 
     c = dict(cfg, engine="generic", solver="adams", rtol=1e-5, atol=1e-7)
-    vg._check_supported(c, make_plots=False)
+    vg._check_supported(c)
     static, p0 = vg.build_model(c, data)
     pot = vg.make_generic_potential(c, data, static, "cpu", torch.float64)
     with torch.no_grad():
@@ -187,9 +192,12 @@ def test_run_sampler_psgld_and_unported_options(problem, tmp_path):
         with pytest.raises(NotImplementedError, match="dopri5"):
             run_sampler(dict(cfg, model=model, solver="rk4"), data,
                         str(tmp_path), make_plots=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="plots"):
-        run_sampler(cfg, data, str(tmp_path), make_plots=True,
-                    device="cpu")
+    # the plots are ported: make_plots=True writes the JAX driver's files
+    run_sampler(cfg, data, str(tmp_path / "plots"), make_plots=True,
+                device="cpu")
+    for name in ("post", "phase_mode", "predictive_bands", "logsn_hist"):
+        assert (tmp_path / "plots" / "pSGLD" / str(cfg.get("id", 0))
+                / f"{name}.pdf").exists()
 
 
 def test_cli_runs_the_experiment_driver(tmp_path):

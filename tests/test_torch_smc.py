@@ -29,7 +29,11 @@ from bayesian_ode_tpu.experiments import vanderpol_gp as jvg
 from bayesian_ode_tpu.models import kernel_regression as jkr
 from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
 from bayesian_ode_tpu_torch.samplers import batch_value_and_grad
-from torch_parity import GENERIC_CONFIG, generic_data
+from torch_parity import (  # noqa: F401
+    GENERIC_CONFIG,
+    generic_data,
+    one_torch_thread,
+)
 
 jsmc = importlib.import_module("bayesian_ode_tpu.samplers.smc")
 tsmc = importlib.import_module("bayesian_ode_tpu_torch.samplers.smc")

@@ -29,12 +29,13 @@ from bayesian_ode_tpu_torch.ops import spiral_dopri5 as ts_
 from bayesian_ode_tpu_torch.ops.fused_field import (
     fused_dopri5_trajectory_plain,
 )
-from torch_parity import (
+from torch_parity import (  # noqa: F401
     FIELD_T,
     FIELD_X0,
     check_solve,
     field_outputs,
     max_rel,
+    one_torch_thread,
     spiral_params,
     to_np,
     tree_max_rel,

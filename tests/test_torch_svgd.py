@@ -38,7 +38,12 @@ from bayesian_ode_tpu_torch.ops.gp_rk4 import make_fused_gp_potential
 from bayesian_ode_tpu_torch.ops.svgd_phi import svgd_phi, svgd_phi_reference
 from bayesian_ode_tpu_torch.samplers import stein as tstein
 from bayesian_ode_tpu_torch.utils.pytree import ravel_pytree
-from torch_parity import gp_problem, max_rel, to_np
+from torch_parity import (  # noqa: F401
+    gp_problem,
+    max_rel,
+    one_torch_thread,
+    to_np,
+)
 
 
 def _phi_inputs(n, d, seed, score_scale=1.0):

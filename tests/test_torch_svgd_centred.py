@@ -31,7 +31,7 @@ from bayesian_ode_tpu_torch.models import make_dataset
 from bayesian_ode_tpu_torch.ops.gp_rk4 import make_fused_gp_potential
 from bayesian_ode_tpu_torch.ops.svgd_phi import svgd_phi_reference
 from bayesian_ode_tpu_torch.samplers import stein
-from torch_parity import max_rel, to_np
+from torch_parity import max_rel, one_torch_thread, to_np  # noqa: F401
 
 ROWS, COLS = 32, 32          # csrc/svgd_phi.cu: kRows, kCols
 

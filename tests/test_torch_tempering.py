@@ -22,6 +22,7 @@ import torch
 import fixed_draws
 from bayesian_ode_tpu import samplers as jsamplers
 from bayesian_ode_tpu_torch import samplers
+from torch_parity import one_torch_thread  # noqa: F401
 
 F64 = torch.float64
 D = 3

@@ -16,7 +16,11 @@ import torch
 import fixed_draws
 from bayesian_ode_tpu.experiments import vanderpol_gp as jvg
 from bayesian_ode_tpu_torch.experiments import vanderpol_gp as vg
-from torch_parity import GENERIC_CONFIG, generic_data
+from torch_parity import (  # noqa: F401
+    GENERIC_CONFIG,
+    generic_data,
+    one_torch_thread,
+)
 
 F64 = torch.float64
 CFG = dict(GENERIC_CONFIG, M=3)
