@@ -26,8 +26,11 @@ fixed Adams methods), complex states, the adaptive options, dense output
 `sdeint`, the reversible-Heun adjoint `sdeint_adjoint`, the
 Euler-Maruyama and NPSDE potentials), the latent-ODE, latent-SDE and CNF
 models, the toy densities and experiment (`experiments.toy`), and the
-driver's plots and config helpers are ported too.  ROADMAP.md lists what
-is still to port.
+driver's plots and config helpers are ported too, and so are the conv
+ODEnet (`models.odenet`), the examples (`examples`, each run with
+`python -m`), the sharded paths and the fleet runtime (`parallel`) and
+the CLI's `--id all` and `--data-pickle`.  ROADMAP.md lists what is still
+to port.
 """
 from . import sde  # noqa: F401
 from .ode import (  # noqa: F401

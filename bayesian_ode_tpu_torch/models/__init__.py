@@ -8,6 +8,7 @@ from . import (  # noqa: F401
     latent_sde,
     linear_regression,
     mlp,
+    odenet,
     spiral,
     toy_densities,
 )
@@ -17,5 +18,6 @@ from .toy_densities import TOY_POTENTIALS  # noqa: F401
 
 __all__ = ["DYNAMICS", "TOY_POTENTIALS", "cnf", "fhn", "fhn_inference",
            "kernel_regression", "latent_ode", "latent_sde",
-           "linear_regression", "lv", "make_dataset", "mlp", "spiral",
+           "linear_regression", "lv", "make_dataset", "mlp", "odenet",
+           "spiral",
            "toy_densities", "vdp"]

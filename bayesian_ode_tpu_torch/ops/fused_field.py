@@ -19,7 +19,8 @@ over the field's batched torch `rhs` and `rhs_vjp`.
 The tableau is `method="dopri5"` or `"tsit5"`: any 7-stage FSAL pair with
 quartic dense output.  Gradients are the frozen-step-mesh discrete adjoint
 at tolerance (`ops/gp_dopri5_grad.py` says what that means).  The Hairer
-start step is computed on the host from the field's `rhs_ref`.
+start step is computed on the host from the field's `rhs_ref` (on the
+card in blocks of a fixed number of chains: `_start`).
 
 The TPU engine recorded per lockstep tile of 128 chains; the port records
 per chain, so `stats["n_iterations"]` is each chain's own accepted-step
@@ -85,12 +86,45 @@ def _prepare(w, x0, ts):
             torch.as_tensor(ts, device=dev).to(torch.float32).contiguous())
 
 
-def _start(field, w, x0, rtol, atol):
-    """The (C, N, 2) start states and the Hairer initial slope and step."""
-    x0b = x0.expand(w[0].shape[0], *x0.shape[-2:])
-    f0, dt0 = _hairer_initial_step(lambda p: field.rhs_ref(w, p), x0b,
-                                   rtol, atol)
-    return x0b, f0, dt0
+# chains a block of the start's computation on the card (a batch of the
+# main path's 10,112 chains, or a shard of it, is one block)
+START_BLOCK = 16384
+
+
+def _start(field, w, x0, rtol, atol, block=None):
+    """The (C, N, 2) start states and the Hairer initial slope and step.
+
+    The slope and step are computed in blocks of `block` chains (on the
+    card START_BLOCK, on the CPU the whole batch at once), the last block
+    padded with copies of the last chain: cuBLAS picks its GEMM by the
+    shape, so a chain's start (and so its whole solve) then does not
+    depend on how many chains are solved with it, and a solve split over
+    shards equals the unsplit one bit for bit."""
+    C = w[0].shape[0]
+    x0b = x0.expand(C, *x0.shape[-2:])
+    if block is None:
+        if not x0b.is_cuda:
+            f0, dt0 = _hairer_initial_step(lambda p: field.rhs_ref(w, p),
+                                           x0b, rtol, atol)
+            return x0b, f0, dt0
+        block = START_BLOCK
+    f0s, dt0s = [], []
+    for lo in range(0, C, block):
+        n = min(block, C - lo)
+
+        def rows(x):
+            x = x[lo:lo + n]
+            return torch.cat([x, x[-1:].expand(block - n, *x.shape[1:])])
+
+        wb = tuple(rows(x) if i < field.n_wbar else x
+                   for i, x in enumerate(w))
+        f0, dt0 = _hairer_initial_step(lambda p: field.rhs_ref(wb, p),
+                                       rows(x0b), rtol, atol)
+        f0s.append(f0[:n])
+        dt0s.append(dt0[:n])
+    if len(f0s) == 1:
+        return x0b, f0s[0], dt0s[0]
+    return x0b, torch.cat(f0s), torch.cat(dt0s)
 
 
 class _Trajectory(torch.autograd.Function):

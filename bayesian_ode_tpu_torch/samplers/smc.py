@@ -19,13 +19,22 @@ a stage (whether beta has reached 1); the bisection, the log Z sum, the
 resampling and the step adaptation stay on the device.  Every MALA move
 is one value-and-gradient over the whole population (the batch-potential
 contract).  Random draws are batch-shaped from one generator, where the
-JAX package keys each particle's draws by its global index (its
-`axis_name` sharded form is ROADMAP queue 1 item 15's).
+JAX package keys each particle's draws by its global index.
+
+The population may be one process's block of a mesh axis
+(`parallel.smc_sharded` across a fleet, the counterpart of the JAX
+package's `axis_name`): a `gather` hook then concatenates every block's
+log likelihoods, acceptances and (to resample) particles, so that every
+process takes the same stage decisions on the whole population, and
+every process draws the whole population's noise from an identically
+seeded generator and keeps its own rows.  A sharded
+run equals the unsharded one bit for bit for row-independent potentials,
+and the unsharded stream is unchanged.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -106,7 +115,8 @@ def smc(generator: torch.Generator, log_lik_batch: Callable,
         log_prior_batch: Callable, prior_particles, *,
         num_moves: int = 5, target_ess: float = 0.5,
         step_scale: float = 0.5, target_accept: float = 0.57,
-        adapt_rate: float = 1.0, max_stages: int = 100) -> SMCResult:
+        adapt_rate: float = 1.0, max_stages: int = 100,
+        gather: Optional[Callable] = None) -> SMCResult:
     """Sample p(x) propto p0(x) exp(loglik(x)) and estimate
     log Z = log int p0(x) exp(loglik(x)) dx by adaptive tempered SMC.
 
@@ -115,7 +125,14 @@ def smc(generator: torch.Generator, log_lik_batch: Callable,
     `prior_particles` must be iid draws from the prior p0 (the beta = 0
     population).  The MALA step is lr = step_scale * the pooled particle
     variance, with log(step_scale) moved by adapt_rate (accept -
-    target_accept) between stages."""
+    target_accept) between stages.
+
+    `gather`: set by `parallel.smc_sharded` when `prior_particles` is one
+    process's block of a mesh axis: `gather(t)` concatenates every
+    block's `t` along the leading axis in mesh order and `gather.index`
+    is this block's position among them (blocks of equal size).  The
+    result then holds this block's particles and log likelihoods, and the
+    population-wide numbers of the whole population."""
     if not 0.0 < target_ess < 1.0:
         raise ValueError("target_ess must be in (0, 1)")
     leaves = tree_leaves(prior_particles)
@@ -123,9 +140,23 @@ def smc(generator: torch.Generator, log_lik_batch: Callable,
         raise ValueError("prior_particles must carry a leading particle axis")
     with torch.no_grad():
         ll0 = log_lik_batch(prior_particles)
-    n = ll0.shape[0]
+    n_local = ll0.shape[0]
+    if gather is None:
+        rows, gather = slice(None), (lambda t: t)
+    else:
+        rows = slice(gather.index * n_local, (gather.index + 1) * n_local)
+    n = gather(ll0).shape[0]                    # the whole population
     dtype, dev = ll0.dtype, ll0.device
     target = torch.tensor(target_ess * n, dtype=dtype, device=dev)
+
+    def draw_normal(position):
+        """The whole population's noise; this block's rows of it."""
+        if n == n_local:
+            return tree_random_normal(generator, position)
+        whole = tree_map(lambda l: l.new_empty((n,) + l.shape[1:]),
+                         position)
+        return tree_map(lambda l: l[rows],
+                        tree_random_normal(generator, whole))
 
     def mala_sweep(beta, lr, position):
         """num_moves exact MALA steps targeting p_beta: the moved
@@ -136,7 +167,7 @@ def smc(generator: torch.Generator, log_lik_batch: Callable,
         noise_scale = torch.sqrt(2.0 * lr)
         accs = []
         for _ in range(num_moves):
-            noise = tree_random_normal(generator, position)
+            noise = draw_normal(position)
             prop = tree_map(lambda p, gr, nz: p - lr * gr - noise_scale * nz,
                             position, g, noise)
             u_new, g_new = vag(prop)
@@ -150,13 +181,13 @@ def smc(generator: torch.Generator, log_lik_batch: Callable,
             log_alpha = log_alpha - -1.0 / (4 * lr) \
                 * tree_sum_squares_per_chain(fwd)
             uniform = torch.rand((n,), generator=generator, dtype=dtype,
-                                 device=dev)
+                                 device=dev)[rows]
             accept = torch.isfinite(log_alpha) & (torch.log(uniform)
                                                   < log_alpha)
             position = _where_per_chain(accept, prop, position)
             u = torch.where(accept, u_new, u)
             g = _where_per_chain(accept, g_new, g)
-            accs.append(accept.to(dtype).mean())
+            accs.append(gather(accept.to(dtype)).mean())
         with torch.no_grad():
             ll = log_lik_batch(position)
         return position, ll, torch.stack(accs).mean()
@@ -173,14 +204,17 @@ def smc(generator: torch.Generator, log_lik_batch: Callable,
     stage = 0
     while stage < max_stages and bool(beta < 1.0):
         with torch.no_grad():
-            beta_new = _next_beta(beta, ll, target)
+            ll_all = gather(ll)
+            beta_new = _next_beta(beta, ll_all, target)
             dbeta = beta_new - beta
-            lw = dbeta * ll
+            lw = dbeta * ll_all
             log_z = log_z + torch.logsumexp(lw, dim=0) - math.log(n)
-            ess_now = _conditional_ess(dbeta, ll)
+            ess_now = _conditional_ess(dbeta, ll_all)
             idx = _resample_indices(generator, lw)
-            position = tree_map(lambda l: l[idx], position)
+            # resample the whole population; the block keeps its rows
+            position = tree_map(lambda l: gather(l)[idx], position)
             lr = torch.exp(log_step) * _pooled_variance(position)
+            position = tree_map(lambda l: l[rows], position)
         position, ll, acc = mala_sweep(beta_new, lr, position)
         log_step = log_step + adapt_rate * (acc - target_accept)
         betas[stage], ess[stage] = beta_new, ess_now

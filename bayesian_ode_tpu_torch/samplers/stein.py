@@ -14,7 +14,7 @@ above that.  Particles are flattened to (n, P) in JAX's leaf order
 phi goes to kernel K8 (`ops/svgd_phi.py`, which never forms the n x n
 kernel matrix in device memory) for 4,096 particles or more on the card,
 and to the matmul form `svgd_direction` otherwise (`_phi_dispatch`).  The
-multi-process ensemble is ROADMAP queue 1 item 15.
+ensemble split over the shards of a mesh is `parallel.run_svgd_sharded`.
 """
 from __future__ import annotations
 
@@ -90,15 +90,18 @@ def pairwise_sq_dists(X, Y):
 
 
 def svgd_direction(particles, scores, sigma: Optional[float] = None,
-                   median_subsample: Optional[int] = None):
+                   median_subsample: Optional[int] = None, rows=None):
     """phi(X) for particles (n, d) and scores -grad U (n, d) in the matmul
     form: sum_j grad_{x_j} K_ij = 2 gamma (x_i sum_j K_ij - sum_j K_ij x_j).
-    `median_subsample` as `rbf_bandwidth`."""
+    `median_subsample` as `rbf_bandwidth`.  `rows` (m, d): phi at these
+    particles only (a shard's block of the ensemble), the bandwidth still
+    taken from the whole ensemble."""
     n = particles.shape[0]
+    q = particles if rows is None else rows
     gamma = rbf_bandwidth(particles, sigma, median_subsample)
-    K = torch.exp(-gamma * pairwise_sq_dists(particles, particles))
+    K = torch.exp(-gamma * pairwise_sq_dists(q, particles))
     ksum = K.sum(dim=1)
-    grad_K = 2.0 * gamma * (particles * ksum[:, None] - K @ particles)
+    grad_K = 2.0 * gamma * (q * ksum[:, None] - K @ particles)
     return (K @ scores + grad_K) / n
 
 

@@ -17,8 +17,8 @@ the cold replica (beta = 1) is the recorded `state.position`.
 The ladder is float32, as in the JAX package, and cast into the
 potential's dtype where it meets it.  The step counter is a host integer,
 so whether a step swaps, and its parity, are chosen on the host; a step
-that does not swap draws no uniforms.  The sharded ladder of the JAX
-package's `parallel/tempering.py` is not in the port.
+that does not swap draws no uniforms.  The ladder as a mesh axis, one
+temperature a shard, is `parallel.run_parallel_tempering_sharded`.
 """
 from __future__ import annotations
 

@@ -125,12 +125,30 @@ the latent SDE at B=32, T=50 trained 40 Adam iterations, its -ELBO
 against the CPU, `run_toy` on the banana and the driver's plot numbers
 against the CPU (phase 36).
 
+Then the modules of the port's last slice, plain torch over K1 and
+K4/K5: the conv ODEnet at the example's width (dim 64, batch 128 of
+28x28x1 synthetic digits, dopri5 at tol 1e-3 bounded, TF32 off), s an
+iteration, its forward NFE, its float64 loss and gradient against the
+CPU, and a resnet step (phase 37); each example's `main` at a few
+iterations on the card, the bouncing ball's at the 100 its own recovery
+check needs (phase 38; the evidence example's `worker` path is phase
+29's); `parallel/` on 2 shards of the card at 10,112 chains: the sharded
+K1 solve against the unsharded one (bit for bit), sharded-batched SGLD on the fused GP rk4
+potential, each shard bit-equal to an unsharded run of its chains, with
+its chain-steps/s beside the unsharded run's, sharded SMC and SVGD in
+float64 against the unsharded runs, a fleet of 2 processes on the card
+over gloo against this process's 2 shards (bit for bit), and the CLI's
+`--id all` under a fleet of 2 (phase 39; `python3 chip_smoke.py
+--fleet-worker RANK WORLD HOST:PORT DIR DEVICE` is one of its
+processes).
+
 Exits non-zero on any failed phase, and when no CUDA device is available.
 Before the last two lines it prints its own seconds; the line before the
 last is a JSON object with each kernel's launches, error against its
 plain version, times and bound (and the registers, warps an SM and waves
-of spiral K2, FHN K2 and K3 and K9, and K9's device time a solve); the
-last line is
+of spiral K2, FHN K2 and K3 and K9, and K9's device time a solve, and
+for K1, K4 and K5 their launches in phase 39 apart from the main path's,
+`sharded_launches`); the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -2719,6 +2737,513 @@ def latent_sde_path(cfg, data, static, U0, dev, smi):
           "phase 36: the plot numbers equal the CPU's")
 
 
+# ---- the ODEnet, the examples and the sharded package (phases 37-39) ----
+ODENET_DIM, ODENET_BATCH, ODENET_TOL = 64, 128, 1e-3   # the example's own
+ODENET_STEPS = (1, 5)           # warm-up, timed SGD steps
+ODENET_CHECK_IMAGES = 4         # the float64 card-against-CPU check
+PAR_SHARDS = 2                  # phase 39: shards on cuda:0
+PAR_SGLD_STEPS = 21             # SGLD steps of a sharded-batched run
+PAR_PARTICLES, PAR_SVGD_STEPS = 1024, 5
+FLEET_TIMEOUT = 300             # s, each process of a phase-39 fleet
+# phase 38: each example's main at a few iterations on the card (the
+# bouncing ball at the 100 its own recovery check needs); the evidence
+# example's engine, `worker` with inf_type "evidence", is phase 29's
+EXAMPLE_ARGS = {
+    "odenet_mnist": ["--niters", "3"],
+    "ode_demo": ["--niters", "3", "--test-freq", "3"],
+    "latent_ode": ["--niters", "2"],
+    "latent_sde": ["--niters", "3"],
+    "bouncing_ball": ["--iters", "100"],
+}
+
+
+def odenet_path(dev, smi):
+    """Phase 37: the ODEnet at the example's own width (dim 64, batch 128
+    of 28x28x1 synthetic digits, dopri5 at tol 1e-3 in bounded mode, SGD
+    with momentum 0.9, float32 with TF32 off): one warm-up step and 5
+    timed ones, s an iteration and the ODE block's forward NFE; the
+    float64 loss and gradient on 4 images, the card against the CPU; one
+    step of the "resnet" network."""
+    import torch
+
+    from bayesian_ode_tpu_torch.examples import odenet_mnist as ex
+    from bayesian_ode_tpu_torch.models import odenet
+    from bayesian_ode_tpu_torch.utils.pytree import tree_leaves, tree_map
+
+    f64 = torch.float64
+    gen = torch.Generator(device=dev).manual_seed(37)
+    warm, timed = ODENET_STEPS
+    x, y = ex.synthetic_digits(gen, ODENET_BATCH * (warm + timed),
+                               device=dev)
+    solve = ex.make_solver("dopri5", ODENET_TOL)
+
+    def train(network):
+        params = odenet.init_params(gen, dim=ODENET_DIM, network=network,
+                                    device=dev)
+        leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+        opt = torch.optim.SGD(leaves, lr=0.1, momentum=0.9)
+        losses, marks = [], []
+        steps = warm + timed if network == "odenet" else 1
+        for i in range(steps):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            sl = slice(i * ODENET_BATCH, (i + 1) * ODENET_BATCH)
+            opt.zero_grad()
+            loss = odenet.make_loss(solve, x[sl], y[sl])(params)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return params, torch.stack(losses).tolist(), marks
+
+    # the model itself turns TF32 off for its solve
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    params, losses, marks = train("odenet")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    with torch.no_grad():
+        nfe = ex.forward_nfe(params, x[:ODENET_BATCH], ODENET_TOL)
+    per_iter = (marks[-1] - marks[warm]) / timed
+    print(f"phase 37 ODEnet: dim {ODENET_DIM}, batch {ODENET_BATCH} of "
+          f"28x28x1, dopri5 tol {ODENET_TOL:g} bounded (32 steps an "
+          f"interval), SGD 0.1 momentum 0.9, float32, TF32 (matmul, cudnn) "
+          f"{tf32}: warm-up {marks[warm] - marks[0]:.3f} s, then "
+          f"{per_iter:.4f} s an iteration over {timed}; forward NFE of the "
+          f"ODE block on the batch {nfe}; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} ({smi})")
+    check(all(map(math.isfinite, losses)), "phase 37: finite losses")
+    check(tf32 == (False, False), "phase 37: no TF32 on the ODE block")
+    check(nfe > 0, "phase 37: the ODE block's forward NFE")
+
+    # float64: the card against the CPU on 4 images
+    p64 = tree_map(lambda v: v.detach().to(f64), params)
+    xs, ys = x[:ODENET_CHECK_IMAGES].to(f64), y[:ODENET_CHECK_IMAGES]
+
+    def loss_grad(p, images, labels):
+        leaves = tree_map(lambda v: v.clone().requires_grad_(True), p)
+        val = odenet.make_loss(solve, images, labels)(leaves)
+        return val.detach(), torch.autograd.grad(val, tree_leaves(leaves))
+
+    v_card, g_card = loss_grad(p64, xs, ys)
+    v_cpu, g_cpu = loss_grad(tree_map(lambda v: v.cpu(), p64), xs.cpu(),
+                             ys.cpu())
+    scale = max(float(g.abs().max()) for g in g_cpu)
+    g_err = max(float((a.cpu() - b).abs().max())
+                for a, b in zip(g_card, g_cpu)) / scale
+    v_err = abs(float(v_card) - float(v_cpu)) / abs(float(v_cpu))
+    print(f"phase 37 float64 loss and gradient on {ODENET_CHECK_IMAGES} "
+          f"images, the card against the CPU: loss {float(v_card):.12f} "
+          f"(relative {v_err:.3e}), gradient max-abs over its largest "
+          f"entry {g_err:.3e}")
+    check(v_err <= 1e-10 and g_err <= 1e-10,
+          "phase 37: the float64 loss and gradient equal the CPU's")
+
+    _, rlosses, rmarks = train("resnet")
+    print(f"phase 37 resnet (6 residual blocks): one SGD step "
+          f"{rmarks[-1] - rmarks[0]:.3f} s (first call), loss "
+          f"{rlosses[0]:.4f}")
+    check(math.isfinite(rlosses[0]), "phase 37: resnet finite loss")
+
+
+def examples_path(dev, smi):
+    """Phase 38: each example's `main` with --device cuda at a few
+    iterations (EXAMPLE_ARGS: the iteration counts are cut; widths are
+    the examples' defaults), timed; every loss it reports is finite, and
+    the bouncing ball recovers its restitution within its own 1e-3.  The
+    evidence example runs `worker`'s evidence path, which phase 29
+    drives."""
+    import importlib
+
+    import numpy as np
+
+    secs = {}
+    with tempfile.TemporaryDirectory() as out:
+        for name, args in EXAMPLE_ARGS.items():
+            mod = importlib.import_module(
+                f"bayesian_ode_tpu_torch.examples.{name}")
+            argv = list(args) + ["--device", str(dev)]
+            if name in ("latent_ode", "latent_sde"):
+                argv += ["--train-dir", os.path.join(out, name)]
+            t0 = time.perf_counter()
+            res = mod.main(argv)
+            secs[name] = time.perf_counter() - t0
+            if name == "bouncing_ball":
+                vals = [res["losses"][0], res["losses"][-1]]
+            else:
+                vals = [v for k, v in res.items()
+                        if "loss" in k or "elbo" in k]
+            found = f", recovered e {res['e']:.5f}" if "e" in res else ""
+            print(f"phase 38 {name} {' '.join(args)}: "
+                  f"{secs[name]:.2f} s; losses {vals}{found}")
+            check(vals and all(np.isfinite(vals)),
+                  f"phase 38: {name} finite losses")
+    print(f"phase 38: {sum(secs.values()):.1f} s over five examples "
+          f"({smi})")
+
+
+def _npsde_inputs(static, dev):
+    """Phase 39's float64 NPSDE problem: phase 34's data and grid, the
+    log likelihood of `sde.make_gp_sde_potential_batched` (no prior),
+    standard normal whitened weights and logsd ~ N(log 0.1, 0.5^2)."""
+    import numpy as np
+    import torch
+
+    from bayesian_ode_tpu_torch.models import kernel_regression as kr
+
+    f64 = torch.float64
+    gen = torch.Generator(device=dev).manual_seed(39)
+    ts, Y = _vdp_sde_data(dev, f64, gen)
+    s64 = kr.static_from_numpy(static.Z, static.KzzinvL, static.Kzzinv,
+                               static.sf, static.ell, device=dev, dtype=f64)
+    prior = {"U": torch.randn((PAR_PARTICLES, 36, 2), generator=gen,
+                              device=dev, dtype=f64),
+             "logsd": float(np.log(NPSDE_SIGMA)) + 0.5 * torch.randn(
+                 (PAR_PARTICLES, 2), generator=gen, device=dev, dtype=f64)}
+    return ts, Y, s64, prior
+
+
+def _npsde_density(ts, Y, s64):
+    import numpy as np
+
+    from bayesian_ode_tpu_torch import sde
+
+    neg_ll = sde.make_gp_sde_potential_batched(s64, ts, Y, add_prior=False)
+    mu = float(np.log(NPSDE_SIGMA))
+
+    def log_prior(p):
+        return (-0.5 * (p["U"] ** 2).sum((1, 2))
+                - 2.0 * ((p["logsd"] - mu) ** 2).sum(1))
+
+    return (lambda p: -neg_ll(p)), log_prior
+
+
+def fleet_worker(rank, world, coordinator, io_dir, device):
+    """A process of phase 39's fleet: one shard on `device` over gloo; the
+    sharded-batched SGLD run and the sharded SMC of the main process's
+    inputs (io_dir/inputs.pt), its results to io_dir/rank{rank}.pt."""
+    import torch
+
+    from bayesian_ode_tpu_torch import parallel, samplers
+    from bayesian_ode_tpu_torch.models import kernel_regression as kr
+    from bayesian_ode_tpu_torch.ops import _build, gp_rk4
+
+    dev = torch.device(device)
+    kr.full_f32_matmul()
+    r = parallel.init_runtime(coordinator_address=coordinator,
+                              num_processes=world, process_id=rank,
+                              backend="gloo")
+    inp = torch.load(os.path.join(io_dir, "inputs.pt"))
+    mesh = parallel.global_mesh("chain", devices=[dev])
+    sl = parallel.process_slice(inp["pos0"]["U"].shape[0], r)
+    s32 = kr.GPVectorFieldStatic(*[v.to(dev) if torch.is_tensor(v) else v
+                                   for v in inp["s32"]])
+    pot = gp_rk4.make_fused_gp_potential(s32, inp["x0"].to(dev),
+                                         inp["ts"].to(dev),
+                                         inp["Y"].to(dev))
+    kern = samplers.sgld_batched(pot, 1e-5)
+    pos = parallel.host_local_to_global(
+        {k: v[sl].to(dev) for k, v in inp["pos0"].items()}, mesh)
+    _build.reset_launch_counts()
+    positions, pots = parallel.sample_chain_sharded_batched(
+        kern, pos, 0, inp["steps"], mesh)
+    launches = {k: v for k, v in _build.launch_counts.items() if v}
+    ll, lp = _npsde_density(inp["npsde_ts"], inp["npsde_Y"].to(dev),
+                            kr.GPVectorFieldStatic(*[
+                                v.to(dev) if torch.is_tensor(v) else v
+                                for v in inp["s64"]]))
+    pmesh = parallel.global_mesh("particle", devices=[dev])
+    psl = parallel.process_slice(inp["prior"]["U"].shape[0], r)
+    prior = parallel.host_local_to_global(
+        {k: v[psl].to(dev) for k, v in inp["prior"].items()}, pmesh,
+        "particle")
+    res = parallel.smc_sharded(39, ll, lp, prior, pmesh, num_moves=2)
+    torch.save({"rows": (sl.start, sl.stop), "prows": (psl.start, psl.stop),
+                "U": positions["U"].cpu(), "pots": pots.cpu(),
+                "particles": {k: v.cpu() for k, v in res.particles.items()},
+                "log_z": float(res.log_z), "stages": res.num_stages,
+                "launches": launches, "runtime": tuple(vars(r).values())},
+               os.path.join(io_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start(cmd, env=None):
+    return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _finish(procs, label):
+    """Wait for every process (FLEET_TIMEOUT each), kill any left, and
+    fail unless all exited 0.  Returns their outputs."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=FLEET_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(o[-3000:])
+        check(p.returncode == 0, f"phase 39: {label} process {i} exit 0")
+    return outs
+
+
+def parallel_path(cfg, static, U, A, x0, ts, s32, Y32, dev, smi):
+    """Phase 39: `parallel/` on a mesh of 2 shards on cuda:0 at 10,112
+    chains: `gp_dopri5_solve_sharded` (K1 a shard) against the unsharded
+    K1 solve, bit for bit; `sample_chain_sharded_batched` SGLD on the
+    fused GP rk4 potential (K4/K5), each shard against an unsharded run
+    of its chains under its generator, bit for bit, and steady
+    chain-steps/s beside the unsharded run's; `smc_sharded` at 1,024
+    particles of the NPSDE posterior in float64 against `samplers.smc`
+    (the same ladder, log Z within 1e-10); `run_svgd_sharded` in float64
+    against the unsharded SVGD; then a fleet of 2 processes on the card
+    over gloo (a shard each) against this process's 2 shards, and
+    `--id all` under a fleet of 2.  Returns the K1, K4 and K5 launches
+    of this process's runs."""
+    import numpy as np
+    import torch
+
+    from bayesian_ode_tpu_torch import parallel, samplers
+    from bayesian_ode_tpu_torch.ops import _build, gp_rk4
+    from bayesian_ode_tpu_torch.ops.gp_dopri5 import gp_dopri5_solve_whole
+    from bayesian_ode_tpu_torch.parallel.chains import shard_generator
+    from bayesian_ode_tpu_torch.samplers.smc import smc
+    from bayesian_ode_tpu_torch.utils.pytree import ravel_pytree, tree_map
+
+    f32 = torch.float32
+    mesh = parallel.make_mesh(PAR_SHARDS, "chain", devices=[dev])
+    launches = dict.fromkeys(("gp_dopri5_solve_whole", "gp_rk4_fwd",
+                              "gp_rk4_bwd"), 0)
+
+    def counted(fn):
+        _build.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        delta = {k: v for k, v in _build.launch_counts.items() if v}
+        for k in launches:
+            launches[k] += delta.get(k, 0)
+        return out, delta
+
+    # K1 a shard against the unsharded solve
+    (ys1, st1) = gp_dopri5_solve_whole(A, x0, ts, s32, rtol=RTOL, atol=ATOL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (ys, st), delta = counted(lambda: parallel.gp_dopri5_solve_sharded(
+        A, x0, ts, s32, mesh, rtol=RTOL, atol=ATOL))
+    secs = time.perf_counter() - t0
+    same = torch.equal(ys, ys1) and all(torch.equal(st[k], st1[k]) for k in
+                                        ("nfe", "n_accepted", "n_rejected"))
+    scale = float(ys1.abs().max())
+    traj = float((ys - ys1).abs().max()) / scale
+    dnfe = (st["nfe"] - st1["nfe"]).abs()
+    print(f"phase 39 gp_dopri5_solve_sharded: {N_CHAINS} chains on "
+          f"{PAR_SHARDS} shards of {dev}, {secs:.3f} s, launches {delta}; "
+          f"trajectories and counters bit-equal to the unsharded K1 solve: "
+          f"{same}; trajectories within {traj:.3e} max|y|, NFE differs on "
+          f"{int((dnfe > 0).sum())} chains (at most {int(dnfe.max())}), "
+          f"mean NFE {float(st['nfe'].float().mean()):.3f} against "
+          f"{float(st1['nfe'].float().mean()):.3f}; reached_final_time "
+          f"{st['reached_final_time']}")
+    check(delta.get("gp_dopri5_solve_whole") == PAR_SHARDS,
+          "phase 39: K1 launched once a shard")
+    check(same, "phase 39: the sharded K1 solve equals the unsharded one "
+          "bit for bit")
+
+    # sharded-batched SGLD on the fused rk4 potential (K4/K5)
+    pot = gp_rk4.make_fused_gp_potential(s32, x0, ts, Y32)
+    kern = samplers.sgld_batched(pot, 1e-5)
+    pos0 = {"U": U, "logsn": torch.full((N_CHAINS, 2), float(np.log(0.05)),
+                                        device=dev, dtype=f32)}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def unsharded(n):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return samplers.sample_chain(kern, kern.init(pos0), gen, n)
+
+    rates = {}
+    for label, run in (("sharded", lambda n: parallel.
+                        sample_chain_sharded_batched(kern, pos0, 0, n,
+                                                     mesh)),
+                       ("unsharded", unsharded)):
+        run(1)                  # warm-up: the first call's set-up
+        _, t1 = timed(lambda: run(1))
+        if label == "sharded":  # the path's launches, not the reference's
+            ((positions, pots), tn), sgld_delta = counted(lambda: timed(
+                lambda: run(PAR_SGLD_STEPS)))
+        else:
+            _, tn = timed(lambda: run(PAR_SGLD_STEPS))
+        rates[label] = (PAR_SGLD_STEPS - 1) * N_CHAINS / (tn - t1)
+    half = N_CHAINS // PAR_SHARDS
+    equal = True
+    for k in range(PAR_SHARDS):
+        sl = slice(k * half, (k + 1) * half)
+        mine = {n: v[sl] for n, v in pos0.items()}
+        _, rp, ri = samplers.sample_chain(
+            kern, kern.init(mine), shard_generator(0, k, dev),
+            PAR_SGLD_STEPS)
+        equal &= (torch.equal(rp["U"], positions["U"][:, sl])
+                  and torch.equal(ri["potential"], pots[:, sl]))
+    print(f"phase 39 sample_chain_sharded_batched SGLD, GP rk4 (K4/K5): "
+          f"{N_CHAINS} chains on {PAR_SHARDS} shards, {PAR_SGLD_STEPS} "
+          f"steps, launches {sgld_delta}; each shard bit-equal to an "
+          f"unsharded run of its chains under its generator: {equal}; "
+          f"steady {rates['sharded']:.0f} chain-steps/s sharded, "
+          f"{rates['unsharded']:.0f} unsharded (one generator) ({smi})")
+    check(equal, "phase 39: each shard equals its unsharded run")
+    check(sgld_delta.get("gp_rk4_fwd") == sgld_delta.get("gp_rk4_bwd")
+          == PAR_SHARDS * (PAR_SGLD_STEPS + 1),
+          "phase 39: K4 and K5 once a step a shard and once at its init")
+    check(bool(torch.isfinite(pots).all()), "phase 39: finite potentials")
+
+    # sharded SMC, float64 NPSDE
+    npsde_ts, Y64, s64, prior = _npsde_inputs(static, dev)
+    ll, lp = _npsde_density(npsde_ts, Y64, s64)
+    pmesh = parallel.make_mesh(PAR_SHARDS, "particle", devices=[dev])
+    (ref, t_ref) = timed(lambda: smc(
+        torch.Generator(device=dev).manual_seed(39), ll, lp, prior,
+        num_moves=2))
+    (got, t_got) = timed(lambda: parallel.smc_sharded(39, ll, lp, prior,
+                                                      pmesh, num_moves=2))
+    n = ref.num_stages
+    ladder = float((got.betas[:n] - ref.betas[:n]).abs().max()) \
+        if got.num_stages == n else float("inf")
+    dz = abs(float(got.log_z) - float(ref.log_z))
+    pdiff = max(float((got.particles[k] - ref.particles[k]).abs().max())
+                for k in ref.particles)
+    print(f"phase 39 smc_sharded: {PAR_PARTICLES} particles of the NPSDE "
+          f"posterior (74 dimensions) in float64, 2 moves a stage, "
+          f"{PAR_SHARDS} shards: {got.num_stages} stages against "
+          f"{n} unsharded, betas max |diff| {ladder:.3e}, log Z "
+          f"{float(got.log_z):.10f} (|diff| {dz:.3e}), particles max "
+          f"|diff| {pdiff:.3e}; {t_got:.2f} s sharded, {t_ref:.2f} s "
+          f"unsharded")
+    check(got.num_stages == n and ladder <= 1e-10,
+          "phase 39: SMC's ladder within 1e-10")
+    check(dz <= 1e-10 * max(1.0, abs(float(ref.log_z))),
+          "phase 39: sharded log Z within 1e-10")
+
+    # sharded SVGD, float64, the per-particle NPSDE potential
+    from bayesian_ode_tpu_torch import sde
+
+    one = sde.make_gp_sde_potential(s64, npsde_ts, Y64)
+    _, unravel = ravel_pytree(tree_map(lambda v: v[0], prior))
+    flat = torch.cat([prior["U"].reshape(PAR_PARTICLES, -1),
+                      prior["logsd"]], 1)
+    pot1 = lambda v: one(unravel(v))  # noqa: E731
+    lr = 1e-4
+    # the first torch.func transform of a process takes seconds: warm up
+    parallel.run_svgd_sharded(pot1, flat, lr, 1, pmesh)
+    (sv, t_sv) = timed(lambda: parallel.run_svgd_sharded(
+        pot1, flat, lr, PAR_SVGD_STEPS, pmesh))
+    k_svgd = samplers.svgd(pot1, step_size=lr, use_kernel="never")
+    state = k_svgd.init(flat)
+
+    def plain():
+        s = state
+        for _ in range(PAR_SVGD_STEPS):
+            s, _ = k_svgd.step(None, s)
+        return s.particles
+
+    (sp, t_sp) = timed(plain)
+    err = max_rel(sv, sp)
+    print(f"phase 39 run_svgd_sharded: {PAR_PARTICLES} particles of 74 "
+          f"in float64, {PAR_SVGD_STEPS} steps, {PAR_SHARDS} shards: "
+          f"max-rel to the unsharded SVGD {err:.3e} (bit-equal "
+          f"{torch.equal(sv, sp)}); {t_sv:.2f} s sharded, {t_sp:.2f} s "
+          f"unsharded")
+    check(err <= 1e-10, "phase 39: sharded SVGD equals the unsharded one")
+
+    # a fleet of 2 processes on the card over gloo; --id all under one
+    with tempfile.TemporaryDirectory() as io_dir:
+        torch.save({"s32": [v.cpu() if torch.is_tensor(v) else v
+                            for v in s32],
+                    "s64": [v.cpu() if torch.is_tensor(v) else v
+                            for v in s64],
+                    "x0": x0.cpu(), "ts": ts.cpu(), "Y": Y32.cpu(),
+                    "pos0": {k: v.cpu() for k, v in pos0.items()},
+                    "steps": PAR_SGLD_STEPS,
+                    "npsde_ts": npsde_ts, "npsde_Y": Y64.cpu(),
+                    "prior": {k: v.cpu() for k, v in prior.items()}},
+                   os.path.join(io_dir, "inputs.pt"))
+        coord = f"127.0.0.1:{_free_port()}"
+        t0 = time.perf_counter()
+        fleet = [_start([sys.executable, os.path.abspath(__file__),
+                         "--fleet-worker", str(i), "2", coord, io_dir,
+                         str(dev)])
+                 for i in range(2)]
+        json_dir = os.path.join(io_dir, "json")
+        os.makedirs(json_dir)
+        for rid, method in ((1, "SGLD"), (2, "pSGLD")):
+            with open(os.path.join(json_dir, f"{rid}.json"), "w") as f:
+                json.dump({"output": os.path.join(io_dir, "out"),
+                           "data": {"ode": "vdp", "N": 5, "T": 60,
+                                    "t_max": 6.0, "noise": 0.05,
+                                    "x0_scale": 1.5, "seed": 2},
+                           "configs": [dict(cfg, method=method, id=rid,
+                                            solver="rk4", num_chains=1024,
+                                            burn_in=1, num_samples=2)]},
+                          f)
+        port = str(_free_port())
+        cli = [_start([sys.executable, "-m",
+                       "bayesian_ode_tpu_torch.experiments.run",
+                       "--json-dir", json_dir, "--id", "all", "--no-plots",
+                       "--device", str(dev), "--backend", "gloo"],
+                      env=dict(os.environ, WORLD_SIZE="2", RANK=str(i),
+                               MASTER_ADDR="127.0.0.1", MASTER_PORT=port))
+               for i in range(2)]
+        _finish(fleet, "fleet")
+        outs = _finish(cli, "--id all")
+        wall = time.perf_counter() - t0
+        parts = [torch.load(os.path.join(io_dir, f"rank{i}.pt"))
+                 for i in range(2)]
+        U_f = torch.cat([p["U"] for p in parts], 1)
+        pots_f = torch.cat([p["pots"] for p in parts], 1)
+        fleet_sgld = (torch.equal(U_f, positions["U"].cpu())
+                      and torch.equal(pots_f, pots.cpu()))
+        parts_f = torch.cat([p["particles"]["U"] for p in parts])
+        fleet_smc = (torch.equal(parts_f, got.particles["U"].cpu())
+                     and parts[0]["log_z"] == float(got.log_z)
+                     == parts[1]["log_z"])
+        ran = [os.path.exists(os.path.join(io_dir, "out", m, str(rid),
+                                           "chain.npz"))
+               for rid, m in ((1, "SGLD"), (2, "pSGLD"))]
+        slices = [line for o in outs for line in o.splitlines()
+                  if line.startswith("[process")]
+    print(f"phase 39 fleet of 2 processes on {dev} over gloo (a shard "
+          f"each; gloo gathers CUDA tensors through the host), against "
+          f"this process's 2 shards: SGLD bit-equal {fleet_sgld}, SMC "
+          f"particles and log Z bit-equal {fleet_smc} ({parts[0]['stages']}"
+          f" stages); worker runtimes {[p['runtime'] for p in parts]}, "
+          f"launches {[p['launches'] for p in parts]}; --id all under a "
+          f"fleet of 2: {slices}, outputs {ran}; {wall:.1f} s for both "
+          f"fleets ({smi})")
+    check(fleet_sgld, "phase 39: the fleet's SGLD equals one process's")
+    check(fleet_smc, "phase 39: the fleet's SMC equals one process's")
+    check(all(ran) and len(slices) == 2, "phase 39: --id all ran the grid")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3780,6 +4305,19 @@ def main() -> int:
     print(f"phases 34-36: {t3 - t0:.1f} s (34 {t1 - t0:.1f}, 35 "
           f"{t2 - t1:.1f}, 36 {t3 - t2:.1f}) ({smi})")
 
+    # ---- phases 37-39: the ODEnet, the examples, the sharded package ----
+    t0 = time.perf_counter()
+    odenet_path(dev, smi)
+    t1 = time.perf_counter()
+    examples_path(dev, smi)
+    t2 = time.perf_counter()
+    sharded = parallel_path(cfg, static, U, A, x0, ts, s32,
+                            data["Y"].to(dev, f32), dev, smi)
+    t3 = time.perf_counter()
+    print(f"phases 37-39: {t3 - t0:.1f} s (37 {t1 - t0:.1f}, 38 "
+          f"{t2 - t1:.1f}, 39 {t3 - t2:.1f}); phase 39's launches "
+          f"{sharded} ({smi})")
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start "
           f"to the kernels line, build included ({smi})")
     # no single PyTorch call computes an adaptive solve, an rk4 sweep or
@@ -3792,6 +4330,8 @@ def main() -> int:
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": None,
          **({"device_ms": k["device_ms"]} if "device_ms" in k else {}),
+         **({"sharded_launches": sharded[name]} if name in sharded
+            else {}),
          **occupied.get(LINE_OCCUPANCY.get(name), {})}
         for name, k in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
@@ -3801,4 +4341,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fleet-worker"]:
+        sys.exit(fleet_worker(int(sys.argv[2]), int(sys.argv[3]),
+                              *sys.argv[4:7]))
     sys.exit(main())

@@ -245,6 +245,15 @@ def test_importing_the_port_needs_no_jax_triton_or_nvcc(tmp_path):
         from bayesian_ode_tpu_torch.ops import _build
         bad = [m for m in ("jax", "jaxlib", "triton") if m in sys.modules]
         assert not bad, bad
+        # the walk reached the sharded package, the ODEnet and the examples
+        want = ["parallel", "parallel.chains", "parallel.mesh",
+                "parallel.runtime", "parallel.smc", "parallel.tempering",
+                "models.odenet"] + ["examples." + m for m in (
+                    "odenet_mnist", "ode_demo", "latent_ode", "latent_sde",
+                    "bouncing_ball", "evidence_model_selection")]
+        missing = [m for m in want if pkg.__name__ + "." + m
+                   not in sys.modules]
+        assert not missing, missing
         assert not _build._LIBS
         print("ok")
     """)
