@@ -18,6 +18,9 @@
 // 128 registers.  The warp's buffer is 13,952 B at N=5, H=32; two chains a
 // block, 8 blocks (16 warps) an SM.  Weight cotangents
 // are written once per chain, with no atomics.
+// Past H = 32 or N = 16 the same templates run over mlp_wide_field.cuh's
+// MLPDopri5Fwd and MLPDopri5 (one warp and block a chain, W2 in the
+// warp's buffer in dynamic shared memory).
 #include "dopri5_kernels.cuh"
 #include "mlp_field.cuh"
 

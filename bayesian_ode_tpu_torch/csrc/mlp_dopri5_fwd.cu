@@ -18,6 +18,9 @@
 // (MLPDopri5Fwd::norm_sums), so the while loop is warp-uniform and takes
 // the steps of one chain's loop, bit for bit.  Lanes 0..2N-1 write the
 // dense output and records.
+// Past H = 32 or N = 16 the same templates run over mlp_wide_field.cuh's
+// MLPDopri5Fwd and MLPDopri5 (one warp and block a chain, W2 in the
+// warp's buffer in dynamic shared memory).
 #include "dopri5_kernels.cuh"
 #include "mlp_field.cuh"
 

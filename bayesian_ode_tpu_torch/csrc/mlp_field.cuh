@@ -4,6 +4,10 @@
 //
 //   f(x) = W3^T elu(W2^T elu(W1^T x + b1) + b2) + b3
 //
+// The design below takes H <= 32 and N <= 16; past either limit the
+// kernels are built on mlp_wide_field.cuh instead (BODE_MLP_WIDE), up to
+// H = 128 at N <= 16 and H = 64 at N <= 32.
+//
 // One warp per chain: lane j holds hidden unit j of both hidden layers,
 // that is w1[:, j], b1[j], b2[j] and w3[j, :] in registers (b3 on every
 // lane), and the cotangents of those and of column j of W2 in the
@@ -72,21 +76,11 @@
 
 namespace bode {
 
-constexpr int kFwdWarps = 4;               // chains per block of K6, MLP K2
-// K6's blocks an SM for __launch_bounds__: 96 registers, no spills (left
-// to itself ptxas picks 72 and spills two values)
-constexpr int kFwdMinBlocks = 5;
 constexpr int kMN = MLP_N;
 constexpr int kMNS = 2 * MLP_N;            // state components per chain
 constexpr int kH = MLP_H;
 constexpr int kH4 = (kH + 3) / 4 * 4;      // H in whole float4s
-// a W2 row's stride: an odd number of float4s, so that 8 lanes reading
-// their rows by float4 hit 8 different groups of 4 banks
-constexpr int kRow = (kH4 / 4) % 2 ? kH4 : kH4 + 4;
 constexpr int kVec = (kMNS + 3) / 4 * 4;
-static_assert(kH >= 1 && kH <= 32, "one hidden unit per lane: H <= 32");
-static_assert(kMNS <= 32, "one state component a lane: N <= 16");
-constexpr int kSums = kSumWidth<kMNS>;     // warp_sum16, or 32 past N = 8
 
 __device__ __forceinline__ float elu(float a) {
   return a > 0.f ? a : expf(a) - 1.0f;
@@ -106,6 +100,28 @@ __device__ __forceinline__ float elu_select(float a) {
 __device__ __forceinline__ float elu_deriv(float a) {
   return a > 0.f ? 1.0f : expf(a);
 }
+
+}  // namespace bode
+
+// The design of this file takes H <= 32 and N <= 16; wider shapes take
+// mlp_wide_field.cuh's, and the kernels' sources pick theirs by this.
+#define BODE_MLP_WIDE (MLP_H > 32 || MLP_N > 16)
+
+#if BODE_MLP_WIDE
+#include "mlp_wide_field.cuh"
+#else
+namespace bode {
+
+constexpr int kFwdWarps = 4;               // chains per block of K6, MLP K2
+// K6's blocks an SM for __launch_bounds__: 96 registers, no spills (left
+// to itself ptxas picks 72 and spills two values)
+constexpr int kFwdMinBlocks = 5;
+// a W2 row's stride: an odd number of float4s, so that 8 lanes reading
+// their rows by float4 hit 8 different groups of 4 banks
+constexpr int kRow = (kH4 / 4) % 2 ? kH4 : kH4 + 4;
+static_assert(kH >= 1 && kH <= 32, "one hidden unit per lane: H <= 32");
+static_assert(kMNS <= 32, "one state component a lane: N <= 16");
+constexpr int kSums = kSumWidth<kMNS>;     // warp_sum16, or 32 past N = 8
 
 // This lane's share of one chain's weights (or of their cotangents).
 struct MLPUnit {
@@ -504,3 +520,4 @@ struct MLPDopri5 : MLPWarpChains<warps_fitting(2, sizeof(MLPBuf<7>)), 7> {
 };
 
 }  // namespace bode
+#endif  // BODE_MLP_WIDE

@@ -27,6 +27,11 @@
 // is spread.  A warp's buffer is 688 B; 96 registers, 20 warps an SM
 // (kFwdMinBlocks).
 //
+// Past H = 32 or N = 16 the same steps and sweeps run on
+// mlp_wide_field.cuh's field (one warp and block a chain, W2 in the warp's
+// buffer, W2bar in shared memory, the buffers dynamic): the second pair of
+// kernels below.
+//
 // K7's design (mlp_field.cuh has the field's): a step recomputes its three
 // stage evaluations and the hidden layer at u4, keeping each stage point's
 // activations in a slot of the warp's shared buffer, so the four VJPs
@@ -39,6 +44,7 @@
 #include "mlp_field.cuh"
 #include "rk4_common.cuh"
 
+#if !BODE_MLP_WIDE
 namespace bode {
 
 __global__ void __launch_bounds__(32 * kFwdWarps, kFwdMinBlocks)
@@ -111,13 +117,6 @@ mlp_rk4_bwd_kernel(const float* __restrict__ w1, const float* __restrict__ b1,
 
 extern "C" {
 
-// Dimensions this library was built for.
-int mlp_rk4_dims(int* n_points, int* hidden) {
-  *n_points = bode::kMN;
-  *hidden = bode::kH;
-  return 0;
-}
-
 // ys (T, C, N, 2) from the layer list w1 (C, 2, H), b1 (C, H), w2 (C, H, H),
 // b2 (C, H), w3 (C, H, 2), b3 (C, 2), x0 (N, 2) shared, dts (T-1,).
 // Returns cudaGetLastError().
@@ -153,6 +152,158 @@ int mlp_rk4_smem(int* bytes) {
   if (e == cudaSuccess)
     e = bode::kernel_smem(bode::mlp_rk4_bwd_kernel, 0, bytes + 1);
   return static_cast<int>(e);
+}
+
+}  // extern "C"
+#else  // BODE_MLP_WIDE: mlp_wide_field.cuh, one chain a block
+namespace bode {
+
+// K6 and K7 past H = 32 or N = 16: the same steps and sweeps as above on
+// MLPWide (W2 by rows in the warp's buffer, kMU units and kMOwn state
+// components a lane), one warp a block, the buffers in dynamic shared
+// memory: the forward's MLPWideFwdBuf, the sweep's MLPWideBuf<4> and W2bar
+// after it.
+constexpr size_t kWideFwdSmem = sizeof(MLPWideFwdBuf);
+constexpr size_t kWideBwdSmem = sizeof(MLPWideBuf<4>) + sizeof(MLPWideW2bar);
+
+__global__ void __launch_bounds__(32)
+mlp_rk4_fwd_kernel(const float* __restrict__ w1, const float* __restrict__ b1,
+                   const float* __restrict__ w2, const float* __restrict__ b2,
+                   const float* __restrict__ w3, const float* __restrict__ b3,
+                   const float* __restrict__ x0,
+                   const float* __restrict__ dts, int C, int T,
+                   float* __restrict__ ys) {
+  auto& buf = *reinterpret_cast<MLPWideFwdBuf*>(dynamic_smem_base());
+  const int lane = threadIdx.x;
+  const int c = blockIdx.x;
+  if (c >= C) return;
+  MLPWide<0> fld;
+  fld.b = &buf;
+  fld.lane = lane;
+  mlp_wide_load(fld.w, buf.w2r, c, lane, w1, b1, w2, b2, w3, b3);
+
+  const bool own = mlp_owner(lane);
+  float y[kMOwn], y1[kMOwn];
+#pragma unroll
+  for (int q = 0; q < kMOwn; ++q) {
+    y[q] = x0[mlp_comp(lane, q)];
+    if (own) ys[static_cast<size_t>(c) * kMNS + mlp_comp(lane, q)] = y[q];
+  }
+  for (int t = 0; t < T - 1; ++t) {
+    rk4_step<kMOwn>(fld, y, dts[t], y1);
+#pragma unroll
+    for (int q = 0; q < kMOwn; ++q) {
+      y[q] = y1[q];
+      if (own)
+        ys[(static_cast<size_t>(t + 1) * C + c) * kMNS + mlp_comp(lane, q)] =
+            y[q];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(32)
+mlp_rk4_bwd_kernel(const float* __restrict__ w1, const float* __restrict__ b1,
+                   const float* __restrict__ w2, const float* __restrict__ b2,
+                   const float* __restrict__ w3, const float* __restrict__ b3,
+                   const float* __restrict__ dts,
+                   const float* __restrict__ ys, const float* __restrict__ g,
+                   int C, int T, float* __restrict__ gw1,
+                   float* __restrict__ gb1, float* __restrict__ gw2,
+                   float* __restrict__ gb2, float* __restrict__ gw3,
+                   float* __restrict__ gb3, float* __restrict__ lbar) {
+  unsigned char* smem = dynamic_smem_base();
+  auto& buf = *reinterpret_cast<MLPWideBuf<4>*>(smem);   // slots: p, u2-u4
+  const int lane = threadIdx.x;
+  const int c = blockIdx.x;
+  if (c >= C) return;
+  MLPWide<4> fld;
+  fld.b = &buf;
+  fld.lane = lane;
+  mlp_wide_load(fld.w, buf.w2r, c, lane, w1, b1, w2, b2, w3, b3);
+  MLPWideAcc acc = mlp_wide_acc(
+      *reinterpret_cast<MLPWideW2bar*>(smem + sizeof(MLPWideBuf<4>)), lane);
+
+  float l[kMOwn], p[kMOwn];
+#pragma unroll
+  for (int q = 0; q < kMOwn; ++q) l[q] = 0.f;
+  for (int t = T - 2; t >= 0; --t) {
+#pragma unroll
+    for (int q = 0; q < kMOwn; ++q) {
+      const int i = mlp_comp(lane, q);
+      l[q] = l[q] + g[(static_cast<size_t>(t + 1) * C + c) * kMNS + i];
+      p[q] = ys[(static_cast<size_t>(t) * C + c) * kMNS + i];
+    }
+    rk4_step_vjp<kMOwn>(fld, p, dts[t], l, acc);
+  }
+  // x0's own observation term
+  if (mlp_owner(lane)) {
+#pragma unroll
+    for (int q = 0; q < kMOwn; ++q) {
+      const size_t i = static_cast<size_t>(c) * kMNS + mlp_comp(lane, q);
+      lbar[i] = l[q] + g[i];
+    }
+  }
+  mlp_wide_store(acc, c, lane, gw1, gb1, gw2, gb2, gw3, gb3);
+}
+
+// The launches raise the kernels' shared-memory limit once each; static
+// (internal linkage) for the reason dopri5_kernels.cuh's launchers are.
+static cudaError_t allow_fwd() {
+  static const cudaError_t e = allow_smem(mlp_rk4_fwd_kernel, kWideFwdSmem);
+  return e;
+}
+static cudaError_t allow_bwd() {
+  static const cudaError_t e = allow_smem(mlp_rk4_bwd_kernel, kWideBwdSmem);
+  return e;
+}
+
+}  // namespace bode
+
+extern "C" {
+
+int mlp_rk4_fwd(const float* w1, const float* b1, const float* w2,
+                const float* b2, const float* w3, const float* b3,
+                const float* x0, const float* dts, int C, int T, float* ys,
+                cudaStream_t stream) {
+  const cudaError_t e = bode::allow_fwd();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bode::mlp_rk4_fwd_kernel<<<C, 32, bode::kWideFwdSmem, stream>>>(
+      w1, b1, w2, b2, w3, b3, x0, dts, C, T, ys);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int mlp_rk4_bwd(const float* w1, const float* b1, const float* w2,
+                const float* b2, const float* w3, const float* b3,
+                const float* dts, const float* ys, const float* g, int C,
+                int T, float* gw1, float* gb1, float* gw2, float* gb2,
+                float* gw3, float* gb3, float* lbar, cudaStream_t stream) {
+  const cudaError_t e = bode::allow_bwd();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bode::mlp_rk4_bwd_kernel<<<C, 32, bode::kWideBwdSmem, stream>>>(
+      w1, b1, w2, b2, w3, b3, dts, ys, g, C, T, gw1, gb1, gw2, gb2, gw3,
+      gb3, lbar);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int mlp_rk4_smem(int* bytes) {
+  cudaError_t e =
+      bode::kernel_smem(bode::mlp_rk4_fwd_kernel, bode::kWideFwdSmem, bytes);
+  if (e == cudaSuccess)
+    e = bode::kernel_smem(bode::mlp_rk4_bwd_kernel, bode::kWideBwdSmem,
+                          bytes + 1);
+  return static_cast<int>(e);
+}
+
+}  // extern "C"
+#endif  // BODE_MLP_WIDE
+
+extern "C" {
+
+// Dimensions this library was built for.
+int mlp_rk4_dims(int* n_points, int* hidden) {
+  *n_points = bode::kMN;
+  *hidden = bode::kH;
+  return 0;
 }
 
 }  // extern "C"

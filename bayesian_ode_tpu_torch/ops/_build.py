@@ -21,14 +21,16 @@ forwards (recording or not); its entry points take them as arguments.
 `check_shape` refuses, before any build, a shape the kernels cannot take,
 with a NotImplementedError that names ROADMAP queue 1 item 19: more
 trajectory points than a warp's lanes hold (N <= 32 for the GP field's one
-point a lane, N <= 16 for the MLP and spiral fields' one state component
-a lane), an MLP wider than a warp (H <= 32), or a block's shared memory
-past its limit, by the arithmetic of the kernels' structs (`smem_bytes`):
-48 KB for the buffers a kernel keeps in static shared memory, 232,448 B
-(an sm_90 block's opt-in maximum) for the GP field's dynamic ones.  Each
-library reports what its build allocated through its
-`*_smem` entry points (`built_smem`), which the card tests hold to that
-arithmetic.
+point a lane and the MLP field's one component or one point a lane,
+N <= 16 for the spiral field's one state component a lane), an MLP wider
+than its lanes' units (`mlp_max_hidden`: H <= 128 at N <= 16, H <= 64 at
+N <= 32), or a block's shared memory past its limit, by the arithmetic of
+the kernels' structs (`smem_bytes`): 48 KB for the buffers a kernel keeps
+in static shared memory, 232,448 B (an sm_90 block's opt-in maximum) for
+the dynamic ones (`dynamic_smem`: the GP field's, and the MLP field's past
+H = 32 or N = 16).  Each library reports what its build allocated through
+its `*_smem` entry points (`built_smem`), which the card tests hold to
+that arithmetic.
 
 A library is built at first use into `build/kernels/` beside the package
 (git-ignored), named by a hash of its sources and flags, so a changed
@@ -51,6 +53,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, NamedTuple, Tuple
 
@@ -98,7 +101,8 @@ def _adaptive(field: str, headers: Tuple[str, ...], defines: Tuple[str, ...],
 FAMILIES: Dict[str, Family] = {
     "gp_dopri5": _adaptive("gp", ("gp_field.cuh", "warp.cuh"),
                            ("GP_N", "GP_M"), 2, 3, 1),
-    "mlp_dopri5": _adaptive("mlp", ("mlp_field.cuh", "warp.cuh"),
+    "mlp_dopri5": _adaptive("mlp", ("mlp_field.cuh", "mlp_wide_field.cuh",
+                                    "warp.cuh"),
                             ("MLP_N", "MLP_H"), 6, 0, 6),
     "spiral_dopri5": _adaptive("spiral", ("spiral_field.cuh", "warp.cuh"),
                                ("SPIRAL_N", "SPIRAL_H"), 4, 0, 4),
@@ -114,7 +118,8 @@ FAMILIES: Dict[str, Family] = {
         {"gp_rk4_smem": ("fwd", "bwd")}),
     "mlp_rk4": Family(
         ("mlp_rk4.cu",),
-        ("rk4_common.cuh", "field_stages.cuh", "mlp_field.cuh", "warp.cuh"),
+        ("rk4_common.cuh", "field_stages.cuh", "mlp_field.cuh",
+         "mlp_wide_field.cuh", "warp.cuh"),
         ("MLP_N", "MLP_H"), "mlp_rk4_dims",
         {"mlp_rk4_fwd": [_P] * 8 + [_I, _I] + [_P, _P],
          "mlp_rk4_bwd": [_P] * 9 + [_I, _I] + [_P] * 8,
@@ -141,19 +146,40 @@ FAMILIES: Dict[str, Family] = {
 }
 
 # The shape limits of check_shape (csrc/: one GP trajectory point a lane,
-# gp_field.cuh; one MLP or spiral state component a lane and one MLP hidden
-# unit a lane, mlp_field.cuh, spiral_field.cuh), and the shared memory a
-# block may have: 48 KB static, 232,448 B dynamic on sm_90 (the build's
-# only target).
+# gp_field.cuh; one MLP state component a lane to N = 16 and one point a
+# lane past it, mlp_field.cuh and mlp_wide_field.cuh; one spiral state
+# component a lane, spiral_field.cuh), and the shared memory a block may
+# have: 48 KB static, 232,448 B dynamic on sm_90 (the build's only target).
 MAX_POINTS = {"gp_dopri5": 32, "gp_rk4": 32, "gp_dopri5_step": 32,
-              "mlp_dopri5": 16, "mlp_rk4": 16, "spiral_dopri5": 16}
-MLP_MAX_HIDDEN = 32
+              "mlp_dopri5": 32, "mlp_rk4": 32, "spiral_dopri5": 16}
 STATIC_SMEM_MAX = 48 * 1024
 DYNAMIC_SMEM_MAX = 232_448
 # the families whose kernels keep their block's buffers in dynamic shared
-# memory (the GP field's kDynamicSmem)
+# memory at every shape (the GP field's kDynamicSmem); the MLP field's do
+# past H = 32 or N = 16 (mlp_wide)
 DYNAMIC_SMEM = ("gp_dopri5", "gp_rk4", "gp_dopri5_step")
 ITEM_19 = "ROADMAP queue 1 item 19"
+
+
+def mlp_max_hidden(n_points: int) -> int:
+    """The MLP kernels' widest field at N points: four hidden units a lane
+    to N = 16, two past it (csrc/mlp_wide_field.cuh)."""
+    return 128 if n_points <= 16 else 64
+
+
+def mlp_wide(shape: Tuple[int, ...]) -> bool:
+    """Whether an MLP library of shape (N, H) is built on
+    csrc/mlp_wide_field.cuh (past H = 32 or N = 16) rather than
+    mlp_field.cuh's one unit and one component a lane."""
+    N, H = shape
+    return H > 32 or N > 16
+
+
+def dynamic_smem(family: str, shape: Tuple[int, ...]) -> bool:
+    """Whether the library's kernels keep their buffers in dynamic shared
+    memory."""
+    return family in DYNAMIC_SMEM or (family.startswith("mlp")
+                                      and mlp_wide(shape))
 
 
 def _round_up(n: int, a: int) -> int:
@@ -191,17 +217,28 @@ def smem_bytes(family: str, shape: Tuple[int, ...]) -> Dict[str, int]:
     if family in ("mlp_rk4", "mlp_dopri5"):
         N, H = shape
         h4 = _round_up(H, 4)
-        row = h4 if (h4 // 4) % 2 else h4 + 4
         vec = _round_up(2 * N, 4)
+        slots = 4 if family == "mlp_rk4" else 7
+        if mlp_wide(shape):
+            # mlp_wide_field.cuh, one warp a block: W2's rows of kHU + 4
+            # floats and the h1 copy (MLPWideFwdBuf, MLPWideBuf), the
+            # slots' a2 and points and the cotangent, W2bar after them
+            hu = 32 * -(-H // 32)
+            rows_h1 = h4 * (hu + 4) + N * hu
+            fwd = _round_up(f4 * (rows_h1 + vec), 16)
+            bwd = _round_up(f4 * (rows_h1 + slots * (N * hu + vec) + vec),
+                            16) + f4 * h4 * hu
+            return {"fwd": fwd, "bwd": bwd}
+        row = h4 if (h4 // 4) % 2 else h4 + 4
         fwd_buf = _round_up(f4 * (N * 32 + vec), 16)            # MLPFwdBuf
 
         def buf(slots):                                         # MLPBuf
             return _round_up(f4 * (2 * slots * N * 32 + H * row
                                    + slots * vec + vec), 16)
 
-        bwd = buf(4) if family == "mlp_rk4" else buf(7)
         most = 4 if family == "mlp_rk4" else 2
-        return {"fwd": 4 * fwd_buf, "bwd": _warps_fitting(most, bwd) * bwd}
+        return {"fwd": 4 * fwd_buf,
+                "bwd": _warps_fitting(most, buf(slots)) * buf(slots)}
     if family == "spiral_dopri5":
         # the forward's 4 warps each gather the point (SpiralFwdBuf); the
         # backward's keep 7 stage slots and a cotangent (SpiralBuf<7>)
@@ -235,15 +272,18 @@ def check_shape(family: str, shape: Tuple[int, ...]) -> None:
         raise ValueError(f"{family}: shape {shape} must be positive")
     if family in MAX_POINTS and shape[0] > MAX_POINTS[family]:
         what = ("one trajectory point a lane" if family.startswith("gp")
-                else "one state component a lane")
+                else "at most one trajectory point a lane"
+                if family.startswith("mlp") else "one state component a lane")
         raise NotImplementedError(
             f"{family} at N={shape[0]}: the kernels hold {what}, N <= "
             f"{MAX_POINTS[family]} ({ITEM_19})")
-    if family.startswith("mlp") and shape[1] > MLP_MAX_HIDDEN:
+    if family.startswith("mlp") and shape[1] > mlp_max_hidden(shape[0]):
+        most = mlp_max_hidden(shape[0])
         raise NotImplementedError(
-            f"hidden width {shape[1]}: the MLP kernels hold one hidden unit "
-            f"per lane, H <= {MLP_MAX_HIDDEN} ({ITEM_19})")
-    dynamic = family in DYNAMIC_SMEM
+            f"hidden width {shape[1]} at N={shape[0]}: the MLP kernels hold "
+            f"at most {most // 32} hidden units a lane there, H <= {most} "
+            f"({ITEM_19})")
+    dynamic = dynamic_smem(family, shape)
     limit = DYNAMIC_SMEM_MAX if dynamic else STATIC_SMEM_MAX
     for kind, nbytes in smem_bytes(family, shape).items():
         if nbytes > limit:
@@ -334,13 +374,24 @@ def build(specs: Iterable[Tuple[str, Tuple[int, ...]]]) -> None:
             objs.append((obj, cmd, proc))
         jobs.append((so, objs))
     t0 = time.perf_counter()
+
+    def finish(proc):
+        out, _ = proc.communicate()
+        return out, time.perf_counter() - t0
+
+    # each nvcc's output read as it ends, so that its log has its own
+    # seconds from the wave's start
+    n_procs = sum(len(objs) for _, objs in jobs)
+    with ThreadPoolExecutor(max_workers=max(1, n_procs)) as pool:
+        ended = [[pool.submit(finish, proc) for _, _, proc in objs]
+                 for _, objs in jobs]
     failed = []
-    for so, objs in jobs:
+    for (so, objs), outs in zip(jobs, ended):
         log = []
-        for obj, cmd, proc in objs:
-            out, _ = proc.communicate()
+        for (obj, cmd, proc), done in zip(objs, outs):
+            out, sec = done.result()
             log.append(f"# {' '.join(cmd)}\n# rc {proc.returncode}, "
-                       f"{time.perf_counter() - t0:.1f} s\n{out}")
+                       f"{sec:.1f} s\n{out}")
         if any(proc.returncode != 0 for _, _, proc in objs):
             failed.append(so.name)
         else:

@@ -8,8 +8,11 @@ Counterpart of `bayesian_ode_tpu/ops/mlp_dopri5.py`: the MLP field
 with the public fused engine (`ops/fused_field.py`).  The kernels are the
 engine's templates over `csrc/mlp_field.cuh::MLPDopri5Fwd` (the forward)
 and `MLPDopri5` (the backward): one warp per chain, one hidden unit and
-one state component per lane, H <= 32 on the card (a wider field raises
-NotImplementedError there, ROADMAP queue 1 item 19).  The plain field and
+one state component per lane to H = 32 and N = 16, and past those
+`csrc/mlp_wide_field.cuh`'s (ceil(H/32) units a lane, W2 in shared
+memory).  The card takes H <= 128 at N <= 16 and H <= 64 at N <= 32; a
+wider field raises NotImplementedError there before any build
+(`_build.check_shape`, ROADMAP queue 1 item 19).  The plain field and
 its VJP are those of `ops/mlp_rk4.py`.  The weights stay in the
 layer-list layout w1 (C, 2, H), b1 (C, H), w2 (C, H, H), b2 (C, H),
 w3 (C, H, 2), b3 (C, 2), and so do their cotangents.
@@ -26,16 +29,7 @@ from .fused_field import (
     fused_dopri5_stats,
     fused_dopri5_trajectory,
 )
-from .mlp_rk4 import MAX_HIDDEN, _flat, _make_rhs, _make_rhs_vjp
-
-
-def _width(w):
-    H = w[0].shape[-1]
-    if H > MAX_HIDDEN:
-        raise NotImplementedError(
-            f"hidden width {H}: the MLP kernels hold one hidden unit per "
-            f"lane, H <= {MAX_HIDDEN} (ROADMAP queue 1 item 19)")
-    return H
+from .mlp_rk4 import _flat, _make_rhs, _make_rhs_vjp
 
 
 @lru_cache(maxsize=None)
@@ -49,7 +43,7 @@ def mlp_field(H: int) -> FusedField:
     return FusedField(
         name="mlp", n_wbar=6, make_rhs=_make_rhs, make_rhs_vjp=_make_rhs_vjp,
         rhs_ref=lambda w, pts: _make_rhs(w)(pts), shapes=shapes,
-        width=_width)
+        width=lambda w: w[0].shape[-1])
 
 
 def _field_and_weights(params):

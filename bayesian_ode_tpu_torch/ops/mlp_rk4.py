@@ -9,12 +9,15 @@ config 3 (Van der Pol with the NN mean function under pSGLD):
 The TPU kernels `_make_fwd_kernel` (K6) and `_make_bwd_kernel` (K7) become
 the CUDA kernels `mlp_rk4_fwd` and `mlp_rk4_bwd` of `csrc/mlp_rk4.cu`, on
 the MLP field functor of `csrc/mlp_field.cuh` (one warp per chain, one
-hidden unit per lane) and the rk4 templates the GP kernels use.  The
-weights stay in the layer-list layout, w1 (C, 2, H), b1 (C, H),
-w2 (C, H, H), b2 (C, H), w3 (C, H, 2), b3 (C, 2), and so do the weight
-cotangents.  The kernels take H <= 32 and N <= 16 (one hidden unit and
-one state component a lane); a wider field raises NotImplementedError on
-the card (ROADMAP queue 1 item 19).
+hidden unit and one state component per lane, to H = 32 and N = 16) or,
+past those, of `csrc/mlp_wide_field.cuh` (one warp and block per chain,
+ceil(H/32) units a lane, W2 in shared memory), and the rk4 templates the
+GP kernels use.  The weights stay in the layer-list layout,
+w1 (C, 2, H), b1 (C, H), w2 (C, H, H), b2 (C, H), w3 (C, H, 2),
+b3 (C, 2), and so do the weight cotangents.  The kernels take H <= 128 at
+N <= 16 and H <= 64 at N <= 32; a wider field raises NotImplementedError
+on the card before any build (`_build.check_shape`, ROADMAP queue 1 item
+19).
 
 The plain versions use the 3/8-rule step and reverse sweep of
 `ops/gp_rk4.py` over a batched torch field; their products are matmuls,
@@ -30,8 +33,6 @@ from ..utils.pytree import tree_sum_squares_per_chain
 from . import _build
 from .fused_adaptive import _check_args
 from .gp_rk4 import _rk4_bwd_plain, _rk4_fwd_plain, _steps, _stream
-
-MAX_HIDDEN = _build.MLP_MAX_HIDDEN      # one hidden unit per lane
 
 
 def _elu(a):
@@ -109,10 +110,6 @@ def mlp_rk4_bwd_plain(w, ys, g, dts):
 
 def _check_weights(w, N):
     C, H = w[0].shape[0], w[0].shape[-1]
-    if H > MAX_HIDDEN:
-        raise NotImplementedError(
-            f"hidden width {H}: the MLP rk4 kernels hold one hidden unit "
-            f"per lane, H <= {MAX_HIDDEN} (ROADMAP queue 1 item 19)")
     f32 = torch.float32
     shapes = {"w1": (C, 2, H), "b1": (C, H), "w2": (C, H, H), "b2": (C, H),
               "w3": (C, H, 2), "b3": (C, 2)}

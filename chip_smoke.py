@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `bayesian_ode_tpu_torch/csrc/` (one
-nvcc per source, all started together), prints each kernel's registers and
-spills (and, for the kernels redesigned for the card, K6, MLP K2, K7, MLP
+nvcc per source, all started together; each library's seconds printed),
+prints each kernel's registers and spills (and, for the kernels redesigned for the card, K6, MLP K2, K7, MLP
 K3, K4, K5, GP K3, the GP solves K1/K2, K9, spiral K2 and K3, FHN K2 and
 K3 and K8, the warps an SM holds and the waves of their grid, the GP
-ones also at 7x7 and 8x8 inducing grids), checks each library's reported
+ones also at 7x7 and 8x8 inducing grids, the MLP ones also past one
+warp), checks each library's reported
 shared memory against the shape check's arithmetic (`_build.smem_bytes`),
 and holds each kernel against its plain PyTorch version at the main
 paths' full shape (Van der Pol: 5 trajectories, T=60 output times to
@@ -88,12 +89,13 @@ uninterrupted run (phase 26).
 
 Last, the remaining inference of the driver, on the main path's GP at rk4
 on the generic engine (no kernel of the port; step counts cut and each cut
-printed): SMC through `run_sampler` at 1,024 particles, 2 moves a stage
+printed): SMC through `run_sampler` at 1,024 particles, 1 move a stage
 (phase 27); `run_vi` with ADVI (mean-field, full-rank) and Laplace, and
 the Laplace Hessian from the best SMC particle in float64 (one double
 backward through the continuous adjoint) against the CPU's and central
-differences (phase 28); `run_evidence` through `worker` at 32 chains x 16
-rungs, 1,024 particles and 2 SMC repeats (phase 29); `mmala_batched` with
+differences (phase 28); `run_evidence` through `worker` at 32 chains x 8
+rungs, 1,024 particles and 1 SMC repeat (phase 29);
+`mmala_batched` with
 the SoftAbs metric on a 74-dimensional correlated Gaussian over 1,024
 chains, its moments, and the driver's refusals of MMALA (TypeError) and
 of Laplace and the evidence at dopri5 (ValueError) before any solve
@@ -106,9 +108,10 @@ over a shorter span; the symplectic ones on pendulums for 10^4 steps,
 their energy error bounded) with the seconds, mean NFE and device
 launches of a solve (phase 31);
 `run_sampler(engine="generic", model="gp", solver="adams")` at 10,112
-chains, 2 steps or 1 if the first takes over 60 s, and the float64 adams
-adjoint gradient at 256 chains against autograd through a tight dopri5
-loop (phase 32); `odeint_dense` at 1,000 query times against `odeint`,
+chains, 1 step after the initial gradient (the driver's default
+num_samples is 5,000), and the float64 adams adjoint gradient at 256
+chains against autograd through a tight dopri5 loop (phase 32);
+`odeint_dense` at 1,000 query times against `odeint`,
 and `odeint_event` with the event time's gradient against the CPU (phase
 33).
 
@@ -118,12 +121,29 @@ posterior (GP drift, constant diffusion) on Van der Pol paths made by the
 port's `sdeint` under pSGLD at 10,112 chains, its batched potential and
 gradient against the per-chain one in float64 and against the CPU,
 `sdeint` at each method against the CPU, and `sdeint_adjoint`'s gradient
-against autograd through `sdeint` with each one's peak memory at 1,000
-and 10,000 steps (phase 34); the CNF at 4,096 points trained 60 Adam
+against autograd through `sdeint` with each one's peak memory at 500
+and 5,000 steps (phase 34); the CNF at 4,096 points trained 60 Adam
 iterations and its exact-trace log-density against the CPU (phase 35);
 the latent SDE at B=32, T=50 trained 40 Adam iterations, its -ELBO
 against the CPU, `run_toy` on the banana and the driver's plot numbers
 against the CPU (phase 36).
+
+The MLP field past one warp (csrc/mlp_wide_field.cuh; run after phase 17,
+before phases 31-33): K6, K7, MLP K2 and MLP K3 at 10,112 chains at
+(N, H) = (5, 128) and (32, 64) against their plain versions at the gates
+above (K7 also against autograd on its first 632 chains, MLP K3 against
+the plain replay of K2's records), each instance's ms, plain ms, bound,
+registers and warps an SM; then `run_sampler(model="nn", hidden=128)`
+under pSGLD at rk4 (K6, K7) and at dopri5 (MLP K2, K3; store_steps 128),
+their launches counted and the worst accepted steps printed (phase 40).
+The generic phases run at cut depths that keep the script inside its
+time limit, each cut printed against the driver's default: phase 27's
+SMC at 1 move a stage (5); phase 28's ADVI at 3 iterations (2,000),
+`run_vi` Laplace at 1 (200), the fit from the best SMC particle at 2
+(200); phase 29's ladder at 5 + 5 steps (500 + 1,000) on 8 rungs (16),
+1 SMC repeat (2), 1 Laplace iteration (200); phase 32 at one step;
+phase 34's memory comparison at 500 and 5,000 steps (autograd's peak
+still grows tenfold between them).
 
 Then the modules of the port's last slice, plain torch over K1 and
 K4/K5: the conv ODEnet at the example's width (dim 64, batch 128 of
@@ -148,7 +168,8 @@ last is a JSON object with each kernel's launches, error against its
 plain version, times and bound (and the registers, warps an SM and waves
 of spiral K2, FHN K2 and K3 and K9, and K9's device time a solve, and
 for K1, K4 and K5 their launches in phase 39 apart from the main path's,
-`sharded_launches`); the last line is
+`sharded_launches`, and for K6, K7 and the MLP K2 and K3 rows their wide
+instances of phase 40, `wide`); the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -231,7 +252,9 @@ LIBRARIES = [("gp_dopri5", (5, 36)), ("gp_rk4", (5, 36)),
              ("gp_dopri5_step", (5, 36)), ("svgd_phi", ()),
              ("gp_dopri5", (5, WIDE_GRID ** 2)), ("gp_dopri5", (5, 64)),
              ("gp_rk4", (5, WIDE_GRID ** 2)), ("gp_rk4", (5, 64)),
-             ("spiral_dopri5", SPIRAL_WIDE)]
+             ("spiral_dopri5", SPIRAL_WIDE),
+             *((family, shape) for shape in ((5, 128), (32, 64))
+               for family in ("mlp_rk4", "mlp_dopri5"))]
 
 # The least time the card could take for a kernel's work: the larger of
 # its bytes over the memory rate and its operations over the peak rate for
@@ -521,6 +544,15 @@ def profile_steps(label, kern, p0, dev, steps=5):
           f"({max(per_step - busy, 0.0) / per_step:.1%})")
 
 
+def build_seconds(log):
+    """A library's nvcc seconds from the wave's start to its slowest
+    source's end, from its build log (`_build.build`)."""
+    import re
+
+    return max((float(s) for s in re.findall(r"^# rc \d+, ([0-9.]+) s$",
+                                              log, re.M)), default=0.0)
+
+
 def ptxas_summary(family, shape, log):
     """Each kernel's (template instance, registers, spill stores, spill
     loads, static shared bytes) from nvcc's -Xptxas -v output, printed one
@@ -573,13 +605,26 @@ def kernel_kind(name):
 
 def block_smem(family, shape, name, static):
     """A block's shared memory: ptxas's static bytes, or the dynamic bytes
-    of the GP field's kernels (`_build.smem_bytes`), whichever is more (a
-    tree whose buffers are static reports them to ptxas)."""
+    of the GP field's kernels and the wide MLP field's
+    (`_build.smem_bytes`), whichever is more (a tree whose buffers are
+    static reports them to ptxas)."""
     from bayesian_ode_tpu_torch.ops import _build
 
-    if family not in _build.DYNAMIC_SMEM:
+    if not _build.dynamic_smem(family, shape):
         return static
     return max(static, _build.smem_bytes(family, shape)[kernel_kind(name)])
+
+
+def block_of(lib, name):
+    """(threads, chains) a block of a redesigned kernel of library `lib`:
+    OCCUPANCY_BLOCKS', or one warp and chain for the MLP field past one
+    warp (csrc/mlp_wide_field.cuh)."""
+    from bayesian_ode_tpu_torch.ops import _build
+
+    family, shape = lib
+    if family.startswith("mlp") and _build.mlp_wide(shape):
+        return 32, 1
+    return OCCUPANCY_BLOCKS[family, name]
 
 
 def warps_per_sm(regs, smem, threads):
@@ -601,6 +646,240 @@ def occupancy(regs, smem, threads, chains, C, sms=132):
     `sms` SMs hold at once (a grid of 1.07 waves takes nearly two)."""
     warps = warps_per_sm(regs, smem, threads)
     return warps, -(-C // chains) / (warps // (threads // 32) * sms)
+
+
+# ---- the MLP field past one warp (phase 40) ----
+# (N, H) of its wide instances at full width: four hidden units a lane at
+# the driver's N = 5, and one trajectory point and two units a lane at
+# N = 32 (csrc/mlp_wide_field.cuh)
+MLP_WIDE = ((5, 128), (32, 64))
+# the N=32 instance's start: the driver's law with the H->H and H->2 layers
+# scaled by 32/H, which keeps its trajectories at H=32's scale (max|y| 46
+# over 10,112 chains).  The driver's seed-0 start at H=64 is an expansive
+# field: unscaled, chains grew to |y| 3.4e4 by t=6 (scaled by sqrt(32/H),
+# to 420; on an H100): K6 still held (7e-7 of max|y|), but the float32
+# cotangents of two summation orders (K7, plain) were up to 1e-3 (1.2e-5)
+# max-rel apart and autograd through the plain forward gave NaN (exp
+# overflows in torch.where's unused ELU arm past a = 88)
+WIDE_START_SCALE = {(32, 64): 32 / 64}
+MLP_WIDE_KERNELS = ("mlp_rk4_fwd", "mlp_rk4_bwd", "mlp_dopri5_fwd_record",
+                    "mlp_dopri5_bwd")
+# K7 against autograd through the plain forward on the first chains only:
+# each chain's sweep is its own, and autograd over all 10,112 would keep
+# about 40 GB (H=128) and 160 GB (N=32) of activations
+WIDE_AUTOGRAD_CHAINS = 632
+WIDE_DRIVER_STEPS = (1, 2)      # burn-in, kept of the NN pSGLD paths, H=128
+
+
+def mlp_wide_path(cfg, data, dev, smi, occupied):
+    """Phase 40: the MLP field's four kernels past one warp at 10,112
+    chains, T=60 to t=6, from the driver's start weights (uniform(-0.5,
+    0.5), zero biases; at N=32 scaled by WIDE_START_SCALE) jittered by
+    0.005 per chain, at each MLP_WIDE shape (N=5 on the main path's Van
+    der Pol starts, N=32 on the same generator's 32 starts): K6 within
+    1e-5 max|y| of plain; K7 within 1e-5 max-rel of plain on every
+    cotangent, and of autograd through the plain
+    forward on the first WIDE_AUTOGRAD_CHAINS chains; MLP K2 (DOPRI5,
+    rtol=1e-7, store_steps 128) within 1e-4 max|y| of plain, mean NFE
+    within 1%; MLP K3 within 1e-3 max-rel of the plain replay of K2's own
+    records.  Prints each instance's card ms (CUDA events), plain ms,
+    bound, registers and warps an SM.  Then `run_sampler(model="nn",
+    hidden=128, engine="fused", method="pSGLD")` at rk4 (K6, K7) and at
+    dopri5 (MLP K2, K3; store_steps 128) for WIDE_DRIVER_STEPS, the
+    launch counters set to 0 just before each run and read just after:
+    each kernel of the path once a step plus init, no other, the
+    potentials finite, the worst accepted steps printed against
+    store_steps.  Returns {kernel: [each wide instance's shape, launches
+    on the driver paths (the N=32 instances are on none), ms, plain ms,
+    bound, error, registers, warps an SM]} for the kernels line."""
+    import numpy as np
+    import torch
+
+    from bayesian_ode_tpu_torch.experiments import run_sampler
+    from bayesian_ode_tpu_torch.models import make_dataset, mlp
+    from bayesian_ode_tpu_torch.ops import _build, mlp_rk4
+    from bayesian_ode_tpu_torch.ops import fused_adaptive as fa
+    from bayesian_ode_tpu_torch.ops import fused_field as ff
+    from bayesian_ode_tpu_torch.ops.mlp_dopri5 import mlp_field
+
+    f32 = torch.float32
+    C, S = N_CHAINS, STORE_STEPS
+    ts = data["t"].to(dev, f32)
+    T = ts.shape[0]
+    dts = torch.diff(ts).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(40)
+    wide = {name: [] for name in MLP_WIDE_KERNELS}
+    ptxas = {"mlp_rk4_fwd": ("mlp_rk4", "mlp_rk4_fwd"),
+             "mlp_rk4_bwd": ("mlp_rk4", "mlp_rk4_bwd"),
+             "mlp_dopri5_fwd_record": ("mlp_dopri5", "dopri5_fwd MLPDopri5Fwd "
+                                       "Dopri5 record"),
+             "mlp_dopri5_bwd": ("mlp_dopri5", "dopri5_bwd MLPDopri5 Dopri5")}
+    t_start = time.perf_counter()
+    for N, H in MLP_WIDE:
+        x0 = (data["x0"] if N == data["x0"].shape[0] else make_dataset(
+            seed=2, ode="vdp", N=N, T=T, t_max=6.0, noise=0.05,
+            x0_scale=1.5)["x0"]).to(dev, f32).contiguous()
+        p0 = mlp.init_mlp(torch.Generator().manual_seed(0), [2, H, H, 2],
+                          dtype=f32)
+        sc = WIDE_START_SCALE.get((N, H), 1.0)
+        w = tuple(((sc if i > 1 and i % 2 == 0 else 1.0) * x.to(dev)[None]
+                   + 0.005 * torch.randn((C,) + tuple(x.shape),
+                                         generator=gen, device=dev)
+                   ).contiguous()
+                  for i, x in enumerate(x for layer in p0
+                                        for x in (layer["w"], layer["b"])))
+        label = f"N={N} H={H}" + (f" (start x{sc:.4f})" if sc != 1 else "")
+        # K6 and K7
+        ys6 = mlp_rk4.mlp_rk4_fwd(w, x0, dts)
+        ys6p = mlp_rk4.mlp_rk4_fwd_plain(w, x0, dts)
+        g6 = torch.randn(ys6.shape, generator=gen, device=dev, dtype=f32)
+        wbar7, lbar7 = mlp_rk4.mlp_rk4_bwd(w, ys6, g6, dts)
+        wbar7p, lbar7p = mlp_rk4.mlp_rk4_bwd_plain(w, ys6p, g6, dts)
+        n = WIDE_AUTOGRAD_CHAINS
+        w_req = [x[:n].clone().requires_grad_(True) for x in w]
+        grads = torch.autograd.grad(
+            (mlp_rk4.mlp_rk4_fwd_plain(w_req, x0, dts) * g6[:, :n]).sum(),
+            w_req)
+        torch.cuda.synchronize()
+        scale6 = float(ys6p.abs().max())
+        err6 = float((ys6 - ys6p).abs().max())
+        rel7 = {f"{k} vs plain": max_rel(a, b) for k, a, b in zip(
+            ("w1", "b1", "w2", "b2", "w3", "b3"), wbar7, wbar7p)}
+        rel7["x0bar vs plain"] = max_rel(lbar7, lbar7p)
+        rel7.update({f"{k} vs autograd": max_rel(a[:n], b) for k, a, b in zip(
+            ("w1", "b1", "w2", "b2", "w3", "b3"), wbar7, grads)})
+        del grads, w_req, ys6p
+        ms6 = cuda_ms(lambda: mlp_rk4._launch_fwd(w, x0, dts), 5, warmup=1)
+        ms6p = cuda_ms(lambda: mlp_rk4.mlp_rk4_fwd_plain(w, x0, dts), 1)
+        ms7 = cuda_ms(lambda: mlp_rk4._launch_bwd(w, ys6, g6, dts), 3,
+                      warmup=1)
+        ms7p = cuda_ms(lambda: mlp_rk4.mlp_rk4_bwd_plain(w, ys6, g6, dts),
+                       1)
+        (b6, by6), (b7, by7) = rk4_bounds("mlp", H, C, N, T, nbytes(w),
+                                          nbytes(w))
+        print(f"phase 40 K6 {label}: max|ys - plain| {err6:.3e} (max|y| "
+              f"{scale6:.4g}), {ms6:.3f} ms, plain {ms6p:.1f} ms, bound "
+              f"{b6:.3f} ms ({by6}); K7: {ms7:.3f} ms, plain {ms7p:.1f} ms, "
+              f"bound {b7:.3f} ms ({by7}); max-rel " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in rel7.items()) + f" ({smi})")
+        check(bool(torch.isfinite(ys6).all()), f"phase 40 K6 {label} finite")
+        check(err6 <= 1e-5 * scale6,
+              f"phase 40 K6 {label} within 1e-5 max|y| of plain")
+        for k, v in rel7.items():
+            check(v <= 1e-5, f"phase 40 K7 {label} {k} within 1e-5 max-rel")
+        err7 = max(float((a - b).abs().max()) for a, b in zip(wbar7, wbar7p))
+        # both float32 sweeps against the plain sweep in float64 (printed)
+        w64 = tuple(x.double() for x in w)
+        ys64 = mlp_rk4.mlp_rk4_fwd_plain(w64, x0.double(), dts.double())
+        wbar64, _ = mlp_rk4.mlp_rk4_bwd_plain(w64, ys64, g6.double(),
+                                              dts.double())
+        rel64 = [max(max_rel(a.double(), b) for a, b in zip(wb, wbar64))
+                 for wb in (wbar7, wbar7p)]
+        print(f"phase 40 K7 {label}: weight cotangents max-rel to the plain "
+              f"sweep in float64: K7 {rel64[0]:.3e}, plain float32 "
+              f"{rel64[1]:.3e}")
+        del ys6, g6, wbar7, wbar7p, w64, ys64, wbar64
+
+        # MLP K2 (DOPRI5) and K3
+        field = mlp_field(H)
+        x0b, f0, dt0 = ff._start(field, w, x0, RTOL, ATOL)
+        ai = (field, w, x0b, f0, dt0, ts, RTOL, ATOL, 0.9, 10.0, 0.2, 100_000,
+              "i")
+        rhs, vjp = field.make_rhs(w), field.make_rhs_vjp(w)
+        ysk, nfek, nacck, nrejk, _, reck = fa.fwd(*ai, record=True,
+                                                  store_steps=S)
+        ysp, nfep, *_ = fa.fwd_plain(rhs, *ai[2:], store_steps=S)
+        gk = torch.randn(ysk.shape, generator=gen, device=dev, dtype=f32)
+        wbk, lbk = fa.bwd(field, w, ts, reck, nacck, gk)
+        wbp, lbp = fa.bwd_plain(rhs, vjp, w, ts, reck, nacck, gk,
+                                fa.TABLEAUS["dopri5"])
+        torch.cuda.synchronize()
+        scale2 = float(ysp.abs().max())
+        err2 = float((ysk - ysp).abs().max())
+        mk, mp = float(nfek.float().mean()), float(nfep.float().mean())
+        rel3 = max(max_rel(a, b) for a, b in zip(wbk + (lbk,), wbp + (lbp,)))
+        err3 = max(float((a - b).abs().max()) for a, b in zip(wbk, wbp))
+        del ysp, wbp, lbp
+        ms2 = cuda_ms(lambda: fa._launch_fwd(*ai, record=True, store_steps=S,
+                                             method="dopri5"), 3, warmup=1)
+        ms2p = cuda_ms(lambda: fa.fwd_plain(rhs, *ai[2:], store_steps=S), 1)
+        ms3 = cuda_ms(lambda: fa._launch_bwd(field, w, ts, reck, nacck, gk,
+                                             "dopri5"), 3, warmup=1)
+        ms3p = cuda_ms(lambda: fa.bwd_plain(rhs, vjp, w, ts, reck, nacck, gk,
+                                            fa.TABLEAUS["dopri5"]), 1)
+        (b2, by2), (b3, by3) = adaptive_bounds(
+            "mlp", H, C, N, T, nbytes(w), nbytes(w),
+            int((nacck + nrejk).sum()), int(nacck.sum()))
+        print(f"phase 40 MLP K2 {label}: max|ys - plain| {err2:.3e} (max|y| "
+              f"{scale2:.4g}), mean NFE {mk:.3f} vs plain {mp:.3f}, largest "
+              f"record count {int(nacck.max())}/{S}, {ms2:.3f} ms, plain "
+              f"{ms2p:.1f} ms, bound {b2:.3f} ms ({by2}); MLP K3: max-rel "
+              f"{rel3:.3e} vs the plain replay of its records, {ms3:.3f} ms, "
+              f"plain replay {ms3p:.1f} ms, bound {b3:.3f} ms ({by3}) ({smi})")
+        check(bool(torch.isfinite(ysk).all()), f"phase 40 K2 {label} finite")
+        check(err2 <= 1e-4 * scale2,
+              f"phase 40 K2 {label} within 1e-4 max|y| of plain")
+        check(abs(mk - mp) <= 0.01 * mp,
+              f"phase 40 K2 {label} mean NFE within 1%")
+        check(all(bool(torch.isfinite(x).all()) for x in wbk + (lbk,)),
+              f"phase 40 K3 {label} finite")
+        check(rel3 <= 1e-3, f"phase 40 K3 {label} within 1e-3 of the plain "
+              "replay of its records")
+        del ysk, reck, wbk, lbk, gk
+        for name, err, ms, plain, b, by in (
+                ("mlp_rk4_fwd", err6, ms6, ms6p, b6, by6),
+                ("mlp_rk4_bwd", err7, ms7, ms7p, b7, by7),
+                ("mlp_dopri5_fwd_record", err2, ms2, ms2p, b2, by2),
+                ("mlp_dopri5_bwd", err3, ms3, ms3p, b3, by3)):
+            family, kname = ptxas[name]
+            occ = occupied.get(((family, (N, H)), kname), {})
+            print(f"phase 40 {name} {label}: {occ.get('regs')} registers, "
+                  f"{occ.get('warps_an_sm')} warps an SM, "
+                  f"{occ.get('waves', 0):.2f} waves")
+            wide[name].append(dict(shape=[N, H], launches=0,
+                                   max_abs_err=err, ms=ms, plain_ms=plain,
+                                   bound_ms=b, bound_by=by, **occ))
+
+    # the NN paths through the driver at H=128
+    N, H = MLP_WIDE[0]
+    burn_in, samples = WIDE_DRIVER_STEPS
+    with tempfile.TemporaryDirectory() as out:
+        for solver, path in (("rk4", MLP_WIDE_KERNELS[:2]),
+                             ("dopri5", MLP_WIDE_KERNELS[2:])):
+            c = dict(cfg, model="nn", hidden=H, method="pSGLD",
+                     solver=solver, burn_in=burn_in, num_samples=samples,
+                     lr0=1e-4, store_steps=S, id=f"nn{H}_{solver}")
+            fa.record_high_water["steps"] = 0
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = run_sampler(c, data, out, make_plots=False, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            delta = dict(_build.launch_counts)
+            steps = burn_in + samples
+            worst = ("; the worst accepted steps "
+                     f"{fa.record_high_water['steps']}/{S}"
+                     if solver == "dopri5" else "")
+            print(f"phase 40 nn {solver} pSGLD at H={H}: {steps} steps x "
+                  f"{summary['num_chains']} chains in {wall:.3f} s (set-up "
+                  f"included); launches "
+                  f"{ {k: v for k, v in delta.items() if v} }{worst}; summary "
+                  f"{json.dumps(summary)} ({smi})")
+            for name in delta:
+                want = steps + 1 if name in path else 0
+                check(delta[name] == want,
+                      f"phase 40 nn {solver} at H={H}: {name} launched "
+                      f"{want} times (once per step plus init)")
+            pots = np.load(os.path.join(out, "pSGLD", c["id"],
+                                        "total_loss_arr.npy"))
+            check(pots.shape == (N_CHAINS, samples)
+                  and bool(np.isfinite(pots).all()),
+                  f"phase 40 nn {solver} at H={H}: finite potentials")
+            for name in path:
+                wide[name][0]["launches"] = delta[name]
+    print(f"phase 40: {time.perf_counter() - t_start:.1f} s ({smi})")
+    return wide
 
 
 # ---- the generic engine (phases 18-20) ----
@@ -1378,17 +1657,19 @@ def checkpoint_path(cfg, data, dev):
 # the main path's GP at rk4 on the generic engine, float32 (the Laplace
 # stages in float64); each phase cuts step counts only, and prints each cut
 SMC_PARTICLES = 1024            # run_evidence's default smc_particles
-SMC_MOVES = 2                   # run_sampler's default smc_moves is 5
+SMC_MOVES = 1                   # run_sampler's default smc_moves is 5
 # run_vi's default num_iters is 2,000 (ADVI) and 200 (Laplace); the
 # Laplace fit from the best SMC particle (run_evidence's start) takes
 # LAPLACE_ITERS of run_evidence's default 200 (150 reached a positive
-# definite Hessian in 184 s on one H100, 60 did not)
-ADVI_ITERS, VI_LAPLACE_ITERS, LAPLACE_ITERS = 10, 2, 20
+# definite Hessian in 184 s on one H100, 60 did not; each float64
+# iteration takes about 5 s there)
+ADVI_ITERS, VI_LAPLACE_ITERS, LAPLACE_ITERS = 3, 1, 2
 FD_DIRECTIONS, FD_EPS = 3, 1e-4  # central differences of the gradient
-# run_evidence at num_chains 32, num_rungs 16, 1,024 particles, 2 SMC
-# repeats; its cut step counts against the driver's defaults
-EVIDENCE_CUTS = {"burn_in": (10, 500), "num_samples": (10, 1000),
-                 "smc_moves": (1, 5), "laplace_iters": (3, 200)}
+# run_evidence at num_chains 32, 1,024 particles; its cut step counts,
+# rungs and SMC repeats against the driver's defaults
+EVIDENCE_CUTS = {"burn_in": (5, 500), "num_samples": (5, 1000),
+                 "smc_moves": (1, 5), "laplace_iters": (1, 200),
+                 "num_rungs": (8, 16), "smc_repeats": (1, 2)}
 MMALA_CHAINS, MMALA_DIM = 1024, SVGD_WIDTH
 MMALA_STEPS = (15, 5)           # burn-in, kept (a batched 74x74 float64
 MMALA_LR = 0.3                  # eigh a step, about 1 s on one H100)
@@ -1440,7 +1721,7 @@ def vag_ms(vag, position, reps=3):
 def smc_path(cfg, data, dev, smi):
     """Phase 27: method="SMC" through run_sampler on the main path's GP
     (M=6, N=5, T=60, noise 0.05) at rk4 on the generic engine in float32:
-    1,024 particles, smc_moves `SMC_MOVES` (the default 5 cut to 2), the
+    1,024 particles, smc_moves `SMC_MOVES` (the default 5 cut to 1), the
     default max_stages (100).  Prints
     the stages, log Z, the mean acceptance, ms a stage and ms a
     value-and-gradient of the population; the last beta is 1, every
@@ -1630,8 +1911,8 @@ def vi_path(cfg, data, dev, smi, smc_res, parts):
 
 def evidence_path(cfg, data, dev, smi):
     """Phase 29: inf_type="evidence" through worker on the main path's GP
-    at rk4: num_chains 32, num_rungs 16, 1,024 particles, smc_repeats 2,
-    with `EVIDENCE_CUTS`' step counts.  Prints every log Z with its SE,
+    at rk4: num_chains 32, 1,024 particles, with `EVIDENCE_CUTS`' step
+    counts, rungs and SMC repeats.  Prints every log Z with its SE,
     rank_by, the WAIC and PSIS-LOO numbers and the wall seconds of each
     estimator; the SMC and GSS estimates are finite, both SMC runs reach
     beta 1, the artifacts are written, and no kernel of the port
@@ -1644,8 +1925,8 @@ def evidence_path(cfg, data, dev, smi):
     from bayesian_ode_tpu_torch.ops import _build
 
     c = dict(cfg, inf_type="evidence", method="Evidence", engine="generic",
-             solver="rk4", num_chains=32, num_rungs=16,
-             smc_particles=SMC_PARTICLES, smc_repeats=2, lr=1e-3,
+             solver="rk4", num_chains=32,
+             smc_particles=SMC_PARTICLES, lr=1e-3,
              id="evidence", **{k: v for k, (v, _) in EVIDENCE_CUTS.items()})
     print("run_evidence cuts: " + ", ".join(
         f"{k} {v} (default {d})" for k, (v, d) in EVIDENCE_CUTS.items()))
@@ -1686,7 +1967,7 @@ def evidence_path(cfg, data, dev, smi):
     check(np.isfinite(s["log_z_smc"]) and np.isfinite(s["log_z_gss"]),
           "run_evidence: finite SMC and GSS log Z")
     check(all(b == 1.0 for b in last_betas),
-          "run_evidence: both SMC runs reach beta 1")
+          "run_evidence: every SMC run reaches beta 1")
     check(bool(s["rank_by"]), "run_evidence: an estimator to rank by")
     check(set(written) >= {"config.json", "run.jsonl", "evidence.json",
                            "chain.npz"}, "run_evidence: artifacts")
@@ -1841,7 +2122,9 @@ ADAMS_PROFILED_STEPS = 100
 # dopri5 loop, the JAX package's relative strictness (5e-2 on gradients of
 # about 40, tests/test_gradients.py::test_adjoint_adams_vs_direct_dopri5)
 ADAMS_GATE = 5e-2 / 40
-ADAMS_STEP_CUT_S = 60.0
+# phase 32's SGLD steps after the initial gradient, and the driver's
+# default num_samples (a generic adams step takes 30-45 s on one H100)
+ADAMS_STEPS = (1, 5000)
 # phase 33; the horizon of the event search: the slowest of the phase's
 # systems (x_1(0) = 7.42, 5 standard deviations out) first crosses at 26.2
 DENSE_QUERIES = 1000
@@ -2081,20 +2364,12 @@ def _solver_battery(dev, smi, y0, q0, ts_of, ts_s, cpu):
           f"({smi})")
 
 
-class _CutSteps(Exception):
-    """Raised by phase 32's timed step after a first step past its
-    limit: the run stops at 1 step."""
-
-    def __init__(self, state):
-        super().__init__("first step past the limit")
-        self.state = state
-
-
 def adams_driver_path(cfg, data, dev, smi):
     """Phase 32: run_sampler(engine="generic", model="gp", solver="adams",
     method="SGLD") at the main path's 10,112 chains (N = 5, T = 60, M = 6;
-    float32, config rtol/atol as the JAX driver gives adams), 2 steps, or
-    1 if the first takes over 60 s.  Prints each step's seconds on the
+    float32, config rtol/atol as the JAX driver gives adams),
+    ADAMS_STEPS[0] step (the driver's default ADAMS_STEPS[1]).  Prints
+    each step's seconds on the
     host with its forward and backward NFE a chain, the port's kernel
     launches (none: no K1-K9 on the generic path), and the card's idle
     share over ADAMS_PROFILED_STEPS iterations of the first step's first
@@ -2115,8 +2390,11 @@ def adams_driver_path(cfg, data, dev, smi):
     from bayesian_ode_tpu_torch.utils.pytree import tree_leaves, tree_map
 
     c = dict(cfg, engine="generic", model="gp", solver="adams",
-             method="SGLD", burn_in=0, num_samples=2, id="gp_adams")
+             method="SGLD", burn_in=0, num_samples=ADAMS_STEPS[0],
+             id="gp_adams")
     c.pop("store_steps", None)
+    print(f"phase 32 cut: {ADAMS_STEPS[0]} SGLD step(s) after the initial "
+          f"gradient (default num_samples {ADAMS_STEPS[1]})")
     steps, window = [], {}
     make_kernel, solve = vg._make_kernel, adj.solve_batched
 
@@ -2148,30 +2426,21 @@ def adams_driver_path(cfg, data, dev, smi):
                 adj.solve_batched = solve
             steps.append((time.perf_counter() - t0, dict(adj.nfe_counts),
                           first))
-            if len(steps) == 1 and steps[0][0] > ADAMS_STEP_CUT_S:
-                raise _CutSteps(out[0])
             return out
 
         return kern._replace(step=step)
 
     vg._make_kernel = timed_kernel
-    cut, pots, leaves = False, None, None
     try:
         with tempfile.TemporaryDirectory() as out:
             _build.reset_launch_counts()
             t0 = time.perf_counter()
-            try:
-                summary = vg.run_sampler(c, data, out, make_plots=False,
-                                         device=dev)
-                d = os.path.join(out, "SGLD", c["id"])
-                pots = np.load(os.path.join(d, "total_loss_arr.npy"))
-                chain = np.load(os.path.join(d, "chain.npz"))
-                leaves = [chain[k] for k in chain.files
-                          if k.startswith("leaf_")]
-            except _CutSteps as e:
-                cut, summary = True, None
-                leaves = [x.detach().cpu().numpy()
-                          for x in tree_leaves(e.state.position)]
+            summary = vg.run_sampler(c, data, out, make_plots=False,
+                                     device=dev)
+            d = os.path.join(out, "SGLD", c["id"])
+            pots = np.load(os.path.join(d, "total_loss_arr.npy"))
+            chain = np.load(os.path.join(d, "chain.npz"))
+            leaves = [chain[k] for k in chain.files if k.startswith("leaf_")]
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             delta = {k: v for k, v in _build.launch_counts.items() if v}
@@ -2191,17 +2460,14 @@ def adams_driver_path(cfg, data, dev, smi):
               f"{window['busy'] * 1e3:.1f} ms busy, card idle "
               f"{max(window['s'] - window['busy'], 0.0) / window['s']:.1%}")
     print(f"phase 32 adams SGLD: {len(steps)} step(s) x {C} chains in "
-          f"{wall:.3f} s (set-up and the initial gradient included)"
-          f"{'; cut to 1 step (the first took over 60 s)' if cut else ''}; "
+          f"{wall:.3f} s (set-up and the initial gradient included); "
           f"launches of the port's kernels {delta}; summary "
           f"{json.dumps(summary)} ({smi})")
     check(not delta, "phase 32: no kernel of the port launched")
     check(all(bool(np.isfinite(x).all()) for x in leaves),
           "phase 32: finite chains")
-    if pots is not None:
-        check(pots.shape == (N_CHAINS, c["num_samples"]),
-              "phase 32: pots shape")
-        check(bool(np.isfinite(pots).all()), "phase 32: finite potentials")
+    check(pots.shape == (N_CHAINS, c["num_samples"]), "phase 32: pots shape")
+    check(bool(np.isfinite(pots).all()), "phase 32: finite potentials")
 
     # the float64 adams adjoint against autograd through a dopri5 loop
     f64, Cg = torch.float64, GENERIC_CHAINS_F64
@@ -2340,7 +2606,9 @@ NPSDE_STEPS = (20, 200)         # warm-up, timed pSGLD steps (the bench's
 #                                 --burn-in 400 and --samples 400)
 NPSDE_SIGMA, NPSDE_SUBSTEPS = 0.1, 10
 SDE_PATHS = 256                 # paths of the card-against-CPU sdeint check
-ADJOINT_STEPS = (1_000, 10_000)  # path lengths of the memory comparison
+# path lengths of the memory comparison, cut to keep the script inside
+# its time limit: autograd's peak still grows tenfold between them
+ADJOINT_STEPS = (500, 5_000)
 ADJOINT_BATCH, ADJOINT_HIDDEN = 64, 64
 CNF_POINTS, CNF_HIDDEN, CNF_GRID, CNF_ITERS = 4096, (64, 64), 10, 60
 CNF_CHECK_POINTS = 256
@@ -2372,8 +2640,8 @@ def npsde_path(static, U0, dev, smi):
     the per-chain potential in float64 on the card and against the CPU;
     `sdeint` at each method, the card against the CPU on the same
     increments in float64; and `sdeint_adjoint`'s gradient against
-    autograd through `sdeint` with each one's peak memory at 1,000 and
-    10,000 steps."""
+    autograd through `sdeint` with each one's peak memory at the
+    ADJOINT_STEPS path lengths."""
     import numpy as np
     import torch
 
@@ -2513,6 +2781,7 @@ def npsde_path(static, U0, dev, smi):
 
     yA = torch.randn((ADJOINT_BATCH, 2), generator=gw, dtype=f64).to(dev)
     results = {}
+    print(f"phase 34 cut: the memory comparison at {ADJOINT_STEPS} steps")
     for n in ADJOINT_STEPS:
         ts_a = np.linspace(0.0, 1.0, 11)
         dW = (float(np.sqrt(1.0 / n)) * torch.randn(
@@ -3286,7 +3555,10 @@ def main() -> int:
     # ---- build: one nvcc per source, all started together ----
     t0 = time.perf_counter()
     _build.build(LIBRARIES)
-    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a); each "
+          "library's seconds from the wave's start: " + ", ".join(
+              f"{f}{s} {build_seconds(_build.build_log(f, s)):.1f}"
+              for f, s in LIBRARIES))
     k8_ptxas, occupied = {}, {}
     for lib in LIBRARIES:
         _build.load_library(*lib)
@@ -3300,7 +3572,7 @@ def main() -> int:
         for name, regs, st, ld, smem in ptxas_summary(
                 *lib, _build.build_log(*lib)):
             if (lib[0], name) in OCCUPANCY_BLOCKS:
-                threads, chains = OCCUPANCY_BLOCKS[lib[0], name]
+                threads, chains = block_of(lib, name)
                 smem = block_smem(*lib, name, smem)
                 C, unit = N_CHAINS, "chains"
                 if lib[0] == "svgd_phi":
@@ -4249,6 +4521,11 @@ def main() -> int:
     check(rel <= 1e-3, f"spiral N={Nw}: K3 within 1e-3 of the plain replay")
     del ysp, ysr, reck, wbk, wbp
 
+    print(f"phases 1-17: {time.perf_counter() - t_start:.1f} s from start, "
+          f"build included ({smi})")
+    # ---- phase 40: the MLP field past one warp ----
+    wide = mlp_wide_path(cfg, data, dev, smi, occupied)
+
     # ---- phases 31-33: the rest of the ODE core (run here, before phase
     # 19: after phase 19's profiler window a new profiler segfaulted on
     # the card) ----
@@ -4263,9 +4540,11 @@ def main() -> int:
           f"{t2 - t1:.1f}, 33 {t3 - t2:.1f}) ({smi})")
 
     # ---- phases 18-20: the generic engine ----
+    t0 = time.perf_counter()
     generic_gradient_check(cfg, data, dev)
     generic_driver_path(cfg, data, dev)
     svgd_driver_path(cfg, data, dev)
+    print(f"phases 18-20: {time.perf_counter() - t0:.1f} s")
 
     # ---- phases 21-23: the SG-HMC family, HAMCMC and run_optim ----
     t0 = time.perf_counter()
@@ -4332,6 +4611,7 @@ def main() -> int:
          **({"device_ms": k["device_ms"]} if "device_ms" in k else {}),
          **({"sharded_launches": sharded[name]} if name in sharded
             else {}),
+         **({"wide": wide[name]} if name in wide else {}),
          **occupied.get(LINE_OCCUPANCY.get(name), {})}
         for name, k in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {

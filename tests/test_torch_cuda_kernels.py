@@ -24,13 +24,14 @@ bit from call to call, and the per-step solver (K9) against the whole solve
 and, with a budget that binds, against the JAX package's loop.  The
 wide shapes the JAX package takes: the GP kernels (K1-K5, K9) at 7x7 and
 8x8 inducing grids (their blocks' buffers in dynamic shared memory), the
-MLP kernels (K6, K7, MLP K2/K3) at N=9 and 16 trajectory points and the
-spiral's K2/K3 at N=9, H=6; the spread forwards (spiral K2 one state
-component a lane at N=5, 9 and 16, FHN K2 and K3 one trajectory point a
-thread at N=5 and 32 and one chain a thread at N=40) under both tableaus,
-with and without records, and the same bits from call to call; and each
-library's
-shared memory as built against the shape check's arithmetic.  All
+MLP kernels (K6, K7, MLP K2/K3) at N=9 and 16 trajectory points and,
+past one warp (csrc/mlp_wide_field.cuh), at (N, H) = (5, 66), (5, 128),
+(32, 64) and (17, 4), and the spiral's K2/K3 at N=9, H=6; the spread
+forwards (spiral K2 one state component a lane at N=5, 9 and 16, FHN K2
+and K3 one trajectory point a thread at N=5 and 32 and one chain a thread
+at N=40) under both tableaus, with and without records, and the same
+bits from call to call; and each library's shared memory as built
+against the shape check's arithmetic.  All
 libraries are built at once, one nvcc per source, by the first fixture.
 Gates as the smoke's: dopri5 trajectories within 1e-4 * max|y| of the
 plain version (two float32 solves whose step meshes differ by rounding in
@@ -43,6 +44,9 @@ within the JAX kernel test's rtol 2e-5 / atol 2e-6 of its plain version;
 K9 with K1's per-chain step counts and within 5e-6 of its trajectories
 (the JAX package's gate between its two kernels).
 """
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -72,6 +76,10 @@ from bayesian_ode_tpu_torch.ops.spiral_dopri5 import spiral_field
 from bayesian_ode_tpu_torch.ops.svgd_phi import svgd_phi, svgd_phi_reference
 from bayesian_ode_tpu_torch.samplers import stein
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke  # noqa: E402  (its replay of a solve's own records)
+
 pytestmark = pytest.mark.cuda
 
 C = 200                      # 3 full blocks of 64 and a ragged one
@@ -94,6 +102,8 @@ LIBRARIES = [
     ("spiral_dopri5", (9, 6)), ("spiral_dopri5", (16, 50)),
     ("fhn_dopri5", (5,)), ("fhn_dopri5", (32,)), ("fhn_dopri5", (40,)),
     ("svgd_phi", ()),
+    *((family, shape) for family in ("mlp_rk4", "mlp_dopri5")
+      for shape in ((5, 66), (5, 128), (32, 64), (17, 4))),
 ]
 
 
@@ -461,13 +471,22 @@ def _check_mlp_rk4_kernels(gp, w, x0, gen):
 
 
 def test_mlp_rk4_wider_than_a_warp_raises(gp):
+    """Past the kernels' widths (H = 129 at N = 5, H = 65 at N = 17) the
+    wrapper raises before any build; the wide instances' blocks are the
+    shape check's arithmetic (dynamic shared memory, one warp a block)."""
     dev = gp["dev"]
-    H = 33
-    w = (torch.zeros(8, 2, H, device=dev), torch.zeros(8, H, device=dev),
-         torch.zeros(8, H, H, device=dev), torch.zeros(8, H, device=dev),
-         torch.zeros(8, H, 2, device=dev), torch.zeros(8, 2, device=dev))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mlp_rk4.mlp_rk4_fwd(w, gp["x0"], torch.diff(gp["ts"]))
+    for H, x0 in ((129, gp["x0"]), (65, _line_x0(gp, 17))):
+        w = (torch.zeros(8, 2, H, device=dev), torch.zeros(8, H, device=dev),
+             torch.zeros(8, H, H, device=dev), torch.zeros(8, H, device=dev),
+             torch.zeros(8, H, 2, device=dev), torch.zeros(8, 2, device=dev))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            mlp_rk4.mlp_rk4_fwd(w, x0, torch.diff(gp["ts"]))
+        assert ("mlp_rk4", (x0.shape[0], H)) not in _build._LIBS
+    for family, shape in LIBRARIES:
+        if family.startswith("mlp") and _build.mlp_wide(shape):
+            want = _build.smem_bytes(family, shape)
+            for kind, sizes in _build.built_smem(family, shape).items():
+                assert sizes == [want[kind]] * len(sizes), (family, shape)
 
 
 def _spiral_weights(gen, chains, H):
@@ -500,15 +519,18 @@ def _mlp_weights(gen, chains, H):
             uniform(chains, H, 2), 0.1 * randn(chains, 2))
 
 
-def _driver_mlp_weights(gen, chains):
-    """The driver's start weights of the MLP 2-32-32-2 (uniform(-0.5, 0.5),
-    zero biases), jittered by 0.005 per chain."""
+def _driver_mlp_weights(gen, chains, H=32, scale=1.0):
+    """The driver's start weights of the MLP 2-H-H-2 (uniform(-0.5, 0.5),
+    zero biases; the H->H and H->2 weights times `scale`), jittered by
+    0.005 per chain."""
     dev = gen.device
-    params = init_mlp(torch.Generator().manual_seed(0), [2, 32, 32, 2],
+    params = init_mlp(torch.Generator().manual_seed(0), [2, H, H, 2],
                       dtype=torch.float32)
-    return tuple((x.to(dev)[None] + 0.005 * torch.randn(
-        (chains, *x.shape), generator=gen, device=dev)).contiguous()
-                 for layer in params for x in (layer["w"], layer["b"]))
+    leaves = [x for layer in params for x in (layer["w"], layer["b"])]
+    return tuple(((scale if i in (2, 4) else 1.0) * x.to(dev)[None]
+                  + 0.005 * torch.randn((chains, *x.shape), generator=gen,
+                                        device=dev)).contiguous()
+                 for i, x in enumerate(leaves))
 
 
 def _adaptive_case(gp, case):
@@ -736,6 +758,81 @@ def test_mlp_adaptive_kernels_past_eight_points(gp, points, method):
     gen = torch.Generator(device=gp["dev"]).manual_seed(15)
     _check_adaptive_kernels(gp, mlp_field(32), _driver_mlp_weights(gen, C),
                             method, _line_x0(gp, points), gp["ts"])
+
+
+# Past one warp (csrc/mlp_wide_field.cuh, one warp and block a chain, W2
+# in shared memory): H = 66 (three units a lane, the last one past H on
+# most lanes) and 128 (four), N = 32 at H = 64 (one point a lane, two
+# units) and N = 17 at H = 4 (one point a lane, lanes past N idle).
+MLP_WIDE = [(5, 66), (5, 128), (32, 64), (17, 4)]
+# The driver's seed-0 start at H = 64 is an expansive field (its N = 32
+# trajectories reach |y| 3.4e4 by t = 6 over 10,112 chains; autograd
+# through the plain forward overflows there): at N = 32 its H->H and H->2
+# layers are scaled by 32/H, as in chip_smoke.py phase 40.
+WIDE_START_SCALE = {(32, 64): 0.5}
+
+
+def _wide_case(gp, gen, points, hidden):
+    x0 = gp["x0"] if points == 5 else _line_x0(gp, points)
+    return x0, _driver_mlp_weights(
+        gen, C, hidden, WIDE_START_SCALE.get((points, hidden), 1.0))
+
+
+@pytest.mark.parametrize("points,hidden", MLP_WIDE)
+def test_mlp_rk4_kernels_past_one_warp(gp, points, hidden):
+    """K6/K7 of the wide field against plain and autograd, from the
+    driver's start weights."""
+    gen = torch.Generator(device=gp["dev"]).manual_seed(18)
+    x0, w = _wide_case(gp, gen, points, hidden)
+    _check_mlp_rk4_kernels(gp, w, x0, gen)
+
+
+@pytest.mark.parametrize("method", ["dopri5", "tsit5"])
+@pytest.mark.parametrize("points,hidden", MLP_WIDE)
+def test_mlp_adaptive_kernels_past_one_warp(gp, points, hidden, method):
+    """MLP K2 and K3 of the wide field under each tableau, from the
+    driver's start weights: K2 within 1e-4 max|y| of the plain version's
+    step arithmetic replayed on its own records and within 1% of the
+    plain solve's mean NFE, the solve without records bit-equal to it; K3
+    within 1e-4 max-rel of the plain replay of the same records.  (At
+    H = 66 the two float32 solves' step meshes part on some chains: their
+    trajectories were 2.8e-4 max|y| apart at N = 5 on an H100, the mean
+    NFE 0.1%, as the spiral's at N = 9 in chip_smoke.py phase 17.)  The
+    N = 17, H = 4 solves take 3-4 steps, and the rounding of the field
+    alone moves their mean NFE by about 1% (a correctly rounded field
+    against the float32 plain one, on 200 such chains on the CPU: 0.9%
+    DOPRI5, 1.3% TSIT5), so there the gate is the spiral's for its 3-4
+    step solves, 2% (test_spiral_kernels_at_nine_points)."""
+    dev = gp["dev"]
+    gen = torch.Generator(device=dev).manual_seed(19)
+    x0, w = _wide_case(gp, gen, points, hidden)
+    nfe_tol = 0.02 if points > 16 and hidden <= 32 else 0.01
+    field, ts, tableau = mlp_field(hidden), gp["ts"], fa.TABLEAUS[method]
+    x0b, f0, dt0 = ff._start(field, w, x0, 1e-5, 1e-7)
+    args = (x0b, f0, dt0, ts, 1e-5, 1e-7, 0.9, 10.0, 0.2, 100_000, "i")
+    before = dict(_build.launch_counts)
+    ys, nfe, nacc, _, _, rec = fa.fwd(field, w, *args, record=True,
+                                      store_steps=128, method=method)
+    ys_w, nfe_w, *_ = fa.fwd(field, w, *args, record=False, method=method)
+    rhs, vjp = field.make_rhs(w), field.make_rhs_vjp(w)
+    _, nfe_p, *_ = fa.fwd_plain(rhs, *args, store_steps=128, tableau=tableau)
+    ys_r = chip_smoke.replay_dense_output(rhs, rec, nacc, x0b, ts,
+                                          tableau)
+    g = torch.randn(ys.shape, generator=gen, device=dev)
+    wbar_k, lbar_k = fa.bwd(field, w, ts, rec, nacc, g, method=method)
+    wbar_p, lbar_p = fa.bwd_plain(rhs, vjp, w, ts, rec, nacc, g, tableau)
+    torch.cuda.synchronize()
+    for kind in ("fwd_record", "solve_whole", "bwd"):
+        assert _build.launch_counts[f"mlp_{method}_{kind}"] == \
+            before[f"mlp_{method}_{kind}"] + 1, kind
+    assert torch.equal(ys_w, ys) and torch.equal(nfe_w, nfe)
+    assert bool(torch.isfinite(ys).all())
+    assert float((ys - ys_r).abs().max()) <= 1e-4 * float(ys_r.abs().max())
+    mk, mp = float(nfe.float().mean()), float(nfe_p.float().mean())
+    assert abs(mk - mp) <= nfe_tol * mp, (mk, mp)
+    for k, p in zip(wbar_k + (lbar_k,), wbar_p + (lbar_p,)):
+        assert bool(torch.isfinite(k).all())
+        assert _max_rel(k, p) <= 1e-4
 
 
 def test_spiral_kernels_at_nine_points(gp):

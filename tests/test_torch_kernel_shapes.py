@@ -3,13 +3,15 @@ the plain versions against the JAX package at the widened shapes.
 
 `ops/_build.py::check_shape` refuses what the kernels cannot compile with
 a NotImplementedError naming ROADMAP queue 1 item 19: more than 32
-trajectory points for the GP field (one point a lane), more than 16 for
-the MLP and spiral fields (one state component a lane), an MLP wider than
-32 (one hidden unit a lane), and a block's shared memory past 48 KB of
-static or 232,448 B of dynamic memory, by the arithmetic of the kernels'
-structs (`smem_bytes`; the card tests hold it to the built libraries'
-reports).  No card or nvcc is needed: the check runs first, so here
-`load_library` raises it where it would otherwise fail to find nvcc.
+trajectory points for the GP field (one point a lane) and the MLP field
+(one state component a lane to 16, one point a lane past it), more than
+16 for the spiral field (one state component a lane), an MLP wider than
+128 at N <= 16 or 64 at N <= 32 (four or two hidden units a lane), and a
+block's shared memory past 48 KB of static or 232,448 B of dynamic
+memory, by the arithmetic of the kernels' structs (`smem_bytes`; the card
+tests hold it to the built libraries' reports).  No card or nvcc is
+needed: the check runs first, so here `load_library` raises it where it
+would otherwise fail to find nvcc.
 
 Parity gates are those of the existing parity tests: the spiral engine at
 JAX's N = 9 case (tests/test_fused_field.py: H = 6, C = 4, T = 6,
@@ -43,8 +45,9 @@ from torch_parity import (
 
 ITEM = "ROADMAP queue 1 item 19"
 
-# (family, shape) past one limit each: GP N = 33; MLP and spiral N = 17;
-# MLP H = 33; a GP inducing grid whose block passes 232,448 B (15 x 15 for
+# (family, shape) past one limit each: GP and MLP N = 33; spiral N = 17;
+# MLP H = 129 at N = 5 and H = 65 at N = 17; a GP inducing grid whose
+# block passes 232,448 B (15 x 15 for
 # K3 and K5: 267,208 and 263,112 B at N = 5; 35 x 35 for K9, which keeps
 # no cotangent columns: 245,000 B);
 # a spiral whose one warp's buffer passes 48 KB of static memory (H = 128
@@ -53,11 +56,11 @@ PAST = [
     ("gp_dopri5", (33, 36), "N <= 32"),
     ("gp_rk4", (33, 36), "N <= 32"),
     ("gp_dopri5_step", (33, 36), "N <= 32"),
-    ("mlp_dopri5", (17, 32), "N <= 16"),
-    ("mlp_rk4", (17, 32), "N <= 16"),
+    ("mlp_dopri5", (33, 32), "N <= 32"),
+    ("mlp_rk4", (33, 32), "N <= 32"),
     ("spiral_dopri5", (17, 6), "N <= 16"),
-    ("mlp_dopri5", (5, 33), "H <= 32"),
-    ("mlp_rk4", (5, 33), "H <= 32"),
+    ("mlp_dopri5", (5, 129), "H <= 128"),
+    ("mlp_rk4", (17, 65), "H <= 64"),
     ("gp_dopri5", (5, 225), "232448 B"),
     ("gp_rk4", (5, 225), "232448 B"),
     ("gp_dopri5_step", (5, 1225), "232448 B"),
@@ -76,6 +79,9 @@ TAKEN = [
     ("mlp_rk4", (16, 32)),
     ("mlp_dopri5", (5, 20)), ("mlp_dopri5", (5, 32)),
     ("mlp_dopri5", (9, 32)), ("mlp_dopri5", (16, 32)),
+    *((family, shape) for family in ("mlp_rk4", "mlp_dopri5")
+      for shape in ((5, 66), (5, 128), (32, 64), (17, 4), (2, 66),
+                    (16, 128), (32, 33))),
     ("spiral_dopri5", (5, 50)), ("spiral_dopri5", (5, 20)),
     ("spiral_dopri5", (9, 6)), ("spiral_dopri5", (16, 50)),
     ("fhn_dopri5", (5,)), ("fhn_dopri5", (32,)), ("fhn_dopri5", (40,)),
@@ -139,6 +145,37 @@ def test_widened_blocks_fit_by_fewer_warps_or_dynamic_memory():
     assert _build.smem_bytes("mlp_dopri5", (16, 32))["bwd"] == 34304
     assert _build.smem_bytes("spiral_dopri5", (9, 50))["bwd"] == 2 * 16768
     assert _build.smem_bytes("spiral_dopri5", (16, 50))["bwd"] == 29696
+
+
+# The MLP field past one warp (csrc/mlp_wide_field.cuh), one warp and
+# chain a block, every buffer dynamic: W2's rows of ceil(H/32) * 32 + 4
+# floats over H rounded to 4 rows, the h1 copy (N rows of ceil(H/32) * 32)
+# and the gathered point in the forwards; the sweeps' stage slots (K7 4,
+# MLP K3 7) each hold a2 and a point, then a cotangent, and W2bar after
+# them.  (5, 128): 4 units a lane; (32, 64): 2 units and one point a lane,
+# K3's slots 7 x 32 x 64 floats (57,344 B); (16, 128), the largest block,
+# 199,680 B of the 232,448.
+@pytest.mark.parametrize("family,shape,want", [
+    ("mlp_rk4", (5, 128), {"fwd": 70192, "bwd": 146160}),
+    ("mlp_dopri5", (5, 128), {"fwd": 70192, "bwd": 153984}),
+    ("mlp_rk4", (32, 64), {"fwd": 25856, "bwd": 76032}),
+    ("mlp_dopri5", (32, 64), {"fwd": 25856, "bwd": 101376}),
+    ("mlp_dopri5", (16, 128), {"fwd": 75904, "bwd": 199680}),
+])
+def test_wide_mlp_blocks_are_dynamic(family, shape, want):
+    assert _build.smem_bytes(family, shape) == want
+    assert _build.dynamic_smem(family, shape)
+    _build.check_shape(family, shape)
+
+
+@pytest.mark.parametrize("family", ["mlp_rk4", "mlp_dopri5"])
+def test_narrow_mlp_blocks_stay_static(family):
+    """H <= 32 and N <= 16 keep mlp_field.cuh's static buffers, limits
+    and arithmetic."""
+    for shape in ((5, 32), (16, 32), (1, 1)):
+        assert not _build.dynamic_smem(family, shape)
+    assert _build.mlp_max_hidden(16) == 128
+    assert _build.mlp_max_hidden(17) == 64
 
 
 # The spread forwards' blocks past the main shape: the spiral's 4 warps

@@ -8,7 +8,11 @@ from the uniform(-0.5, 0.5) initialization), each weight cotangent and
 x0's to 1e-5 max-rel against jax.vjp of the kernel (measured 8.4e-7),
 the plain backward against autograd through the plain forward in float64
 to 1e-10, and potentials, value and gradient, to 1e-5 relative.  The
-generic MLP field and potential match in float64 to 1e-12.
+generic MLP field and potential match in float64 to 1e-12.  Besides the
+GP problem's 5 trajectories at H = 8 and 20, the shapes past one warp of
+the card's kernels (csrc/mlp_wide_field.cuh): H = 66 at N = 2 (three
+hidden units a lane) and N = 17 at H = 4 (one trajectory point a lane),
+8 output times to t = 2, start points on two lines.
 """
 import jax
 import jax.numpy as jnp
@@ -23,6 +27,7 @@ from bayesian_ode_tpu.ops.mlp_rk4 import (
 )
 from bayesian_ode_tpu.ops.mlp_rk4 import mlp_rk4_trajectory as jtrajectory
 from bayesian_ode_tpu_torch import odeint as todeint
+from bayesian_ode_tpu_torch.experiments import run_sampler
 from bayesian_ode_tpu_torch.models import mlp as tmlp
 from bayesian_ode_tpu_torch.ops import mlp_rk4 as tm
 from torch_parity import (  # noqa: F401
@@ -51,11 +56,30 @@ def data():
     return {k: p[k] for k in ("x0", "t", "Y")}
 
 
-@pytest.fixture(scope="module", params=[8, 20])
+# (N, H) past one warp: the parameter's name, for the test ids
+WIDE = {"N2-H66": (2, 66), "N17-H4": (17, 4)}
+
+
+def _wide_data(N):
+    """N start points on two lines (the JAX package's wide fused case), 8
+    output times to t = 2, seeded observations."""
+    x0 = np.stack([np.linspace(-1.5, 2.0, N), np.linspace(0.8, -0.9, N)],
+                  axis=-1).astype(np.float32)
+    t = np.linspace(0.0, 2.0, 8).astype(np.float32)
+    Y = np.random.RandomState(N).randn(N, 8, 2).astype(np.float32)
+    return {"x0": x0, "t": t, "Y": Y}
+
+
+@pytest.fixture(scope="module", params=[8, 20, *WIDE])
 def case(request, data):
     """The JAX kernel's trajectories and their vjp for a seeded
-    cotangent, at hidden width H."""
-    H = request.param
+    cotangent, at hidden width H (the GP problem's data) or at a shape
+    past one warp."""
+    if request.param in WIDE:
+        N, H = WIDE[request.param]
+        data = _wide_data(N)
+    else:
+        H = request.param
     layers = _layers(H)
     ts = jnp.asarray(data["t"])
 
@@ -68,7 +92,7 @@ def case(request, data):
     wbar, x0bar = vjp(jnp.asarray(g))
     return {"H": H, "layers": layers, "ys": np.asarray(ys), "g": g,
             "wbar": jax.tree.map(np.asarray, wbar),
-            "x0bar": np.asarray(x0bar)}
+            "x0bar": np.asarray(x0bar), "data": data}
 
 
 def _w(layers, dtype=torch.float32):
@@ -79,7 +103,8 @@ def _dts(data, dtype=torch.float32):
     return torch.diff(torch.tensor(data["t"])).to(dtype)
 
 
-def test_plain_forward_matches_the_jax_kernel(case, data):
+def test_plain_forward_matches_the_jax_kernel(case):
+    data = case["data"]
     ys = tm.mlp_rk4_fwd_plain(_w(case["layers"]), torch.tensor(data["x0"]),
                               _dts(data))
     ys_j = case["ys"]
@@ -87,7 +112,8 @@ def test_plain_forward_matches_the_jax_kernel(case, data):
     assert np.max(np.abs(to_np(ys) - ys_j)) <= 1e-5 * np.max(np.abs(ys_j))
 
 
-def test_plain_backward_matches_the_jax_vjp(case, data):
+def test_plain_backward_matches_the_jax_vjp(case):
+    data = case["data"]
     w = _w(case["layers"])
     x0 = torch.tensor(data["x0"])
     ys = tm.mlp_rk4_fwd_plain(w, x0, _dts(data))
@@ -135,7 +161,8 @@ def test_trajectory_autograd_function_on_the_cpu(data):
     torch.testing.assert_close(x0.grad, lbar.sum(dim=0), rtol=0, atol=0)
 
 
-def test_fused_potential_matches_jax(case, data):
+def test_fused_potential_matches_jax(case):
+    data = case["data"]
     jpot = jmake_potential(jnp.asarray(data["x0"]), jnp.asarray(data["t"]),
                            jnp.asarray(data["Y"]), reg=0.5, tile=128,
                            interpret=True)
@@ -191,3 +218,26 @@ def test_mlp_model_matches_jax_f64(data):
     for itr in (0, 4, 5, 100):
         assert tmlp.curriculum_length(itr, 12) == int(
             jmlp.curriculum_length(itr, 12))
+
+
+def test_driver_runs_nn_at_rk4_past_one_warp(tmp_path):
+    """run_sampler(model="nn", hidden=40, engine="fused", solver="rk4")
+    under pSGLD on the CPU: H = 40 is past one warp of the card's kernels
+    (two hidden units a lane there); the MLP's layer list in chain.npz, the
+    diagnostics from the last leaf (b3), as the JAX driver's."""
+    d = _wide_data(3)
+    data = {"x0": d["x0"], "t": d["t"], "Y": d["Y"], "noise": 0.1}
+    cfg = {"method": "pSGLD", "inf_type": "sampler", "id": 1,
+           "burn_in": 1, "num_samples": 3, "thinning": 1, "num_chains": 100,
+           "lr0": 1e-4, "lr_gamma": 0.55, "lr_t0": 100, "lr_alpha": 1.0,
+           "psgld_alpha": 0.99, "lambda_": 1e-8, "engine": "fused",
+           "solver": "rk4", "model": "nn", "hidden": 40, "seed": 0}
+    summary = run_sampler(cfg, data, str(tmp_path), make_plots=False,
+                          device="cpu")
+    assert summary["num_chains"] == 128 and summary["kept_samples"] == 3
+    assert np.isfinite(summary["min_potential"])
+    # leaves of each layer in sorted key order: b, w
+    chain = np.load(tmp_path / "pSGLD" / "1" / "chain.npz")
+    assert chain["leaf_3"].shape == (128, 3, 40, 40)
+    assert np.isfinite(np.load(tmp_path / "pSGLD" / "1"
+                               / "total_loss_arr.npy")).all()
