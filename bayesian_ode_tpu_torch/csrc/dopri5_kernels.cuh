@@ -45,12 +45,17 @@
 //                                 argument of __launch_bounds__ of the
 //                                 forwards and the backward; absent,
 //                                 ptxas picks the registers);
-//   kWarpStore                    acc_store is a warp collective (it sums
-//                                 the lanes' cotangents by shuffles): every
+//   kWarpStore                    acc_store is a collective (it sums the
+//                                 lanes' cotangents by shuffles, or reads
+//                                 a chain's columns after a barrier): every
 //                                 lane of the warp reaches it, a lane with
 //                                 no chain (c >= C) with c = -1, after a
 //                                 sweep of no records.  Without it such a
 //                                 thread leaves at once.
+// A field whose chain spans several warps (GPWidePoint past N = 32,
+// gp_wide_field.cuh) is one chain a block: its norm_sums and acc_store
+// take block barriers, which every thread of the block reaches, since all
+// take the chain's steps.
 //
 // What bounds the kernels on an H100: the serial per-chain chain of field
 // evaluations, not bytes.  Chains are independent with data-dependent step
@@ -115,7 +120,8 @@ __device__ __forceinline__ void fwd_block(
     const int j = fwd_component<F>(i);
     y[i] = x0[j];
     k[0][i] = f0[static_cast<size_t>(c) * kNS + j];
-    if (own) o.ys[static_cast<size_t>(c) * kNS + j] = y[i];   // row 0 is x0
+    if (own && owns<F>(i))
+      o.ys[static_cast<size_t>(c) * kNS + j] = y[i];          // row 0 is x0
   }
   const float tf = ts[T - 1];
   float t1 = ts[0];
@@ -135,7 +141,8 @@ __device__ __forceinline__ void fwd_block(
         if (own) {
 #pragma unroll
           for (int i = 0; i < NS; ++i)
-            row[static_cast<size_t>(fwd_component<F>(i)) * C] = y[i];
+            if (owns<F>(i))
+              row[static_cast<size_t>(fwd_component<F>(i)) * C] = y[i];
         }
         if (lead) {
           row[static_cast<size_t>(kNS) * C] = t1;
@@ -153,14 +160,16 @@ __device__ __forceinline__ void fwd_block(
             // a repeated output time is never emitted; it reads 0, as the
             // zero-initialised output of the TPU kernel
 #pragma unroll
-            for (int i = 0; i < NS; ++i) out[fwd_component<F>(i)] = 0.f;
+            for (int i = 0; i < NS; ++i)
+              if (owns<F>(i)) out[fwd_component<F>(i)] = 0.f;
             continue;
           }
           const float X = (ts[idx] - t1) / dt;
 #pragma unroll
           for (int i = 0; i < NS; ++i)
-            out[fwd_component<F>(i)] =
-                quartic_eval(y[i], y1[i], ym[i], k[0][i], k[6][i], dt, X);
+            if (owns<F>(i))
+              out[fwd_component<F>(i)] =
+                  quartic_eval(y[i], y1[i], ym[i], k[0][i], k[6][i], dt, X);
         }
       }
 #pragma unroll
@@ -182,7 +191,8 @@ __device__ __forceinline__ void fwd_block(
     for (; idx < T; ++idx) {
       float* out = o.ys + (static_cast<size_t>(idx) * C + c) * kNS;
 #pragma unroll
-      for (int i = 0; i < NS; ++i) out[fwd_component<F>(i)] = y[i];
+      for (int i = 0; i < NS; ++i)
+        if (owns<F>(i)) out[fwd_component<F>(i)] = y[i];
     }
   }
   if (!lead) return;
@@ -336,6 +346,7 @@ dopri5_step_kernel(typename F::Args w, const float* __restrict__ ts, int k,
     if (fwd_owner<F>()) {
 #pragma unroll
       for (int i = 0; i < NS; ++i) {
+        if (!owns<F>(i)) continue;
         const size_t j = static_cast<size_t>(c) * kNS + fwd_component<F>(i);
         const float q[5] = {cf[0][i], cf[1][i], cf[2][i], cf[3][i],
                             cf[4][i]};
@@ -528,7 +539,8 @@ __device__ __forceinline__ void bwd_block(
   if (live && owner<F>()) {
 #pragma unroll
     for (int i = 0; i < NS; ++i)
-      lbar[static_cast<size_t>(c) * F::kNS + own_component<F>(i)] = l[i];
+      if (owns<F>(i))
+        lbar[static_cast<size_t>(c) * F::kNS + own_component<F>(i)] = l[i];
   }
   F::acc_store(acc, gw, live ? c : -1);
 }

@@ -22,7 +22,13 @@
 //                                  one, and whether it writes them out.
 // A field without kOwn carries all kNS components on each thread, written
 // by its leader().  The fields that declare neither compute what they
-// computed before the slots existed, operation for operation.
+// computed before the slots existed, operation for operation.  A field
+// whose threads carry some real components and some mirrors (the wide
+// spiral field, spiral_wide_field.cuh: lane l's q-th component is
+// 32 q + l, a mirror past 2N - 1) also declares
+//   owns(q)                        whether this thread writes its q-th
+//                                  component out (beside owner());
+// for every other field `owns` is true.
 //
 // The forwards (dopri5_kernels.cuh: K1, K2) spread the state only where
 // the field also provides
@@ -118,6 +124,19 @@ __device__ __forceinline__ bool owner() {
 }
 
 template <class F, class = void>
+struct owns_each : std::false_type {};
+template <class F>
+struct owns_each<F, std::void_t<decltype(&F::owns)>> : std::true_type {};
+
+template <class F>
+__device__ __forceinline__ bool owns(int q) {
+  if constexpr (owns_each<F>::value)
+    return F::owns(q);
+  else
+    return true;
+}
+
+template <class F, class = void>
 struct spreads_forward : std::false_type {};
 template <class F>
 struct spreads_forward<F, std::void_t<decltype(&F::norm_sums)>>
@@ -162,16 +181,20 @@ __host__ __device__ constexpr size_t acc_offset() {
 }
 
 // The dynamic shared memory of a launch over F: Smem, and AccSmem after it
-// where the kernel takes cotangents (kAcc); 0 for a field with static
-// buffers.
+// where the kernel takes cotangents (kAcc) and AccSmem holds any; 0 for a
+// field with static buffers.
 template <class F, bool kAcc>
 constexpr size_t smem_bytes() {
-  if constexpr (!dynamic_smem<F>::value)
+  if constexpr (!dynamic_smem<F>::value) {
     return 0;
-  else if constexpr (kAcc)
-    return acc_offset<F>() + sizeof(typename F::AccSmem);
-  else
+  } else if constexpr (kAcc) {
+    if constexpr (std::is_empty_v<typename F::AccSmem>)
+      return sizeof(typename F::Smem);
+    else
+      return acc_offset<F>() + sizeof(typename F::AccSmem);
+  } else {
     return sizeof(typename F::Smem);
+  }
 }
 
 __device__ __forceinline__ unsigned char* dynamic_smem_base() {

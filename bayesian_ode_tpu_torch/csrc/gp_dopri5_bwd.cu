@@ -1,6 +1,9 @@
 // Frozen-step-mesh discrete adjoint of the whole adaptive solve of the GP
 // field, one thread per trajectory point: the backward kernel of
-// dopri5_kernels.cuh over GPReplayPoint (gp_field.cuh).
+// dopri5_kernels.cuh over GPReplayPoint (gp_field.cuh: GPPoint<8>, or
+// GPWidePoint past N = 32 or an inducing grid whose Abar columns pass a
+// block's shared memory, gp_wide_field.cuh: then one Abar column a chain,
+// its points' shares summed by shuffles at each term).
 //
 // Replaces bayesian_ode_tpu/ops/fused_adaptive.py::make_bwd_kernel (K3)
 // over the GP field VJP of bayesian_ode_tpu/ops/gp_dopri5_grad.py::

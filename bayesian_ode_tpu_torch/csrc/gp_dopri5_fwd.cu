@@ -1,6 +1,7 @@
 // Whole adaptive solve of the GP field, one thread per trajectory point:
-// the forward kernels of dopri5_kernels.cuh over GPReplayPoint
-// (gp_field.cuh, GPPoint).
+// the forward kernels of dopri5_kernels.cuh over GPFwdPoint
+// (gp_field.cuh: GPPoint, or GPWidePoint past N = 32 or where GPPoint's
+// block passes a block's shared memory, gp_wide_field.cuh).
 //
 // Replaces, over the GP field, two TPU kernels with one template:
 //   record = 0: bayesian_ode_tpu/ops/gp_dopri5.py::_make_whole_kernel (K1,
@@ -45,11 +46,11 @@ int gp_dopri5_fwd(int record, int tableau, const float* A, const float* Z,
                   float dfactor, int max_steps, int pi, int store_steps,
                   float* ys, int* nfe, int* nacc, int* nrej, float* t1,
                   float* rec, cudaStream_t stream) {
-  const bode::GPReplayPoint::Args w{A, Z, sf2, inv2ell2, invell2};
+  const bode::GPFwdPoint::Args w{A, Z, sf2, inv2ell2, invell2};
   const bode::SolveArgs s{rtol, atol, safety, ifactor, dfactor, max_steps,
                           pi, record ? store_steps : 0};
   const bode::FwdOut o{ys, nfe, nacc, nrej, t1, record ? rec : nullptr};
-  return bode::launch_fwd<bode::GPReplayPoint>(record, tableau, w, x0, f0,
+  return bode::launch_fwd<bode::GPFwdPoint>(record, tableau, w, x0, f0,
                                                dt0, ts, C, T, s, o, stream);
 }
 
@@ -57,7 +58,7 @@ int gp_dopri5_fwd(int record, int tableau, const float* A, const float* Z,
 // without and with records), static and dynamic: the shape check's
 // arithmetic (ops/_build.py) against the build.
 int gp_dopri5_fwd_smem(int* bytes) {
-  return bode::fwd_smem<bode::GPReplayPoint>(bytes);
+  return bode::fwd_smem<bode::GPFwdPoint>(bytes);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // The per-step dopri5 solver of the GP field, one trajectory point a
-// thread: dopri5_step_kernel of dopri5_kernels.cuh over GPReplayPoint
-// (gp_field.cuh: GPPoint<8>, the field of the whole solve K1).
+// thread: dopri5_step_kernel of dopri5_kernels.cuh over GPFwdPoint
+// (gp_field.cuh: GPPoint<8>, or GPWidePoint where that does not fit; the
+// field of the whole solve K1, so the two take the same steps).
 //
 // Replaces bayesian_ode_tpu/ops/gp_dopri5.py::_make_kernel (K9) and the
 // lax.while_loop that `gp_dopri5_solve` runs around it per output
@@ -45,10 +46,10 @@ int gp_dopri5_interval(const float* A, const float* Z, float sf2,
                        float* t0, float* t1, float* dt, float* coef, int* nfe,
                        int* nacc, int* nrej, int* flags, float* ys,
                        cudaStream_t stream) {
-  const bode::GPReplayPoint::Args w{A, Z, sf2, inv2ell2, invell2};
+  const bode::GPFwdPoint::Args w{A, Z, sf2, inv2ell2, invell2};
   const bode::SolveArgs s{rtol, atol, safety, ifactor, dfactor, 0, 0, 0};
   const bode::StepState st{y, f, t0, t1, dt, coef, nfe, nacc, nrej, flags};
-  return bode::launch_step<bode::GPReplayPoint>(w, ts, k, C, cap, s, st, ys,
+  return bode::launch_step<bode::GPFwdPoint>(w, ts, k, C, cap, s, st, ys,
                                                 stream);
 }
 
@@ -65,17 +66,17 @@ int gp_dopri5_intervals(const float* A, const float* Z, float sf2,
                         float* t1, float* dt, float* coef, int* nfe,
                         int* nacc, int* nrej, int* flags, float* ys,
                         cudaStream_t stream) {
-  const bode::GPReplayPoint::Args w{A, Z, sf2, inv2ell2, invell2};
+  const bode::GPFwdPoint::Args w{A, Z, sf2, inv2ell2, invell2};
   const bode::SolveArgs s{rtol, atol, safety, ifactor, dfactor, 0, 0, 0};
   const bode::StepState st{y, f, t0, t1, dt, coef, nfe, nacc, nrej, flags};
-  return bode::launch_steps<bode::GPReplayPoint>(
+  return bode::launch_steps<bode::GPFwdPoint>(
       w, ts, T, C, max_steps, steps_per_call, s, st, ys, stream);
 }
 
 // The shared memory of a block of the per-step solver, static and
 // dynamic: the shape check's arithmetic (ops/_build.py) against the build.
 int gp_dopri5_step_smem(int* bytes) {
-  return bode::step_smem<bode::GPReplayPoint>(bytes);
+  return bode::step_smem<bode::GPFwdPoint>(bytes);
 }
 
 }  // extern "C"

@@ -21,15 +21,21 @@
 // GPPoint keeps its block's buffers (A, Z and the Abar columns) in dynamic
 // shared memory (kDynamicSmem, field_stages.cuh): they grow with the
 // inducing grid, past the 48 KB of static shared memory a block may have
-// from a 7x7 grid on in K3 (51,784 B at N = 5) and 8x8 in K5.
-// ops/_build.py's check_shape holds every instance to the 232,448 B a
-// block may take before the build.
+// from a 7x7 grid on in K3 (51,784 B at N = 5) and 8x8 in K5.  Past
+// N = 32, or where a kernel's GPPoint block would pass the 232,448 B a
+// block may take, that kernel runs on GPWidePoint (gp_wide_field.cuh)
+// instead: GPFwdPoint, GPReplayPoint and GPRk4Point below pick one of the
+// two at compile time (gp_narrow).  ops/_build.py's check_shape holds
+// every instance to N <= 128, M <= 1,024 and its block's limit before the
+// build.
 //
 // Full float32 throughout: built without --use_fast_math and with expf.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "warp.cuh"
 
@@ -45,6 +51,90 @@ namespace bode {
 constexpr int kN = GP_N;
 constexpr int kM = GP_M;
 constexpr int kNS = 2 * GP_N;    // state components per chain
+
+// The pieces GPPoint and GPWidePoint (gp_wide_field.cuh) share: the
+// block's staging of A and Z, the field and one term of its VJP at one
+// trajectory point (a chain's A column at sA[m * kStride]), and the error
+// norm's sums over a chain's lanes of one warp.
+
+// Stage the block's A rows (C, M, 2) as float2 columns sA[m * kChains +
+// chain in block] with coalesced loads (chains past C read as zero), and
+// Z; called by every thread of the block, which it leaves at a barrier.
+template <int kChains, int kThreads>
+__device__ __forceinline__ void gp_stage(const float* A, const float* Z,
+                                         float2* sA2, float2* sZ2, int C) {
+  const int c0 = blockIdx.x * kChains;
+  float* sA = reinterpret_cast<float*>(sA2);
+  for (int idx = threadIdx.x; idx < kChains * 2 * kM; idx += kThreads) {
+    const int l = idx / (2 * kM);
+    const int j = idx - l * (2 * kM);
+    sA[((j >> 1) * kChains + l) * 2 + (j & 1)] =
+        (c0 + l < C) ? A[static_cast<size_t>(c0) * 2 * kM + idx] : 0.f;
+  }
+  float* sZ = reinterpret_cast<float*>(sZ2);
+  for (int idx = threadIdx.x; idx < 2 * kM; idx += kThreads) sZ[idx] = Z[idx];
+  __syncthreads();
+}
+
+// f = K(y, Z) A at the point y[0..1], each sum in ascending order over m.
+// The m loop unrolled by 12, not 4: on an H100 the solves K1/K2 took less
+// time, K3 and K5 the same, and the sums are the same bit for bit.
+template <int kStride>
+__device__ __forceinline__ void gp_rhs(const float2* sA, const float2* sZ,
+                                       float sf2, float inv2ell2,
+                                       const float* y, float* f) {
+  const float px = y[0], py = y[1];
+  float fx = 0.f, fy = 0.f;
+#pragma unroll 12
+  for (int m = 0; m < kM; ++m) {
+    const float2 z = sZ[m];
+    const float dx = px - z.x;
+    const float dy = py - z.y;
+    const float K = sf2 * expf(-(dx * dx + dy * dy) * inv2ell2);
+    const float2 am = sA[m * kStride];
+    fx += K * am.x;
+    fy += K * am.y;
+  }
+  f[0] = fx;
+  f[1] = fy;
+}
+
+// One inducing point's term of the VJP at (px, py) for the cotangent
+// (cx, cy): its Abar share goes to (ax, ay), its ybar share to (ubx, uby).
+template <int kStride>
+__device__ __forceinline__ void gp_vjp_term(
+    const float2* sA, const float2* sZ, float sf2, float inv2ell2,
+    float invell2, int m, float px, float py, float cx, float cy, float& ax,
+    float& ay, float& ubx, float& uby) {
+  const float2 z = sZ[m];
+  const float dx = px - z.x;
+  const float dy = py - z.y;
+  const float K = sf2 * expf(-(dx * dx + dy * dy) * inv2ell2);
+  ax += K * cx;
+  ay += K * cy;
+  const float2 am = sA[m * kStride];
+  const float adotc = am.x * cx + am.y * cy;
+  const float w = K * adotc * invell2;
+  ubx += w * (-dx);
+  uby += w * (-dy);
+}
+
+// The error norm's sums (field_stages.cuh): point q's ratios r[0] (x) and
+// r[1] (y) from lane base + q, added as the per-chain loop adds them
+// (dopri5_common.cuh, step_decision), q = 0..N-1.  Every lane of `mask`
+// (the chain's) gets the same bits; only they take part, so chains that
+// have finished their solves need not.
+__device__ __forceinline__ void gp_warp_norm_sums(unsigned mask, int base,
+                                                  const float* r, float& sx,
+                                                  float& sy) {
+#pragma unroll
+  for (int q = 0; q < kN; ++q) {
+    const float rx = __shfl_sync(mask, r[0], base + q);
+    const float ry = __shfl_sync(mask, r[1], base + q);
+    sx += rx * rx;
+    sy += ry * ry;
+  }
+}
 
 // One trajectory point per thread: the GP field of the whole adaptive
 // solves, the per-step solver and the reverse sweeps (K1, K2, K9 and K3,
@@ -89,7 +179,9 @@ constexpr int kNS = 2 * GP_N;    // state components per chain
 // for A and Z at N = 5, and 1,024 B for each one past R in Abar's columns.
 template <int R>
 struct GPPoint {
-  static_assert(kN >= 1 && kN <= 32, "a chain's points must fit one warp");
+  // (on R, so that it holds where GPPoint<R> is used, not where named)
+  static_assert(R > 0 && kN >= 1 && kN <= 32,
+                "a chain's points must fit one warp");
   static_assert(R > 0, "R inducing points in registers");
   static constexpr int kR = R < kM ? R : kM;    // at most all of them
   static constexpr int kNS = 2 * GP_N;      // a chain's state components
@@ -144,21 +236,10 @@ struct GPPoint {
     return m << (lane() - point());
   }
 
-  // Stage the block's A rows (C, M, 2) with coalesced loads (chains past
-  // C read as zero) and Z; called by every thread of the block.
+  // Stage the block's A and Z (gp_stage); called by every thread of the
+  // block.
   static __device__ GPPoint load(const Args& a, Smem& sm, int C, int) {
-    const int c0 = blockIdx.x * kChains;
-    float* sA = reinterpret_cast<float*>(sm.sA);
-    for (int idx = threadIdx.x; idx < kChains * 2 * kM; idx += kThreads) {
-      const int l = idx / (2 * kM);
-      const int j = idx - l * (2 * kM);
-      sA[((j >> 1) * kChains + l) * 2 + (j & 1)] =
-          (c0 + l < C) ? a.A[static_cast<size_t>(c0) * 2 * kM + idx] : 0.f;
-    }
-    float* sZ = reinterpret_cast<float*>(sm.sZ);
-    for (int idx = threadIdx.x; idx < 2 * kM; idx += kThreads)
-      sZ[idx] = a.Z[idx];
-    __syncthreads();
+    gp_stage<kChains, kThreads>(a.A, a.Z, sm.sA, sm.sZ, C);
     const int w = min(lane() / kN, kChainsPerWarp - 1);   // idle lanes: any
     return GPPoint{sm.sA + (threadIdx.x >> 5) * kChainsPerWarp + w, sm.sZ,
                    a.sf2, a.inv2ell2, a.invell2};
@@ -201,61 +282,23 @@ struct GPPoint {
     }
   }
 
-  // The error norm's sums (field_stages.cuh): point q's ratios r[0] (x)
-  // and r[1] (y) from the chain's lane q, added as the per-chain loop adds
-  // them (dopri5_common.cuh, step_decision), q = 0..N-1.  Every thread of
-  // the chain gets the same bits; only the chain's lanes take part, so
-  // chains that have finished their solves need not.
+  // The error norm's sums over the chain's lanes (gp_warp_norm_sums).
   __device__ __forceinline__ void norm_sums(const float* r, float& sx,
                                             float& sy) const {
-    const unsigned mask = chain_mask();
-    const int base = lane() - point();
-#pragma unroll
-    for (int q = 0; q < kN; ++q) {
-      const float rx = __shfl_sync(mask, r[0], base + q);
-      const float ry = __shfl_sync(mask, r[1], base + q);
-      sx += rx * rx;
-      sy += ry * ry;
-    }
+    gp_warp_norm_sums(chain_mask(), lane() - point(), r, sx, sy);
   }
 
-  // f = K(y, Z) A at this thread's point y[0..1].  The m loop unrolled by
-  // 12, not 4: on an H100 the solves K1/K2 took less time, K3 and K5 the
-  // same, and the sums are the same bit for bit.
+  // f = K(y, Z) A at this thread's point y[0..1].
   __device__ __forceinline__ void rhs(const float* y, float* f) const {
-    const float px = y[0], py = y[1];
-    float fx = 0.f, fy = 0.f;
-#pragma unroll 12
-    for (int m = 0; m < kM; ++m) {
-      const float2 z = sZ[m];
-      const float dx = px - z.x;
-      const float dy = py - z.y;
-      const float K = sf2 * expf(-(dx * dx + dy * dy) * inv2ell2);
-      const float2 am = sA[m * kChains];
-      fx += K * am.x;
-      fy += K * am.y;
-    }
-    f[0] = fx;
-    f[1] = fy;
+    gp_rhs<kChains>(sA, sZ, sf2, inv2ell2, y, f);
   }
 
-  // One inducing point's term of the VJP: its Abar share goes to (ax, ay),
-  // its ybar share to (ubx, uby).
   __device__ __forceinline__ void vjp_term(int m, float px, float py,
                                            float cx, float cy, float& ax,
                                            float& ay, float& ubx,
                                            float& uby) const {
-    const float2 z = sZ[m];
-    const float dx = px - z.x;
-    const float dy = py - z.y;
-    const float K = sf2 * expf(-(dx * dx + dy * dy) * inv2ell2);
-    ax += K * cx;
-    ay += K * cy;
-    const float2 am = sA[m * kChains];
-    const float adotc = am.x * cx + am.y * cy;
-    const float w = K * adotc * invell2;
-    ubx += w * (-dx);
-    uby += w * (-dy);
+    gp_vjp_term<kChains>(sA, sZ, sf2, inv2ell2, invell2, m, px, py, cx, cy,
+                         ax, ay, ubx, uby);
   }
 
   // Vector-Jacobian product at this point y for the cotangent `cot` of
@@ -280,6 +323,29 @@ struct GPPoint {
   }
 };
 
+}  // namespace bode
+
+#include "gp_wide_field.cuh"
+
+namespace bode {
+
+// The bytes of a GPPoint<R> block (ops/_build.py, smem_bytes): A and Z,
+// and the sweeps' Abar columns past R where `acc`.
+constexpr long gp_narrow_bytes(int R, bool acc) {
+  const long chains = 4L * (kN <= 32 ? 32 / kN : 1);
+  const long kR = R < kM ? R : kM;
+  return 8L * (kM * chains + kM)
+         + (acc ? 8L * ((kM - kR) * 128 + (kR == kM)) : 0L);
+}
+// Whether a kernel's GPPoint<R> block fits: N <= 32 and its buffers
+// within a block's dynamic shared memory.
+constexpr bool gp_narrow(int R, bool acc) {
+  return kN <= 32 && gp_narrow_bytes(R, acc) <= kGPSmemMax;
+}
+template <int R, bool kAcc>
+using GPPointFor =
+    std::conditional_t<gp_narrow(R, kAcc), GPPoint<R>, GPWidePoint>;
+
 // The inducing points whose Abar a thread keeps in registers: the most
 // that fit 128 registers beside the sweep's stage arrays (13 live a point
 // in K3's replay, 7 in K5's rk4 step) with no spills.  On an H100 at
@@ -287,10 +353,11 @@ struct GPPoint {
 // Abar all in shared memory (85 registers) and 1.28 ms at R = 12, which
 // spills; K5 0.94 ms at R = 12, against 1.02 ms with Abar all in shared
 // memory (63 registers), and spills past it.  A grid of M < R inducing
-// points keeps them all in registers.  The forwards (K1, K2, K4) take
-// GPReplayPoint as well, and so does K9: they keep no Abar, so R does not
-// reach them.
-using GPReplayPoint = GPPoint<8>;
-using GPRk4Point = GPPoint<12>;
+// points keeps them all in registers.  The forwards (K1, K2, K4) and K9
+// keep no Abar, so R does not reach them: they take GPPoint<8>'s code,
+// and one type, so that all four take the same steps.
+using GPFwdPoint = GPPointFor<8, false>;      // K1, K2, K4, K9
+using GPReplayPoint = GPPointFor<8, true>;    // K3
+using GPRk4Point = GPPointFor<12, true>;      // K5
 
 }  // namespace bode

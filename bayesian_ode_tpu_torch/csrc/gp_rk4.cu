@@ -28,35 +28,42 @@
 // shared memory; the chain's N partials are summed by warp shuffles at the
 // end, with no atomics, so gradients are deterministic; x0bar is returned
 // per chain and summed outside.  Both blocks' buffers are in dynamic
-// shared memory (any inducing grid).
+// shared memory.  Past N = 32, or where GPPoint's block passes a block's
+// shared memory, each kernel runs on GPWidePoint instead (gp_field.cuh,
+// gp_wide_field.cuh: a chain over several warps, or fewer chains a block,
+// and K5's Abar one column a chain, its points' shares summed by shuffles
+// at each term).
 #include "gp_field.cuh"
 #include "rk4_common.cuh"
 
 namespace bode {
 
-__global__ void __launch_bounds__(GPReplayPoint::kThreads,
-                                  GPReplayPoint::kMinBlocks)
+__global__ void __launch_bounds__(GPFwdPoint::kThreads,
+                                  GPFwdPoint::kMinBlocks)
 gp_rk4_fwd_kernel(const float* __restrict__ A, const float* __restrict__ x0,
                   const float* __restrict__ Z, const float* __restrict__ dts,
                   int C, int T, float sf2, float inv2ell2,
                   float* __restrict__ ys) {
-  using P = GPReplayPoint;
+  using P = GPFwdPoint;
   const int c = P::chain();
   const P fld = P::load(P::Args{A, Z, sf2, inv2ell2, 0.f}, block_smem<P>(),
                         C, c);
   if (c >= C) return;        // no warp collective follows
   const int j = P::comp(0);
+  const bool own = P::owner();   // GPWidePoint: not a mirrored point
   float y[2] = {x0[j], x0[j + 1]}, y1[2];
   float* out = ys + static_cast<size_t>(c) * kNS + j;
-  out[0] = y[0];
-  out[1] = y[1];
+  if (own) {
+    out[0] = y[0];
+    out[1] = y[1];
+  }
   const size_t row = static_cast<size_t>(C) * kNS;
   for (int t = 0; t < T - 1; ++t) {
     rk4_step<2>(fld, y, dts[t], y1);
     out += row;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      out[i] = y1[i];
+      if (own) out[i] = y1[i];
       y[i] = y1[i];
     }
   }
@@ -90,8 +97,10 @@ gp_rk4_bwd_kernel(const float* __restrict__ A, const float* __restrict__ Z,
       rk4_step_vjp<2>(fld, p, dts[t], l, acc);
     }
     // x0's own observation term
+    if (P::owner()) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) lbar[q + i] = l[i] + g[q + i];
+      for (int i = 0; i < 2; ++i) lbar[q + i] = l[i] + g[q + i];
+    }
   }
   P::acc_store(acc, P::Grads{Abar}, c < C ? c : -1);
 }
@@ -113,7 +122,7 @@ int gp_rk4_dims(int* n_points, int* n_inducing) {
 int gp_rk4_fwd(const float* A, const float* x0, const float* Z,
                const float* dts, int C, int T, float sf2, float inv2ell2,
                float* ys, cudaStream_t stream) {
-  using P = bode::GPReplayPoint;
+  using P = bode::GPFwdPoint;
   constexpr size_t bytes = bode::smem_bytes<P, false>();
   static const cudaError_t allowed =
       bode::allow_smem(bode::gp_rk4_fwd_kernel, bytes);
@@ -145,10 +154,10 @@ int gp_rk4_bwd(const float* A, const float* Z, const float* dts,
 
 // The shared memory of a block of K4 and of K5, static and dynamic.
 int gp_rk4_smem(int* bytes) {
-  using bode::GPReplayPoint;
+  using bode::GPFwdPoint;
   using bode::GPRk4Point;
   cudaError_t e = bode::kernel_smem(
-      bode::gp_rk4_fwd_kernel, bode::smem_bytes<GPReplayPoint, false>(),
+      bode::gp_rk4_fwd_kernel, bode::smem_bytes<GPFwdPoint, false>(),
       bytes);
   if (e == cudaSuccess)
     e = bode::kernel_smem(bode::gp_rk4_bwd_kernel,

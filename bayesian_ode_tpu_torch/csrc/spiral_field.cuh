@@ -37,6 +37,13 @@
 // __syncwarp() separates a lane's shared write from another lane's read:
 // the lanes of a warp do not run in lockstep.
 //
+// Past N = 16, or where one warp's SpiralBuf<7> passes the 48 KB of
+// static shared memory a block may have (H = 128 at N = 16), both
+// kernels are built on spiral_wide_field.cuh instead (BODE_SPIRAL_WIDE):
+// one warp and one chain a block, ceil(2N/32) components a lane, every
+// buffer in dynamic shared memory.  The instances below those limits keep
+// this file's design.
+//
 // tanhf is the full-precision one (no fast math).
 #pragma once
 
@@ -61,8 +68,6 @@ constexpr int kSNS = 2 * SPIRAL_N;            // state components per chain
 constexpr int kSH = SPIRAL_H;
 constexpr int kSU = (SPIRAL_H + 31) / 32;     // hidden units per lane
 constexpr int kSVec = (kSNS + 3) / 4 * 4;
-static_assert(kSNS <= 32, "one state component a lane: N <= 16");
-constexpr int kSSums = kSumWidth<kSNS>;    // warp_sum16, or 32 past N = 8
 
 // This lane's hidden units of one chain's weights (or their cotangents).
 struct SpiralUnits {
@@ -91,6 +96,71 @@ struct __align__(16) SpiralBuf {
 struct __align__(16) SpiralFwdBuf {
   float pts[kSVec];
 };
+
+// Chain c's weights w1 (C, 2, H), b1 (C, H), w2 (C, H, 2), b2 (C, 2), the
+// layout of models/spiral.py's parameters: this lane's units into u (left
+// as they are past H) and b2.
+__device__ __forceinline__ void spiral_load(SpiralUnits& u, const float* w1,
+                                            const float* b1, const float* w2,
+                                            const float* b2, int c,
+                                            int lane) {
+  const size_t cc = static_cast<size_t>(c);
+#pragma unroll
+  for (int k = 0; k < kSU; ++k) {
+    const int j = lane + 32 * k;
+    if (j < kSH) {
+      u.w1x[k] = w1[cc * 2 * kSH + j];
+      u.w1y[k] = w1[cc * 2 * kSH + kSH + j];
+      u.b1[k] = b1[cc * kSH + j];
+      u.w2x[k] = w2[(cc * kSH + j) * 2];
+      u.w2y[k] = w2[(cc * kSH + j) * 2 + 1];
+    }
+  }
+  u.b2x = b2[cc * 2];
+  u.b2y = b2[cc * 2 + 1];
+}
+
+// Chain c's weight cotangents from this lane's units, in the same layout
+// (b2's from lane 0).
+__device__ __forceinline__ void spiral_store(const SpiralUnits& u, float* w1,
+                                             float* b1, float* w2, float* b2,
+                                             int c, int lane) {
+  const size_t cc = static_cast<size_t>(c);
+#pragma unroll
+  for (int k = 0; k < kSU; ++k) {
+    const int j = lane + 32 * k;
+    if (j < kSH) {
+      w1[cc * 2 * kSH + j] = u.w1x[k];
+      w1[cc * 2 * kSH + kSH + j] = u.w1y[k];
+      b1[cc * kSH + j] = u.b1[k];
+      w2[(cc * kSH + j) * 2] = u.w2x[k];
+      w2[(cc * kSH + j) * 2 + 1] = u.w2y[k];
+    }
+  }
+  if (lane == 0) {
+    b2[cc * 2] = u.b2x;
+    b2[cc * 2 + 1] = u.b2y;
+  }
+}
+
+// The bytes of one warp's SpiralBuf<7> (a multiple of 16 as it stands),
+// and whether the kernels take the wide design: past N = 16, or past 48 KB
+// of static shared memory for one warp's buffer.
+#define BODE_SPIRAL_BUF7 \
+  (4 * (8 * ((2 * SPIRAL_N + 3) / 4 * 4) \
+        + 7 * SPIRAL_N * ((SPIRAL_H + 31) / 32) * 32))
+#define BODE_SPIRAL_WIDE (SPIRAL_N > 16 || BODE_SPIRAL_BUF7 > 48 * 1024)
+
+}  // namespace bode
+
+#if BODE_SPIRAL_WIDE
+#include "spiral_wide_field.cuh"
+#else
+
+namespace bode {
+
+static_assert(kSNS <= 32, "one state component a lane: N <= 16");
+constexpr int kSSums = kSumWidth<kSNS>;    // warp_sum16, or 32 past N = 8
 
 // kSlots > 0: the reverse sweeps' field, kSlots stage slots in
 // SpiralBuf<kSlots>; kSlots = 0: the forward's, one gathered point in a
@@ -261,20 +331,7 @@ struct SpiralWarpChains {
     f.b = &sm.warp[threadIdx.x >> 5];
     spiral_zero(f.w);
     if (c >= C) return;
-    const size_t cc = static_cast<size_t>(c);
-#pragma unroll
-    for (int k = 0; k < kSU; ++k) {
-      const int j = f.lane + 32 * k;
-      if (j < kSH) {
-        f.w.w1x[k] = a.w1[cc * 2 * kSH + j];
-        f.w.w1y[k] = a.w1[cc * 2 * kSH + kSH + j];
-        f.w.b1[k] = a.b1[cc * kSH + j];
-        f.w.w2x[k] = a.w2[(cc * kSH + j) * 2];
-        f.w.w2y[k] = a.w2[(cc * kSH + j) * 2 + 1];
-      }
-    }
-    f.w.b2x = a.b2[cc * 2];
-    f.w.b2y = a.b2[cc * 2 + 1];
+    spiral_load(f.w, a.w1, a.b1, a.w2, a.b2, c, f.lane);
   }
 };
 
@@ -332,23 +389,7 @@ struct SpiralDopri5
     return u;
   }
   static __device__ void acc_store(const Acc& acc, const Grads& g, int c) {
-    const size_t cc = static_cast<size_t>(c);
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int k = 0; k < kSU; ++k) {
-      const int j = lane + 32 * k;
-      if (j < kSH) {
-        g.w1[cc * 2 * kSH + j] = acc.w1x[k];
-        g.w1[cc * 2 * kSH + kSH + j] = acc.w1y[k];
-        g.b1[cc * kSH + j] = acc.b1[k];
-        g.w2[(cc * kSH + j) * 2] = acc.w2x[k];
-        g.w2[(cc * kSH + j) * 2 + 1] = acc.w2y[k];
-      }
-    }
-    if (lane == 0) {
-      g.b2[cc * 2] = acc.b2x;
-      g.b2[cc * 2 + 1] = acc.b2y;
-    }
+    spiral_store(acc, g.w1, g.b1, g.w2, g.b2, c, threadIdx.x & 31);
   }
 
   __device__ void stage_rhs(int slot, const float* y, float* out) const {
@@ -364,3 +405,5 @@ struct SpiralDopri5
 };
 
 }  // namespace bode
+
+#endif  // BODE_SPIRAL_WIDE

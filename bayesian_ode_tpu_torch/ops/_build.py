@@ -19,16 +19,19 @@ Each adaptive library holds both tableaus (DOPRI5 and TSIT5) and both
 forwards (recording or not); its entry points take them as arguments.
 
 `check_shape` refuses, before any build, a shape the kernels cannot take,
-with a NotImplementedError that names ROADMAP queue 1 item 19: more
-trajectory points than a warp's lanes hold (N <= 32 for the GP field's one
-point a lane and the MLP field's one component or one point a lane,
-N <= 16 for the spiral field's one state component a lane), an MLP wider
-than its lanes' units (`mlp_max_hidden`: H <= 128 at N <= 16, H <= 64 at
-N <= 32), or a block's shared memory past its limit, by the arithmetic of
-the kernels' structs (`smem_bytes`): 48 KB for the buffers a kernel keeps
-in static shared memory, 232,448 B (an sm_90 block's opt-in maximum) for
-the dynamic ones (`dynamic_smem`: the GP field's, and the MLP field's past
-H = 32 or N = 16).  Each library reports what its build allocated through
+with a NotImplementedError that names ROADMAP queue 1 item 19 and the
+limit: more trajectory points than the kernels spread (`MAX_POINTS`:
+N <= 128 for the GP field's one point a thread over up to 4 warps a chain,
+N <= 32 for the MLP field's one component or one point a lane, N <= 64
+for the spiral field's up to 4 components a lane), more inducing points
+than M <= 1,024 (`GP_MAX_INDUCING`), an MLP wider than its lanes' units
+(`mlp_max_hidden`: H <= 128 at N <= 16, H <= 64 at N <= 32), a spiral
+wider than H <= 256 (`SPIRAL_MAX_HIDDEN`), or a block's shared memory
+past its limit, by the arithmetic of the kernels' structs (`smem_bytes`):
+48 KB for the buffers a kernel keeps in static shared memory, 232,448 B
+(an sm_90 block's opt-in maximum) for the dynamic ones (`dynamic_smem`:
+the GP field's, the MLP field's past H = 32 or N = 16, the spiral's past
+N = 16 or 48 KB).  Each library reports what its build allocated through
 its `*_smem` entry points (`built_smem`), which the card tests hold to
 that arithmetic.
 
@@ -99,18 +102,22 @@ def _adaptive(field: str, headers: Tuple[str, ...], defines: Tuple[str, ...],
 
 
 FAMILIES: Dict[str, Family] = {
-    "gp_dopri5": _adaptive("gp", ("gp_field.cuh", "warp.cuh"),
+    "gp_dopri5": _adaptive("gp", ("gp_field.cuh", "gp_wide_field.cuh",
+                                  "warp.cuh"),
                            ("GP_N", "GP_M"), 2, 3, 1),
     "mlp_dopri5": _adaptive("mlp", ("mlp_field.cuh", "mlp_wide_field.cuh",
                                     "warp.cuh"),
                             ("MLP_N", "MLP_H"), 6, 0, 6),
-    "spiral_dopri5": _adaptive("spiral", ("spiral_field.cuh", "warp.cuh"),
+    "spiral_dopri5": _adaptive("spiral", ("spiral_field.cuh",
+                                          "spiral_wide_field.cuh",
+                                          "warp.cuh"),
                                ("SPIRAL_N", "SPIRAL_H"), 4, 0, 4),
     "fhn_dopri5": _adaptive("fhn", ("fhn_field.cuh", "warp.cuh"), ("FHN_N",),
                             3, 0, 3),
     "gp_rk4": Family(
         ("gp_rk4.cu",),
-        ("rk4_common.cuh", "field_stages.cuh", "gp_field.cuh", "warp.cuh"),
+        ("rk4_common.cuh", "field_stages.cuh", "gp_field.cuh",
+         "gp_wide_field.cuh", "warp.cuh"),
         ("GP_N", "GP_M"), "gp_rk4_dims",
         {"gp_rk4_fwd": [_P] * 4 + [_I, _I] + [_F] * 2 + [_P, _P],
          "gp_rk4_bwd": [_P] * 5 + [_I, _I] + [_F] * 3 + [_P] * 3,
@@ -128,7 +135,7 @@ FAMILIES: Dict[str, Family] = {
     "gp_dopri5_step": Family(
         ("gp_dopri5_step.cu",),
         ("dopri5_common.cuh", "dopri5_kernels.cuh", "field_stages.cuh",
-         "gp_field.cuh", "warp.cuh"),
+         "gp_field.cuh", "gp_wide_field.cuh", "warp.cuh"),
         ("GP_N", "GP_M"), "gp_dopri5_step_dims",
         {"gp_dopri5_interval": [_P] * 2 + [_F] * 3 + [_P] + [_I] * 3
                                + [_F] * 5 + [_P] * 11 + [_P],
@@ -145,19 +152,20 @@ FAMILIES: Dict[str, Family] = {
         {"svgd_phi_smem": ("phi",) * 3 + ("combine",)}),
 }
 
-# The shape limits of check_shape (csrc/: one GP trajectory point a lane,
-# gp_field.cuh; one MLP state component a lane to N = 16 and one point a
-# lane past it, mlp_field.cuh and mlp_wide_field.cuh; one spiral state
-# component a lane, spiral_field.cuh), and the shared memory a block may
-# have: 48 KB static, 232,448 B dynamic on sm_90 (the build's only target).
-MAX_POINTS = {"gp_dopri5": 32, "gp_rk4": 32, "gp_dopri5_step": 32,
-              "mlp_dopri5": 32, "mlp_rk4": 32, "spiral_dopri5": 16}
+# The shape limits of check_shape (csrc/: one GP trajectory point a
+# thread, a chain over up to 4 warps past N = 32, gp_field.cuh and
+# gp_wide_field.cuh; one MLP state component a lane to N = 16 and one point
+# a lane past it, mlp_field.cuh and mlp_wide_field.cuh; one spiral state
+# component a lane to N = 16 and up to 4 past it, spiral_field.cuh and
+# spiral_wide_field.cuh), and the shared memory a block may have: 48 KB
+# static, 232,448 B dynamic on sm_90 (the build's only target).
+GP_FAMILIES = ("gp_dopri5", "gp_rk4", "gp_dopri5_step")
+MAX_POINTS = {"gp_dopri5": 128, "gp_rk4": 128, "gp_dopri5_step": 128,
+              "mlp_dopri5": 32, "mlp_rk4": 32, "spiral_dopri5": 64}
+GP_MAX_INDUCING = 1024
+SPIRAL_MAX_HIDDEN = 256
 STATIC_SMEM_MAX = 48 * 1024
 DYNAMIC_SMEM_MAX = 232_448
-# the families whose kernels keep their block's buffers in dynamic shared
-# memory at every shape (the GP field's kDynamicSmem); the MLP field's do
-# past H = 32 or N = 16 (mlp_wide)
-DYNAMIC_SMEM = ("gp_dopri5", "gp_rk4", "gp_dopri5_step")
 ITEM_19 = "ROADMAP queue 1 item 19"
 
 
@@ -175,11 +183,70 @@ def mlp_wide(shape: Tuple[int, ...]) -> bool:
     return H > 32 or N > 16
 
 
+def _spiral_buf(N: int, H: int) -> int:
+    """The bytes of one warp's SpiralBuf<7> (csrc/spiral_field.cuh): 7
+    stage points and a cotangent of 2N floats padded to 4, and each stage
+    point's tanh values, N x ceil(H/32) x 32 floats (a multiple of 16 B)."""
+    return 4 * (8 * _round_up(2 * N, 4) + 7 * N * -(-H // 32) * 32)
+
+
+def spiral_wide(shape: Tuple[int, ...]) -> bool:
+    """Whether a spiral library of shape (N, H) is built on
+    csrc/spiral_wide_field.cuh (past N = 16, or where one warp's SpiralBuf<7>
+    passes 48 KB: BODE_SPIRAL_WIDE) rather than spiral_field.cuh's one
+    component a lane."""
+    N, H = shape
+    return N > 16 or _spiral_buf(N, H) > STATIC_SMEM_MAX
+
+
+class GPBlock(NamedTuple):
+    """A GP kernel's block (csrc/gp_field.cuh, gp_wide_field.cuh): its
+    threads and chains, whether it is GPWidePoint's, and its dynamic
+    shared-memory bytes."""
+    threads: int
+    chains: int
+    wide: bool
+    smem: int
+
+
+def gp_block(shape: Tuple[int, ...], R: int, acc: bool) -> GPBlock:
+    """The block of the GP kernel on GPPoint<R> (with the Abar columns of a
+    sweep where `acc`) at (N, M), or on GPWidePoint where that block passes
+    N = 32 or DYNAMIC_SMEM_MAX (gp_field.cuh's gp_narrow): 8 B an inducing
+    point a chain for A, 8 B one for Z; GPPoint's sweeps 1,024 B one past R
+    for its threads' Abar columns, GPWidePoint's 8 B one a chain (past
+    N = 32 one a warp), and 8 B a point for the error norm past N = 32."""
+    N, M = shape
+    if N <= 32:
+        chains = 4 * (32 // N)
+        kR = min(R, M)
+        narrow = 8 * (M * chains + M) + (
+            8 * ((M - kR) * 128 + (kR == M)) if acc else 0)
+        if narrow <= DYNAMIC_SMEM_MAX:
+            return GPBlock(128, chains, False, narrow)
+    warps_a_chain = -(-N // 32)
+    if warps_a_chain > 1:
+        warps, chains, segs = warps_a_chain, 1, warps_a_chain
+    else:
+        per_warp = min(32 // N, (DYNAMIC_SMEM_MAX - 8 * M) // (16 * M))
+        warps = 4
+        while warps > 1 and 16 * M * per_warp * warps + 8 * M \
+                > DYNAMIC_SMEM_MAX:
+            warps //= 2
+        chains = segs = warps * per_warp
+    sm = 8 * (M * chains + M + (N if warps_a_chain > 1 else 1))
+    return GPBlock(32 * warps, chains, True,
+                   sm + (8 * M * segs if acc else 0))
+
+
 def dynamic_smem(family: str, shape: Tuple[int, ...]) -> bool:
     """Whether the library's kernels keep their buffers in dynamic shared
-    memory."""
-    return family in DYNAMIC_SMEM or (family.startswith("mlp")
-                                      and mlp_wide(shape))
+    memory: the GP field's at every shape (kDynamicSmem), the MLP field's
+    past H = 32 or N = 16 (mlp_wide), the spiral's past N = 16 or 48 KB
+    (spiral_wide)."""
+    return (family in GP_FAMILIES
+            or (family.startswith("mlp") and mlp_wide(shape))
+            or (family == "spiral_dopri5" and spiral_wide(shape)))
 
 
 def _round_up(n: int, a: int) -> int:
@@ -201,19 +268,13 @@ def smem_bytes(family: str, shape: Tuple[int, ...]) -> Dict[str, int]:
     csrc/ (sizeof of arrays of float and float2; MLPBuf, MLPFwdBuf,
     SpiralBuf and SpiralFwdBuf aligned to 16 B)."""
     f4 = 4
-    if family in ("gp_dopri5", "gp_rk4", "gp_dopri5_step"):
-        N, M = shape
-        chains = 128 // 32 * (32 // N)          # GPPoint::kChains
-
-        def acc(R):                             # GPPoint<R>::AccSmem
-            kR = min(R, M)
-            return 8 * ((M - kR) * 128 + (kR == M))
-
-        sm = 8 * (M * chains + M)               # GPPoint::Smem: A, Z
+    if family in GP_FAMILIES:
+        # GPFwdPoint (K1, K2, K4, K9), GPReplayPoint (K3), GPRk4Point (K5)
+        fwd = gp_block(shape, 8, False).smem
         if family == "gp_dopri5_step":
-            return {"step": sm}
-        R = 8 if family == "gp_dopri5" else 12  # GPReplayPoint, GPRk4Point
-        return {"fwd": sm, "bwd": sm + acc(R)}
+            return {"step": fwd}
+        R = 8 if family == "gp_dopri5" else 12
+        return {"fwd": fwd, "bwd": gp_block(shape, R, True).smem}
     if family in ("mlp_rk4", "mlp_dopri5"):
         N, H = shape
         h4 = _round_up(H, 4)
@@ -240,13 +301,15 @@ def smem_bytes(family: str, shape: Tuple[int, ...]) -> Dict[str, int]:
         return {"fwd": 4 * fwd_buf,
                 "bwd": _warps_fitting(most, buf(slots)) * buf(slots)}
     if family == "spiral_dopri5":
-        # the forward's 4 warps each gather the point (SpiralFwdBuf); the
-        # backward's keep 7 stage slots and a cotangent (SpiralBuf<7>)
+        # the forward's warps each gather the point (SpiralFwdBuf); the
+        # backward's keep 7 stage slots and a cotangent (SpiralBuf<7>): 4
+        # warps a block, or fewer to fit 48 KB; past N = 16 or 48 KB one
+        # warp, dynamic (spiral_wide_field.cuh)
         N, H = shape
-        vec = _round_up(2 * N, 4)
-        buf = _round_up(f4 * (8 * vec + 7 * N * -(-H // 32) * 32), 16)
-        return {"fwd": 4 * _round_up(f4 * vec, 16),
-                "bwd": _warps_fitting(4, buf) * buf}
+        fwd, buf = _round_up(f4 * _round_up(2 * N, 4), 16), _spiral_buf(N, H)
+        if spiral_wide(shape):
+            return {"fwd": fwd, "bwd": buf}
+        return {"fwd": 4 * fwd, "bwd": _warps_fitting(4, buf) * buf}
     if family == "fhn_dopri5":
         # theta in registers and the error norm by shuffles: no buffers
         return {"fwd": 0, "bwd": 0}
@@ -271,12 +334,23 @@ def check_shape(family: str, shape: Tuple[int, ...]) -> None:
     if any(s < 1 for s in shape):
         raise ValueError(f"{family}: shape {shape} must be positive")
     if family in MAX_POINTS and shape[0] > MAX_POINTS[family]:
-        what = ("one trajectory point a lane" if family.startswith("gp")
+        what = ("one trajectory point a thread, a chain over at most 4 "
+                "warps" if family in GP_FAMILIES
                 else "at most one trajectory point a lane"
-                if family.startswith("mlp") else "one state component a lane")
+                if family.startswith("mlp")
+                else "at most 4 state components a lane")
         raise NotImplementedError(
             f"{family} at N={shape[0]}: the kernels hold {what}, N <= "
             f"{MAX_POINTS[family]} ({ITEM_19})")
+    if family in GP_FAMILIES and shape[1] > GP_MAX_INDUCING:
+        raise NotImplementedError(
+            f"{family} at M={shape[1]} inducing points: the kernels take "
+            f"M <= {GP_MAX_INDUCING}, a 32 x 32 grid ({ITEM_19})")
+    if family == "spiral_dopri5" and shape[1] > SPIRAL_MAX_HIDDEN:
+        raise NotImplementedError(
+            f"spiral hidden width {shape[1]}: the kernels hold at most "
+            f"{SPIRAL_MAX_HIDDEN // 32} hidden units a lane, H <= "
+            f"{SPIRAL_MAX_HIDDEN} ({ITEM_19})")
     if family.startswith("mlp") and shape[1] > mlp_max_hidden(shape[0]):
         most = mlp_max_hidden(shape[0])
         raise NotImplementedError(

@@ -3,8 +3,9 @@
 Counterpart of `bayesian_ode_tpu/ops/gp_field.py`.  The weights are
 (A (C, M, 2), Z (M, 2)): A per chain gets the cotangent, the inducing grid
 Z is shared by all chains and stays one copy in each block's shared memory
-(`csrc/gp_field.cuh::GPPoint`, one thread per trajectory point), where the
-TPU engine replicated it per chain.  `gp_field_trajectory` takes `method="dopri5"` or `"tsit5"`.
+(`csrc/gp_field.cuh::GPPoint`, one thread per trajectory point; past
+N = 32 or a block's shared memory `csrc/gp_wide_field.cuh::GPWidePoint`,
+to N = 128 and M = 1,024), where the TPU engine replicated it per chain.  `gp_field_trajectory` takes `method="dopri5"` or `"tsit5"`.
 
 The GP adapters of `ops/gp_dopri5.py` and `ops/gp_dopri5_grad.py` are this
 registration at DOPRI5: one path, the same kernels.  The Hairer start step

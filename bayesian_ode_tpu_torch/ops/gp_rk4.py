@@ -5,8 +5,9 @@ Counterpart of `bayesian_ode_tpu/ops/gp_rk4.py`.  The TPU kernels
 `_make_fwd_kernel` (K4) and `_make_bwd_kernel` (K5) become the CUDA
 kernels `gp_rk4_fwd` and `gp_rk4_bwd` of `csrc/gp_rk4.cu`, both one
 thread per trajectory point on the GP field functor `GPPoint` of
-`csrc/gp_field.cuh` (N <= 32, any inducing grid whose block buffers fit
-an H100 block's shared memory: `_build.check_shape`) and the rk4
+`csrc/gp_field.cuh` (or `GPWidePoint`, `csrc/gp_wide_field.cuh`, past
+N = 32 or where GPPoint's block passes an H100 block's shared memory; to
+N = 128 and M = 1,024 inducing points: `_build.check_shape`) and the rk4
 templates of `csrc/rk4_common.cuh`:
 
   - forward: all T-1 steps of the 3/8 rule on the output grid, storing

@@ -8,11 +8,13 @@ reference spiral demo (`models/spiral.py`) with per-chain weights,
 weights {'w1' (C, 2, H), 'b1' (C, H), 'w2' (C, H, 2), 'b2' (C, 2)}.  The
 kernels are the engine's templates over `csrc/spiral_field.cuh`
 (`SpiralDopri5Fwd` for the forward, `SpiralDopri5` for the replay: one
-warp per chain, ceil(H/32) units per lane; N <= 16 trajectories, one
-state component a lane, and as many hidden units as keep a warp's buffer
-in 48 KB of shared memory: a shape past those raises NotImplementedError
-before the build, `_build.check_shape`); the plain field and its
-hand-written VJP are below, in batched torch.
+warp per chain, ceil(H/32) units per lane; to N = 16 one state component
+a lane, with a warp's buffer in 48 KB of static shared memory; past that
+`csrc/spiral_wide_field.cuh`, ceil(2N/32) components a lane and one
+chain a block in dynamic shared memory, to N = 64 and H = 256 where its
+block fits: a shape past those raises NotImplementedError before the
+build, `_build.check_shape`); the plain field and its hand-written VJP
+are below, in batched torch.
 """
 from __future__ import annotations
 

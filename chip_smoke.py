@@ -136,6 +136,16 @@ the plain replay of K2's records), each instance's ms, plain ms, bound,
 registers and warps an SM; then `run_sampler(model="nn", hidden=128)`
 under pSGLD at rk4 (K6, K7) and at dopri5 (MLP K2, K3; store_steps 128),
 their launches counted and the worst accepted steps printed (phase 40).
+Then the GP and spiral fields past one warp or a block's shared memory
+(csrc/gp_wide_field.cuh, csrc/spiral_wide_field.cuh; after phase 40):
+K1, K2 (DOPRI5, TSIT5), K3, K4, K5 and K9 at (N, M) = (64, 36), (5, 400)
+and (5, 1,024) at 10,112 chains against their plain versions on the
+first 640 (and the rk4 pair against float64 where two float32 orders
+part past 1e-5), spiral K2/K3 at (N, H) = (32, 50), (16, 128) and
+(32, 128), each instance's ms, plain ms, bound, registers, spills,
+dynamic shared memory, warps an SM and waves; then `run_sampler` at
+M = 20 (dopri5 and rk4 SGLD), at M = 6 on 64 trajectories and the spiral
+at H = 128 on 16 under pSGLD, their launches counted (phase 41).
 The generic phases run at cut depths that keep the script inside its
 time limit, each cut printed against the driver's default: phase 27's
 SMC at 1 move a stage (5); phase 28's ADVI at 3 iterations (2,000),
@@ -169,11 +179,13 @@ plain version, times and bound (and the registers, warps an SM and waves
 of spiral K2, FHN K2 and K3 and K9, and K9's device time a solve, and
 for K1, K4 and K5 their launches in phase 39 apart from the main path's,
 `sharded_launches`, and for K6, K7 and the MLP K2 and K3 rows their wide
-instances of phase 40, `wide`); the last line is
+instances of phase 40, for the GP and spiral rows those of phase 41,
+`wide`); the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -428,6 +440,21 @@ def cuda_ms(fn, reps, warmup=0):
     return start.elapsed_time(end) / reps
 
 
+def timed(fn):
+    """(fn(), its milliseconds by CUDA events): one call, for the plain
+    versions, whose one call is both the comparison and the time."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def max_rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
@@ -566,7 +593,8 @@ def ptxas_summary(family, shape, log):
             mangled = m.group(1)
             parts = re.findall(r"(dopri5_fwd|dopri5_bwd|dopri5_step"
                                r"|svgd_phi|gp_rk4_fwd|gp_rk4_bwd"
-                               r"|mlp_rk4_fwd|mlp_rk4_bwd|GPDopri5|GPPoint"
+                               r"|mlp_rk4_fwd|mlp_rk4_bwd|GPDopri5"
+                               r"|GPWidePoint|GPPoint"
                                r"|MLPDopri5Fwd|MLPDopri5|SpiralDopri5Fwd"
                                r"|SpiralDopri5|FHNPoint|FHNDopri5|Dopri5"
                                r"|Tsit5|Lb[01]"
@@ -622,8 +650,15 @@ def block_of(lib, name):
     from bayesian_ode_tpu_torch.ops import _build
 
     family, shape = lib
-    if family.startswith("mlp") and _build.mlp_wide(shape):
+    if (family.startswith("mlp") and _build.mlp_wide(shape)) or (
+            family == "spiral_dopri5" and _build.spiral_wide(shape)):
         return 32, 1
+    if family in _build.GP_FAMILIES:
+        # GPPoint's or GPWidePoint's (K5 on GPRk4Point, K3 GPReplayPoint)
+        R = 12 if name == "gp_rk4_bwd" else 8
+        block = _build.gp_block(shape, R, name.endswith("bwd")
+                                or name.startswith("dopri5_bwd"))
+        return block.threads, block.chains
     return OCCUPANCY_BLOCKS[family, name]
 
 
@@ -879,6 +914,511 @@ def mlp_wide_path(cfg, data, dev, smi, occupied):
             for name in path:
                 wide[name][0]["launches"] = delta[name]
     print(f"phase 40: {time.perf_counter() - t_start:.1f} s ({smi})")
+    return wide
+
+
+# ---- the GP and spiral fields past one warp or a block (phase 41) ----
+# (N, M) of the wide GP instances at full width: 64 trajectories on the
+# driver's 6x6 grid (csrc/gp_wide_field.cuh: every kernel on GPWidePoint,
+# a chain over 2 warps), and the driver's 5 on 20x20 and 32x32 grids (K3
+# and K5 on GPWidePoint, one Abar column a chain; the forwards and K9 on
+# GPPoint, at 80,000 and 204,800 B a block)
+GP_WIDE = ((64, 36), (5, 400), (5, 1024))
+# the kernel's length scale by grid side: the driver's 0.75 at 6x6; on the
+# Van der Pol data its 20x20 and 32x32 kernel matrices are singular in
+# float64 (Cholesky fails), while 0.25 leaves smallest eigenvalues of
+# 1.2e-3 and 2.9e-10.  A shorter scale is a rougher field, whose solves
+# take more steps (the largest record count is printed against
+# store_steps)
+GP_WIDE_ELL = {6: 0.75, 20: 0.25, 32: 0.25}
+# (N, H) of the wide spiral instances (csrc/spiral_wide_field.cuh): two
+# components a lane, one warp's stage buffer past 48 KB, both
+SPIRAL_WIDE_SHAPES = ((32, 50), (16, 128), (32, 128))
+# the GP instances' plain versions run on their first chains only: each
+# chain's solve and sweep is its own, and at full width their (C, N, M)
+# kernel matrices take 10-30 s a call (plain K9 at N=5, M=36: 0.8 s); 640
+# chains, whole tiles of 128 as the per-step solver takes
+WIDE_PLAIN_CHAINS = 640
+WIDE_GP_KERNELS = ("gp_dopri5_solve_whole", "gp_dopri5_fwd_record",
+                   "gp_tsit5_fwd_record", "gp_dopri5_bwd", "gp_rk4_fwd",
+                   "gp_rk4_bwd", "gp_dopri5_step")
+WIDE_SPIRAL_KERNELS = ("spiral_dopri5_fwd_record", "spiral_dopri5_bwd")
+WIDE_LIBRARIES = [
+    *((family, shape) for shape in GP_WIDE
+      for family in ("gp_dopri5", "gp_rk4", "gp_dopri5_step")),
+    *(("spiral_dopri5", shape) for shape in SPIRAL_WIDE_SHAPES)]
+# the driver paths at the new shapes: (label, config changes, data's N,
+# kernels launched once a step plus init, and K1 once at init)
+WIDE_DRIVER_RUNS = (
+    ("gp dopri5 SGLD at M=20", dict(M=20, ell=GP_WIDE_ELL[20]), 5,
+     ("gp_dopri5_fwd_record", "gp_dopri5_bwd"), (5, 400)),
+    ("gp dopri5 SGLD at M=6, N=64", dict(M=6), 64,
+     ("gp_dopri5_fwd_record", "gp_dopri5_bwd"), (64, 36)),
+    ("gp rk4 SGLD at M=20", dict(M=20, ell=GP_WIDE_ELL[20], solver="rk4"),
+     5, ("gp_rk4_fwd", "gp_rk4_bwd"), (5, 400)),
+    ("spiral pSGLD at H=128, N=16", dict(model="spiral", hidden=128,
+                                         method="pSGLD"), 16,
+     ("spiral_dopri5_fwd_record", "spiral_dopri5_bwd"), (16, 128)))
+
+
+def graphed(rhs):
+    """rhs(y) captured as one CUDA graph per input shape and dtype, then
+    replayed: the same kernels on the same inputs, so the same bits, in one
+    launch where the GP field's plain evaluation launches two a term of
+    its ordered sum over the inducing points (2,048 at M = 1,024)."""
+    import torch
+
+    graphs = {}
+
+    def call(y):
+        key = (tuple(y.shape), y.dtype)
+        if key not in graphs:
+            y_in = y.clone()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                rhs(y_in)                           # warm-up, uncaptured
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = rhs(y_in)
+            graphs[key] = (graph, y_in, out)
+        graph, y_in, out = graphs[key]
+        y_in.copy_(y)
+        graph.replay()
+        return out.clone()
+
+    return call
+
+
+@contextlib.contextmanager
+def graphed_gp_plain():
+    """The GP field's plain versions (K1-K5 and K9's, built on
+    ops/gp_dopri5.py's _make_rhs, as gp_field and gp_rk4 take it) with
+    their evaluations graphed (`graphed`), within the block."""
+    from bayesian_ode_tpu_torch.ops import gp_dopri5, gp_field, gp_rk4
+
+    make = gp_dopri5._make_rhs
+    modules = (gp_dopri5, gp_field, gp_rk4)
+    for module in modules:
+        module._make_rhs = lambda *args: graphed(make(*args))
+    try:
+        yield
+    finally:
+        for module in modules:
+            module._make_rhs = make
+
+
+def _vdp_data(n_points, T):
+    """The driver's Van der Pol data set (config 1's generator) at
+    n_points trajectories."""
+    from bayesian_ode_tpu_torch.models import make_dataset
+
+    return make_dataset(seed=2, ode="vdp", N=n_points, T=T, t_max=6.0,
+                        noise=0.05, x0_scale=1.5)
+
+
+def _wide_row(occupied, family, shape, ptxas_name, kind, **row):
+    """A `wide` entry of the kernels line: the instance's numbers and its
+    registers, spills, warps an SM, waves and dynamic shared memory."""
+    from bayesian_ode_tpu_torch.ops import _build
+
+    occ = occupied.get(((family, shape), ptxas_name), {})
+    return dict(shape=list(shape), **row, **occ,
+                dynamic_smem=_build.smem_bytes(family, shape)[kind])
+
+
+def gp_spiral_wide_path(cfg, data, dev, smi, occupied):
+    """Phase 41: the GP kernels (K1, K2 at DOPRI5 and TSIT5, K3, K4, K5,
+    K9) at each GP_WIDE shape and spiral K2/K3 at each SPIRAL_WIDE_SHAPES
+    shape, at 10,112 chains, T=60 to t=6, against their plain versions at
+    the main path's gates, on the first WIDE_PLAIN_CHAINS chains for the
+    GP plain versions: K1 (through K2, bit-equal to it) and K2 TSIT5
+    within 1e-4 max|y| of the plain step arithmetic replayed on their own
+    records, as phase 17 holds the spiral (two float32 solves' meshes part
+    here: their distance, near 1e-4 of max|y|, printed), mean NFE within
+    1% of the plain solve's; K3 within 1e-3 max-rel of the plain replay of
+    K2's own records; K4 within 1e-5 max|y| and K5 within 1e-5 max-rel of
+    plain, or where the two float32 orders part by more (M = 1,024), no
+    further from the float64 version than 2x the plain float32 version
+    (floor 1e-5; K8's gate); K9's counters equal to K1's on every chain
+    and its trajectories within 5e-6 of them (the GP plain versions with
+    their field evaluations replayed as CUDA graphs, `graphed_gp_plain`).
+    The spiral's K2 within 1e-4 max|y| of the plain step arithmetic
+    replayed on its own records (as phase 17; the plain solve's difference
+    printed), mean NFE within 2% of the plain solve's, K3 within 1e-3 of
+    the plain replay.  Each instance's ms (CUDA
+    events), plain ms, bound, registers, spills, dynamic shared memory,
+    warps an SM and waves are printed.  Then the driver at the new shapes
+    (WIDE_DRIVER_RUNS, 1 + 2 steps each, store_steps 128), the launch
+    counters set to 0 just before each run and read just after: the path's
+    kernels once a step plus init (and K1 once, the dopri5 GP paths'
+    probe), no other; potentials finite; the worst accepted steps printed.
+    Returns {kernel: [each wide instance's entry]} for the kernels line."""
+    import numpy as np
+    import torch
+
+    from bayesian_ode_tpu_torch.experiments import run_sampler
+    from bayesian_ode_tpu_torch.models import kernel_regression as kr
+    from bayesian_ode_tpu_torch.models import spiral as spiral_model
+    from bayesian_ode_tpu_torch.ops import _build, gp_rk4
+    from bayesian_ode_tpu_torch.ops import fused_adaptive as fa
+    from bayesian_ode_tpu_torch.ops import fused_field as ff
+    from bayesian_ode_tpu_torch.ops.gp_dopri5 import (
+        gp_dopri5_solve,
+        gp_dopri5_solve_plain,
+    )
+    from bayesian_ode_tpu_torch.ops.gp_field import gp_field
+    from bayesian_ode_tpu_torch.ops.spiral_dopri5 import spiral_field
+
+    f32 = torch.float32
+    C, S, n = N_CHAINS, STORE_STEPS, WIDE_PLAIN_CHAINS
+    ts = data["t"].to(dev, f32)
+    T = ts.shape[0]
+    dts = torch.diff(ts).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(41)
+    wide = {name: [] for name in WIDE_GP_KERNELS + WIDE_SPIRAL_KERNELS}
+    t_start = time.perf_counter()
+    wave = max(build_seconds(_build.build_log(*lib))
+               for lib in WIDE_LIBRARIES)
+    print(f"phase 41: its libraries done {wave:.1f} s into the nvcc wave")
+
+    def gp_instance(N, M):
+        side = math.isqrt(M)
+        d = data if N == data["x0"].shape[0] else _vdp_data(N, T)
+        static = kr.make_static(kr.make_inducing_grid(d["Y"], M=side),
+                                sf=1.0, ell=GP_WIDE_ELL[side])
+        U0 = kr.init_params(d["Y"], d["t"], static, noise=0.05)["U"]
+        s32 = kr.GPVectorFieldStatic(
+            Z=static.Z.to(dev, f32), KzzinvL=static.KzzinvL.to(dev, f32),
+            Kzzinv=static.Kzzinv.to(dev, f32), sf=static.sf, ell=static.ell)
+        U = U0.to(dev, f32)[None] + 3e-3 * torch.randn(
+            (C, M, 2), generator=gen, device=dev, dtype=f32)
+        A = torch.einsum("mk,ckd->cmd", s32.KzzinvL, U).contiguous()
+        Z = s32.Z.contiguous()
+        x0 = d["x0"].to(dev, f32).contiguous()
+        field = gp_field(s32.sf, s32.ell)
+        w, wn = (A, Z), (A[:n].contiguous(), Z)
+        x0b, f0, dt0 = ff._start(field, w, x0, RTOL, ATOL)
+        ctrl = (RTOL, ATOL, 0.9, 10.0, 0.2, 100_000, "i")
+        args = (field, w, x0b, f0, dt0, ts) + ctrl
+        rhs_n, vjp_n = field.make_rhs(wn), field.make_rhs_vjp(wn)
+        plain_args = (rhs_n, x0b[:n], f0[:n], dt0[:n], ts) + ctrl
+        label = (f"N={N} M={M} ({side}x{side}, ell {GP_WIDE_ELL[side]}); "
+                 f"plain on the first {n} chains, its field graphed")
+        lines = []
+
+        # K1, K2 (DOPRI5, TSIT5); the plain solves timed as they run
+        ys1, nfe1, nacc1, nrej1, _, _ = fa.fwd(*args, record=False)
+        ys2, _, nacc2, _, _, rec2 = fa.fwd(*args, record=True,
+                                           store_steps=S)
+        ys2t, nfe2t, nacc2t, nrej2t, _, rec2t = fa.fwd(
+            *args, record=True, store_steps=S, method="tsit5")
+        (ys1p, nfe1p, *_), ms1p = timed(lambda: fa.fwd_plain(*plain_args))
+        (ys2tp, nfe2tp, *_), ms2tp = timed(lambda: fa.fwd_plain(
+            *plain_args, store_steps=S, tableau=fa.TABLEAUS["tsit5"]))
+        ys1r = replay_dense_output(rhs_n, rec2[:, :, :n], nacc2[:n], x0b[:n],
+                                   ts, fa.TABLEAUS["dopri5"])
+        ys2tr = replay_dense_output(rhs_n, rec2t[:, :, :n], nacc2t[:n],
+                                    x0b[:n], ts, fa.TABLEAUS["tsit5"])
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(ys1).all()), f"phase 41 K1 {label} finite")
+        check(torch.equal(ys2, ys1), f"phase 41 K2 {label} bit-equal to K1")
+        worst = max(int(nacc2.max()), int(nacc2t.max()))
+        check(worst <= S, f"phase 41 {label}: records within store_steps")
+        fwd_rows = {}
+        for tab, ys, ysp, ysr, nfe, nfep in (
+                ("DOPRI5", ys1, ys1p, ys1r, nfe1, nfe1p),
+                ("TSIT5", ys2t, ys2tp, ys2tr, nfe2t, nfe2tp)):
+            scale = float(ysp.abs().max())
+            err = float((ys[:, :n] - ysr).abs().max())
+            err_solve = float((ys[:, :n] - ysp).abs().max())
+            mk, mp = float(nfe[:n].float().mean()), float(nfep.float().mean())
+            check(bool(torch.isfinite(ys).all()) and err <= 1e-4 * scale,
+                  f"phase 41 K2 {tab} {label} within 1e-4 max|y| of plain "
+                  "on its records")
+            check(abs(mk - mp) <= 0.01 * mp,
+                  f"phase 41 K2 {tab} {label} mean NFE within 1% of plain")
+            lines.append(f"K1/K2 {tab}: max|ys - plain on its records| "
+                         f"{err:.3e}, max|ys - plain solve| {err_solve:.3e} "
+                         f"(max|y| {scale:.4g}), mean NFE {mk:.3f} vs plain "
+                         f"{mp:.3f}")
+            fwd_rows[tab] = err
+        lines.append(f"K2 bit-equal to K1; largest record count {worst}/{S}")
+        del ys1p, ys2tp, ys1r, ys2tr, ys2t
+        ms1 = cuda_ms(lambda: fa._launch_fwd(*args, record=False,
+                                             store_steps=0,
+                                             method="dopri5"), 3, warmup=1)
+        ms2 = cuda_ms(lambda: fa._launch_fwd(*args, record=True,
+                                             store_steps=S,
+                                             method="dopri5"), 3, warmup=1)
+        ms2t = cuda_ms(lambda: fa._launch_fwd(*args, record=True,
+                                              store_steps=S,
+                                              method="tsit5"), 3, warmup=1)
+        attempts = int((nacc1 + nrej1).sum())
+        accepted = int(nacc1.sum())
+        (b1, by1), _ = adaptive_bounds("gp", M, C, N, T, nbytes(w),
+                                       nbytes(w[:1]), attempts, accepted,
+                                       record=False)
+        (b2, by2), (b3, by3) = adaptive_bounds("gp", M, C, N, T, nbytes(w),
+                                               nbytes(w[:1]), attempts,
+                                               accepted)
+        (b2t, by2t), _ = adaptive_bounds("gp", M, C, N, T, nbytes(w),
+                                         nbytes(w[:1]),
+                                         int((nacc2t + nrej2t).sum()),
+                                         int(nacc2t.sum()))
+        del rec2t
+
+        # K3 on K2's records
+        g = torch.randn(ys2.shape, generator=gen, device=dev, dtype=f32)
+        (Abar3,), lbar3 = fa.bwd(field, w, ts, rec2, nacc2, g)
+        recn = rec2[:, :, :n].contiguous()
+        gn = g[:, :n].contiguous()
+        ((Abar3p,), lbar3p), ms3p = timed(lambda: fa.bwd_plain(
+            rhs_n, vjp_n, wn[:1], ts, recn, nacc2[:n], gn))
+        torch.cuda.synchronize()
+        rel3 = max(max_rel(Abar3[:n], Abar3p), max_rel(lbar3[:n], lbar3p))
+        check(bool(torch.isfinite(Abar3).all() and torch.isfinite(lbar3).all())
+              and rel3 <= 1e-3,
+              f"phase 41 K3 {label} within 1e-3 of the plain replay")
+        err3 = float((Abar3[:n] - Abar3p).abs().max())
+        ms3 = cuda_ms(lambda: fa._launch_bwd(field, w, ts, rec2, nacc2, g,
+                                             "dopri5"), 3, warmup=1)
+        lines.append(f"K3: max-rel {rel3:.3e} vs the plain replay of its "
+                     "records")
+        del rec2, Abar3, Abar3p, ys2, recn, gn
+
+        # K4, K5: within 1e-5 of plain, or, where two float32 orders part
+        # by more, no further from the float64 version than 2x the plain
+        # float32 version (floor 1e-5)
+        ys4 = gp_rk4.gp_rk4_fwd(A, Z, x0, dts, s32.sf, s32.ell)
+        ys4p, ms4p = timed(lambda: gp_rk4.gp_rk4_fwd_plain(
+            wn[0], Z, x0, dts, s32.sf, s32.ell))
+        g4 = torch.randn(ys4.shape, generator=gen, device=dev, dtype=f32)
+        ys4n, g4n = ys4[:, :n].contiguous(), g4[:, :n].contiguous()
+        Abar5, lbar5 = gp_rk4.gp_rk4_bwd(A, Z, ys4, g4, dts, s32.sf, s32.ell)
+        (Abar5p, lbar5p), ms5p = timed(lambda: gp_rk4.gp_rk4_bwd_plain(
+            wn[0], Z, ys4n, g4n, dts, s32.sf, s32.ell))
+        w64 = (wn[0].double(), Z.double())
+        ys4_64 = gp_rk4.gp_rk4_fwd_plain(*w64, x0.double(), dts.double(),
+                                         s32.sf, s32.ell)
+        Abar5_64, lbar5_64 = gp_rk4.gp_rk4_bwd_plain(
+            *w64, ys4n.double(), g4n.double(), dts.double(), s32.sf, s32.ell)
+        torch.cuda.synchronize()
+        scale4 = float(ys4_64.abs().max())
+        err4 = float((ys4n - ys4p).abs().max())
+        err4_64 = float((ys4n.double() - ys4_64).abs().max())
+        err4p_64 = float((ys4p.double() - ys4_64).abs().max())
+        rel5 = max(max_rel(Abar5[:n], Abar5p), max_rel(lbar5[:n], lbar5p))
+        rel5_64 = max(max_rel(Abar5[:n].double(), Abar5_64),
+                      max_rel(lbar5[:n].double(), lbar5_64))
+        rel5p_64 = max(max_rel(Abar5p.double(), Abar5_64),
+                       max_rel(lbar5p.double(), lbar5_64))
+        check(bool(torch.isfinite(ys4).all())
+              and (err4 <= 1e-5 * scale4
+                   or err4_64 <= 2 * max(err4p_64, 1e-5 * scale4)),
+              f"phase 41 K4 {label} within 1e-5 max|y| of plain or 2x its "
+              "distance to float64")
+        check(bool(torch.isfinite(Abar5).all())
+              and (rel5 <= 1e-5 or rel5_64 <= 2 * max(rel5p_64, 1e-5)),
+              f"phase 41 K5 {label} within 1e-5 max-rel of plain or 2x its "
+              "distance to float64")
+        err5 = float((Abar5[:n] - Abar5p).abs().max())
+        ms4 = cuda_ms(lambda: gp_rk4._launch_fwd(A, Z, x0, dts, s32.sf,
+                                                 s32.ell), 3, warmup=1)
+        ms5 = cuda_ms(lambda: gp_rk4._launch_bwd(A, Z, ys4, g4, dts, s32.sf,
+                                                 s32.ell), 3, warmup=1)
+        (b4, by4), (b5, by5) = rk4_bounds("gp", M, C, N, T, nbytes(w),
+                                          nbytes(w[:1]))
+        lines.append(f"K4: max|ys - plain| {err4:.3e} (max|y| {scale4:.4g}),"
+                     f" to float64 {err4_64:.3e} (plain {err4p_64:.3e}); K5:"
+                     f" max-rel {rel5:.3e}, to float64 {rel5_64:.3e} (plain "
+                     f"{rel5p_64:.3e})")
+        del ys4, ys4p, ys4n, g4, g4n, Abar5, Abar5p, ys4_64, Abar5_64
+
+        # K9 against K1 (every chain) and its plain version
+        ys9, st9 = gp_dopri5_solve(A, x0, ts, s32, rtol=RTOL, atol=ATOL)
+        (ys9p, st9p), ms9p = timed(lambda: gp_dopri5_solve_plain(
+            wn[0], x0, ts, s32, rtol=RTOL, atol=ATOL))
+        torch.cuda.synchronize()
+        same = all(torch.equal(st9[k], v) for k, v in (
+            ("nfe", nfe1), ("n_accepted", nacc1), ("n_rejected", nrej1)))
+        err9_1 = float((ys9 - ys1).abs().max())
+        err9 = float((ys9[:, :n] - ys9p).abs().max())
+        check(same, f"phase 41 K9 {label}: counters equal K1's on every "
+              "chain")
+        check(err9_1 <= 5e-6, f"phase 41 K9 {label} within 5e-6 of K1")
+        check(st9["reached_final_time"], f"phase 41 K9 {label} reaches t6")
+        ms9 = k9_device_ms(lambda: gp_dopri5_solve(A, x0, ts, s32, rtol=RTOL,
+                                                   atol=ATOL), 2)
+        lines.append(f"K9: counters equal K1's on every chain, max|ys - K1| "
+                     f"{err9_1:.3e}, max|ys - plain| {err9:.3e}, mean NFE "
+                     f"{float(st9['nfe'].float().mean()):.3f} vs plain "
+                     f"{float(st9p['nfe'].float().mean()):.3f}")
+        del ys9, ys9p, ys1
+        print(f"phase 41 GP {label}: " + "; ".join(lines) + f" ({smi})")
+        err1, err2t = fwd_rows["DOPRI5"], fwd_rows["TSIT5"]
+
+        fwd_t = ("GPWidePoint" if _build.gp_block((N, M), 8, False).wide
+                 else "GPPoint")
+        bwd_t = ("GPWidePoint" if _build.gp_block((N, M), 8, True).wide
+                 else "GPPoint")
+        rows = (
+            ("gp_dopri5_solve_whole", "gp_dopri5",
+             f"dopri5_fwd {fwd_t} Dopri5 no-record", "fwd", err1, ms1, ms1p,
+             b1, by1),
+            ("gp_dopri5_fwd_record", "gp_dopri5",
+             f"dopri5_fwd {fwd_t} Dopri5 record", "fwd", err1, ms2, ms1p,
+             b2, by2),
+            ("gp_tsit5_fwd_record", "gp_dopri5",
+             f"dopri5_fwd {fwd_t} Tsit5 record", "fwd", err2t, ms2t, ms2tp,
+             b2t, by2t),
+            ("gp_dopri5_bwd", "gp_dopri5", f"dopri5_bwd {bwd_t} Dopri5",
+             "bwd", err3, ms3, ms3p, b3, by3),
+            ("gp_rk4_fwd", "gp_rk4", "gp_rk4_fwd", "fwd", err4, ms4, ms4p,
+             b4, by4),
+            ("gp_rk4_bwd", "gp_rk4", "gp_rk4_bwd", "bwd", err5, ms5, ms5p,
+             b5, by5),
+            ("gp_dopri5_step", "gp_dopri5_step",
+             f"dopri5_step {fwd_t} Dopri5", "step", err9, ms9, ms9p, b1,
+             by1))
+        for name, family, pname, kind, err, ms, plain, b, by in rows:
+            row = _wide_row(occupied, family, (N, M), pname, kind,
+                            launches=0, max_abs_err=err, ms=ms,
+                            plain_ms=plain, plain_chains=n, bound_ms=b,
+                            bound_by=by)
+            wide[name].append(row)
+            print(f"phase 41 {name} N={N} M={M}: {ms:.3f} ms, plain "
+                  f"{plain:.1f} ms on {n} chains, bound {b:.3f} ms ({by}); "
+                  f"{row.get('regs')} registers, spills {row.get('spills')}, "
+                  f"{row['dynamic_smem']} B dynamic shared memory, "
+                  f"{row.get('warps_an_sm')} warps an SM, "
+                  f"{row.get('waves', 0):.2f} waves")
+
+    # the GP plain versions with their evaluations graphed
+    with graphed_gp_plain():
+        for N, M in GP_WIDE:
+            gp_instance(N, M)
+
+    # the spiral's K2 and K3 (DOPRI5) past one warp or 48 KB
+    for N, H in SPIRAL_WIDE_SHAPES:
+        x0 = _vdp_data(N, T)["x0"].to(dev, f32).contiguous()
+        sp0 = spiral_model.init_params(torch.Generator().manual_seed(0),
+                                       hidden=H)
+        w = tuple((sp0[k].to(dev, f32)[None] + 0.005 * torch.randn(
+            (C,) + tuple(sp0[k].shape), generator=gen, device=dev)
+        ).contiguous() for k in ("w1", "b1", "w2", "b2"))
+        field, tab = spiral_field(), fa.TABLEAUS["dopri5"]
+        rhs, vjp = field.make_rhs(w), field.make_rhs_vjp(w)
+        x0b, f0, dt0 = ff._start(field, w, x0, RTOL, ATOL)
+        ai = (x0b, f0, dt0, ts, RTOL, ATOL, 0.9, 10.0, 0.2, 100_000, "i")
+        ysk, nfek, nacck, nrejk, _, reck = fa.fwd(field, w, *ai, record=True,
+                                                  store_steps=S)
+        (ysp, nfep, *_), ms2p = timed(lambda: fa.fwd_plain(
+            rhs, *ai, store_steps=S, tableau=tab))
+        ysr = replay_dense_output(rhs, reck, nacck, x0b, ts, tab)
+        gk = torch.randn(ysk.shape, generator=gen, device=dev, dtype=f32)
+        wbk, lbk = fa.bwd(field, w, ts, reck, nacck, gk)
+        (wbp, lbp), ms3p = timed(lambda: fa.bwd_plain(rhs, vjp, w, ts, reck,
+                                                      nacck, gk, tab))
+        torch.cuda.synchronize()
+        scale = float(ysp.abs().max())
+        err = float((ysk - ysr).abs().max())
+        err_solve = float((ysk - ysp).abs().max())
+        mk, mp = float(nfek.float().mean()), float(nfep.float().mean())
+        rel3 = max(max_rel(a, b) for a, b in zip(wbk + (lbk,), wbp + (lbp,)))
+        err3 = max(float((a - b).abs().max()) for a, b in zip(wbk, wbp))
+        label = f"N={N} H={H}"
+        check(bool(torch.isfinite(ysk).all()), f"phase 41 spiral K2 {label} "
+              "finite")
+        check(err <= 1e-4 * scale, f"phase 41 spiral K2 {label} within 1e-4 "
+              "max|y| of plain on its records")
+        check(abs(mk - mp) <= 0.02 * mp,
+              f"phase 41 spiral K2 {label} mean NFE within 2%")
+        check(int(nacck.max()) <= S, f"phase 41 spiral {label}: records "
+              "within store_steps")
+        check(all(bool(torch.isfinite(x).all()) for x in wbk + (lbk,))
+              and rel3 <= 1e-3,
+              f"phase 41 spiral K3 {label} within 1e-3 of the plain replay")
+        del ysp, ysr, wbp, lbp
+        ms2 = cuda_ms(lambda: fa._launch_fwd(field, w, *ai, record=True,
+                                             store_steps=S, method="dopri5"),
+                      3, warmup=1)
+        ms3 = cuda_ms(lambda: fa._launch_bwd(field, w, ts, reck, nacck, gk,
+                                             "dopri5"), 3, warmup=1)
+        (b2, by2), (b3, by3) = adaptive_bounds(
+            "spiral", H, C, N, T, nbytes(w), nbytes(w),
+            int((nacck + nrejk).sum()), int(nacck.sum()))
+        print(f"phase 41 spiral {label}: K2 max|ys - plain on its records| "
+              f"{err:.3e}, max|ys - plain solve| {err_solve:.3e} (max|y| "
+              f"{scale:.4g}), mean NFE {mk:.3f} vs plain {mp:.3f}, largest "
+              f"record count {int(nacck.max())}/{S}; K3 max-rel {rel3:.3e} "
+              f"vs the plain replay of its records ({smi})")
+        del reck, wbk, lbk, gk, ysk
+        for name, pname, kind, e, ms, plain, b, by in (
+                ("spiral_dopri5_fwd_record",
+                 "dopri5_fwd SpiralDopri5Fwd Dopri5 record", "fwd", err, ms2,
+                 ms2p, b2, by2),
+                ("spiral_dopri5_bwd", "dopri5_bwd SpiralDopri5 Dopri5", "bwd",
+                 err3, ms3, ms3p, b3, by3)):
+            row = _wide_row(occupied, "spiral_dopri5", (N, H), pname, kind,
+                            launches=0, max_abs_err=e, ms=ms, plain_ms=plain,
+                            plain_chains=C, bound_ms=b, bound_by=by)
+            wide[name].append(row)
+            print(f"phase 41 {name} {label}: {ms:.3f} ms, plain {plain:.1f} "
+                  f"ms, bound {b:.3f} ms ({by}); {row.get('regs')} registers,"
+                  f" spills {row.get('spills')}, {row['dynamic_smem']} B "
+                  f"dynamic shared memory, {row.get('warps_an_sm')} warps an "
+                  f"SM, {row.get('waves', 0):.2f} waves")
+
+    # the driver at the new shapes
+    burn_in, samples = WIDE_DRIVER_STEPS
+    with tempfile.TemporaryDirectory() as out:
+        for i, (label, change, n_points, path, shape) in enumerate(
+                WIDE_DRIVER_RUNS):
+            d = data if n_points == data["x0"].shape[0] else _vdp_data(
+                n_points, T)
+            c = dict(cfg, **change, burn_in=burn_in, num_samples=samples,
+                     store_steps=S, id=f"wide_{i}")
+            if c["model"] == "spiral":
+                c["lr0"] = 1e-5
+            fa.record_high_water["steps"] = 0
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = run_sampler(c, d, out, make_plots=False, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            delta = dict(_build.launch_counts)
+            steps = burn_in + samples
+            probe = (c.get("solver", "dopri5") == "dopri5"
+                     and c["model"] == "gp")
+            worst = ("" if c.get("solver") == "rk4" else
+                     f"; the worst accepted steps "
+                     f"{fa.record_high_water['steps']}/{S}")
+            print(f"phase 41 {label}: {steps} steps x "
+                  f"{summary['num_chains']} chains in {wall:.3f} s (set-up "
+                  f"included); launches "
+                  f"{ {k: v for k, v in delta.items() if v} }{worst}; "
+                  f"summary {json.dumps(summary)} ({smi})")
+            for name in delta:
+                want = (steps + 1 if name in path else
+                        1 if probe and name == "gp_dopri5_solve_whole" else 0)
+                check(delta[name] == want,
+                      f"phase 41 {label}: {name} launched {want} times")
+            check(fa.record_high_water["steps"] <= S,
+                  f"phase 41 {label}: records within store_steps")
+            pots = np.load(os.path.join(out, c["method"], c["id"],
+                                        "total_loss_arr.npy"))
+            check(pots.shape == (N_CHAINS, samples)
+                  and bool(np.isfinite(pots).all()),
+                  f"phase 41 {label}: finite potentials")
+            index = (GP_WIDE if c["model"] == "gp"
+                     else SPIRAL_WIDE_SHAPES).index(shape)
+            for name in path + (("gp_dopri5_solve_whole",) if probe else ()):
+                wide[name][index]["launches"] += delta[name]
+    print(f"phase 41: {time.perf_counter() - t_start:.1f} s; its libraries "
+          f"done {wave:.1f} s into the nvcc wave ({smi})")
     return wide
 
 
@@ -3554,13 +4094,13 @@ def main() -> int:
 
     # ---- build: one nvcc per source, all started together ----
     t0 = time.perf_counter()
-    _build.build(LIBRARIES)
+    _build.build(LIBRARIES + WIDE_LIBRARIES)
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a); each "
           "library's seconds from the wave's start: " + ", ".join(
               f"{f}{s} {build_seconds(_build.build_log(f, s)):.1f}"
-              for f, s in LIBRARIES))
+              for f, s in LIBRARIES + WIDE_LIBRARIES))
     k8_ptxas, occupied = {}, {}
-    for lib in LIBRARIES:
+    for lib in LIBRARIES + WIDE_LIBRARIES:
         _build.load_library(*lib)
         # what the build allocated against the shape check's arithmetic
         built, want = _build.built_smem(*lib), _build.smem_bytes(*lib)
@@ -3571,7 +4111,8 @@ def main() -> int:
               f"{lib}: built shared memory equals check_shape's arithmetic")
         for name, regs, st, ld, smem in ptxas_summary(
                 *lib, _build.build_log(*lib)):
-            if (lib[0], name) in OCCUPANCY_BLOCKS:
+            if (lib[0], name) in OCCUPANCY_BLOCKS or (
+                    lib[0] in _build.GP_FAMILIES):
                 threads, chains = block_of(lib, name)
                 smem = block_smem(*lib, name, smem)
                 C, unit = N_CHAINS, "chains"
@@ -3585,6 +4126,8 @@ def main() -> int:
                 warps, waves = occupancy(regs, smem, threads, chains, C)
                 occupied[lib, name] = dict(regs=regs, warps_an_sm=warps,
                                            waves=waves)
+                if lib in WIDE_LIBRARIES:
+                    occupied[lib, name]["spills"] = [st, ld]
                 print(f"    {name}: {warps} warps an SM, {waves:.2f} waves "
                       f"at {C} {unit} ({threads} threads and {chains} "
                       f"{unit.split()[0]} a block, {regs} registers, {smem} B"
@@ -4525,6 +5068,8 @@ def main() -> int:
           f"build included ({smi})")
     # ---- phase 40: the MLP field past one warp ----
     wide = mlp_wide_path(cfg, data, dev, smi, occupied)
+    # ---- phase 41: the GP and spiral fields past one warp or a block ----
+    wide.update(gp_spiral_wide_path(cfg, data, dev, smi, occupied))
 
     # ---- phases 31-33: the rest of the ODE core (run here, before phase
     # 19: after phase 19's profiler window a new profiler segfaulted on

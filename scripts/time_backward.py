@@ -111,7 +111,8 @@ def block_shape(csrc: Path, field: str):
     (`struct FHNPoint` in fhn_field.cuh: 128 threads, 32 // N chains a
     warp) or one chain a thread (64), and its backward's the same where it
     is built on `FHNBwd`; and the GP per-step solver's (K9, "step") one
-    point a thread where gp_dopri5_step.cu takes `GPReplayPoint`."""
+    point a thread where gp_dopri5_step.cu takes `GPReplayPoint` (or
+    `GPFwdPoint`, GPPoint<8> at this shape)."""
     if field == "gp":
         src = (csrc / "gp_field.cuh").read_text()
         threads = re.search(r"static constexpr int kThreads = (\d+);", src)
@@ -120,7 +121,8 @@ def block_shape(csrc: Path, field: str):
         per_point = "struct GPPoint" in src
         shape = point if per_point else (64, 64)
         rk4_fwd = "rk4_step<2>" in (csrc / "gp_rk4.cu").read_text()
-        step = "GPReplayPoint" in (csrc / "gp_dopri5_step.cu").read_text()
+        step_src = (csrc / "gp_dopri5_step.cu").read_text()
+        step = "GPReplayPoint" in step_src or "GPFwdPoint" in step_src
         return {"rk4": shape, "dopri5": shape,
                 "fwd": point if "norm_sums" in src else (64, 64),
                 "rk4_fwd": point if rk4_fwd else (64, 64),

@@ -26,8 +26,13 @@ wide shapes the JAX package takes: the GP kernels (K1-K5, K9) at 7x7 and
 8x8 inducing grids (their blocks' buffers in dynamic shared memory), the
 MLP kernels (K6, K7, MLP K2/K3) at N=9 and 16 trajectory points and,
 past one warp (csrc/mlp_wide_field.cuh), at (N, H) = (5, 66), (5, 128),
-(32, 64) and (17, 4), and the spiral's K2/K3 at N=9, H=6; the spread
-forwards (spiral K2 one state component a lane at N=5, 9 and 16, FHN K2
+(32, 64) and (17, 4), and the spiral's K2/K3 at N=9, H=6; the GP kernels
+past one warp or a block's shared memory (csrc/gp_wide_field.cuh: K1-K5
+and K9 at N = 40 and 100 on a 6x6 and a 4x4 grid, at N = 5 on a 15x15
+grid, K3 and K5 wide there, and at N = 2 on a 32x32 grid, every kernel
+wide there) and the spiral's K2/K3 past one warp's lanes or 48 KB
+(csrc/spiral_wide_field.cuh: (N, H) = (20, 40), (16, 128), (32, 50));
+the spread forwards (spiral K2 one state component a lane at N=5, 9 and 16, FHN K2
 and K3 one trajectory point a thread at N=5 and 32 and one chain a thread
 at N=40) under both tableaus, with and without records, and the same
 bits from call to call; and each library's shared memory as built
@@ -104,6 +109,10 @@ LIBRARIES = [
     ("svgd_phi", ()),
     *((family, shape) for family in ("mlp_rk4", "mlp_dopri5")
       for shape in ((5, 66), (5, 128), (32, 64), (17, 4))),
+    *((family, shape) for family in ("gp_dopri5", "gp_rk4", "gp_dopri5_step")
+      for shape in ((40, 36), (100, 16), (5, 225), (2, 1024))),
+    ("spiral_dopri5", (20, 40)), ("spiral_dopri5", (16, 128)),
+    ("spiral_dopri5", (32, 50)),
 ]
 
 
@@ -291,6 +300,13 @@ def test_gp_rk4_kernels_match_plain(gp):
     assert _max_rel(Abar_k, Abar_ag) <= 1e-5
 
 
+# the kernel's length scale past an 8 x 8 grid: over this data the 0.75
+# kernel matrix of a 15 x 15 or 32 x 32 grid is not positive definite in
+# float64 (its Cholesky fails), while these leave smallest eigenvalues of
+# 5.5e-4 and 3.8e-5
+GRID_ELL = {15: 0.3, 32: 0.15}
+
+
 def _gp_grid(gp, grid):
     """(static on the card, U's gradient-matched start (grid^2, 2)) of the
     GP problem on a grid x grid inducing grid."""
@@ -298,7 +314,7 @@ def _gp_grid(gp, grid):
         return gp["static"], gp["U"][0]
     data, dev, f32 = gp["data"], gp["dev"], torch.float32
     static = kr.make_static(kr.make_inducing_grid(data["Y"], M=grid), sf=1.0,
-                            ell=0.75)
+                            ell=GRID_ELL.get(grid, 0.75))
     U0 = kr.init_params(data["Y"], data["t"], static, noise=0.05)["U"]
     s32 = kr.GPVectorFieldStatic(
         Z=static.Z.to(dev, f32), KzzinvL=static.KzzinvL.to(dev, f32),
@@ -308,14 +324,16 @@ def _gp_grid(gp, grid):
 
 def _gp_point_case(gp, chains, points, seed, grid=6):
     """A (chains, grid^2, 2) from the jittered start and x0 of `points`
-    trajectory points: 3 points build the GP libraries at GP_N = 3, a 7x7
-    or 8x8 grid at M = 49 or 64."""
+    trajectory points (past the data's 5, on _line_x0's two lines): 3
+    points build the GP libraries at GP_N = 3, a 7x7 or 8x8 grid at M = 49
+    or 64."""
     s, U0 = _gp_grid(gp, grid)
     gen = torch.Generator(device=gp["dev"]).manual_seed(seed)
     U = U0[None] + 3e-3 * torch.randn((chains, grid * grid, 2),
                                       generator=gen, device=gp["dev"])
     A = torch.einsum("mk,ckd->cmd", s.KzzinvL, U).contiguous()
-    return A, s.Z.contiguous(), gp["x0"][:points].contiguous(), gen
+    x0 = gp["x0"][:points] if points <= 5 else _line_x0(gp, points)
+    return A, s.Z.contiguous(), x0.contiguous(), gen
 
 
 # K1, K2, K3 GP, K4 and K5 run one thread per trajectory point, N
@@ -323,8 +341,13 @@ def _gp_point_case(gp, chains, points, seed, grid=6):
 # the last warp and block ragged, 3 points build GP_N = 3, 10 chains a
 # warp, and the 7x7 and 8x8 inducing grids (M = 49, 64) put the blocks'
 # buffers past 48 KB of shared memory (dynamic: K3 at M = 49, K3 and K5 at
-# M = 64).
-POINT_CASES = [(257, 5, 6), (257, 3, 6), (257, 5, 7), (257, 5, 8)]
+# M = 64).  Past them, GPWidePoint (csrc/gp_wide_field.cuh): N = 40 (two
+# warps a chain, the second with 8 points) and N = 100 (four, the last with
+# 4) on 6x6 and 4x4 grids, every kernel; N = 5 on a 15x15 grid (M = 225:
+# K3 and K5, 24 chains a block, their Abar one column a chain), and N = 2
+# on a 32x32 grid (M = 1,024: every kernel, 13 chains a one-warp block).
+POINT_CASES = [(257, 5, 6), (257, 3, 6), (257, 5, 7), (257, 5, 8),
+               (257, 40, 6), (60, 100, 4), (257, 5, 15), (100, 2, 32)]
 
 
 @pytest.mark.parametrize("controller", ["i", "pi"])
@@ -894,6 +917,71 @@ def test_spread_forwards_match_plain(gp, name, points, hidden, method):
                        torch.where(wrote, again[5], 0.0))
 
 
+# The spiral past one warp's lanes or 48 KB (csrc/spiral_wide_field.cuh,
+# one warp and block a chain, ceil(2N/32) components a lane): two
+# components a lane at (20, 40) and (32, 50), one at (16, 128), whose
+# sweep's stage buffer takes 58,368 B.
+SPIRAL_WIDE = [(20, 40), (16, 128), (32, 50)]
+
+
+@pytest.mark.parametrize("method", ["dopri5", "tsit5"])
+@pytest.mark.parametrize("points,hidden", SPIRAL_WIDE)
+def test_spiral_kernels_past_one_warp(gp, points, hidden, method):
+    """Spiral K2 and K3 of the wide field under each tableau, from the
+    spiral's start weights (_spiral_weights): K2 within 1e-4 max|y| of the
+    plain version's step arithmetic replayed on its own records, the solve
+    without records and a second launch bit-equal to it; K3 within 1e-4
+    max-rel of the plain replay of the same records; the mean NFE within
+    2% of the plain solve's, or no further than the plain float32 solve's
+    from the float64 solve's.  At H = 128 these 6-8 step solves' error
+    estimates cancel to float32 rounding, so the kernel's and the plain
+    version's step counts part on some chains (the two float32 solves
+    each further from the float64 solve's mean NFE than from each other's),
+    and their dense outputs by more than 1e-4 of max|y|, each as far from
+    the float64 solve, while K2 agrees with the plain arithmetic on its
+    own records (PERF.md §6)."""
+    dev = gp["dev"]
+    gen = torch.Generator(device=dev).manual_seed(18)
+    w = tuple(x.contiguous()
+              for x in _spiral_weights(gen, C, hidden))
+    x0, ts, tab = _line_x0(gp, points), gp["ts"], fa.TABLEAUS[method]
+    field = spiral_field()
+    rhs, vjp = field.make_rhs(w), field.make_rhs_vjp(w)
+    x0b, f0, dt0 = ff._start(field, w, x0, 1e-5, 1e-7)
+    ctrl = (1e-5, 1e-7, 0.9, 10.0, 0.2, 100_000, "i")
+    args = (x0b, f0, dt0, ts) + ctrl
+    before = dict(_build.launch_counts)
+    ys, nfe, nacc, _, _, rec = fa.fwd(field, w, *args, record=True,
+                                      store_steps=128, method=method)
+    again = fa.fwd(field, w, *args, record=True, store_steps=128,
+                   method=method)
+    ys_w, nfe_w, *_ = fa.fwd(field, w, *args, record=False, method=method)
+    _, nfe_p, *_ = fa.fwd_plain(rhs, *args, store_steps=128, tableau=tab)
+    w64 = tuple(x.double() for x in w)
+    start64 = ff._start(field, w64, x0.double(), 1e-5, 1e-7)
+    _, nfe64, *_ = fa.fwd_plain(field.make_rhs(w64), *start64, ts.double(),
+                                *ctrl, tableau=tab)
+    ys_r = chip_smoke.replay_dense_output(rhs, rec, nacc, x0b, ts, tab)
+    g = torch.randn(ys.shape, generator=gen, device=dev)
+    wbar_k, lbar_k = fa.bwd(field, w, ts, rec, nacc, g, method=method)
+    wbar_p, lbar_p = fa.bwd_plain(rhs, vjp, w, ts, rec, nacc, g, tab)
+    torch.cuda.synchronize()
+    for kind, n in (("fwd_record", 2), ("solve_whole", 1), ("bwd", 1)):
+        assert _build.launch_counts[f"spiral_{method}_{kind}"] == \
+            before[f"spiral_{method}_{kind}"] + n, kind
+    assert torch.equal(ys_w, ys) and torch.equal(nfe_w, nfe)
+    for a, b in zip((ys, nfe, nacc), again[:3]):
+        assert torch.equal(a, b)
+    assert ys.shape == (12, C, points, 2) and bool(torch.isfinite(ys).all())
+    assert float((ys - ys_r).abs().max()) <= 1e-4 * float(ys_r.abs().max())
+    mk, mp, m64 = (float(x.float().mean()) for x in (nfe, nfe_p, nfe64))
+    assert abs(mk - mp) <= 0.02 * mp or abs(mk - m64) <= abs(mp - m64), \
+        (mk, mp, m64)
+    for k, p in zip(wbar_k + (lbar_k,), wbar_p + (lbar_p,)):
+        assert bool(torch.isfinite(k).all())
+        assert _max_rel(k, p) <= 1e-4
+
+
 @pytest.mark.parametrize("family,shape", LIBRARIES)
 def test_reported_shared_memory_is_the_shape_checks_arithmetic(
         gp, family, shape):
@@ -999,6 +1087,25 @@ def test_per_step_solver_at_wide_grids(gp, grid):
     ys9, st9 = gp_dopri5_solve(A, x0, gp["ts"], static)
     torch.cuda.synchronize()
     assert Z.shape == (grid * grid, 2)
+    assert st9["reached_final_time"]
+    for k in ("nfe", "n_accepted", "n_rejected"):
+        assert torch.equal(st9[k], st1[k]), k
+    assert float((ys9 - ys1).abs().max()) <= 5e-6
+
+
+@pytest.mark.parametrize("points,grid", [(40, 6), (100, 4), (5, 15),
+                                         (2, 32)])
+def test_per_step_solver_past_a_warp_or_a_block(gp, points, grid):
+    """K9 on GPWidePoint (N = 40 and 100; N = 2 at M = 1,024) and on
+    GPPoint beside wide sweeps (N = 5 at M = 225) against K1 on the same
+    field type: the same steps on every chain (128 of them: the per-step
+    solver takes whole tiles of 128, as the JAX package's)."""
+    A, Z, x0, _ = _gp_point_case(gp, 128, points, 4, grid)
+    static = _gp_grid(gp, grid)[0]
+    ys1, st1 = gp_dopri5_solve_whole(A, x0, gp["ts"], static)
+    ys9, st9 = gp_dopri5_solve(A, x0, gp["ts"], static)
+    torch.cuda.synchronize()
+    assert ys9.shape == (12, 128, points, 2)
     assert st9["reached_final_time"]
     for k in ("nfe", "n_accepted", "n_rejected"):
         assert torch.equal(st9[k], st1[k]), k

@@ -2,14 +2,16 @@
 the plain versions against the JAX package at the widened shapes.
 
 `ops/_build.py::check_shape` refuses what the kernels cannot compile with
-a NotImplementedError naming ROADMAP queue 1 item 19: more than 32
-trajectory points for the GP field (one point a lane) and the MLP field
-(one state component a lane to 16, one point a lane past it), more than
-16 for the spiral field (one state component a lane), an MLP wider than
-128 at N <= 16 or 64 at N <= 32 (four or two hidden units a lane), and a
-block's shared memory past 48 KB of static or 232,448 B of dynamic
-memory, by the arithmetic of the kernels' structs (`smem_bytes`; the card
-tests hold it to the built libraries' reports).  No card or nvcc is
+a NotImplementedError naming ROADMAP queue 1 item 19 and the limit: more
+than 128 trajectory points for the GP field (one point a thread, a chain
+over up to 4 warps), more than 1,024 inducing points, more than 32 for
+the MLP field (one state component a lane to 16, one point a lane past
+it), more than 64 for the spiral field (up to 4 state components a lane),
+an MLP wider than 128 at N <= 16 or 64 at N <= 32 (four or two hidden
+units a lane), a spiral wider than 256, and a block's shared memory past
+48 KB of static or 232,448 B of dynamic memory, by the arithmetic of the
+kernels' structs (`smem_bytes`; the card tests hold it to the built
+libraries' reports).  No card or nvcc is
 needed: the check runs first, so here `load_library` raises it where it
 would otherwise fail to find nvcc.
 
@@ -45,26 +47,25 @@ from torch_parity import (
 
 ITEM = "ROADMAP queue 1 item 19"
 
-# (family, shape) past one limit each: GP and MLP N = 33; spiral N = 17;
-# MLP H = 129 at N = 5 and H = 65 at N = 17; a GP inducing grid whose
-# block passes 232,448 B (15 x 15 for
-# K3 and K5: 267,208 and 263,112 B at N = 5; 35 x 35 for K9, which keeps
-# no cotangent columns: 245,000 B);
-# a spiral whose one warp's buffer passes 48 KB of static memory (H = 128
-# at N = 16: 58,368 B)
+# (family, shape) past one limit each: GP N = 129 (a chain over at most 4
+# warps) and M = 1,025 (past a 32 x 32 grid), each GP family; MLP N = 33;
+# spiral N = 65 (at most 4 components a lane); MLP H = 129 at N = 5 and
+# H = 65 at N = 17; a spiral whose one-warp block passes 232,448 B of
+# dynamic memory (N = 64, H = 128: its 7 stage slots' tanh values
+# 229,376 B, 233,472 B in all)
 PAST = [
-    ("gp_dopri5", (33, 36), "N <= 32"),
-    ("gp_rk4", (33, 36), "N <= 32"),
-    ("gp_dopri5_step", (33, 36), "N <= 32"),
+    ("gp_dopri5", (129, 36), "N <= 128"),
+    ("gp_rk4", (129, 36), "N <= 128"),
+    ("gp_dopri5_step", (129, 36), "N <= 128"),
     ("mlp_dopri5", (33, 32), "N <= 32"),
     ("mlp_rk4", (33, 32), "N <= 32"),
-    ("spiral_dopri5", (17, 6), "N <= 16"),
+    ("spiral_dopri5", (65, 6), "N <= 64"),
     ("mlp_dopri5", (5, 129), "H <= 128"),
     ("mlp_rk4", (17, 65), "H <= 64"),
-    ("gp_dopri5", (5, 225), "232448 B"),
-    ("gp_rk4", (5, 225), "232448 B"),
-    ("gp_dopri5_step", (5, 1225), "232448 B"),
-    ("spiral_dopri5", (16, 128), "49152 B"),
+    ("gp_dopri5", (5, 1025), "M <= 1024"),
+    ("gp_rk4", (5, 1025), "M <= 1024"),
+    ("gp_dopri5_step", (5, 1025), "M <= 1024"),
+    ("spiral_dopri5", (64, 128), "232448 B"),
 ]
 
 # the shapes of the card tests and chip_smoke.py
@@ -86,6 +87,16 @@ TAKEN = [
     ("spiral_dopri5", (9, 6)), ("spiral_dopri5", (16, 50)),
     ("fhn_dopri5", (5,)), ("fhn_dopri5", (32,)), ("fhn_dopri5", (40,)),
     ("svgd_phi", ()),
+    # past one warp or a block's shared memory (csrc/gp_wide_field.cuh,
+    # csrc/spiral_wide_field.cuh): the shapes refused before, the card's
+    # and chip_smoke.py's, and the ceilings
+    *((family, shape) for family in ("gp_dopri5", "gp_rk4", "gp_dopri5_step")
+      for shape in ((33, 36), (5, 225), (40, 36), (100, 16), (2, 1024),
+                    (64, 36), (5, 400), (5, 1024), (128, 1024), (1, 1024),
+                    (32, 1024))),
+    *(("spiral_dopri5", shape) for shape in (
+        (17, 6), (16, 128), (20, 40), (32, 50), (32, 128), (64, 64),
+        (32, 256), (64, 1))),
 ]
 
 
@@ -166,6 +177,54 @@ def test_wide_mlp_blocks_are_dynamic(family, shape, want):
     assert _build.smem_bytes(family, shape) == want
     assert _build.dynamic_smem(family, shape)
     _build.check_shape(family, shape)
+
+
+# The GP kernels past one warp or a block's shared memory
+# (csrc/gp_wide_field.cuh, GPWidePoint): A and Z 8 B an inducing point a
+# chain and a grid, the sweeps' Abar one column a chain (8 B a point) in
+# place of GPPoint's column a thread, 8 B a trajectory point for the error
+# norm past N = 32 (and one float2 to N = 32).  At N = 5, M = 225 and 1,024
+# the forwards keep GPPoint (24 chains a block); K3 and K5 take 24 chains
+# a block at M = 225 and 12 at M = 1,024 (two warps), N = 1 at M = 1,024
+# 13 chains a one-warp block; past N = 32 a block is a chain.  The spiral
+# past N = 16 or 48 KB (csrc/spiral_wide_field.cuh): one warp a block, the
+# forward's point and the sweep's SpiralBuf<7>, dynamic.
+@pytest.mark.parametrize("family,shape,want", [
+    ("gp_dopri5", (5, 225), {"fwd": 45000, "bwd": 88208}),
+    ("gp_rk4", (5, 225), {"fwd": 45000, "bwd": 88208}),
+    ("gp_dopri5", (5, 1024), {"fwd": 204800, "bwd": 204808}),
+    ("gp_rk4", (5, 1024), {"fwd": 204800, "bwd": 204808}),
+    ("gp_dopri5_step", (5, 1024), {"step": 204800}),
+    ("gp_dopri5_step", (1, 1024), {"step": 114696}),
+    ("gp_rk4", (1, 1024), {"fwd": 114696, "bwd": 221192}),
+    ("gp_dopri5", (128, 1024), {"fwd": 17408, "bwd": 50176}),
+    ("gp_dopri5", (64, 36), {"fwd": 1088, "bwd": 1664}),
+    ("spiral_dopri5", (16, 128), {"fwd": 128, "bwd": 58368}),
+    ("spiral_dopri5", (32, 50), {"fwd": 256, "bwd": 59392}),
+    ("spiral_dopri5", (32, 128), {"fwd": 256, "bwd": 116736}),
+    ("spiral_dopri5", (64, 64), {"fwd": 512, "bwd": 118784}),
+    ("spiral_dopri5", (32, 256), {"fwd": 256, "bwd": 231424}),
+])
+def test_wide_gp_and_spiral_blocks_are_dynamic(family, shape, want):
+    got = _build.smem_bytes(family, shape)
+    assert got == want
+    assert _build.dynamic_smem(family, shape)
+    assert max(got.values()) <= _build.DYNAMIC_SMEM_MAX
+    _build.check_shape(family, shape)
+
+
+def test_every_gp_shape_to_the_ceilings_fits_a_block():
+    """Every N <= 128 and M <= 1,024 together: each GP kernel's block fits
+    232,448 B, on GPPoint where its block fits and on GPWidePoint past
+    that or past N = 32 (gp_field.cuh's gp_narrow)."""
+    for N in range(1, 129):
+        for M in range(1, 1025):
+            for R, acc in ((8, False), (8, True), (12, True)):
+                block = _build.gp_block((N, M), R, acc)
+                assert block.smem <= _build.DYNAMIC_SMEM_MAX, (N, M, R)
+                assert block.wide or N <= 32, (N, M, R)
+    assert not _build.gp_block((32, 196), 8, True).wide
+    assert _build.gp_block((5, 225), 8, True).wide
 
 
 @pytest.mark.parametrize("family", ["mlp_rk4", "mlp_dopri5"])

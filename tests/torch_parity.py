@@ -31,14 +31,17 @@ def max_rel(a, b):
     return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
 
 
-def gp_problem(C=8, T=12, t_max=2.5, seed=0, jitter=3e-3, M=6):
+def gp_problem(C=8, T=12, t_max=2.5, seed=0, jitter=3e-3, M=6, N=5,
+               ell=0.75):
     """The GP posterior problem in both packages, on an M x M inducing
-    grid.  Returns a dict of numpy arrays (float32 solver inputs, float64
-    statics) and the two statics."""
-    data = make_dataset(jax.random.PRNGKey(2), "vdp", N=5, T=T, t_max=t_max,
+    grid, N trajectories.  Returns a dict of numpy arrays (float32 solver
+    inputs, float64 statics) and the two statics.  (A grid finer than 6 x 6
+    needs a shorter ell: at 15 x 15 the kernel matrix of ell = 0.75 is not
+    positive definite in float64, and its Cholesky factor NaN in JAX.)"""
+    data = make_dataset(jax.random.PRNGKey(2), "vdp", N=N, T=T, t_max=t_max,
                         noise=0.05, x0_scale=1.5)
     Z = jkr.make_inducing_grid(data["Y"], M=M)
-    static = jkr.make_static(Z, sf=1.0, ell=0.75)
+    static = jkr.make_static(Z, sf=1.0, ell=ell)
     p0 = jkr.init_params(data["Y"], data["t"], static, noise=0.05)
     rng = np.random.RandomState(seed)
     U = (np.asarray(p0["U"], np.float32)[None]
